@@ -1,0 +1,148 @@
+"""Build and load the hand-written CUDA kernels (`magnetite_tpu_torch/csrc`).
+
+The sources compile with nvcc for Hopper (`sm_90a`) into one shared library
+with a plain C interface, `magnetite_tpu_torch/_build/libmagnetite_kernels.so`,
+loaded with ctypes. The build runs at first use, and again whenever a source
+is newer than the library; it takes seconds because no source includes
+PyTorch's headers. Nothing here runs at import time, so the CPU-only tests
+import every module without nvcc.
+
+Every C entry returns the `cudaGetLastError()` code of its launch; `check`
+turns a non-zero code into a `KernelError`. There is no fallback: a CUDA
+request that cannot build or launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+from ..errors import SolverError
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+SO_PATH = os.path.join(BUILD_DIR, "libmagnetite_kernels.so")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+# dtype codes of the C entries
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+
+_lib = None
+_lock = threading.Lock()
+
+
+class KernelError(SolverError):
+    """A CUDA kernel failed to build, was refused at launch, or was handed
+    tensors it does not take."""
+
+
+def _sources() -> list:
+    return sorted(
+        glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+        + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    )
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _current(sources) -> bool:
+    try:
+        so_mtime = os.path.getmtime(SO_PATH)
+    except OSError:
+        return False
+    return all(so_mtime > os.path.getmtime(s) for s in sources)
+
+
+def build() -> tuple:
+    """Compile every `csrc/*.cu` into the kernel library; returns (seconds,
+    nvcc's ptxas report of registers, shared memory and spills).
+
+    Writes a per-process temp file and renames it into place, so concurrent
+    processes never load a half-written library."""
+    sources = [s for s in _sources() if s.endswith(".cu")]
+    if not sources:
+        raise KernelError(f"no CUDA sources under {CSRC_DIR}")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{SO_PATH}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, *sources, "-o", tmp],
+        capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise KernelError(f"nvcc failed:\n{proc.stderr[-4000:]}")
+    os.replace(tmp, SO_PATH)
+    return time.perf_counter() - t0, proc.stderr
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built first when missing or stale."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            if not _current(_sources()):
+                build()
+            lib = ctypes.CDLL(SO_PATH)
+            _bind(lib)
+            _lib = lib
+    return _lib
+
+
+def _bind(lib) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.mt_dia_matvec.restype = i32
+    lib.mt_dia_matvec.argtypes = [i32, i32, vp, vp, i32, vp, vp, i64, vp]
+    lib.mt_prolong0.restype = i32
+    lib.mt_prolong0.argtypes = [i32, vp, vp, vp, vp, i64, vp]
+    lib.mt_restrict0.restype = i32
+    lib.mt_restrict0.argtypes = [i32, vp, vp, vp, vp, i64, i64, i32, vp]
+    lib.mt_error_string.restype = ctypes.c_char_p
+    lib.mt_error_string.argtypes = [i32]
+
+
+def check(lib, rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib.mt_error_string(rc).decode()
+        raise KernelError(f"{name} launch failed: {msg} (cudaError {rc})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, dtype, *tensors) -> None:
+    """Every operand on one CUDA device, contiguous, in a supported dtype."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise KernelError(
+                f"{name}: operands must all lie on one CUDA device "
+                f"(got {[str(x.device) for x in tensors]})"
+            )
+        if not t.is_contiguous():
+            raise KernelError(f"{name}: operands must be contiguous")
+    if dtype not in DTYPE_CODES:
+        raise KernelError(f"{name}: dtype {dtype} is not float32/float64")

@@ -1,0 +1,96 @@
+"""Both CLIs on the same input.json + CSV geometry, and the port CLI's typed
+errors for what it does not carry yet.
+
+The CSVs must agree within the bars of tests/test_golden.py:48-55:
+displacements within 1e-6 of max|u|, stress within 1e-5 of max|stress|;
+mesh coordinates and connectivity exactly (the same host mesher).
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+from tests.torch_cases import write_case
+from tests.torch_cases import one_thread  # noqa: F401  (autouse)
+
+
+def _read(dirname):
+    with open(os.path.join(dirname, "nodes.csv")) as f:
+        assert f.readline().strip() == "x,y,ux,uy"
+    with open(os.path.join(dirname, "elements.csv")) as f:
+        assert f.readline().strip() == "n0,n1,n2,stress"
+    nodes = np.loadtxt(os.path.join(dirname, "nodes.csv"), delimiter=",", skiprows=1)
+    elems = np.loadtxt(os.path.join(dirname, "elements.csv"), delimiter=",", skiprows=1)
+    return nodes, elems
+
+
+@pytest.mark.parametrize("von_mises", [False, True])
+def test_port_cli_matches_jax_cli(tmp_path, von_mises):
+    from magnetite_tpu import cli as jax_cli
+    from magnetite_tpu_torch import cli as port_cli
+
+    paths = write_case(str(tmp_path), 0.05)
+    extra = ["--skip", "--backend", "delaunay"] + (["--von-mises"] if von_mises else [])
+    out_j, out_p = tmp_path / "jax", tmp_path / "port"
+    out_j.mkdir()
+    out_p.mkdir()
+    assert jax_cli.main(paths + extra + ["--precision", "f64", "--out-dir", str(out_j)]) == 0
+    assert port_cli.main(paths + extra + ["--device", "cpu", "--out-dir", str(out_p)]) == 0
+    nodes_j, elems_j = _read(out_j)
+    nodes_p, elems_p = _read(out_p)
+    np.testing.assert_array_equal(nodes_p[:, :2], nodes_j[:, :2])
+    np.testing.assert_array_equal(elems_p[:, :3], elems_j[:, :3])
+    u_scale = np.abs(nodes_j[:, 2:]).max()
+    assert np.abs(nodes_p[:, 2:] - nodes_j[:, 2:]).max() <= 1e-6 * u_scale
+    s_scale = np.abs(elems_j[:, 3]).max()
+    assert np.abs(elems_p[:, 3] - elems_j[:, 3]).max() <= 1e-5 * s_scale
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--precision", "mixed"],
+        ["--shard"],
+        ["--shard-layout", "2x4"],
+        ["--save-case", "case.npz"],
+        ["--load-case", "case.npz"],
+        ["--profile", "trace"],
+        ["--cg-progress", "10"],
+    ],
+    ids=lambda f: f[0].lstrip("-"),
+)
+def test_unported_flags_raise_not_yet_ported(tmp_path, capsys, flags):
+    from magnetite_tpu_torch import cli
+
+    paths = write_case(str(tmp_path), 0.05)
+    rc = cli.main(paths + ["--device", "cpu", "--skip", "--out-dir", str(tmp_path)] + flags)
+    assert rc == 1
+    err = capsys.readouterr().err
+    assert err.startswith("Received error: Input error:") and "not yet ported" in err
+    assert not (tmp_path / "nodes.csv").exists()
+
+
+def test_cuda_device_without_cuda_never_runs_on_cpu(tmp_path, capsys):
+    import torch
+
+    from magnetite_tpu_torch import cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal path is not reachable")
+    paths = write_case(str(tmp_path), 0.05)
+    rc = cli.main(paths + ["--device", "cuda", "--skip", "--out-dir", str(tmp_path)])
+    assert rc == 1
+    assert "torch.cuda.is_available() is false" in capsys.readouterr().err
+    assert not (tmp_path / "nodes.csv").exists()
+
+
+def test_input_errors_keep_the_jax_cli_format(tmp_path, capsys):
+    from magnetite_tpu_torch import cli
+
+    paths = write_case(str(tmp_path), 0.05)
+    rc = cli.main([paths[0], str(tmp_path / "part.dxf"), "--device", "cpu", "--skip"])
+    assert rc == 1
+    assert "Received error: Input error: Unrecognized geometry filetype" in (
+        capsys.readouterr().err
+    )

@@ -1,0 +1,131 @@
+"""The whole slice: magnetite_tpu.solve_system against
+magnetite_tpu_torch.solve_system(..., device="cpu") on the same mesh and
+boundary conditions, both in f64 at the default rtol 1e-10.
+
+Bars: displacements within 1e-8 of max|u|; forces, scalar stress and von
+Mises within 1e-7 of their max; CG iterations within +-1 (the two
+frameworks sum in different orders, which can move the iteration that
+crosses the tolerance by one).
+"""
+
+import numpy as np
+import pytest
+
+import magnetite_tpu
+import magnetite_tpu_torch
+from tests.torch_cases import jax_plate, shuffled, to_port
+from tests.torch_cases import one_thread  # noqa: F401  (autouse)
+
+CASES = {
+    # name: (h, shuffle, SolverOptions kwargs, expected mode, expected preconditioner)
+    "h0.05_single_level_amg": (0.05, False, {}, "dia", "amg"),
+    "h0.03_block_jacobi": (0.03, False, {}, "dia", "block_jacobi"),
+    "h0.02_multilevel_amg": (0.02, False, {}, "dia", "amg"),
+    "h0.05_shuffled_renumbered": (0.05, True, {}, "dia", "amg"),
+    "h0.05_hybrid": (0.05, False, {"max_diags": 20}, "hybrid", "amg"),
+}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_solve_matches_jax(name):
+    h, shuffle, kwargs, mode, precond = CASES[name]
+    mesh, bca, md = jax_plate(h)
+    if shuffle:
+        mesh, bca = shuffled(mesh, bca)
+    ref = magnetite_tpu.solve_system(
+        mesh, bca, md, magnetite_tpu.SolverOptions(**kwargs)
+    )
+    pmesh, pbca, pmd = to_port(mesh, bca, h)
+    problem = magnetite_tpu_torch.compile_problem(
+        pmesh, pbca, pmd, magnetite_tpu_torch.SolverOptions(**kwargs), device="cpu"
+    )
+    assert (problem.mode, problem.preconditioner) == (mode, precond)
+    assert (problem.perm is not None) == shuffle
+    res = problem.solve()
+
+    assert abs(res.iterations - ref.iterations) <= 1
+    assert res.residual_rel <= 1e-10
+    assert np.abs(res.u - ref.u).max() <= 1e-8 * np.abs(ref.u).max()
+    for field in ("f", "stress", "von_mises"):
+        a, b = getattr(res, field), getattr(ref, field)
+        assert np.abs(a - b).max() <= 1e-7 * np.abs(b).max(), field
+
+
+def test_f32_solve_converges_to_its_floor():
+    """f32 runs the float instances; CG's rtol clamps to 50 eps_f32 as in
+    the JAX package, and the answer stays near the f64 one."""
+    mesh, bca, md = jax_plate(0.05)
+    pmesh, pbca, pmd = to_port(mesh, bca, 0.05)
+    opts = magnetite_tpu_torch.SolverOptions
+    r64 = magnetite_tpu_torch.solve_system(pmesh, pbca, pmd, opts(), device="cpu")
+    r32 = magnetite_tpu_torch.solve_system(
+        pmesh, pbca, pmd, opts(dtype="float32"), device="cpu"
+    )
+    assert r32.u.dtype == np.float32 and np.isfinite(r32.u).all()
+    assert r32.residual_rel <= 50 * np.finfo(np.float32).eps
+    # f32 stopping floor (~6e-6 relative residual) amplified by the
+    # operator's conditioning; 1.9e-4 measured at h=0.02
+    assert np.abs(r32.u - r64.u).max() <= 2e-3 * np.abs(r64.u).max()
+
+
+@pytest.mark.parametrize(
+    "kwargs,match",
+    [
+        ({"operator": "ell"}, "not yet ported"),
+        ({"operator": "stencil"}, "not yet ported"),
+        ({"refine": "on"}, "mixed-precision"),
+        ({"assembly": "device"}, "device-side assembly"),
+        ({"residual_history": 10}, "residual history"),
+        ({"cg_progress_every": 5}, "progress"),
+        ({"dense_cutoff": 10_000}, "dense direct solve"),
+        ({"preconditioner": "multigrid"}, "structured-grid"),
+    ],
+)
+def test_unported_options_raise_typed_errors(kwargs, match):
+    mesh, bca, md = jax_plate(0.05)
+    pmesh, pbca, pmd = to_port(mesh, bca, 0.05)
+    with pytest.raises(magnetite_tpu_torch.SolverError, match=match):
+        magnetite_tpu_torch.compile_problem(
+            pmesh, pbca, pmd, magnetite_tpu_torch.SolverOptions(**kwargs),
+            device="cpu",
+        )
+
+
+def test_structured_grid_mesh_names_the_stencil_operator():
+    from magnetite_tpu_torch.bc import apply_boundary_conditions
+    from magnetite_tpu_torch.meshing.generators import rect_mesh
+    from tests.torch_cases import plate_rules
+
+    mesh = rect_mesh(12, 4, width=3.0, height=1.0)
+    bca = apply_boundary_conditions(mesh.coords, plate_rules(magnetite_tpu_torch))
+    md = magnetite_tpu_torch.ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.3)
+    with pytest.raises(magnetite_tpu_torch.SolverError, match="stencil"):
+        magnetite_tpu_torch.compile_problem(mesh, bca, md, device="cpu")
+    # asking for the band format explicitly solves it
+    res = magnetite_tpu_torch.solve_system(
+        mesh, bca, md, magnetite_tpu_torch.SolverOptions(operator="dia"), device="cpu"
+    )
+    assert np.isfinite(res.u).all() and res.residual_rel <= 1e-10
+
+
+def test_cuda_request_without_cuda_raises():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal path is not reachable")
+    mesh, bca, md = jax_plate(0.05)
+    with pytest.raises(magnetite_tpu_torch.SolverError, match="cuda"):
+        magnetite_tpu_torch.compile_problem(*to_port(mesh, bca, 0.05), device="cuda")
+
+
+def test_iteration_cap_raises_like_jax():
+    """max_cg_iters stops CG; an unconverged solve raises in both packages."""
+    mesh, bca, md = jax_plate(0.03)
+    opts = dict(max_cg_iters=20, preconditioner="block_jacobi")
+    with pytest.raises(magnetite_tpu.SolverError, match="failed to converge in 20"):
+        magnetite_tpu.solve_system(mesh, bca, md, magnetite_tpu.SolverOptions(**opts))
+    with pytest.raises(magnetite_tpu_torch.SolverError, match="failed to converge in 20"):
+        magnetite_tpu_torch.solve_system(
+            *to_port(mesh, bca, 0.03), magnetite_tpu_torch.SolverOptions(**opts),
+            device="cpu",
+        )

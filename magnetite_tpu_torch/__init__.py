@@ -3,11 +3,14 @@
 2D plane-stress FEA on one NVIDIA GPU: SVG/CSV geometry -> built-in
 Delaunay mesh -> banded (DIA / hybrid) stiffness operator -> CG
 preconditioned by smoothed-aggregation AMG or block-Jacobi -> stress
-recovery -> CSV. The host front end (geometry, meshing, boundary
+recovery -> CSV; structured grids take a 9-point stencil operator with
+geometric multigrid; f64, f32 or mixed precision (f64 residuals around f32
+inner solves). The host front end (geometry, meshing, boundary
 conditions, C++ assembly, AMG setup) is a copy of the JAX package's, kept
 byte-identical in output by tests; the device half is PyTorch, with
-hand-written CUDA kernels for the band matvec and the level-0 AMG
-transfers. This package never imports JAX.
+hand-written CUDA kernels for the band matvec, the double-float band
+matvec, the stencil matvec and the level-0 AMG transfers. This package
+never imports JAX.
 """
 
 from .config import (

@@ -6,10 +6,11 @@
 Same flags, output files (nodes.csv, elements.csv) and error format
 (``Received error: <stage> error: <msg>``, exit 1) as magnetite_tpu/cli.py,
 plus --device (default cuda; a missing card is an error, never a silent
-CPU run). The default precision is f64 on both devices. Flags of the JAX
-CLI that this slice does not carry (--precision mixed, --shard,
---shard-layout, --save-case, --load-case, --profile, --cg-progress) raise a
-typed "not yet ported" error.
+CPU run). The default precision is f64 on both devices; --precision mixed
+is f32 storage with f64 refinement (f64 CG around the f32 AMG V-cycle on
+the meshes this CLI produces). Flags of the JAX CLI that this slice does
+not carry (--shard, --shard-layout, --save-case, --load-case, --profile,
+--cg-progress) raise a typed "not yet ported" error.
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--precision",
         choices=["f32", "f64", "mixed"],
         default="f64",
-        help="solve precision (default: f64; 'mixed' is not yet ported)",
+        help="solve precision (default: f64; 'mixed': f32 storage with f64 "
+        "refinement)",
     )
     parser.add_argument("--save-plot", default=None, help="save the figure to this path")
     parser.add_argument(
@@ -68,8 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--operator",
         choices=["auto", "stencil", "dia", "hybrid", "ell"],
         default=None,
-        help="sparse operator format (default: auto; stencil and ell are "
-        "not yet ported)",
+        help="sparse operator format (default: auto; ell is not yet ported)",
     )
     parser.add_argument(
         "--preconditioner",
@@ -106,11 +107,6 @@ def entry(argv=None) -> None:
     for attr, flag in _NOT_PORTED:
         if getattr(args, attr):
             raise InputError(f"{flag} is not yet ported to the PyTorch package")
-    if args.precision == "mixed":
-        raise InputError(
-            "--precision mixed is not yet ported to the PyTorch package "
-            "(use f64, the default, or f32)"
-        )
     import torch
 
     from .config import SolverOptions, load_simulation_input
@@ -126,7 +122,9 @@ def entry(argv=None) -> None:
     from .utils.logging import log, stage
 
     sim = load_simulation_input(args.input_file)
-    opt_kwargs = {"dtype": "float32" if args.precision == "f32" else "float64"}
+    opt_kwargs = {"dtype": "float64" if args.precision == "f64" else "float32"}
+    if args.precision == "mixed":
+        opt_kwargs["refine"] = "on"
     if args.rtol is not None:
         opt_kwargs["cg_rtol"] = args.rtol
     if args.operator is not None:
@@ -148,7 +146,8 @@ def entry(argv=None) -> None:
         result = problem.solve()
     log(
         f"info: operator={problem.mode} preconditioner={problem.preconditioner} "
-        f"device={args.device} dtype={str(problem.dtype).replace('torch.', '')}"
+        f"device={args.device} dtype={str(problem.dtype).replace('torch.', '')} "
+        f"refine={problem.refine}"
     )
     log(
         f"info: finished conjugate gradient in {result.iterations} "

@@ -141,21 +141,19 @@ class SolverOptions:
     dtype: Optional[str] = None  # None = f64 if x64 enabled else f32
     # Mixed-precision iterative refinement: f64 operator + residual, f32
     # CG/multigrid inner solves. "auto" engages it on the stencil operator
-    # when the requested cg_rtol is below what the working dtype can reach
-    # and x64 is enabled; "on" forces it for any sparse operator format;
-    # "off" clamps cg_rtol to the working precision instead.
+    # when the requested cg_rtol is below what f32 can reach; "on" forces
+    # it for any sparse operator format (on AMG paths: f64 CG around the
+    # f32 V-cycle); "off" clamps cg_rtol to the working precision instead.
     refine: str = "auto"
     # Double-float CG operator for the refined AMG (unstructured) path:
-    # the f64 CG's per-iteration band matvec runs as compensated f32-pair
-    # arithmetic in the Pallas DIA kernel (~6x XLA's emulated f64 on TPU,
-    # accuracy ~2^-46 of the term-magnitude scale -- ~2e-9 attainable
-    # relative residual at 1M elements through the stiffness matvec's
-    # cancellation). "auto" engages it on TPU when cg_rtol >= 1e-8 leaves
-    # that floor margin; "on" forces it (accepting the floor); "off"
-    # keeps the emulated-f64 matvec; "interpret" runs the kernel in
-    # interpreter mode on any backend (CPU parity tests only).
-    # Force/stress recovery and the rhs always use the true f64
-    # operator either way.
+    # the f64 CG's per-iteration band matvec as compensated f32-pair
+    # arithmetic (kernels/df_kernel.py; ~2^-46 of the term scale, ~2e-9
+    # attainable relative residual at 1M elements). "auto" keeps native
+    # f64 on the card: the pairs stream the same bytes as f64 and measured
+    # no faster (fem/solve._decide_df64); "on" forces the df kernel;
+    # "off" keeps native f64; "interpret" forces the plain PyTorch version
+    # on any device (the JAX package's interpreter mode, CPU parity tests).
+    # Force/stress recovery and the rhs always use the true f64 operator.
     df_matvec: str = "auto"
     # Operator assembly strategy for the irregular formats (dia/hybrid/
     # ell). "host": C++ closed-form assembly + flat upload (up to ~336 MB

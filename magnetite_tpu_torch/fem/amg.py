@@ -38,6 +38,17 @@ OMEGA = 0.7
 COARSE_SWEEPS = 24
 
 
+def amg_sweep_schedule(mixed_precision: bool, override: int = 0) -> int:
+    """Pre/post smoothing sweeps per V-cycle (SolverOptions.amg_sweeps):
+    `override` > 0 pins them; otherwise V(3, 3) when a cheap f32 V-cycle
+    preconditions f64 CG (extra f32 sweeps cut the f64 iteration count)
+    and V(1, 1) for a same-precision V-cycle, where every sweep pays full
+    price."""
+    if override > 0:
+        return int(override)
+    return 3 if mixed_precision else 1
+
+
 # ============================ host setup ====================================
 
 

@@ -15,6 +15,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels.df_kernel import (  # noqa: F401
+    df_dia_matvec,
+    df_dia_matvec_plain,
+    df_split,
+    split_bands,
+)
 from ..kernels.dia_kernel import dia_matvec, dia_matvec_blocks  # noqa: F401
 
 
@@ -150,11 +156,14 @@ def make_hybrid_operator(
     rem_vals: torch.Tensor,  # [R, 2, 2]
     rem_rows: torch.Tensor,  # [R]
     rem_cols: torch.Tensor,  # [R]
+    dia_op=None,
 ):
     """op(u [2, N]) -> K u for the band + COO-remainder format: the band
-    part through make_dia_operator, the remainder as a gather, a block
-    product and an `index_add_` into the band result."""
-    dia_op = make_dia_operator(bands, offsets)
+    part through `dia_op` (default make_dia_operator; the double-float
+    operator plugs in here), the remainder as a gather, a block product
+    and an `index_add_` into the band result."""
+    if dia_op is None:
+        dia_op = make_dia_operator(bands, offsets)
 
     def op(u: torch.Tensor) -> torch.Tensor:
         y = dia_op(u)
@@ -163,6 +172,22 @@ def make_hybrid_operator(
         return y.index_add_(1, rem_rows, contrib)
 
     return op
+
+
+def make_df_dia_operator(bands_hl: torch.Tensor, offsets, plain: bool = False):
+    """op(u [2, N] f64) -> K u to ~2^-46 of the term scale, streaming the
+    f32 hi/lo pairs `bands_hl` = split_bands(bands64) (made once per
+    compiled problem). `plain` forces the plain version on any device (the
+    counterpart of the JAX package's interpret mode)."""
+    offs = tuple(int(o) for o in offsets)
+    if plain:
+        return lambda u: df_dia_matvec_plain(bands_hl, offs, u)
+    offsets_dev = (
+        torch.tensor(offs, dtype=torch.int32, device=bands_hl.device)
+        if bands_hl.is_cuda
+        else None
+    )
+    return lambda u: df_dia_matvec(bands_hl, offs, u, offsets_dev)
 
 
 def block_jacobi_inverse_t(diag_blocks: torch.Tensor, free_mask: torch.Tensor):

@@ -32,7 +32,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SO_PATH = os.path.join(BUILD_DIR, "libmagnetite_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -78,22 +78,48 @@ def build() -> tuple:
     """Compile every `csrc/*.cu` into the kernel library; returns (seconds,
     nvcc's ptxas report of registers, shared memory and spills).
 
-    Writes a per-process temp file and renames it into place, so concurrent
-    processes never load a half-written library."""
+    One nvcc per source, all started together, then one link. Writes
+    per-process temp files and renames the library into place, so
+    concurrent processes never load a half-written one."""
     sources = [s for s in _sources() if s.endswith(".cu")]
     if not sources:
         raise KernelError(f"no CUDA sources under {CSRC_DIR}")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{SO_PATH}.{os.getpid()}.tmp"
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, *sources, "-o", tmp],
-        capture_output=True, text=True, timeout=600,
-    )
-    if proc.returncode != 0:
-        raise KernelError(f"nvcc failed:\n{proc.stderr[-4000:]}")
-    os.replace(tmp, SO_PATH)
-    return time.perf_counter() - t0, proc.stderr
+    objs, procs = [], []
+    for src in sources:
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", src, "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    report = []
+    try:
+        for src, proc in zip(sources, procs):
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise KernelError(f"nvcc failed on {src}:\n{err[-4000:]}")
+            report.append(err)
+        tmp = f"{SO_PATH}.{tag}"
+        link = subprocess.run(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", *objs, "-o", tmp],
+            capture_output=True, text=True, timeout=600,
+        )
+        if link.returncode != 0:
+            raise KernelError(f"nvcc link failed:\n{link.stderr[-4000:]}")
+        os.replace(tmp, SO_PATH)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return time.perf_counter() - t0, "".join(report)
 
 
 def load() -> ctypes.CDLL:
@@ -119,6 +145,10 @@ def _bind(lib) -> None:
     lib.mt_prolong0.argtypes = [i32, vp, vp, vp, vp, i64, vp]
     lib.mt_restrict0.restype = i32
     lib.mt_restrict0.argtypes = [i32, vp, vp, vp, vp, i64, i64, i32, vp]
+    lib.mt_stencil_matvec.restype = i32
+    lib.mt_stencil_matvec.argtypes = [i32, i32, vp, vp, vp, i32, i32, vp]
+    lib.mt_df_dia_matvec.restype = i32
+    lib.mt_df_dia_matvec.argtypes = [vp, vp, i32, vp, vp, i64, vp]
     lib.mt_error_string.restype = ctypes.c_char_p
     lib.mt_error_string.argtypes = [i32]
 

@@ -1,5 +1,5 @@
-"""Both CLIs on the same input.json + CSV geometry, and the port CLI's typed
-errors for what it does not carry yet.
+"""Both CLIs on the same input.json + CSV geometry, the port CLI's mixed
+precision, and its typed errors for what it does not carry yet.
 
 The CSVs must agree within the bars of tests/test_golden.py:48-55:
 displacements within 1e-6 of max|u|, stress within 1e-5 of max|stress|;
@@ -50,7 +50,6 @@ def test_port_cli_matches_jax_cli(tmp_path, von_mises):
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--precision", "mixed"],
         ["--shard"],
         ["--shard-layout", "2x4"],
         ["--save-case", "case.npz"],
@@ -69,6 +68,25 @@ def test_unported_flags_raise_not_yet_ported(tmp_path, capsys, flags):
     err = capsys.readouterr().err
     assert err.startswith("Received error: Input error:") and "not yet ported" in err
     assert not (tmp_path / "nodes.csv").exists()
+
+
+def test_port_cli_mixed_precision_matches_its_f64_run(tmp_path):
+    """--precision mixed: f32 storage, f64 CG around the f32 V-cycle; the
+    CSVs agree with the f64 run's within the golden bars."""
+    from magnetite_tpu_torch import cli
+
+    paths = write_case(str(tmp_path), 0.05)
+    outs = {}
+    for precision in ("mixed", "f64"):
+        out = tmp_path / precision
+        out.mkdir()
+        assert cli.main(paths + ["--device", "cpu", "--skip", "--precision", precision,
+                                 "--preconditioner", "amg", "--out-dir", str(out)]) == 0
+        outs[precision] = _read(out)
+    (nodes_m, elems_m), (nodes_d, elems_d) = outs["mixed"], outs["f64"]
+    np.testing.assert_array_equal(nodes_m[:, :2], nodes_d[:, :2])
+    assert np.abs(nodes_m[:, 2:] - nodes_d[:, 2:]).max() <= 1e-6 * np.abs(nodes_d[:, 2:]).max()
+    assert np.abs(elems_m[:, 3] - elems_d[:, 3]).max() <= 1e-5 * np.abs(elems_d[:, 3]).max()
 
 
 def test_cuda_device_without_cuda_never_runs_on_cpu(tmp_path, capsys):

@@ -1,5 +1,7 @@
 """The hand-written CUDA kernels on the card, against their plain PyTorch
-versions, and the slice on the card against the slice on the CPU.
+versions, and the port on the card against the port on the CPU: the
+banded path, the structured (stencil + multigrid) path and mixed precision
+with the double-float band kernel.
 
 Every test here needs a CUDA device and skips itself without one. The file
 imports no JAX and no other test module (tests/conftest.py imports JAX), so
@@ -132,6 +134,122 @@ def test_kernels_refuse_what_they_do_not_take():
     with pytest.raises(KernelError):  # 4x4 blocks have no instance
         dia_matvec(torch.zeros((1, 4, 4, 64), device=dev), (0,),
                    torch.zeros((4, 64), device=dev))
+
+
+def assembled_stencil(mesh, dev):
+    from magnetite_tpu_torch.fem.stencil import assemble_stencil_structured
+
+    rows, cols = mesh.grid_shape
+    return assemble_stencil_structured(
+        torch.as_tensor(mesh.coords, device=dev), 69e9, 0.33, 0.5, rows, cols,
+        mesh.wrap_cols,
+    )
+
+
+@pytest.mark.parametrize("wrap", [True, False], ids=["annulus_wrap", "rect_cols_101"])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_stencil_kernel_matches_plain(wrap, dtype, tol):
+    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec, stencil_matvec_plain
+    from magnetite_tpu_torch.meshing.generators import plate_with_hole_mesh, rect_mesh
+
+    dev = require_cuda()
+    # the annulus wraps its cols; the rectangle's 101 cols are not a
+    # multiple of 32, so warps straddle row ends
+    mesh = plate_with_hole_mesh(64, 256) if wrap else rect_mesh(100, 40)
+    rows, cols = mesh.grid_shape
+    st = assembled_stencil(mesh, dev).to(dtype)
+    u = torch.as_tensor(np.random.default_rng(12).standard_normal((2, rows, cols)),
+                        dtype=dtype, device=dev)
+    before = stencil_matvec.launches
+    y = stencil_matvec(st, u, wrap)
+    torch.cuda.synchronize()
+    assert stencil_matvec.launches == before + 1
+    ref = stencil_matvec_plain(st, u, wrap)
+    scale = float(stencil_matvec_plain(st.abs(), u.abs(), wrap).max())
+    # another summation order: rounding of each output's magnitude
+    assert float((y - ref).abs().max()) <= tol * scale
+
+
+def test_df_kernel_matches_plain_and_exact_f64():
+    from magnetite_tpu_torch.kernels.df_kernel import (
+        df_dia_matvec, df_dia_matvec_plain, split_bands,
+    )
+    from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec_blocks
+
+    dev = require_cuda()
+    n, offsets = 20000, OFFSETS[2]
+    bands = torch.as_tensor(random_bands(n, offsets, 2, seed=13), device=dev)
+    u = torch.as_tensor(np.random.default_rng(14).standard_normal((2, n)), device=dev)
+    hl = split_bands(bands)
+    before = df_dia_matvec.launches
+    y = df_dia_matvec(hl, offsets, u)
+    torch.cuda.synchronize()
+    assert df_dia_matvec.launches == before + 1
+    scale = float(dia_matvec_blocks(bands.abs(), offsets, u.abs()).max())
+    # the kernel repeats the plain version's f32 operations one for one
+    assert float((y - df_dia_matvec_plain(hl, offsets, u)).abs().max()) <= 1e-14 * scale
+    # f64-grade: ~2^-46 per term (tests/test_pallas_kernel.py's 1e-13 bar)
+    assert float((y - dia_matvec_blocks(bands, offsets, u)).abs().max()) <= 1e-13 * scale
+
+
+def test_new_kernels_refuse_what_they_do_not_take():
+    from magnetite_tpu_torch.kernels.cuda_lib import KernelError
+    from magnetite_tpu_torch.kernels.df_kernel import df_dia_matvec
+    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
+
+    dev = require_cuda()
+    st = torch.zeros((9, 2, 2, 8, 16), device=dev)
+    with pytest.raises(KernelError):  # dtype mismatch
+        stencil_matvec(st, torch.zeros((2, 8, 16), dtype=torch.float64, device=dev), True)
+    with pytest.raises(KernelError):  # u on another grid
+        stencil_matvec(st, torch.zeros((2, 8, 15), device=dev), True)
+    with pytest.raises(KernelError):  # f64 bands where hi/lo f32 pairs belong
+        df_dia_matvec(torch.zeros((1, 2, 2, 2, 64), dtype=torch.float64, device=dev), (0,),
+                      torch.zeros((2, 64), dtype=torch.float64, device=dev))
+
+
+def test_structured_solve_on_card_matches_cpu():
+    from magnetite_tpu_torch import SolverOptions, compile_problem
+    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
+    from magnetite_tpu_torch.meshing.generators import plate_with_hole_mesh, tensile_bcs_for_rect
+    from magnetite_tpu_torch.config import ModelMetadata
+
+    require_cuda()
+    mesh = plate_with_hole_mesh(32, 64)
+    bca = tensile_bcs_for_rect(mesh.coords)
+    md = ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.01)
+    for opts, bars in (
+        (SolverOptions(dtype="float64"), (1e-8, 1e-7)),
+        (SolverOptions(dtype="float32", cg_rtol=1e-10), (1e-6, 1e-5)),
+    ):
+        cpu = compile_problem(mesh, bca, md, opts, device="cpu").solve()
+        before = stencil_matvec.launches
+        problem = compile_problem(mesh, bca, md, opts, device="cuda")
+        assert (problem.mode, problem.preconditioner) == ("stencil", "multigrid")
+        card = problem.solve()
+        assert stencil_matvec.launches > before
+        assert card.residual_rel <= 1e-10
+        assert np.abs(card.u - cpu.u).max() <= bars[0] * np.abs(cpu.u).max()
+        for field in ("f", "stress", "von_mises"):
+            a, b = getattr(card, field), getattr(cpu, field)
+            assert np.abs(a - b).max() <= bars[1] * np.abs(b).max(), field
+
+
+def test_mixed_amg_with_df_kernel_on_card_matches_cpu():
+    from magnetite_tpu_torch import SolverOptions, compile_problem
+    from magnetite_tpu_torch.kernels.df_kernel import df_dia_matvec
+
+    require_cuda()
+    mesh, bca, md = port_plate(0.02)
+    opts = SolverOptions(dtype="float32", refine="on", cg_rtol=1e-8, df_matvec="on")
+    cpu = compile_problem(mesh, bca, md, opts, device="cpu").solve()
+    before = df_dia_matvec.launches
+    problem = compile_problem(mesh, bca, md, opts, device="cuda")
+    assert (problem.refine, problem.df64, problem.sweeps) == (True, "kernel", 3)
+    card = problem.solve()
+    assert df_dia_matvec.launches > before
+    assert abs(card.iterations - cpu.iterations) <= 1
+    assert np.abs(card.u - cpu.u).max() <= 1e-6 * np.abs(cpu.u).max()
 
 
 @pytest.mark.parametrize("kwargs", [{}, {"max_diags": 20}], ids=["dia", "hybrid"])

@@ -72,8 +72,8 @@ def test_f32_solve_converges_to_its_floor():
     "kwargs,match",
     [
         ({"operator": "ell"}, "not yet ported"),
-        ({"operator": "stencil"}, "not yet ported"),
-        ({"refine": "on"}, "mixed-precision"),
+        ({"operator": "stencil"}, "structured-grid"),
+        ({"keep_operator_host": True}, "operator persistence"),
         ({"assembly": "device"}, "device-side assembly"),
         ({"residual_history": 10}, "residual history"),
         ({"cg_progress_every": 5}, "progress"),
@@ -99,13 +99,16 @@ def test_structured_grid_mesh_names_the_stencil_operator():
     mesh = rect_mesh(12, 4, width=3.0, height=1.0)
     bca = apply_boundary_conditions(mesh.coords, plate_rules(magnetite_tpu_torch))
     md = magnetite_tpu_torch.ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.3)
-    with pytest.raises(magnetite_tpu_torch.SolverError, match="stencil"):
-        magnetite_tpu_torch.compile_problem(mesh, bca, md, device="cpu")
-    # asking for the band format explicitly solves it
-    res = magnetite_tpu_torch.solve_system(
+    # operator='auto' takes the stencil operator on a structured grid
+    problem = magnetite_tpu_torch.compile_problem(mesh, bca, md, device="cpu")
+    assert problem.mode == "stencil" and problem.timings["operator"] == "stencil"
+    res = problem.solve()
+    assert np.isfinite(res.u).all() and res.residual_rel <= 1e-10
+    # the band format, asked for explicitly, solves the same system
+    ref = magnetite_tpu_torch.solve_system(
         mesh, bca, md, magnetite_tpu_torch.SolverOptions(operator="dia"), device="cpu"
     )
-    assert np.isfinite(res.u).all() and res.residual_rel <= 1e-10
+    assert np.abs(res.u - ref.u).max() <= 1e-8 * np.abs(ref.u).max()
 
 
 def test_cuda_request_without_cuda_raises():

@@ -150,9 +150,10 @@ class SolverOptions:
     # arithmetic (kernels/df_kernel.py; ~2^-46 of the term scale, ~2e-9
     # attainable relative residual at 1M elements). "auto" keeps native
     # f64 on the card: the pairs stream the same bytes as f64 and measured
-    # no faster (fem/solve._decide_df64); "on" forces the df kernel;
-    # "off" keeps native f64; "interpret" forces the plain PyTorch version
-    # on any device (the JAX package's interpreter mode, CPU parity tests).
+    # no faster (fem/solve._decide_df64); "on" forces the df kernel on the
+    # card (its plain PyTorch version on the CPU); "off" keeps native f64;
+    # "interpret" is accepted for parity with the JAX package and acts as
+    # "on": the device, not the option, picks kernel or plain version.
     # Force/stress recovery and the rhs always use the true f64 operator.
     df_matvec: str = "auto"
     # Operator assembly strategy for the irregular formats (dia/hybrid/

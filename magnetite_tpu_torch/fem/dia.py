@@ -174,14 +174,12 @@ def make_hybrid_operator(
     return op
 
 
-def make_df_dia_operator(bands_hl: torch.Tensor, offsets, plain: bool = False):
+def make_df_dia_operator(bands_hl: torch.Tensor, offsets):
     """op(u [2, N] f64) -> K u to ~2^-46 of the term scale, streaming the
     f32 hi/lo pairs `bands_hl` = split_bands(bands64) (made once per
-    compiled problem). `plain` forces the plain version on any device (the
-    counterpart of the JAX package's interpret mode)."""
+    compiled problem): the CUDA kernel for card tensors, the plain version
+    for CPU tensors."""
     offs = tuple(int(o) for o in offsets)
-    if plain:
-        return lambda u: df_dia_matvec_plain(bands_hl, offs, u)
     offsets_dev = (
         torch.tensor(offs, dtype=torch.int32, device=bands_hl.device)
         if bands_hl.is_cuda

@@ -162,19 +162,13 @@ def _reduce_stencil(raw: torch.Tensor, free_g: torch.Tensor, wrap: bool):
 def _stencil_preconditioner(kind: str, reduced: torch.Tensor, levels, wrap: bool):
     """The multigrid V-cycle over prebuilt `levels`, nothing ("none"), or
     block-Jacobi on the reduced center blocks (every other kind)."""
-    from .multigrid import _block_apply, vcycle_preconditioner
-    from .stencil import CENTER
+    from .multigrid import _block_apply, _center_inverse, vcycle_preconditioner
 
     if kind == "multigrid":
         return vcycle_preconditioner(levels, wrap)
     if kind == "none":
         return None
-    d = reduced[CENTER]
-    a_, b_ = d[0, 0], d[0, 1]
-    c_, e_ = d[1, 0], d[1, 1]
-    det = a_ * e_ - b_ * c_
-    det = torch.where(det == 0, torch.ones_like(det), det)
-    inv = torch.stack([torch.stack([e_, -b_]), torch.stack([-c_, a_])]) / det
+    inv = _center_inverse(reduced)
     return lambda r: _block_apply(inv, r)
 
 
@@ -312,9 +306,7 @@ class CompiledProblem:
         if self.df64:
             # the CG's per-iteration matvec as compensated f32 pairs; the
             # rhs and the force recovery keep the true f64 operator
-            df_op = make_df_dia_operator(
-                self.bands_hl, self.offsets, plain=self.df64 == "plain"
-            )
+            df_op = make_df_dia_operator(self.bands_hl, self.offsets)
             _, op_cg = _masked(self._band_matvec(bands, rem_vals, dia_op=df_op), free_t)
         result = pcg(op_cg, b, preconditioner=precond64, **cg_kwargs)
         return matvec_t, result.x, result.iterations, result.residual_norm, result.converged, b
@@ -563,14 +555,15 @@ def _decide_df64(options, refine, preconditioner, mode, dev, rtol) -> str:
     8 B per band entry as f64, and the H100 has native FP64, so the df
     kernel cannot beat dia_matvec<double> on bandwidth (chip_smoke.py times
     them in turns: df / f64 = 1.007-1.021 at a 1M-element plate's level-0
-    bands on an H100 SXM at 700 W). "on" forces the df kernel (the
-    plain version on CPU tensors); "interpret" forces the plain version,
-    the counterpart of the JAX package's interpreter mode."""
+    bands on an H100 SXM at 700 W). "on" forces the double-float
+    operator: the df kernel on the card, its plain version on the CPU.
+    "interpret" (the JAX package's interpreter mode, kept for option
+    parity) follows the same rule: the device decides, never the option."""
     if not (refine and preconditioner == "amg" and mode in ("dia", "hybrid")):
         return ""
-    df64 = {"on": "kernel" if dev.type == "cuda" else "plain", "interpret": "plain"}.get(
-        options.df_matvec, ""
-    )
+    if options.df_matvec not in ("on", "interpret"):
+        return ""
+    df64 = "kernel" if dev.type == "cuda" else "plain"
     if df64 and rtol < _DF_RTOL_FLOOR:
         from ..utils.logging import log
 

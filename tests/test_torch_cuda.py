@@ -235,13 +235,16 @@ def test_structured_solve_on_card_matches_cpu():
             assert np.abs(a - b).max() <= bars[1] * np.abs(b).max(), field
 
 
-def test_mixed_amg_with_df_kernel_on_card_matches_cpu():
+@pytest.mark.parametrize("df", ["on", "interpret"])
+def test_mixed_amg_with_df_kernel_on_card_matches_cpu(df):
+    """Both df options launch the kernel on the card: the device, not the
+    option, picks kernel or plain version."""
     from magnetite_tpu_torch import SolverOptions, compile_problem
     from magnetite_tpu_torch.kernels.df_kernel import df_dia_matvec
 
     require_cuda()
     mesh, bca, md = port_plate(0.02)
-    opts = SolverOptions(dtype="float32", refine="on", cg_rtol=1e-8, df_matvec="on")
+    opts = SolverOptions(dtype="float32", refine="on", cg_rtol=1e-8, df_matvec=df)
     cpu = compile_problem(mesh, bca, md, opts, device="cpu").solve()
     before = df_dia_matvec.launches
     problem = compile_problem(mesh, bca, md, opts, device="cuda")

@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch / CUDA port (magnetite_tpu_torch) on one GPU.
 
     python3 chip_smoke.py              # full size: 1M-element plates, ~2 minutes
-    python3 chip_smoke.py --h 0.01 --small-h 0.02 --plate 64 128 --big 128 256 --reps 3
+    python3 chip_smoke.py --h 0.01 --small-h 0.02 --plate 64 128 --big 128 256 --reps 3 \
+        --sweep-h 0.05 --lanes 512 --sweep-small 0.08 32
                                        # a quick rehearsal
-    python3 chip_smoke.py --profile    # also trace one 1M structured solve
+    python3 chip_smoke.py --profile    # also trace one 1M structured solve and both sweeps
 
 Phases (any failure exits non-zero; no phase is wrapped in a catch):
   0. environment: torch / CUDA versions, the card's name and power limit;
@@ -31,7 +32,21 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      whose cols are not a multiple of 32, in f64 and f32;
   9. card against CPU (plain versions): the Delaunay plate at --small-h in
      f64 and mixed precision, the structured 64x128 plate in f64 and f32
-     refined.
+     refined;
+ 10. the design-sweep plate (--sweep-h, the JAX package's sweep benchmark
+     mesh) compiled for both AMG-lane sweeps; the lane kernels (K7 and the
+     material K8) against their plain versions at its level-0 bands and
+     basis band sets, --lanes lanes, f32 and f64, then 1000 lanes and
+     offsets reaching past N;
+ 11. the load sweep at full width (25 iterations, f32 CG; bench.py's batch):
+     first and warm solve_s, solves/s, K7's launch count, dense solve()
+     against solve_factors(), every lane's true residual in f64, lanes 0, 1
+     and the last against single f64 solves; then the same with f64 CG
+     (refined, the sweeps' default for f32: the f64 instance of K7 runs the
+     CG operator, and its launches are counted apart);
+ 12. the material sweep at full width (30 iterations; per-lane E, nu, t):
+     the same checks with K8, f32 CG and then f64 CG (refined);
+ 13. both sweeps on the card against the CPU at --sweep-small.
 Every kernel is timed with CUDA events (median of --reps launches, L2
 flushed before each) beside its plain version, its bound (the larger of
 bytes moved once over 3.35 TB/s and operations over the peak rate of their
@@ -80,7 +95,25 @@ KERNELS = {
                        "magnetite_tpu/pallas/stencil_kernel.py:91"),
     "df_dia_matvec": ("magnetite_tpu_torch/csrc/df_dia_matvec.cu",
                       "magnetite_tpu/pallas/dia_kernel.py:330"),
+    "lane_dia_matvec": ("magnetite_tpu_torch/csrc/lane_dia_matvec.cu",
+                        "magnetite_tpu/pallas/lane_dia_kernel.py:135"),
+    "lane_dia_matvec3": ("magnetite_tpu_torch/csrc/lane_dia_matvec.cu",
+                         "magnetite_tpu/pallas/lane_dia_kernel.py:161"),
 }
+# the JAX package's sweep benchmarks (bench.py: bench_unstructured_sweep and
+# bench_unstructured_material_sweep): mesh size, lanes, CG iterations
+SWEEP_H, SWEEP_LANES, LOAD_ITERS, MATERIAL_ITERS = 0.03, 4096, 25, 30
+# per-lane bars of the full-width sweeps: the true relative residual (f64,
+# plain operator) and max|u - u_single| / max|u| against single f64 solves.
+# f32 CG: the CPU tests' residual floor; a fixed budget stops short of the
+# converged answer (measured at h = 0.03 on the CPU: residual 2-3e-6, u
+# 1e-4 (load) and 4-6e-4 (material)), so u is held to 2e-3. f64 CG (load):
+# u carries the f32 rounding of the base boundary values (2.2e-8). f64 CG
+# (material): 30 iterations stop short as f32 CG does (measured on the CPU:
+# residual 1.4-1.7e-6, u 4.2-4.5e-4; 60 iterations reach 1e-12 and 2.2e-8),
+# so only its residual bar is tighter than f32 CG's.
+SWEEP_BARS = {"f32": {"residual": 1e-4, "u": 2e-3}, "refined": {"residual": 1e-10, "u": 1e-6},
+              "material refined": {"residual": 1e-5, "u": 2e-3}}
 
 
 def say(msg: str) -> None:
@@ -93,27 +126,37 @@ def require(cond: bool, msg: str) -> None:
 
 
 def counters():
-    """The five kernel wrappers, each carrying its `.launches` count."""
+    """The seven kernel wrappers, each carrying its `.launches` count."""
     from magnetite_tpu_torch.kernels.df_kernel import df_dia_matvec
     from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec, lane_dia_matvec3
     from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
     from magnetite_tpu_torch.kernels.transfer_kernel import prolong0, restrict0
 
-    return (dia_matvec, prolong0, restrict0, stencil_matvec, df_dia_matvec)
+    return (dia_matvec, prolong0, restrict0, stencil_matvec, df_dia_matvec,
+            lane_dia_matvec, lane_dia_matvec3)
 
 
 @contextlib.contextmanager
 def main_path(name: str, totals: dict, expect: tuple):
     """Counts set to 0 just before the path, read just after; every kernel
-    in `expect` must have launched."""
+    in `expect` must have launched. Yields a dict that holds the counts of
+    the run once the block has ended, and under "<name> f64" the f64
+    launches of the lane kernels (which count them apart)."""
     ks = counters()
+    split = [k for k in ks if hasattr(k, "f64_launches")]
     for k in ks:
         k.launches = 0
-    yield
-    got = {k.__name__: k.launches for k in ks}
-    say(f"  kernel launches in {name}: {got}")
+    for k in split:
+        k.f64_launches = 0
+    got: dict = {}
+    yield got
+    got.update({k.__name__: k.launches for k in ks})
+    f64 = {f"{k.__name__} f64": k.f64_launches for k in split}
+    say(f"  kernel launches in {name}: {got}; of those f64: {f64}")
     for k, v in got.items():
         totals[k] = totals.get(k, 0) + v
+    got.update(f64)
     missing = [k for k in expect if got[k] == 0]
     require(not missing, f"{name}: kernels of the path never launched: {missing}")
 
@@ -594,25 +637,24 @@ def phase_structured(nr, nt, totals, profile):
     return keep
 
 
-def profile_solve(problem):
-    """One warm solve under torch.profiler: kernel time by name and the
-    device's idle share of the solve's wall time; then one V-cycle's host
-    enqueue time against its device time."""
+def profile_call(label, fn):
+    """One warm call under torch.profiler (ending in a device sync): kernel
+    time by name and the device's idle share of the call's wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from magnetite_tpu_torch.fem.multigrid import vcycle_preconditioner
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        problem.solve()
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only (kernels and copies): the aten rows would
     # count the same kernels a second time
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    say(f"  profiled solve: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms in "
+    say(f"  profiled {label}: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms in "
         f"{len(dev)} device events, idle {1 - busy / (wall * 1e3):.1%}")
     by_name: dict = {}
     for e in dev:
@@ -620,6 +662,15 @@ def profile_solve(problem):
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         say(f"    {ms:9.3f} ms  {n:6d}x  {name[:90]}")
+
+
+def profile_solve(problem):
+    """One warm structured solve under torch.profiler, then one V-cycle's
+    host enqueue time against its device time."""
+    import torch
+    from magnetite_tpu_torch.fem.multigrid import vcycle_preconditioner
+
+    profile_call("solve", problem.solve)
 
     apply = vcycle_preconditioner(problem.mg_levels, problem.grid.wrap)
     r = torch.randn(2, problem.grid.rows, problem.grid.cols, device=DEV)
@@ -744,7 +795,409 @@ def phase_card_vs_cpu(small_h, small_plate):
     agree("cuda f32 refined vs cuda f64", gr, g, 1e-6, 1e-5, iters=False)
 
 
+def lane_bound(offsets, n, nb, nbases, es):
+    """(bytes moved once, operations) of one lane matvec with `es`-byte
+    values: u and y once, the band sets (and K8's three weight vectors)
+    once; 4 FMAs per basis for each (offset, node) term inside [0, N) and
+    lane, plus K8's per-lane combination."""
+    inside = sum(max(0, n - abs(int(o))) for o in offsets)
+    nbytes = (4 * n * nb + nbases * 4 * len(offsets) * n + (3 * nb if nbases == 3 else 0)) * es
+    flops = 8 * nbases * inside * nb + (10 * n * nb if nbases == 3 else 0)
+    return nbytes + 4 * len(offsets), flops
+
+
+def compile_sweeps(h):
+    """Phase 10's set-up: the plate at h compiled for the load sweep (f32 CG
+    and f64 CG over the f32 V-cycle, one hierarchy) and the material sweep
+    (f32; f64 basis bands for the residual checks)."""
+    from magnetite_tpu_torch.parallel.sweep import (
+        compile_unstructured_material_sweep, compile_unstructured_sweep,
+    )
+
+    mesh, bca, md = plate_case(h)
+    out = {"case": (mesh, bca, md)}
+    t0 = time.perf_counter()
+    out["load"] = compile_unstructured_sweep(
+        mesh, bca, md, iterations=LOAD_ITERS, refined=False, device=DEV)
+    sync()
+    out["load_compile_s"] = time.perf_counter() - t0
+    out["load64"] = compile_unstructured_sweep(
+        mesh, bca, md, iterations=LOAD_ITERS, refined=True, device=DEV,
+        amg_setup=out["load"].amg_setup)
+    t0 = time.perf_counter()
+    out["material"] = compile_unstructured_material_sweep(
+        mesh, bca, iterations=MATERIAL_ITERS, refined=False, device=DEV)
+    sync()
+    out["material_compile_s"] = time.perf_counter() - t0
+    out["material64"] = compile_unstructured_material_sweep(
+        mesh, bca, iterations=MATERIAL_ITERS, refined=True, device=DEV,
+        material_setup=out["material"].material_setup)
+    ld = out["load"]
+    say(f"  plate h={h}: {mesh.num_nodes} nodes, {mesh.num_elements} elements, "
+        f"{len(ld.offsets)} offsets (reach {min(ld.offsets)}..{max(ld.offsets)}), "
+        f"renumbered={ld.perm is not None}, AMG levels {ld.amg_setup.level_sizes}, "
+        f"material levels {out['material'].material_setup.level_sizes}; compile "
+        f"{out['load_compile_s']:.2f} s (load), {out['material_compile_s']:.2f} s (material)")
+    return out
+
+
+def sync():
+    import torch
+
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+LANE_OFFSETS = (-1300, -512, -200, -199, -37, -1, 0, 1, 37, 199, 200, 512, 1300)
+
+
+def random_lane_bands(n, offsets, dtype):
+    """Random bands [D, 2, 2, n] on the card, zero wherever n + offset
+    leaves [0, n) (the invariant every assembled operator holds)."""
+    import torch
+
+    bands = torch.randn(len(offsets), 2, 2, n, device=DEV, dtype=torch.float64).to(dtype)
+    node = torch.arange(n, device=DEV)
+    for k, off in enumerate(offsets):
+        bands[k][:, :, (node + off < 0) | (node + off >= n)] = 0.0
+    return bands
+
+
+def phase_lane_kernels(sweeps, reps, flush, rand):
+    """Phase 10: the lane kernels (K7, K8) against their plain versions at
+    the sweep plate's level-0 bands / basis band sets, full lane count, f32
+    and f64; then odd shapes (B = 1000; offsets past N)."""
+    import torch
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import (
+        lane_dia_matvec, lane_dia_matvec3, lane_dia_matvec3_plain, lane_dia_matvec_plain,
+    )
+    from magnetite_tpu_torch.parallel.sweep import material_weights
+
+    say("phase 10: lane band kernels against their plain versions on the card")
+    load, mat = sweeps["load64"], sweeps["material64"]
+    offsets, n, nb = load.offsets, load.n_nodes, SWEEP_LANES
+    od = torch.tensor(offsets, dtype=torch.int32, device=DEV)
+    results = {}
+
+    def weights(count, dtype):
+        gen = torch.Generator(device="cpu").manual_seed(count)
+        e = 40e9 + 210e9 * torch.rand(count, generator=gen, dtype=torch.float64)
+        nu = 0.22 + 0.16 * torch.rand(count, generator=gen, dtype=torch.float64)
+        t = 0.2 + 0.8 * torch.rand(count, generator=gen, dtype=torch.float64)
+        return tuple(w.to(DEV, dtype) for w in material_weights(e, nu, t))
+
+    for dtype, tol7, tol8 in ((torch.float32, 1e-6, 1e-5), (torch.float64, 1e-13, 1e-13)):
+        name = str(dtype)[6:]
+        bands = load.bands.to(dtype).contiguous()
+        u = rand(2, n, nb, dtype=dtype)
+        ref = lane_dia_matvec_plain(bands, offsets, u)
+        scale = lane_dia_matvec_plain(bands.abs(), offsets, u.abs()).max()
+        tag = f"lane_dia_matvec D={len(offsets)} N={n} B={nb} {name}"
+        err = compare(tag, lane_dia_matvec(bands, offsets, u, od), ref, scale, tol7)
+        a = csr_of_bands(bands, offsets)
+        x = u.reshape(2 * n, nb)
+        compare(f"library CSR SpMM {tag}", torch.sparse.mm(a, x).reshape(2, n, nb), ref, scale,
+                1e-5 if dtype == torch.float32 else 1e-12)
+        row = time_kernel(
+            tag, lambda: lane_dia_matvec(bands, offsets, u, od),
+            lambda: lane_dia_matvec_plain(bands, offsets, u), lambda: torch.sparse.mm(a, x),
+            reps, flush, *lane_bound(offsets, n, nb, 1, bands.element_size()), dtype,
+        )
+        results[f"lane_dia_matvec {name}"] = dict(max_abs_err=err, **row)
+        del a, x, ref
+
+        bands3 = tuple(b.to(dtype).contiguous() for b in mat.bands3)
+        w3 = weights(nb, dtype)
+        ref = lane_dia_matvec3_plain(bands3, w3, offsets, u)
+        scale = lane_dia_matvec3_plain(tuple(b.abs() for b in bands3), w3, offsets, u.abs()).max()
+        tag = f"lane_dia_matvec3 D={len(offsets)} N={n} B={nb} {name}"
+        err = compare(tag, lane_dia_matvec3(bands3, w3, offsets, u, od), ref, scale, tol8)
+        row = time_kernel(
+            tag, lambda: lane_dia_matvec3(bands3, w3, offsets, u, od),
+            lambda: lane_dia_matvec3_plain(bands3, w3, offsets, u), None,
+            reps, flush, *lane_bound(offsets, n, nb, 3, bands.element_size()), dtype,
+        )
+        say("  (lane_dia_matvec3: no single PyTorch call computes a per-lane "
+            "weighted sum of three operators: library none)")
+        results[f"lane_dia_matvec3 {name}"] = dict(max_abs_err=err, **row)
+        del ref, u
+
+        # odd shapes: 1000 lanes on the plate's bands; a short random-band
+        # operator whose offsets reach past N on both sides
+        short = tuple(random_lane_bands(997, LANE_OFFSETS, dtype) for _ in range(3))
+        for label, b7, b3, offs in (
+            ("plate bands, B=1000", bands, bands3, offsets),
+            ("offsets to +-1300 > N=997, B=1000", short[0], short, LANE_OFFSETS),
+        ):
+            u = rand(2, b7.shape[-1], 1000, dtype=dtype)
+            w3 = weights(1000, dtype)
+            compare(f"lane_dia_matvec {label} {name}", lane_dia_matvec(b7, offs, u),
+                    lane_dia_matvec_plain(b7, offs, u),
+                    lane_dia_matvec_plain(b7.abs(), offs, u.abs()).max(), tol7)
+            compare(f"lane_dia_matvec3 {label} {name}", lane_dia_matvec3(b3, w3, offs, u),
+                    lane_dia_matvec3_plain(b3, w3, offs, u),
+                    lane_dia_matvec3_plain(tuple(b.abs() for b in b3), w3, offs, u.abs()).max(),
+                    tol8)
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    return results
+
+
+def lane_residuals(sweep, bands64, res, u_fixed, f_applied, operator_of):
+    """Per-lane true relative residual ||b - A u|| / ||b|| in f64 with the
+    plain lane operator: u_fixed / f_applied [B, N, 2] (the values the
+    sweep solved for, caller's node order), operator_of(bands, v) the
+    per-lane UNREDUCED K_b v."""
+    import torch
+
+    def lanes(x):  # [B, N, 2] caller's order -> [2, N, B] renumbered, f64
+        x = x.to(DEV, torch.float64)
+        if sweep.perm_dev is not None:
+            x = x[:, sweep.perm_dev]
+        return x.permute(2, 1, 0).contiguous()
+
+    free = sweep.free.double()[:, :, None]
+    uf, fa, u = lanes(u_fixed), lanes(f_applied), lanes(res.u)
+    b = free * (fa - operator_of(bands64, uf)) + (1.0 - free) * uf
+    r = b - (free * operator_of(bands64, free * u) + (1.0 - free) * u)
+    return (r.square().sum(dim=(0, 1)).sqrt() / b.square().sum(dim=(0, 1)).sqrt()).cpu()
+
+
+def single_solves(case, sweep_u, lanes, lane_case, tol, label):
+    """Lanes of a sweep against single solves through compile_problem (f64,
+    rtol 1e-10) of the lane's own material and boundary values."""
+    import numpy as np
+    from magnetite_tpu_torch.config import SolverOptions
+    from magnetite_tpu_torch.fem.solve import compile_problem
+
+    mesh = case[0]
+    worst = 0.0
+    for b in lanes:
+        bca_b, md_b = lane_case(b)
+        one = compile_problem(mesh, bca_b, md_b, SolverOptions(dtype="float64", cg_rtol=1e-10),
+                              device=DEV).solve()
+        got = sweep_u[b].cpu().numpy()
+        err = float(np.abs(got - one.u).max() / np.abs(one.u).max())
+        say(f"  {label} lane {b}: max|u - u_single| = {err:.3e} of max|u| (<= {tol:g}; "
+            f"single solve {one.iterations} iterations)")
+        require(np.isfinite(got).all() and err <= tol, f"{label} lane {b} off its single solve")
+        worst = max(worst, err)
+    return worst
+
+
+def run_sweep(name, sweep, args, expect, totals, warm_args, profile=False):
+    """First solve under the launch counters, then warm batches (and one
+    more under torch.profiler with `profile`)."""
+    import torch
+
+    with main_path(name, totals, (expect,)) as got:
+        t0 = time.perf_counter()
+        res = sweep.solve_factors(*args)
+        sync()
+        first = time.perf_counter() - t0
+    warm = []
+    for a in warm_args:
+        t0 = time.perf_counter()
+        sweep.solve_factors(*a)
+        sync()
+        warm.append(time.perf_counter() - t0)
+    rel = (res.residual_norm / res.rhs_norm).cpu()
+    say(f"  {name}: first solve_s {first:.4f}, warm solve_s {[round(w, 4) for w in warm]}, "
+        f"min {min(warm) if warm else first:.4f} -> "
+        f"{SWEEP_LANES / (min(warm) if warm else first):.0f} solves/s; reported "
+        f"relative residual max {float(rel.max()):.3e}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30 if DEV == 'cuda' else 0:.2f} GiB")
+    require(bool(torch.isfinite(res.u).all()), f"{name}: non-finite displacements")
+    if profile:
+        profile_call(f"{name} (one warm solve_factors)", lambda: sweep.solve_factors(*args))
+    return res, got
+
+
+def expected_launches(iterations, per_iteration, outside):
+    return iterations * per_iteration + outside
+
+
+def phase_load_sweep(sweeps, totals, bars, profile):
+    """Phase 11: the load sweep at full width (bench.py's batch)."""
+    import numpy as np
+    import torch
+    from magnetite_tpu_torch.bc import BCArrays
+    from magnetite_tpu_torch.config import ModelMetadata
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec_plain
+
+    say(f"phase 11: load sweep, {SWEEP_LANES} lanes, {LOAD_ITERS} iterations, f32 CG")
+    case, sweep, sweep64 = sweeps["case"], sweeps["load"], sweeps["load64"]
+    mesh, bca, md = case
+    nb = SWEEP_LANES
+
+    def batch(seed):
+        rng = np.random.default_rng(seed)
+        return (rng.uniform(0.5, 2.0, nb).astype(np.float32), np.ones(nb, np.float32),
+                rng.uniform(0.5, 2.0, nb))
+
+    args = batch(0)
+    res, got = run_sweep("the load sweep", sweep, args, "lane_dia_matvec", totals,
+                         [batch(s) for s in (1, 2, 3, 4)], profile)
+    # per iteration: the CG operator and, in the V(1,1)-cycle, the
+    # pre-residual, restrict's and prolong's masked operator and the post
+    # sweep; outside: rhs, r0, z0's V-cycle (4) and the true final residual
+    want = expected_launches(LOAD_ITERS, 5, 7)
+    require(got["lane_dia_matvec"] == want and got["lane_dia_matvec f64"] == 0
+            and got["lane_dia_matvec3"] == 0,
+            f"load sweep launches {got}, expected {want} of lane_dia_matvec, all f32")
+    say(f"  lane_dia_matvec launches {got['lane_dia_matvec']} = {LOAD_ITERS} x 5 + 7")
+
+    u_values = torch.as_tensor(bca.u_value.astype(np.float32)[None] * args[0][:, None, None])
+    f_values = torch.as_tensor(bca.f_value.astype(np.float32)[None] * args[1][:, None, None])
+    dense = sweep.solve(u_values, f_values, args[2])
+    su = float(res.u.abs().max())
+    d_err = float((dense.u - res.u).abs().max())
+    say(f"  dense solve() vs solve_factors(): max|diff| {d_err:.3e} (<= 1e-6 x {su:.3e})")
+    require(d_err <= 1e-6 * su, "dense solve() differs from solve_factors()")
+    del dense
+
+    ks = torch.as_tensor(args[2], dtype=torch.float64, device=DEV)
+
+    def k_op(bands, v):
+        return lane_dia_matvec_plain(bands, sweep.offsets, v) * ks
+
+    def lane_case(b):
+        return (BCArrays(u_known=bca.u_known, u_value=bca.u_value * float(args[0][b]),
+                         f_value=bca.f_value * float(args[1][b])),
+                ModelMetadata(md.youngs_modulus * float(args[2][b]), md.poisson_ratio,
+                              md.part_thickness, 0.0, md.characteristic_length_max))
+
+    for label, s, r, bar in (("f32 CG", sweep, res, bars["f32"]),
+                             ("f64 CG (refined)", sweep64, None, bars["refined"])):
+        if r is None:
+            r, got = run_sweep("the refined load sweep", s, args, "lane_dia_matvec", totals,
+                               [batch(seed) for seed in (1, 2, 3)])
+            # f64: the CG operator each iteration, rhs, r0 and the final
+            # residual; the V-cycle's stay f32
+            require(got["lane_dia_matvec"] == want
+                    and got["lane_dia_matvec f64"] == LOAD_ITERS + 3,
+                    f"refined launches {got}, expected {want}, {LOAD_ITERS + 3} of them f64")
+            say(f"  lane_dia_matvec launches {want}, f64 {got['lane_dia_matvec f64']} = "
+                f"{LOAD_ITERS} + 3")
+        rel = lane_residuals(s, sweep64.bands, r, u_values, f_values, k_op)
+        say(f"  {label}: per-lane true relative residual (f64, plain operator) max "
+            f"{float(rel.max()):.3e}, median {float(rel.median()):.3e} (<= {bar['residual']:g})")
+        require(bool(torch.isfinite(rel).all()) and float(rel.max()) <= bar["residual"],
+                f"load sweep {label}: residual above its bar")
+        single_solves(case, r.u, (0, 1, nb - 1), lane_case, bar["u"], f"load {label}")
+        sweeps[f"load_result {label}"] = float(rel.max())
+    del res
+
+
+def phase_material_sweep(sweeps, totals, bars, profile):
+    """Phase 12: the material sweep at full width (bench.py's batch)."""
+    import numpy as np
+    import torch
+    from magnetite_tpu_torch.bc import BCArrays
+    from magnetite_tpu_torch.config import ModelMetadata
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec3_plain
+    from magnetite_tpu_torch.parallel.sweep import material_weights
+
+    say(f"phase 12: material sweep, {SWEEP_LANES} lanes, {MATERIAL_ITERS} iterations, "
+        "f32 CG and f64 CG")
+    case, sweep, sweep64 = sweeps["case"], sweeps["material"], sweeps["material64"]
+    mesh, bca, md = case
+    nb = SWEEP_LANES
+
+    def batch(seed):
+        rng = np.random.default_rng(seed)
+        ones = np.ones(nb, dtype=np.float32)
+        return (ones, ones, rng.uniform(40e9, 250e9, nb).astype(np.float32),
+                rng.uniform(0.22, 0.38, nb).astype(np.float32),
+                rng.uniform(0.2, 1.0, nb).astype(np.float32))
+
+    args = batch(0)
+    res, got = run_sweep("the material sweep", sweep, args, "lane_dia_matvec3", totals,
+                         [batch(s) for s in (1, 2, 3)], profile)
+    # per iteration: the CG operator and the V(1,1)-cycle's pre-residual and
+    # post sweep (its level-0 transfers are ELL gathers); outside: rhs, r0,
+    # z0's two and the true final residual
+    want = expected_launches(MATERIAL_ITERS, 3, 5)
+    require(got["lane_dia_matvec3"] == want and got["lane_dia_matvec3 f64"] == 0
+            and got["lane_dia_matvec"] == 0,
+            f"material sweep launches {got}, expected {want} of lane_dia_matvec3, all f32")
+    say(f"  lane_dia_matvec3 launches {got['lane_dia_matvec3']} = {MATERIAL_ITERS} x 3 + 5")
+
+    u_values = torch.as_tensor(bca.u_value.astype(np.float32)[None] * args[0][:, None, None])
+    f_values = torch.as_tensor(bca.f_value.astype(np.float32)[None] * args[1][:, None, None])
+    dense = sweep.solve(u_values, f_values, *args[2:])
+    su = float(res.u.abs().max())
+    d_err = float((dense.u - res.u).abs().max())
+    say(f"  dense solve() vs solve_factors(): max|diff| {d_err:.3e} (<= 1e-6 x {su:.3e})")
+    require(d_err <= 1e-6 * su, "dense solve() differs from solve_factors()")
+    del dense
+
+    w3 = material_weights(*(torch.as_tensor(a, dtype=torch.float64, device=DEV)
+                            for a in args[2:]))
+
+    def k_op(bands3, v):
+        return lane_dia_matvec3_plain(bands3, w3, sweep.offsets, v)
+
+    def lane_case(b):
+        return (BCArrays(u_known=bca.u_known, u_value=bca.u_value * float(args[0][b]),
+                         f_value=bca.f_value * float(args[1][b])),
+                ModelMetadata(float(args[2][b]), float(args[3][b]), float(args[4][b]), 0.0,
+                              md.characteristic_length_max))
+
+    for label, s, r, bar in (("f32 CG", sweep, res, bars["f32"]),
+                             ("f64 CG (refined)", sweep64, None, bars["material refined"])):
+        if r is None:
+            r, got = run_sweep("the refined material sweep", s, args, "lane_dia_matvec3",
+                               totals, [batch(seed) for seed in (1, 2)])
+            # f64: the CG operator each iteration, rhs, r0 and the final
+            # residual; the V-cycle's two stay f32
+            require(got["lane_dia_matvec3"] == want and got["lane_dia_matvec"] == 0
+                    and got["lane_dia_matvec3 f64"] == MATERIAL_ITERS + 3,
+                    f"refined launches {got}, expected {want}, {MATERIAL_ITERS + 3} of them f64")
+            say(f"  lane_dia_matvec3 launches {want}, f64 {got['lane_dia_matvec3 f64']} = "
+                f"{MATERIAL_ITERS} + 3")
+        rel = lane_residuals(s, sweep64.bands3, r, u_values, f_values, k_op)
+        say(f"  {label}: per-lane true relative residual (f64, plain operator) max "
+            f"{float(rel.max()):.3e}, median {float(rel.median()):.3e} (<= {bar['residual']:g})")
+        require(bool(torch.isfinite(rel).all()) and float(rel.max()) <= bar["residual"],
+                f"material sweep {label}: residual above its bar")
+        single_solves(case, r.u, (0, 1, nb - 1), lane_case, bar["u"], f"material {label}")
+        sweeps[f"material_result {label}"] = float(rel.max())
+    del res
+
+
+def phase_sweeps_card_vs_cpu(h, lanes):
+    """Phase 13: both sweeps on the card (kernels) against the CPU (plain
+    versions), f64 CG over the f32 V-cycle (the f32-CG answers of two
+    summation orders part at the f32 floor, ~1e-4 of max|u|)."""
+    import numpy as np
+    from magnetite_tpu_torch.parallel.sweep import (
+        compile_unstructured_material_sweep, compile_unstructured_sweep,
+    )
+
+    say(f"phase 13: sweeps on the card against the CPU, h={h}, {lanes} lanes")
+    mesh, bca, md = plate_case(h)
+    rng = np.random.default_rng(13)
+    load_args = (rng.uniform(0.5, 2.0, lanes), np.ones(lanes), rng.uniform(0.5, 2.0, lanes))
+    mat_args = (np.ones(lanes), np.ones(lanes), rng.uniform(40e9, 250e9, lanes),
+                rng.uniform(0.22, 0.38, lanes), rng.uniform(0.2, 1.0, lanes))
+    for label, make, args in (
+        ("load", lambda dev: compile_unstructured_sweep(
+            mesh, bca, md, iterations=LOAD_ITERS, device=dev), load_args),
+        ("material", lambda dev: compile_unstructured_material_sweep(
+            mesh, bca, iterations=MATERIAL_ITERS, device=dev), mat_args),
+    ):
+        card = make(DEV).solve_factors(*args)
+        cpu = make("cpu").solve_factors(*args)
+        a, b = card.u.cpu().numpy(), cpu.u.numpy()
+        rel = float(np.abs(a - b).max() / np.abs(b).max())
+        say(f"  {label}: {mesh.num_nodes} nodes, card vs CPU max|du| {rel:.3e} of max|u| "
+            "(<= 1e-05)")
+        require(np.isfinite(a).all() and rel <= 1e-5, f"{label} sweep: card differs from CPU")
+
+
 def main() -> int:
+    global SWEEP_LANES
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--h", type=float, default=0.00258,
                     help="mesh size of the Delaunay plate (0.00258: ~1M elements)")
@@ -759,9 +1212,17 @@ def main() -> int:
                     "phase (1001 cols: not a multiple of 32)")
     ap.add_argument("--small-plate", type=int, nargs=2, default=(64, 128),
                     help="the structured plate of the card-against-CPU phase")
+    ap.add_argument("--sweep-h", type=float, default=SWEEP_H,
+                    help="mesh size of the design-sweep plate (0.03: 3,774 nodes)")
+    ap.add_argument("--lanes", type=int, default=SWEEP_LANES,
+                    help="design variants (lanes) of the full-width sweeps")
+    ap.add_argument("--sweep-small", type=float, nargs=2, default=(0.04, 128),
+                    metavar=("H", "LANES"),
+                    help="mesh size and lanes of the sweeps' card-against-CPU phase")
     ap.add_argument("--reps", type=int, default=20, help="timed launches per kernel")
     ap.add_argument("--profile", action="store_true",
-                    help="trace one structured f32-refined solve with torch.profiler")
+                    help="trace one structured f32-refined solve and one warm solve of "
+                    "each sweep with torch.profiler")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -828,6 +1289,21 @@ def main() -> int:
     del reduced_1m, flush
     torch.cuda.empty_cache()
     phase_card_vs_cpu(args.small_h, args.small_plate)
+
+    SWEEP_LANES = args.lanes
+    say(f"phase 10: the sweep plate at h={args.sweep_h} compiled for both sweeps")
+    sweeps = compile_sweeps(args.sweep_h)
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)
+    results.update(phase_lane_kernels(sweeps, args.reps, flush, rand))
+    for name in ("lane_dia_matvec", "lane_dia_matvec3"):
+        results[name] = results[f"{name} float32"]  # the main path's f32 calls
+    del flush
+    torch.cuda.empty_cache()
+    phase_load_sweep(sweeps, totals, SWEEP_BARS, args.profile)
+    phase_material_sweep(sweeps, totals, SWEEP_BARS, args.profile)
+    del sweeps
+    torch.cuda.empty_cache()
+    phase_sweeps_card_vs_cpu(args.sweep_small[0], int(args.sweep_small[1]))
 
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = [

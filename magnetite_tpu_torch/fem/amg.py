@@ -4,13 +4,20 @@ Host half: the hierarchy build, copied from the JAX package with its native
 C++ paths required (the numpy fallbacks behind them are not ported). A
 hierarchy built by either package runs in the other (interop.py).
 
-Device half: the V-cycle apply in the [2, N] band layout ("t") over PyTorch
-tensors. Level 0 smooths on the injected band operator (the CUDA DIA kernel
-on the card) and moves between levels through the factored transfers
-P = (I - omega D^-1 A) P0, whose P0 / P0^T pair is the CUDA transfer kernel
-pair on the card. Banded coarse levels run the DIA kernel with 3x3 blocks;
-band-hostile ones a gather + einsum block-ELL matvec. The coarsest dense
+Device half: the V-cycle apply over PyTorch tensors, in the [2, N] band
+layout ("t") or the lane-batched [2, N, B] layout ("tl") of design sweeps.
+Level 0 smooths on the injected band operator (the CUDA DIA kernel on the
+card; the lane DIA kernel for sweeps) and moves between levels through the
+factored transfers P = (I - omega D^-1 A) P0, whose P0 / P0^T pair is the
+CUDA transfer kernel pair on the card for single vectors and a gather for
+lane fields (as in the JAX package). Banded coarse levels run the DIA
+kernel with 3x3 blocks; band-hostile ones (and every coarse level of a lane
+hierarchy) a gather + block-contraction ELL matvec. The coarsest dense
 inverse is a plain `torch.matmul`, as the JAX package leaves it to XLA.
+Every contraction runs under `ieee_f32`: never TF32.
+
+The basis-decomposed hierarchy of material sweeps (`build_amg_material_setup`)
+is built here; its V-cycle lives in parallel/sweep.py, as in the JAX package.
 
 The cycle is symmetric (matched damped block-Jacobi pre/post sweeps,
 adjoint transfers), hence a valid SPD preconditioner for CG.
@@ -18,6 +25,7 @@ adjoint transfers), hence a valid SPD preconditioner for CG.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -63,19 +71,71 @@ def _reduce_block_coo(keys, vals):
     return sort_reduce_blocks(keys, vals)
 
 
-def _assemble_block_coo(coords, tris, e_mod, nu, t, free):
-    """BC-masked global stiffness in block-COO, rows sorted: direct sorted
-    COO assembly in one native C++ pass. free: [N,2] float mask
-    (1 = unknown DOF)."""
-    from ..native import assemble_coo_blocks
+def pair_block_fields(coords, tris, t, free, d0, d1, d2):
+    """Closed-form 2x2 blocks of every element's 3x3 node pairs as scalar
+    [3, 3, E] fields (k00, k01, k10, k11), BC-masked by `free` [N, 2], for
+    the plane-stress D coefficients (d0, d1, d2): the numpy mirror of the
+    native assembly, and the form that takes unit D-bases."""
+    at = tris.astype(np.int64).T  # [3, E]
+    pc = coords[at]  # [3, E, 2]
+    x, y = pc[..., 0], pc[..., 1]
+    beta = np.stack([y[1] - y[2], y[2] - y[0], y[0] - y[1]])
+    gamma = np.stack([x[2] - x[1], x[0] - x[2], x[1] - x[0]])
+    area2 = x[0] * (y[1] - y[2]) + x[1] * (y[2] - y[0]) + x[2] * (y[0] - y[1])
+    coef = t / (2.0 * area2)
+    ba, bb = beta[:, None, :], beta[None, :, :]  # [3,3,E]
+    ga, gb = gamma[:, None, :], gamma[None, :, :]
+    fxa, fya = free[at, 0], free[at, 1]  # [3, E]
+    m00 = fxa[:, None, :] * fxa[None, :, :]
+    m01 = fxa[:, None, :] * fya[None, :, :]
+    m10 = fya[:, None, :] * fxa[None, :, :]
+    m11 = fya[:, None, :] * fya[None, :, :]
+    k00 = coef * (d0 * ba * bb + d2 * ga * gb) * m00
+    k01 = coef * (d1 * ba * gb + d2 * ga * bb) * m01
+    k10 = coef * (d1 * ga * bb + d2 * ba * gb) * m10
+    k11 = coef * (d0 * ga * gb + d2 * ba * bb) * m11
+    return k00, k01, k10, k11
+
+
+def scatter_pair_blocks(fields, slot_ids, n_slots: int) -> np.ndarray:
+    """Sum the [3, 3, E] pair fields into slot-flat [n_slots, 2, 2] storage;
+    `slot_ids` [E*9] element-major (the ELL / DIA structures' order)."""
+    e = fields[0].shape[-1]
+    ids = (
+        np.asarray(slot_ids).astype(np.int64).reshape(e, 3, 3)
+        .transpose(1, 2, 0).reshape(-1)
+    )
+    flat = np.empty((n_slots, 4))
+    for c, k in enumerate(fields):
+        flat[:, c] = np.bincount(ids, weights=k.reshape(-1), minlength=n_slots)
+    return flat.reshape(-1, 2, 2)
+
+
+def _assemble_block_coo(coords, tris, e_mod, nu, t, free, dcoefs=None):
+    """BC-masked global stiffness in block-COO, rows sorted. free: [N,2]
+    float mask (1 = unknown DOF).
+
+    Without `dcoefs`: direct sorted COO assembly in one native C++ pass.
+    `dcoefs`: explicit (d0, d1, d2) plane-stress D coefficients overriding
+    the (e_mod, nu) closed form -- the material-sweep basis assemblies pass
+    unit vectors here; they ride the native ELL structure and a numpy
+    scatter of the closed-form pair blocks. ELL padding slots emit zero
+    blocks at (n, n), which every consumer treats additively."""
+    from ..native import assemble_coo_blocks, ell_structure
 
     n = coords.shape[0]
-    keys, blocks = assemble_coo_blocks(coords, tris, free, e_mod, nu, t, n)
-    return (
-        (keys // n).astype(np.int64),
-        (keys % n).astype(np.int64),
-        blocks,
-    )
+    if dcoefs is None:
+        keys, blocks = assemble_coo_blocks(coords, tris, free, e_mod, nu, t, n)
+        return (
+            (keys // n).astype(np.int64),
+            (keys % n).astype(np.int64),
+            blocks,
+        )
+    ell_cols, slot_ids, width = ell_structure(tris, n)
+    rows = np.repeat(np.arange(n, dtype=np.int64), width)
+    cols = ell_cols.reshape(-1).astype(np.int64)
+    fields = pair_block_fields(coords, tris, t, free, *dcoefs)
+    return rows, cols, scatter_pair_blocks(fields, slot_ids, n * width)
 
 
 def _coo_to_ell(rows, cols, vals, n_rows):
@@ -232,10 +292,15 @@ def _smooth_prolongator(rows, cols, vals, diag_inv, agg, p0_block, n_agg, omega)
     return (k // n_agg).astype(np.int64), (k % n_agg).astype(np.int64), v
 
 
-def _rap(arows, acols, avals, prows, pcols, pvals, n_agg, n_rows):
+def _rap(
+    arows, acols, avals, prows, pcols, pvals, n_agg, n_rows, filter_zeros=True
+):
     """Galerkin product P^T A P in block-COO (native two-phase SpGEMM).
 
-    A: [nnz_a] blocks (m x m); P: [nnz_p] blocks (m x mc), rows sorted."""
+    A: [nnz_a] blocks (m x m); P: [nnz_p] blocks (m x mc), rows sorted.
+    `filter_zeros=False` keeps the full structural pattern -- the
+    material-basis RAPs share one pattern across bases and filter on the
+    combined norms afterwards."""
     from ..native import rap_blocks
 
     n = int(n_rows)
@@ -243,6 +308,12 @@ def _rap(arows, acols, avals, prows, pcols, pvals, n_agg, n_rows):
         arows * np.int64(n) + acols, avals, n,
         prows * np.int64(n_agg) + pcols, pvals, n_agg,
     )
+    if not filter_zeros:
+        return (
+            (ck // n_agg).astype(np.int64),
+            (ck % n_agg).astype(np.int64),
+            cv,
+        )
     return _rap_filter(ck, cv, n_agg)
 
 
@@ -531,6 +602,172 @@ def build_amg_setup(
     )
 
 
+# ------------------- material-basis hierarchy (sweeps) ----------------------
+#
+# True (E, nu, t) material sweeps on unstructured meshes: the plane-stress
+# D matrix is linear in (d0, d1, d2), so THREE basis stiffness operators
+# (unit d0 / d1 / d2, t = 1) span every material:
+#     K(E, nu, t) = wa*Ka + wb*Kb + wc*Kc,
+#     wa = t*E/(1-nu^2), wb = nu*wa, wc = (1-nu)/2*wa.
+# Transfers P are built ONCE at a reference material (P quality only
+# affects preconditioner efficiency, never correctness), and the Galerkin
+# product is linear in A, so RAP-ing each basis with the same P carries the
+# decomposition down every level EXACTLY: each lane's coarse operator is
+# wa*PtAaP + wb*PtAbP + wc*PtAcP. Per-lane diagonal-block inverses are
+# formed on the fly in the lane smoother (parallel/sweep.py).
+
+_UNIT_DCOEFS = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0))
+
+
+@dataclass
+class AMGMaterialSetup:
+    """Basis-decomposed hierarchy for material-lane sweeps.
+
+    transfers: as AMGSetup (shared by all bases).
+    coarse_basis[l] for coarse level l: (a_cols [n,w],
+        (av_a, av_b, av_c) each [n, w, m, m] basis operator values on ONE
+        shared pattern, (d_a, d_b, d_c) each [n, m, m] basis diagonals).
+    No dense coarsest inverse (it would be material-dependent); the
+    coarsest level smooths.
+    """
+
+    transfers: list
+    coarse_basis: list
+    level_sizes: list
+    setup_info: dict
+    fingerprint: Optional[str] = None
+
+
+def build_amg_material_setup(
+    coords: np.ndarray,
+    tris: np.ndarray,
+    free: np.ndarray,  # [N, 2] float or bool, 1 = unknown DOF
+    *,
+    nu_ref: float = 0.3,
+    cell_factor: float = 3.0,
+    max_levels: int = 8,
+    coarse_dof: int = _DENSE_COARSE_MAX_DOF,
+) -> AMGMaterialSetup:
+    """Build the shared-transfer basis hierarchy (host, numpy).
+
+    `nu_ref` fixes the reference material for prolongator smoothing and
+    aggregation; absolute stiffness scale cancels (rho(D^-1 A) is
+    scale-invariant), so only the Poisson ratio matters and mild lane
+    deviations cost a few extra CG iterations, never correctness."""
+    coords = np.asarray(coords, dtype=np.float64)
+    free = np.asarray(free, dtype=np.float64)
+    n = coords.shape[0]
+
+    triples = [
+        _assemble_block_coo(coords, tris, 0.0, 0.0, 1.0, free, dcoefs=dc)
+        for dc in _UNIT_DCOEFS
+    ]
+    rows, cols = triples[0][0], triples[0][1]
+    vals3 = [t[2] for t in triples]
+    d0r = 1.0 / (1.0 - nu_ref * nu_ref)
+    wref = (d0r, nu_ref * d0r, 0.5 * (1.0 - nu_ref) * d0r)
+
+    c0 = coords - coords.mean(axis=0)
+    bmodes = np.zeros((n, 2, 3))
+    bmodes[:, 0, 0] = 1.0
+    bmodes[:, 1, 1] = 1.0
+    bmodes[:, 0, 2] = -c0[:, 1]
+    bmodes[:, 1, 2] = c0[:, 0]
+    bmodes *= free[:, :, None]
+
+    p = coords[tris]
+    h = float(
+        np.median(
+            np.concatenate(
+                [
+                    np.hypot(*(p[:, 0] - p[:, 1]).T),
+                    np.hypot(*(p[:, 1] - p[:, 2]).T),
+                    np.hypot(*(p[:, 2] - p[:, 0]).T),
+                ]
+            )
+        )
+    )
+    cell = cell_factor * h
+
+    transfers = []
+    coarse_basis = []
+    level_sizes = [(n, 2)]
+    cur_coords = coords
+    m = 2
+    info = {"omegas": [], "rhos": []}
+
+    while len(level_sizes) < max_levels and level_sizes[-1][0] * m > coarse_dof:
+        n_l = level_sizes[-1][0]
+        vals_ref = wref[0] * vals3[0] + wref[1] * vals3[1] + wref[2] * vals3[2]
+        agg, centroids = _aggregate_cells(cur_coords, cell)
+        n_agg = centroids.shape[0]
+        if n_agg * 3 >= n_l * m:
+            break
+        p0_block, b_coarse = _tentative_prolongator(agg, n_agg, bmodes)
+        diag_inv = _guarded_inverse(_diag_blocks(rows, cols, vals_ref, n_l))
+        rho = _estimate_rho_dinv_a(rows, cols, vals_ref, diag_inv, n_l)
+        omega = 4.0 / 3.0 / max(rho, 1e-12)
+        info["rhos"].append(rho)
+        info["omegas"].append(omega)
+        prows, pcols, pvals = _smooth_prolongator(
+            rows, cols, vals_ref, diag_inv, agg, p0_block, n_agg, omega
+        )
+        p_cols, p_vals = _coo_to_ell(prows, pcols, pvals, n_l)
+        tk, tv = _reduce_block_coo(
+            pcols * np.int64(n_l) + prows, pvals.transpose(0, 2, 1)
+        )
+        pt_cols, pt_vals = _coo_to_ell(
+            (tk // n_l).astype(np.int64), (tk % n_l).astype(np.int64), tv, n_agg
+        )
+        transfers.append((p_cols, p_vals, pt_cols, pt_vals))
+
+        # basis RAPs on ONE shared pattern (filtering on combined norms)
+        raps = [
+            _rap(
+                rows, cols, v, prows, pcols, pvals, n_agg, n_rows=n_l,
+                filter_zeros=False,
+            )
+            for v in vals3
+        ]
+        crows, ccols = raps[0][0], raps[0][1]
+        for r2, c2, _ in raps[1:]:
+            assert np.array_equal(crows, r2) and np.array_equal(ccols, c2)
+        cvals3 = [r[2] for r in raps]
+        comb = wref[0] * cvals3[0] + wref[1] * cvals3[1] + wref[2] * cvals3[2]
+        norms = np.abs(comb).reshape(comb.shape[0], -1).max(axis=1)
+        keep = norms > 1e-14 * (norms.max() if norms.size else 1.0)
+        keep |= crows == ccols
+        rows, cols = crows[keep], ccols[keep]
+        vals3 = [v[keep] for v in cvals3]
+
+        a_cols = None
+        a_vals3 = []
+        diag3 = []
+        for v in vals3:
+            ac, av = _coo_to_ell(rows, cols, v, n_agg)
+            a_cols = ac
+            a_vals3.append(av)
+            diag3.append(_diag_blocks(rows, cols, v, n_agg))
+        coarse_basis.append((a_cols, tuple(a_vals3), tuple(diag3)))
+
+        bmodes = b_coarse
+        cur_coords = centroids
+        m = 3
+        level_sizes.append((n_agg, m))
+        cell *= cell_factor
+
+    info["levels"] = level_sizes
+    return AMGMaterialSetup(
+        transfers=transfers,
+        coarse_basis=coarse_basis,
+        level_sizes=level_sizes,
+        setup_info=info,
+        fingerprint=setup_fingerprint(
+            coords, tris, free, 0.0, float(nu_ref), 1.0, float(cell_factor)
+        ),
+    )
+
+
 # =========================== device V-cycle =================================
 
 
@@ -675,13 +912,9 @@ class AMGDeviceArrays:
     fast0: Optional[tuple]
 
 
-def amg_device_arrays(
-    setup: AMGSetup, dtype, device, coarse_max_diags: int = _COARSE_MAX_DIAGS
-) -> AMGDeviceArrays:
-    """Upload the hierarchy: one host-to-device copy per array (values cast
-    to `dtype` on the host first). Coarse levels with at most
-    `coarse_max_diags` distinct offsets are stored as bands only; the rest
-    keep their block-ELL form."""
+def _uploaders(dtype, device):
+    """(val, idx): one host-to-device copy of a value array (cast to
+    `dtype` on the host first) or of an index array."""
     np_dtype = np.dtype(str(dtype).replace("torch.", ""))
 
     def val(a):
@@ -690,6 +923,22 @@ def amg_device_arrays(
     def idx(a, dt=np.int64):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(device)
 
+    return val, idx
+
+
+def amg_device_arrays(
+    setup: AMGSetup,
+    dtype,
+    device,
+    coarse_max_diags: int = _COARSE_MAX_DIAGS,
+) -> AMGDeviceArrays:
+    """Upload the hierarchy: one host-to-device copy per array (values cast
+    to `dtype` on the host first). Coarse levels with at most
+    `coarse_max_diags` distinct offsets are stored as bands only; the rest
+    keep their block-ELL form. Lane-batched consumers (design sweeps, fields
+    [2, N, B]) pass 0: every coarse level stays block-ELL and the lane axis
+    rides through the gather."""
+    val, idx = _uploaders(dtype, device)
     n_levels = len(setup.transfers) + 1
     if n_levels > 1 and setup.fast0 is None:
         raise SolverError(
@@ -731,13 +980,61 @@ def amg_device_arrays(
     )
 
 
+def material_amg_device_arrays(
+    setup: AMGMaterialSetup, dtype, device
+) -> tuple:
+    """Upload the basis hierarchy: (transfers, coarse) with transfers[l] =
+    (p_cols, p_vals, pt_cols, pt_vals) and coarse[l] = (a_cols,
+    (av_a, av_b, av_c), (d_a, d_b, d_c))."""
+    val, idx = _uploaders(dtype, device)
+    transfers = tuple(
+        (idx(pc), val(pv), idx(tc), val(tv)) for pc, pv, tc, tv in setup.transfers
+    )
+    coarse = tuple(
+        (idx(ac), tuple(val(a) for a in av3), tuple(val(d) for d in d3))
+        for ac, av3, d3 in setup.coarse_basis
+    )
+    return transfers, coarse
+
+
+@contextmanager
+def ieee_f32():
+    """Matrix products inside run in full f32 (or f64), never TF32, whatever
+    the caller's global setting: the JAX package asks XLA for
+    precision="highest" on every contraction of the V-cycle, and a TF32
+    coarse correction (~3 decimal digits) stalls CG."""
+    prev = torch.get_float32_matmul_precision()
+    if prev == "highest":
+        yield
+        return
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
 def _block_ell_matvec(a_cols, a_vals, x):
-    """x [n, m] -> [n, m], via gather + block contraction."""
-    return torch.einsum("nwij,nwj->ni", a_vals, x[a_cols])
+    """y[n, i(, b)] = sum_w a_vals[n, w, i, j] x[a_cols[n, w], j(, b)]: one
+    gather and one block contraction; x [n, m] or lane-batched [n, m, B]."""
+    with ieee_f32():
+        if x.dim() == 3:
+            return torch.einsum("nwij,nwjb->nib", a_vals, x[a_cols])
+        return torch.einsum("nwij,nwj->ni", a_vals, x[a_cols])
 
 
 def _apply_blocks(blocks, x):
-    return torch.einsum("nij,nj->ni", blocks, x)
+    """Per-node block products: blocks [n, i, j] times x [n, j(, B)]."""
+    with ieee_f32():
+        if x.dim() == 3:
+            return torch.einsum("nij,njb->nib", blocks, x)
+        return torch.einsum("nij,nj->ni", blocks, x)
+
+
+def _dense_apply(dense, r):
+    """dense [n*m, n*m] times r [n, m(, B)] in node-major flattening."""
+    with ieee_f32():
+        return torch.matmul(dense, r.reshape(r.shape[0] * r.shape[1], -1)).reshape(r.shape)
 
 
 def make_amg_preconditioner(
@@ -748,14 +1045,18 @@ def make_amg_preconditioner(
     a_op: MatVec,
     sweeps: int = 1,
 ) -> MatVec:
-    """V(sweeps, sweeps)-cycle apply(r [2, N]) ~= A^-1 r.
+    """V(sweeps, sweeps)-cycle apply(r) ~= A^-1 r, for r in the [2, N] band
+    layout or the lane-batched [2, N, B] layout of design sweeps (ONE
+    hierarchy preconditions every lane; the lane axis rides minormost
+    through every level).
 
     op0 / jac0: the REDUCED level-0 operator and its block-Jacobi inverse,
-    in the [2, N] band layout. a_op: the unshifted masked operator
-    A = free * K * free, through which the factored smoothed prolongator
-    P = (I - omega D^-1 A) P0 is applied; P^T rides the mirrored
-    composition P^T r = P0^T (r - A (omega D^-1) r), so the pair stays an
-    exact adjoint.
+    in r's layout. a_op: the unshifted masked operator A = free * K * free,
+    through which the factored smoothed prolongator P = (I - omega D^-1 A)
+    P0 is applied; P^T rides the mirrored composition
+    P^T r = P0^T (r - A (omega D^-1) r), so the pair stays an exact
+    adjoint. Single vectors move through P0 / P0^T by the CUDA transfer
+    kernels on the card; lane fields by gathers, as in the JAX package.
     """
     cycle = make_coarse_cycle(amg.transfers, amg.coarse, amg.ci, amg.coarse_bands)
     ci = amg.ci
@@ -763,26 +1064,32 @@ def make_amg_preconditioner(
     if amg.n_levels > 1:
         agg, p0, pt0_cols, pt0_vals, dw = amg.fast0
 
-        def dinv_apply(v):  # omega * D^-1, [2, N] -> [2, N]
+        def dinv_apply(v):  # omega * D^-1 in v's layout
+            w = dw if v.dim() == 2 else dw[..., None]
             return torch.stack(
-                [dw[0, 0] * v[0] + dw[0, 1] * v[1], dw[1, 0] * v[0] + dw[1, 1] * v[1]]
+                [w[0, 0] * v[0] + w[0, 1] * v[1], w[1, 0] * v[0] + w[1, 1] * v[1]]
             )
 
-        def restrict(res):  # P^T res -> [n1, 3]
+        def restrict(res):  # P^T res -> [n1, 3(, B)]
             tmp = res - a_op(dinv_apply(res))
-            return restrict0(tmp, pt0_cols, pt0_vals)
+            if tmp.dim() == 2:
+                return restrict0(tmp, pt0_cols, pt0_vals)
+            return _block_ell_matvec(pt0_cols, pt0_vals, tmp.transpose(0, 1))
 
-        def prolong(ec):  # P ec -> [2, N]
-            uf = prolong0(ec, agg, p0)
+        def prolong(ec):  # P ec -> [2, N(, B)]
+            if ec.dim() == 2:
+                uf = prolong0(ec, agg, p0)
+            else:
+                uf = _apply_blocks(p0, ec[agg]).transpose(0, 1)
             return uf - dinv_apply(a_op(uf))
 
     def apply(r):
         if amg.n_levels == 1:
             if ci is not None:
                 # single-level hierarchy with a dense inverse (small
-                # problems that never coarsened): exact preconditioner
-                rn = r.T.reshape(-1, 1)  # node-major DOF order
-                return torch.matmul(ci, rn).reshape(-1, 2).T.contiguous()
+                # problems that never coarsened): exact preconditioner,
+                # applied in node-major DOF order
+                return _dense_apply(ci, r.transpose(0, 1)).transpose(0, 1).contiguous()
             return OMEGA * jac0(r)
         e = OMEGA * jac0(r)
         for _ in range(sweeps - 1):
@@ -804,9 +1111,10 @@ def make_coarse_cycle(
     coarse_bands: tuple,
 ):
     """The V(1, 1)-cycle below the fine level: cycle(l, r) with r
-    [n_{l+1}, m] node-major at coarse index l (0 = the first coarse level);
-    transfers_tail[l] connects coarse levels l and l + 1. Banded levels
-    run the DIA operator (the CUDA kernel on the card, m = 3). Without a
+    [n_{l+1}, m] (or lane-batched [n_{l+1}, m, B]) node-major at coarse
+    index l (0 = the first coarse level); transfers_tail[l] connects coarse
+    levels l and l + 1. Banded levels run the DIA operator (the CUDA kernel
+    on the card, m = 3); lane-batched hierarchies carry no bands. Without a
     dense inverse the coarsest level takes COARSE_SWEEPS smoothing sweeps."""
     n_coarse = len(coarse)
     band_ops = [
@@ -829,7 +1137,7 @@ def make_coarse_cycle(
     def cycle(l, r):
         if l == n_coarse - 1:
             if ci is not None:
-                return torch.matmul(ci, r.reshape(-1, 1)).reshape(r.shape)
+                return _dense_apply(ci, r)
             return smooth(l, torch.zeros_like(r), r, COARSE_SWEEPS)
         e = OMEGA * _apply_blocks(coarse[l][2], r)
         res = r - _matvec(l, e)

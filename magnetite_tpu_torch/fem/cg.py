@@ -1,5 +1,5 @@
 """Preconditioned conjugate gradient on the device (port of
-magnetite_tpu/fem/cg.py::pcg).
+magnetite_tpu/fem/cg.py: `pcg`, and `pcg_fixed_iterations` for sweeps).
 
 The JAX loop is a `lax.while_loop` that never leaves the device. Here the
 loop is Python, and its state -- including a device-side `active` flag --
@@ -88,4 +88,49 @@ def pcg(
         iterations=k,
         residual_norm=torch.sqrt(rnorm2),
         converged=rnorm2 <= thresh2,
+    )
+
+
+def pcg_fixed_iterations(
+    matvec: MatVec,
+    b: torch.Tensor,
+    *,
+    preconditioner: Optional[MatVec] = None,
+    x0: Optional[torch.Tensor] = None,
+    iterations: int = 100,
+    dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = _dot,
+) -> CGResult:
+    """Fixed-iteration PCG (port of magnetite_tpu/fem/cg.py::
+    pcg_fixed_iterations): the shape for lane-batched sweeps, where a
+    per-lane stop would serialize on the slowest lane anyway. `dot` may
+    reduce to one value per lane ([2, N, B] -> [B]); alpha and beta then
+    broadcast over the trailing lane axis. The loop never reads the host."""
+    m = preconditioner if preconditioner is not None else (lambda r: r)
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - matvec(x)
+    z = m(r)
+    p = z
+    rz = dot(r, z)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    for _ in range(iterations):
+        ap = matvec(p)
+        pap = dot(p, ap)
+        alpha = torch.where(pap > 0, rz / torch.where(pap == 0, one, pap), zero)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = m(r)
+        rz_new = dot(r, z)
+        beta = torch.where(rz == 0, zero, rz_new / torch.where(rz == 0, one, rz))
+        p = z + beta * p
+        rz = rz_new
+    # TRUE final residual, not the recursion's r (which keeps shrinking
+    # below the working precision's stagnation level and would overstate
+    # convergence by orders of magnitude in f32 sweeps)
+    r_true = b - matvec(x)
+    return CGResult(
+        x=x,
+        iterations=torch.tensor(int(iterations), device=b.device),
+        residual_norm=torch.sqrt(dot(r_true, r_true)),
+        converged=torch.ones((), dtype=torch.bool, device=b.device),
     )

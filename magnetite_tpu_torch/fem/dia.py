@@ -22,6 +22,7 @@ from ..kernels.df_kernel import (  # noqa: F401
     split_bands,
 )
 from ..kernels.dia_kernel import dia_matvec, dia_matvec_blocks  # noqa: F401
+from .blocks import apply_blocks, guarded_inv2, reduce_diag_blocks
 
 
 @dataclass
@@ -193,19 +194,5 @@ def block_jacobi_inverse_t(diag_blocks: torch.Tensor, free_mask: torch.Tensor):
 
     diag_blocks [2,2,N], free_mask [2,N] -> returns apply(r [2,N]) -> [2,N].
     """
-    f = free_mask
-    d = diag_blocks * (f[:, None, :] * f[None, :, :])
-    a = d[0, 0] + (1.0 - f[0])
-    b, c = d[0, 1], d[1, 0]
-    e = d[1, 1] + (1.0 - f[1])
-    det = a * e - b * c
-    det = torch.where(det == 0, torch.ones_like(det), det)
-    inv00, inv01 = e / det, -b / det
-    inv10, inv11 = -c / det, a / det
-
-    def apply(r: torch.Tensor) -> torch.Tensor:
-        return torch.stack(
-            [inv00 * r[0] + inv01 * r[1], inv10 * r[0] + inv11 * r[1]]
-        )
-
-    return apply
+    inv = guarded_inv2(reduce_diag_blocks(diag_blocks, free_mask))
+    return lambda r: apply_blocks(inv, r)

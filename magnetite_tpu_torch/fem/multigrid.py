@@ -24,6 +24,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from .blocks import apply_blocks
 from .stencil import CENTER, OFFSETS, make_stencil_operator, stencil_matvec_plain
 
 
@@ -189,14 +190,6 @@ def apply_dense_inverse(dense_inv: torch.Tensor, r: torch.Tensor) -> torch.Tenso
     return e.reshape(rows, cols, 2).permute(2, 0, 1)
 
 
-def _block_apply(blk: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """[2, 2, R, C] x [2, R, C] -> [2, R, C], block by block."""
-    return torch.stack([
-        blk[0, 0] * v[0] + blk[0, 1] * v[1],
-        blk[1, 0] * v[0] + blk[1, 1] * v[1],
-    ])
-
-
 def _center_inverse(stencil: torch.Tensor) -> torch.Tensor:
     d = stencil[CENTER]  # [2, 2, R, C]
     a, b = d[0, 0], d[0, 1]
@@ -259,7 +252,7 @@ def build_hierarchy(fine_stencil: torch.Tensor, wrap_cols: bool) -> list:
 def _smooth(level: MGLevel, e, r, sweeps: int):
     """Damped block-Jacobi: e += omega * D^-1 (r - A e)."""
     for _ in range(sweeps):
-        e = e + OMEGA * _block_apply(level.diag_inv, r - level.op(e))
+        e = e + OMEGA * apply_blocks(level.diag_inv, r - level.op(e))
     return e
 
 

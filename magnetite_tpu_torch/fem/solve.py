@@ -162,14 +162,15 @@ def _reduce_stencil(raw: torch.Tensor, free_g: torch.Tensor, wrap: bool):
 def _stencil_preconditioner(kind: str, reduced: torch.Tensor, levels, wrap: bool):
     """The multigrid V-cycle over prebuilt `levels`, nothing ("none"), or
     block-Jacobi on the reduced center blocks (every other kind)."""
-    from .multigrid import _block_apply, _center_inverse, vcycle_preconditioner
+    from .blocks import apply_blocks
+    from .multigrid import _center_inverse, vcycle_preconditioner
 
     if kind == "multigrid":
         return vcycle_preconditioner(levels, wrap)
     if kind == "none":
         return None
     inv = _center_inverse(reduced)
-    return lambda r: _block_apply(inv, r)
+    return lambda r: apply_blocks(inv, r)
 
 
 def _masked(matvec, free: torch.Tensor):

@@ -13,13 +13,33 @@ from __future__ import annotations
 import numpy as np
 
 from .bc import BCArrays
-from .fem.amg import AMGSetup, setup_from_arrays
+from .fem.amg import AMGMaterialSetup, AMGSetup, setup_from_arrays
 from .meshing.core import Mesh
 
 
 def amg_setup_from_arrays(d: dict) -> AMGSetup:
     """The port's AMGSetup from a `setup_to_arrays` dict of either package."""
     return setup_from_arrays({k: np.asarray(v) for k, v in d.items()})
+
+
+def material_setup_from_arrays(
+    transfers, coarse_basis, level_sizes, fingerprint=None
+) -> AMGMaterialSetup:
+    """The port's AMGMaterialSetup from the fields of either package's
+    (as numpy arrays): transfers [(p_cols, p_vals, pt_cols, pt_vals)],
+    coarse_basis [(a_cols, (av_a, av_b, av_c), (d_a, d_b, d_c))] and
+    level_sizes [(n_l, m_l)]."""
+    return AMGMaterialSetup(
+        transfers=[tuple(np.asarray(a) for a in t) for t in transfers],
+        coarse_basis=[
+            (np.asarray(ac), tuple(np.asarray(a) for a in av3),
+             tuple(np.asarray(d) for d in d3))
+            for ac, av3, d3 in coarse_basis
+        ],
+        level_sizes=[tuple(int(v) for v in s) for s in level_sizes],
+        setup_info={"loaded": True},
+        fingerprint=fingerprint,
+    )
 
 
 def mesh_from_arrays(coords, tris) -> Mesh:

@@ -129,6 +129,20 @@ def _bind(lib) -> None:
         i64,
         np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
     ]
+    lib.ell_structure_width.restype = i64
+    lib.ell_structure_width.argtypes = [
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        i64, i64,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+    ]
+    lib.ell_structure_fill.restype = ctypes.c_int
+    lib.ell_structure_fill.argtypes = [
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        i64, i64, i64,
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+    ]
     lib.dia_structure.restype = i64
     lib.dia_structure.argtypes = [
         np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
@@ -222,6 +236,23 @@ def msh_parse(text: str):
         if (tris < 0).any():
             raise ValueError("element references unknown node tag")
     return coords, tris
+
+
+def ell_structure(tris: np.ndarray, n_nodes: int):
+    """Block-ELL structure -> (cols [N,K] i32, slot_ids [9E] i32, width)."""
+    lib = require()
+    tris = np.ascontiguousarray(tris, dtype=np.int32)
+    e = tris.shape[0]
+    scratch = np.empty(9 * e, dtype=np.int64)
+    width = lib.ell_structure_width(tris, e, n_nodes, scratch)
+    if width < 0:
+        raise ValueError("element node index out of range")
+    cols = np.empty((n_nodes, width), dtype=np.int32)
+    slot_ids = np.empty(9 * e, dtype=np.int32)
+    rc = lib.ell_structure_fill(tris, e, n_nodes, width, cols, slot_ids, scratch)
+    if rc != 0:
+        raise ValueError(f"ELL structure build failed (code {rc})")
+    return cols, slot_ids, int(width)
 
 
 def amg_assemble(coords, tris, free_mask, e_mod, nu, t, slot_ids_pm, n_slots):

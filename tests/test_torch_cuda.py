@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels on the card, against their plain PyTorch
 versions, and the port on the card against the port on the CPU: the
-banded path, the structured (stencil + multigrid) path and mixed precision
-with the double-float band kernel.
+banded path, the structured (stencil + multigrid) path, mixed precision
+with the double-float band kernel, and the lane-batched design sweeps with
+the lane band kernels.
 
 Every test here needs a CUDA device and skips itself without one. The file
 imports no JAX and no other test module (tests/conftest.py imports JAX), so
@@ -275,3 +276,144 @@ def test_solve_on_card_matches_cpu(kwargs):
     for field in ("f", "stress", "von_mises"):
         a, b = getattr(card, field), getattr(cpu, field)
         assert np.abs(a - b).max() <= 1e-7 * np.abs(b).max(), field
+
+
+LANE_OFFSETS = (-1300, -512, -200, -199, -37, -1, 0, 1, 37, 199, 200, 512, 1300)
+
+
+@pytest.mark.parametrize("nb", [1, 37, 128, 4096])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13), (torch.float32, 1e-6)])
+def test_lane_kernel_matches_plain(nb, dtype, tol):
+    """K7 on lane fields: N not a multiple of any tile, offsets reaching
+    past N (1300 > N / 2 on both sides), any lane count."""
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import (
+        lane_dia_matvec, lane_dia_matvec_plain,
+    )
+
+    dev = require_cuda()
+    n = 2011 if nb < 4096 else 997
+    bands = torch.as_tensor(random_bands(n, LANE_OFFSETS, 2, seed=20), dtype=dtype, device=dev)
+    u = torch.as_tensor(np.random.default_rng(21).standard_normal((2, n, nb)),
+                        dtype=dtype, device=dev)
+    before = lane_dia_matvec.launches
+    y = lane_dia_matvec(bands, LANE_OFFSETS, u)
+    torch.cuda.synchronize()
+    assert lane_dia_matvec.launches == before + 1
+    ref = lane_dia_matvec_plain(bands, LANE_OFFSETS, u)
+    scale = float(lane_dia_matvec_plain(bands.abs(), LANE_OFFSETS, u.abs()).max())
+    # another summation order (FMA chain per output vs rolled sums)
+    assert float((y - ref).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("nb", [1, 37, 128, 4096])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13), (torch.float32, 1e-5)])
+def test_material_lane_kernel_matches_plain(nb, dtype, tol):
+    """K8: three basis band sets combined with per-lane weights."""
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import (
+        lane_dia_matvec3, lane_dia_matvec3_plain,
+    )
+
+    dev = require_cuda()
+    n = 2011 if nb < 4096 else 997
+    rng = np.random.default_rng(22)
+    bands3 = tuple(
+        torch.as_tensor(random_bands(n, LANE_OFFSETS, 2, seed=23 + k), dtype=dtype, device=dev)
+        for k in range(3)
+    )
+    w3 = tuple(torch.as_tensor(rng.uniform(0.5, 2.0, nb), dtype=dtype, device=dev)
+               for _ in range(3))
+    u = torch.as_tensor(rng.standard_normal((2, n, nb)), dtype=dtype, device=dev)
+    before = lane_dia_matvec3.launches
+    y = lane_dia_matvec3(bands3, w3, LANE_OFFSETS, u)
+    torch.cuda.synchronize()
+    assert lane_dia_matvec3.launches == before + 1
+    ref = lane_dia_matvec3_plain(bands3, w3, LANE_OFFSETS, u)
+    scale = float(lane_dia_matvec3_plain(
+        tuple(b.abs() for b in bands3), w3, LANE_OFFSETS, u.abs()).max())
+    assert float((y - ref).abs().max()) <= tol * scale
+
+
+def test_lane_kernels_refuse_what_they_do_not_take():
+    from magnetite_tpu_torch.kernels.cuda_lib import KernelError
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec, lane_dia_matvec3
+
+    dev = require_cuda()
+    bands = torch.zeros((1, 2, 2, 64), device=dev)
+    with pytest.raises(KernelError):  # dtype mismatch
+        lane_dia_matvec(bands, (0,), torch.zeros((2, 64, 8), dtype=torch.float64, device=dev))
+    with pytest.raises(KernelError):  # a single vector where a lane field belongs
+        lane_dia_matvec(bands, (0,), torch.zeros((2, 64), device=dev))
+    w = torch.ones(8, device=dev)
+    with pytest.raises(KernelError):  # weights of another lane count
+        lane_dia_matvec3((bands,) * 3, (w, w, torch.ones(7, device=dev)), (0,),
+                         torch.zeros((2, 64, 8), device=dev))
+
+
+@pytest.mark.parametrize("material", [False, True], ids=["load", "material"])
+def test_sweep_on_card_matches_cpu(material):
+    """A small sweep through the port's entry points, on the card (lane
+    kernels) against the CPU (plain versions), at h = 0.04 (a real
+    multi-level hierarchy), 64 lanes, f32 V-cycle under f64 CG."""
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec, lane_dia_matvec3
+    from magnetite_tpu_torch.parallel.sweep import (
+        compile_unstructured_material_sweep, compile_unstructured_sweep,
+    )
+
+    require_cuda()
+    mesh, bca, md = port_plate(0.04)
+    b = 64
+    rng = np.random.default_rng(24)
+    if material:
+        args = (np.ones(b), np.ones(b), rng.uniform(40e9, 250e9, b),
+                rng.uniform(0.22, 0.38, b), rng.uniform(0.2, 1.0, b))
+        kernel = lane_dia_matvec3
+
+        def run(device):
+            return compile_unstructured_material_sweep(
+                mesh, bca, iterations=20, device=device).solve_factors(*args)
+    else:
+        args = (rng.uniform(0.5, 2.0, b), np.ones(b), rng.uniform(0.5, 2.0, b))
+        kernel = lane_dia_matvec
+
+        def run(device):
+            return compile_unstructured_sweep(
+                mesh, bca, md, iterations=20, device=device).solve_factors(*args)
+
+    cpu = run("cpu")
+    before = kernel.launches
+    card = run("cuda")
+    torch.cuda.synchronize()
+    assert kernel.launches > before
+    u_cpu, u_card = cpu.u.numpy(), card.u.cpu().numpy()
+    assert np.isfinite(u_card).all()
+    assert np.abs(u_card - u_cpu).max() <= 1e-5 * np.abs(u_cpu).max()
+    rel = (card.residual_norm / card.rhs_norm).cpu().numpy()
+    rel_cpu = (cpu.residual_norm / cpu.rhs_norm).numpy()
+    assert rel.max() <= max(2.0 * rel_cpu.max(), 1e-4)
+
+
+def test_sweep_lane_kernel_modes_on_card():
+    """The JAX package's `lane_kernel` switch: "interpret" launches the lane
+    kernels on the card like "auto"; "off" (the plain versions) is refused
+    there."""
+    from magnetite_tpu_torch.errors import InputError
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec, lane_dia_matvec3
+    from magnetite_tpu_torch.parallel.sweep import (
+        compile_unstructured_material_sweep, compile_unstructured_sweep,
+    )
+
+    require_cuda()
+    mesh, bca, md = port_plate(0.08)
+    b = 8
+    ones = np.ones(b)
+    load = compile_unstructured_sweep(mesh, bca, md, iterations=4, lane_kernel="interpret")
+    mat = compile_unstructured_material_sweep(mesh, bca, iterations=4, lane_kernel="interpret")
+    before = (lane_dia_matvec.launches, lane_dia_matvec3.launches)
+    load.solve_factors(ones, ones, ones)
+    mat.solve_factors(ones, ones, 69e9 * ones, 0.33 * ones, 0.5 * ones)
+    torch.cuda.synchronize()
+    assert lane_dia_matvec.launches > before[0] and lane_dia_matvec3.launches > before[1]
+    with pytest.raises(InputError, match="lane_kernel='off'"):
+        compile_unstructured_sweep(mesh, bca, md, lane_kernel="off")
+    with pytest.raises(InputError, match="lane_kernel='off'"):
+        compile_unstructured_material_sweep(mesh, bca, lane_kernel="off")

@@ -116,3 +116,39 @@ def test_amg_setup_identical(case):
         assert sorted(a) == sorted(b)
         for key in a:
             np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+def test_basis_assembly_identical(case):
+    """The material-sweep basis assemblies (unit D-bases through the ELL
+    structure and the numpy pair-block scatter)."""
+    from magnetite_tpu.fem import amg as jamg
+    from magnetite_tpu_torch.fem import amg as pamg
+
+    _, mesh, bca, _ = case
+    free = (~bca.u_known).astype(np.float64)
+    for dc in jamg._UNIT_DCOEFS + ((0.7, 0.2, 0.3),):
+        a = jamg._assemble_block_coo(mesh.coords, mesh.tris, 0.0, 0.0, 1.0, free, dcoefs=dc)
+        b = pamg._assemble_block_coo(mesh.coords, mesh.tris, 0.0, 0.0, 1.0, free, dcoefs=dc)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_amg_material_setup_identical(case):
+    from magnetite_tpu.fem import amg as jamg
+    from magnetite_tpu_torch.fem import amg as pamg
+
+    _, mesh, bca, _ = case
+    free = (~bca.u_known).astype(np.float64)
+    for kwargs in ({}, {"coarse_dof": 300, "nu_ref": 0.25}):
+        a = jamg.build_amg_material_setup(mesh.coords, mesh.tris, free, **kwargs)
+        b = pamg.build_amg_material_setup(mesh.coords, mesh.tris, free, **kwargs)
+        assert a.level_sizes == b.level_sizes and a.fingerprint == b.fingerprint
+        assert len(a.transfers) == len(b.transfers)
+        for ta, tb in zip(a.transfers, b.transfers):
+            for x, y in zip(ta, tb):
+                np.testing.assert_array_equal(x, y)
+        assert len(a.coarse_basis) == len(b.coarse_basis)
+        for (ac, av3, d3), (bc, bv3, e3) in zip(a.coarse_basis, b.coarse_basis):
+            np.testing.assert_array_equal(ac, bc)
+            for x, y in zip(av3 + d3, bv3 + e3):
+                np.testing.assert_array_equal(x, y)

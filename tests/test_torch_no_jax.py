@@ -79,6 +79,48 @@ def test_structured_path_runs_with_jax_unimportable(tmp_path):
     assert "LEAKED []" in proc.stdout
 
 
+_CHILD_SWEEP = r"""
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import numpy as np
+from magnetite_tpu_torch.bc import apply_boundary_conditions
+from magnetite_tpu_torch.config import (
+    BoundaryRegion, BoundaryRule, BoundaryTarget, ModelMetadata,
+)
+from magnetite_tpu_torch.meshing.delaunay_backend import triangulate
+from magnetite_tpu_torch.parallel.sweep import compile_unstructured_sweep
+outer = np.array([[0.0, 0.0], [3.0, 0.0], [3.0, 1.0], [0.0, 1.0]])
+mesh = triangulate([outer], 0.0, 0.08)
+rules = (
+    BoundaryRule("left", BoundaryRegion(x_max=1e-6), BoundaryTarget(ux=0.0, uy=0.0)),
+    BoundaryRule("right", BoundaryRegion(x_min=3.0 - 1e-6), BoundaryTarget(ux=0.01, fy=0.0)),
+)
+bca = apply_boundary_conditions(mesh.coords, rules)
+md = ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.08)
+sweep = compile_unstructured_sweep(mesh, bca, md, iterations=8, device="cpu")
+res = sweep.solve_factors(np.array([1.0, 2.0]), np.ones(2), np.array([1.0, 0.5]))
+rel = (res.residual_norm / res.rhs_norm).numpy()
+leaked = [m for m in sys.modules
+          if m == "jax" and sys.modules[m] is not None
+          or m == "magnetite_tpu" or m.startswith("magnetite_tpu.")]
+print("SWEEP", tuple(res.u.shape) == (2, mesh.num_nodes, 2),
+      bool(np.isfinite(res.u.numpy()).all()), bool(rel.max() <= 1e-6))
+print("LEAKED", leaked)
+"""
+
+
+def test_sweep_runs_with_jax_unimportable(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_SWEEP],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "SWEEP True True True" in proc.stdout
+    assert "LEAKED []" in proc.stdout
+
+
 def test_no_source_file_imports_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import|from) (jax|magnetite_tpu)\b")
     files = [os.path.join(REPO, "chip_smoke.py")]

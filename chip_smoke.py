@@ -6,6 +6,8 @@
         --sweep-h 0.05 --lanes 512 --sweep-small 0.08 32
                                        # a quick rehearsal
     python3 chip_smoke.py --profile    # also trace one 1M structured solve and both sweeps
+    python3 chip_smoke.py --only lane-kernels
+                                       # phases 0, 1 and 10 alone (no "ok" line)
 
 Phases (any failure exits non-zero; no phase is wrapped in a catch):
   0. environment: torch / CUDA versions, the card's name and power limit;
@@ -37,9 +39,11 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      mesh) compiled for both AMG-lane sweeps; the lane kernels (K7 and the
      material K8) against their plain versions at its level-0 bands and
      basis band sets, --lanes lanes, f32 and f64, then 1000 lanes and
-     offsets reaching past N;
+     offsets reaching past N; K7's route (ring or direct kernel), its
+     geometry and ptxas line, and both routes timed in turn at the plate;
  11. the load sweep at full width (25 iterations, f32 CG; bench.py's batch):
-     first and warm solve_s, solves/s, K7's launch count, dense solve()
+     first and warm solve_s, solves/s, K7's launch count (every launch on
+     the ring route), dense solve()
      against solve_factors(), every lane's true residual in f64, lanes 0, 1
      and the last against single f64 solves; then the same with f64 CG
      (refined, the sweeps' default for f32: the f64 instance of K7 runs the
@@ -82,6 +86,7 @@ E_MOD, NU, THICK = 69e9, 0.33, 0.5
 PEAK_GBS = 3350.0
 PEAK_TFLOPS = {"float32": 67.0, "float64": 34.0}
 DEV = "cuda"
+PTXAS = ""  # nvcc's ptxas report of phase 1's build
 KERNELS = {
     # name: (source, replaced TPU kernel)
     "dia_matvec": ("magnetite_tpu_torch/csrc/dia_matvec.cu",
@@ -141,22 +146,24 @@ def counters():
 def main_path(name: str, totals: dict, expect: tuple):
     """Counts set to 0 just before the path, read just after; every kernel
     in `expect` must have launched. Yields a dict that holds the counts of
-    the run once the block has ended, and under "<name> f64" the f64
-    launches of the lane kernels (which count them apart)."""
+    the run once the block has ended, under "<name> f64" the f64 launches
+    of the lane kernels (which count them apart) and under
+    "lane_dia_matvec ring" K7's ring-route launches."""
     ks = counters()
-    split = [k for k in ks if hasattr(k, "f64_launches")]
+    split = [(k, attr) for k in ks for attr in ("f64_launches", "ring_launches")
+             if hasattr(k, attr)]
     for k in ks:
         k.launches = 0
-    for k in split:
-        k.f64_launches = 0
+    for k, attr in split:
+        setattr(k, attr, 0)
     got: dict = {}
     yield got
     got.update({k.__name__: k.launches for k in ks})
-    f64 = {f"{k.__name__} f64": k.f64_launches for k in split}
-    say(f"  kernel launches in {name}: {got}; of those f64: {f64}")
+    parts = {f"{k.__name__} {attr[:-9]}": getattr(k, attr) for k, attr in split}
+    say(f"  kernel launches in {name}: {got}; of those: {parts}")
     for k, v in got.items():
         totals[k] = totals.get(k, 0) + v
-    got.update(f64)
+    got.update(parts)
     missing = [k for k in expect if got[k] == 0]
     require(not missing, f"{name}: kernels of the path never launched: {missing}")
 
@@ -863,13 +870,65 @@ def random_lane_bands(n, offsets, dtype):
     return bands
 
 
+def ptxas_of(kernel: str) -> list:
+    """nvcc's ptxas lines (registers, spills) for the entries whose mangled
+    name holds `kernel` (phase 1's build report)."""
+    out, keep = [], False
+    for line in PTXAS.splitlines():
+        if "Compiling entry" in line:
+            keep = kernel in line
+            if keep:
+                out.append(line.split("'")[1] if "'" in line else line.strip())
+        elif keep and ("registers" in line or "spill" in line):
+            out.append("  " + line.strip().replace("ptxas info    : ", ""))
+    return out
+
+
+def k7_route(fn, route):
+    """Run fn (one K7 call) and require that it took `route`."""
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec
+
+    before = lane_dia_matvec.ring_launches
+    y = fn()
+    took = "ring" if lane_dia_matvec.ring_launches > before else "direct"
+    require(took == route, f"K7 took the {took} route, expected {route}")
+    return y
+
+
+def k7_routes_timed(bands, offsets, u, od, reps, flush, ref, scale, tol):
+    """K7's two kernels on the same operands, each checked against the plain
+    version's `ref` and timed in turn (direct, ring, direct, ring), so that
+    the route rule's choice is measured within one run."""
+    from magnetite_tpu_torch.kernels import cuda_lib
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import (
+        LanePlan, launch_lane_dia, lane_window_plan,
+    )
+
+    _, n, nb = u.shape
+    plans = {"direct": LanePlan("direct", min(offsets), max(offsets)),
+             "ring": lane_window_plan(offsets, n, nb, u.dtype, sms=cuda_lib.sm_count(u.device))}
+    for route, plan in plans.items():
+        err = float((launch_lane_dia(bands, u, od, plan) - ref).abs().max())
+        require(err <= tol * float(scale), f"K7 {route} disagrees: {err:.3e}")
+    times = {route: [] for route in plans}
+    for _ in range(2):
+        for route, plan in plans.items():
+            times[route].append(event_ms(lambda: launch_lane_dia(bands, u, od, plan), reps, flush))
+    say("    " + "; ".join(f"{route} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
+                          for route, ts in times.items()))
+    return times
+
+
 def phase_lane_kernels(sweeps, reps, flush, rand):
     """Phase 10: the lane kernels (K7, K8) against their plain versions at
     the sweep plate's level-0 bands / basis band sets, full lane count, f32
-    and f64; then odd shapes (B = 1000; offsets past N)."""
+    and f64; then odd shapes (B = 1000; offsets past N). K7 must take the
+    ring route at the plate's offsets and the direct route past N."""
     import torch
+    from magnetite_tpu_torch.kernels import cuda_lib
     from magnetite_tpu_torch.kernels.lane_dia_kernel import (
-        lane_dia_matvec, lane_dia_matvec3, lane_dia_matvec3_plain, lane_dia_matvec_plain,
+        RING_GEOMETRY, lane_dia_matvec, lane_dia_matvec3, lane_dia_matvec3_plain,
+        lane_dia_matvec_plain, lane_window_plan,
     )
     from magnetite_tpu_torch.parallel.sweep import material_weights
 
@@ -878,6 +937,8 @@ def phase_lane_kernels(sweeps, reps, flush, rand):
     offsets, n, nb = load.offsets, load.n_nodes, SWEEP_LANES
     od = torch.tensor(offsets, dtype=torch.int32, device=DEV)
     results = {}
+    for line in ptxas_of("lane_dia_ring_kernel"):
+        say(f"  ptxas: {line}")
 
     def weights(count, dtype):
         gen = torch.Generator(device="cpu").manual_seed(count)
@@ -893,7 +954,15 @@ def phase_lane_kernels(sweeps, reps, flush, rand):
         ref = lane_dia_matvec_plain(bands, offsets, u)
         scale = lane_dia_matvec_plain(bands.abs(), offsets, u.abs()).max()
         tag = f"lane_dia_matvec D={len(offsets)} N={n} B={nb} {name}"
-        err = compare(tag, lane_dia_matvec(bands, offsets, u, od), ref, scale, tol7)
+        plan = lane_window_plan(offsets, n, nb, dtype, sms=cuda_lib.sm_count(u.device))
+        require(plan.route == "ring", f"K7 {name} at the sweep plate left the ring route")
+        err = compare(tag, k7_route(lambda: lane_dia_matvec(bands, offsets, u, od), "ring"),
+                      ref, scale, tol7)
+        k, _ = RING_GEOMETRY[u.element_size()]
+        say(f"  K7 {name} route {plan.route}: {plan.lanes} lanes x {plan.rows} rows per step, "
+            f"{k} per thread ({plan.lanes // (16 // u.element_size()) * plan.rows // k} "
+            f"threads), {plan.strips} strips of {plan.strip_rows} rows, "
+            f"{plan.smem_bytes} B shared memory")
         a = csr_of_bands(bands, offsets)
         x = u.reshape(2 * n, nb)
         compare(f"library CSR SpMM {tag}", torch.sparse.mm(a, x).reshape(2, n, nb), ref, scale,
@@ -904,7 +973,10 @@ def phase_lane_kernels(sweeps, reps, flush, rand):
             reps, flush, *lane_bound(offsets, n, nb, 1, bands.element_size()), dtype,
         )
         results[f"lane_dia_matvec {name}"] = dict(max_abs_err=err, **row)
-        del a, x, ref
+        del a, x
+        say(f"  K7 {name} at the sweep plate, each route in turn:")
+        k7_routes_timed(bands, offsets, u, od, reps, flush, ref, scale, tol7)
+        del ref
 
         bands3 = tuple(b.to(dtype).contiguous() for b in mat.bands3)
         w3 = weights(nb, dtype)
@@ -925,13 +997,14 @@ def phase_lane_kernels(sweeps, reps, flush, rand):
         # odd shapes: 1000 lanes on the plate's bands; a short random-band
         # operator whose offsets reach past N on both sides
         short = tuple(random_lane_bands(997, LANE_OFFSETS, dtype) for _ in range(3))
-        for label, b7, b3, offs in (
-            ("plate bands, B=1000", bands, bands3, offsets),
-            ("offsets to +-1300 > N=997, B=1000", short[0], short, LANE_OFFSETS),
+        for label, b7, b3, offs, route in (
+            ("plate bands, B=1000", bands, bands3, offsets, "ring"),
+            ("offsets to +-1300 > N=997, B=1000", short[0], short, LANE_OFFSETS, "direct"),
         ):
             u = rand(2, b7.shape[-1], 1000, dtype=dtype)
             w3 = weights(1000, dtype)
-            compare(f"lane_dia_matvec {label} {name}", lane_dia_matvec(b7, offs, u),
+            compare(f"lane_dia_matvec {label} {name} ({route})",
+                    k7_route(lambda: lane_dia_matvec(b7, offs, u), route),
                     lane_dia_matvec_plain(b7, offs, u),
                     lane_dia_matvec_plain(b7.abs(), offs, u.abs()).max(), tol7)
             compare(f"lane_dia_matvec3 {label} {name}", lane_dia_matvec3(b3, w3, offs, u),
@@ -1043,9 +1116,11 @@ def phase_load_sweep(sweeps, totals, bars, profile):
     # sweep; outside: rhs, r0, z0's V-cycle (4) and the true final residual
     want = expected_launches(LOAD_ITERS, 5, 7)
     require(got["lane_dia_matvec"] == want and got["lane_dia_matvec f64"] == 0
-            and got["lane_dia_matvec3"] == 0,
-            f"load sweep launches {got}, expected {want} of lane_dia_matvec, all f32")
-    say(f"  lane_dia_matvec launches {got['lane_dia_matvec']} = {LOAD_ITERS} x 5 + 7")
+            and got["lane_dia_matvec ring"] == want and got["lane_dia_matvec3"] == 0,
+            f"load sweep launches {got}, expected {want} of lane_dia_matvec, all f32 and "
+            "all on the ring route")
+    say(f"  lane_dia_matvec launches {got['lane_dia_matvec']} = {LOAD_ITERS} x 5 + 7, "
+        f"ring route {got['lane_dia_matvec ring']}")
 
     u_values = torch.as_tensor(bca.u_value.astype(np.float32)[None] * args[0][:, None, None])
     f_values = torch.as_tensor(bca.f_value.astype(np.float32)[None] * args[1][:, None, None])
@@ -1075,10 +1150,12 @@ def phase_load_sweep(sweeps, totals, bars, profile):
             # f64: the CG operator each iteration, rhs, r0 and the final
             # residual; the V-cycle's stay f32
             require(got["lane_dia_matvec"] == want
-                    and got["lane_dia_matvec f64"] == LOAD_ITERS + 3,
-                    f"refined launches {got}, expected {want}, {LOAD_ITERS + 3} of them f64")
+                    and got["lane_dia_matvec f64"] == LOAD_ITERS + 3
+                    and got["lane_dia_matvec ring"] == want,
+                    f"refined launches {got}, expected {want}, {LOAD_ITERS + 3} of them f64, "
+                    "all on the ring route")
             say(f"  lane_dia_matvec launches {want}, f64 {got['lane_dia_matvec f64']} = "
-                f"{LOAD_ITERS} + 3")
+                f"{LOAD_ITERS} + 3, ring route {got['lane_dia_matvec ring']}")
         rel = lane_residuals(s, sweep64.bands, r, u_values, f_values, k_op)
         say(f"  {label}: per-lane true relative residual (f64, plain operator) max "
             f"{float(rel.max()):.3e}, median {float(rel.median()):.3e} (<= {bar['residual']:g})")
@@ -1197,7 +1274,7 @@ def phase_sweeps_card_vs_cpu(h, lanes):
 
 
 def main() -> int:
-    global SWEEP_LANES
+    global SWEEP_LANES, PTXAS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--h", type=float, default=0.00258,
                     help="mesh size of the Delaunay plate (0.00258: ~1M elements)")
@@ -1223,6 +1300,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace one structured f32-refined solve and one warm solve of "
                     "each sweep with torch.profiler")
+    ap.add_argument("--only", choices=("lane-kernels",),
+                    help="lane-kernels: phases 0, 1 and 10 alone; ends without the ok line")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1248,9 +1327,9 @@ def main() -> int:
     from magnetite_tpu_torch.kernels import cuda_lib
 
     say("phase 1: build")
-    seconds, ptxas = cuda_lib.build()
+    seconds, PTXAS = cuda_lib.build()
     say(f"  CUDA kernels (nvcc sm_90a): {seconds:.2f} s")
-    for line in ptxas.splitlines():
+    for line in PTXAS.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say("    " + line.strip())
     say(f"  host library (g++): {native.build():.2f} s")
@@ -1259,6 +1338,15 @@ def main() -> int:
 
     def rand(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=DEV, dtype=torch.float64).to(dtype)
+
+    SWEEP_LANES = args.lanes
+    if args.only == "lane-kernels":
+        say(f"phase 10: the sweep plate at h={args.sweep_h} compiled for both sweeps")
+        flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)
+        phase_lane_kernels(compile_sweeps(args.sweep_h), args.reps, flush, rand)
+        say(f"phases 0, 1 and 10 passed in {time.perf_counter() - t_start:.1f} s "
+            "(--only lane-kernels: no ok line)")
+        return 0
 
     t0 = time.perf_counter()
     mesh, bca, md = plate_case(args.h)
@@ -1290,7 +1378,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_card_vs_cpu(args.small_h, args.small_plate)
 
-    SWEEP_LANES = args.lanes
     say(f"phase 10: the sweep plate at h={args.sweep_h} compiled for both sweeps")
     sweeps = compile_sweeps(args.sweep_h)
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)

@@ -14,28 +14,70 @@
 // limits the band reach to tn, with B >= 128 and f32 only. None of that
 // carries over: any B >= 1, any offsets, f32 and f64.
 //
-// What bounds them: at the sweep's shape (D = 35, N = 3,774, B = 4,096) K7
-// streams u and y once (2 x 2 x N x B values) plus the bands, and does 4
-// FMAs per band entry and lane: in f32 its compute time is 87% of its byte
-// time, so it is just bytes-bound. K8 does 3 FMAs per band entry and lane
-// (12 per offset) on the same u traffic and is compute-bound.
-// Design: one thread per (node n, lane b) output pair; a warp holds 32
-// consecutive lanes of one node, so every u / y access coalesces along b
-// and every band coefficient is one broadcast read. A block covers 8 nodes
-// of one 32-lane chunk; the grid walks the nodes fastest, so the blocks in
-// flight cover a window of rows around the current one and the u rows that
-// D offsets revisit are served from L1 / L2. The offsets are staged in
-// shared memory once per block. K8 keeps six accumulators (3 bases x 2
-// rows) and combines them with the lane's weights once at the end -- the
-// plain version's order (parallel/sweep.py::_lane_weighted_band_matvec);
-// the TPU kernel combined the coefficients first only to fit its VMEM
-// stack. A term whose row n + off_d leaves [0, N) is skipped, never read:
-// the DIA contract zeroes those coefficients, but 0 x (Inf or NaN) is NaN
-// and the read would leave the array. Indices are 64-bit: 2 N B passes
-// 2^31 at 262k nodes x 4,096 lanes.
+// What bounds K7: at the sweep's shape (D = 35 offsets reaching +-200,
+// N = 3,774, B = 4,096) it must stream u and y once (2 x 2 x N x B values)
+// plus the bands, and do 4 FMAs per band entry and lane: in f32 its FMA
+// time is 87% of its byte time, so it sits at the balance point and has to
+// move each u value through the SM about once. The first design (one
+// thread per (node, lane), blocks walking the nodes fastest, the "direct"
+// kernel below) relied on the blocks in flight sharing a window of u rows
+// in L1 / L2. They do not: the blocks in flight span all 132 SMs, so every
+// offset re-reads u from L2 (35 x 2 x N x B x 4 B = 4.3 GB per call, ~5
+// TB/s at 0.85 ms, the L2's rate).
+//
+// The ring kernel (lane_dia_ring_kernel) answers that. A block owns one
+// lane tile (128 bytes of each component row: 32 f32 / 16 f64 lanes) and
+// one strip of consecutive rows, walked in steps of P rows. It keeps the u
+// rows [row + min_off, row + max_off + P) of its tile in a ring in dynamic
+// shared memory (span + 2P rows x 2 components, span = max_off - min_off:
+// the step being computed plus the next one, loaded with cp.async while
+// this one computes), and beside it two steps of band coefficients, staged
+// plane by plane ([D * 4][P]: 16-byte copies where the source is aligned,
+// no bank conflicts). Each u value then enters the SM once per strip; the
+// halo costs (strip + span) / strip of the u reads. Ring rows outside
+// [0, N) and lanes past B are zero-filled in shared memory, never read from
+// device memory: uninitialised shared memory may hold a NaN, and 0 x NaN is
+// NaN (the direct kernel skips those terms for the same reason). Each
+// thread carries 16 bytes of lanes (4 f32 / 2 f64) over K rows (2 in f32,
+// 1 in f64, where two measured 20-25% slower), so u and y move as float4 /
+// double2 copies and ring reads, and one read of a band coefficient serves
+// all its lanes. A lane vector that is cut by B or not 16-byte aligned
+// takes a scalar path in the same kernel. Sums run over d = 0..D-1 in
+// order, as in the direct kernel, and each output is written once.
+//
+// What bounds the ring kernel (measured on an H100 at the sweep's shape,
+// PERF.md): not device memory. Shared memory delivers 128 bytes per clock
+// to each SM whether or not threads share an address, and each FMA needs 3
+// bytes of it in f32 (2 of ring, 1 of band coefficients; 8 in f64); and
+// every lane tile fetches the whole band slab (B / 32 x 2.1 MB = 270 MB
+// per f32 call, 1.1 GB in f64 at 16 lanes), which the compute of a step
+// only partly hides. Reading each ring row once for the K rows of a run of
+// consecutive offsets halves the ring reads and did not move the time;
+// neither did staging the bands row by row ([P][D * 4]), so neither is
+// kept. A wider tile would cut the band traffic but not fit: the ring holds
+// span + 2P rows of the tile.
+//
+// Tensor cores do not fit K7: a dense-block MMA over a tile's
+// R x (R + span) slice of the operator would multiply at most 6 useful
+// columns of every R + 400, and TF32 would break the f32 bar (the port
+// never runs an f32 product in TF32).
+//
+// Route rule (kernels/lane_dia_kernel.py::lane_window_plan): the ring runs
+// when its rows fit shared memory at the full 128-byte tile width; offset
+// spans too wide for that (e.g. +-1300 past N = 997) take the direct
+// kernel. Both are checked against the plain version; neither falls back
+// to the other at run time.
+//
+// K8 keeps the direct design: six accumulators (3 bases x 2 rows) combined
+// with the lane's weights once at the end -- the plain version's order
+// (parallel/sweep.py::_lane_weighted_band_matvec); the TPU kernel combined
+// the coefficients first only to fit its VMEM stack. A term whose row
+// n + off_d leaves [0, N) is skipped, never read. Indices are 64-bit:
+// 2 N B passes 2^31 at 262k nodes x 4,096 lanes.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
@@ -43,6 +85,8 @@ namespace {
 constexpr int kLanes = 32;  // threadIdx.x: lanes of one node (one warp)
 constexpr int kRows = 8;    // threadIdx.y: nodes per block
 constexpr int kMaxLaneBlocks = 65535;  // gridDim.y limit
+constexpr int kRingMaxThreads = 512;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory one block may use
 
 __device__ __forceinline__ void stage_offsets(const int* offsets, int n_diags, int* s_off) {
   const int tid = threadIdx.y * kLanes + threadIdx.x;
@@ -77,6 +121,269 @@ __global__ void __launch_bounds__(kLanes * kRows) lane_dia_kernel(
   y[row * nb + lane] = acc0;
   y[comp + row * nb + lane] = acc1;
 }
+
+// ---- the ring kernel ------------------------------------------------------
+
+// 16 bytes of lanes: the unit of every u / y copy and ring read; kK: the
+// rows each thread of the ring kernel computes (lane_window_plan's
+// RING_GEOMETRY: two rows in f32, one in f64, the fastest measured)
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  using type = float4;
+  static constexpr int kN = 4;
+  static constexpr int kK = 2;
+};
+template <> struct Vec<double> {
+  using type = double2;
+  static constexpr int kN = 2;
+  static constexpr int kK = 1;
+};
+
+__device__ __forceinline__ float4 vzero(float4) { return make_float4(0.f, 0.f, 0.f, 0.f); }
+__device__ __forceinline__ double2 vzero(double2) { return make_double2(0.0, 0.0); }
+
+// acc += b * a, lane by lane (the direct kernel's `acc = acc + b * u`)
+__device__ __forceinline__ void axpy(float4& acc, float b, const float4& a) {
+  acc.x = acc.x + b * a.x;
+  acc.y = acc.y + b * a.y;
+  acc.z = acc.z + b * a.z;
+  acc.w = acc.w + b * a.w;
+}
+__device__ __forceinline__ void axpy(double2& acc, double b, const double2& a) {
+  acc.x = acc.x + b * a.x;
+  acc.y = acc.y + b * a.y;
+}
+
+// the first `count` lanes of a vector (the tail of B, or an unaligned y)
+__device__ __forceinline__ void store_lanes(float* dst, const float4& a, int64_t count) {
+  dst[0] = a.x;
+  if (count > 1) dst[1] = a.y;
+  if (count > 2) dst[2] = a.z;
+  if (count > 3) dst[3] = a.w;
+}
+__device__ __forceinline__ void store_lanes(double* dst, const double2& a, int64_t count) {
+  dst[0] = a.x;
+  if (count > 1) dst[1] = a.y;
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+template <int kBytes>
+__device__ __forceinline__ void cp_async_small(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(kBytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Copy the u rows [ga, gb) of the block's lane tile into their ring slots
+// (row g lives in slot (g - g0) mod R). Thread `tid` always copies the same
+// (component, lane vector) of every (rows_per_pass)-th row, so no index is
+// divided inside the loop.
+template <typename T>
+__device__ __forceinline__ void ring_load(typename Vec<T>::type* ring, const T* __restrict__ u,
+                                          int64_t n, int64_t nb, int64_t lane0, int lt,
+                                          int ring_rows, int64_t g0, int64_t ga, int64_t gb) {
+  using V = typename Vec<T>::type;
+  constexpr int kV = Vec<T>::kN;
+  const int per_row = 2 * lt;
+  const int cv = threadIdx.x % per_row;
+  const int c = cv / lt, v = cv % lt;
+  const int rows_per_pass = blockDim.x / per_row;
+  const int64_t lane = lane0 + static_cast<int64_t>(v) * kV;
+  int64_t g = ga + threadIdx.x / per_row;
+  int slot = static_cast<int>((g - g0) % ring_rows);
+  for (; g < gb; g += rows_per_pass) {
+    V* dst = ring + (slot * 2 + c) * lt + v;
+    if (g >= 0 && g < n && lane < nb) {
+      const T* src = u + (c * n + g) * nb + lane;
+      if (lane + kV <= nb && aligned16(src)) {
+        cp_async16(dst, src);
+      } else {
+        T* d = reinterpret_cast<T*>(dst);
+#pragma unroll
+        for (int e = 0; e < kV; ++e) {
+          if (lane + e < nb) {
+            cp_async_small<sizeof(T)>(d + e, src + e);
+          } else {
+            d[e] = T(0);
+          }
+        }
+      }
+    } else {
+      *dst = vzero(V{});
+    }
+    slot += rows_per_pass;
+    if (slot >= ring_rows) slot -= ring_rows;
+  }
+}
+
+// Copy the band coefficients of rows [row0, min(row0 + rows, s1)) into
+// sb [D * 4][rows] (plane-major: the rows of one (offset, block entry)
+// plane side by side). Each plane's rows are contiguous in device memory
+// too, so the copies are 16 bytes wherever the source is aligned (8 or 4
+// bytes otherwise, and at the strip's end). When the chunk count divides
+// the block, thread `tid` copies chunk tid % chunks of every
+// (blockDim.x / chunks)-th plane and no index is divided.
+template <typename T>
+__device__ __forceinline__ void band_load(T* sb, const T* __restrict__ bands, int64_t n,
+                                          int n_diags, int rows, int64_t row0, int64_t s1) {
+  constexpr int kE = 16 / sizeof(T);  // elements per 16-byte chunk
+  const int planes = n_diags * 4, chunks = rows / kE;
+  const int valid = static_cast<int>(s1 - row0 < rows ? s1 - row0 : rows);
+  const auto copy = [&](int plane, int c) {
+    const int r = c * kE;
+    if (r >= valid) return;
+    const T* src = bands + plane * n + row0 + r;
+    T* dst = sb + plane * rows + r;
+    if (r + kE <= valid && aligned16(src)) {
+      cp_async16(dst, src);
+    } else if (sizeof(T) == 4 && r + kE <= valid && (reinterpret_cast<uintptr_t>(src) & 7) == 0) {
+      cp_async_small<8>(dst, src);
+      cp_async_small<8>(dst + 2, src + 2);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        if (r + e < valid) cp_async_small<sizeof(T)>(dst + e, src + e);
+      }
+    }
+  };
+  if (blockDim.x % chunks == 0) {
+    const int step = blockDim.x / chunks;
+    for (int plane = threadIdx.x / chunks; plane < planes; plane += step) {
+      copy(plane, threadIdx.x % chunks);
+    }
+  } else {
+    for (int i = threadIdx.x; i < planes * chunks; i += blockDim.x) copy(i / chunks, i % chunks);
+  }
+}
+
+// the K consecutive rows of one band plane a thread reads (f32: two rows
+// in one 8-byte read; f64: one row)
+__device__ __forceinline__ void load_rows(const float* s, float (&b)[2]) {
+  const float2 v = *reinterpret_cast<const float2*>(s);
+  b[0] = v.x, b[1] = v.y;
+}
+__device__ __forceinline__ void load_rows(const double* s, double (&b)[1]) { b[0] = s[0]; }
+
+// One block: lane tile blockIdx.y (lt lane vectors), row strip blockIdx.x
+// ([s0, s1), strip_rows long), walked in steps of `rows` rows. Thread
+// (g = tid / lt, v = tid % lt) computes the K consecutive rows
+// row0 + g K + j, j < K, of lane vector v, each over d = 0..D-1 in order.
+// Each step's u rows and band coefficients arrive in one cp.async group,
+// issued while the step before computes.
+template <typename T>
+__global__ void __launch_bounds__(kRingMaxThreads) lane_dia_ring_kernel(
+    const T* __restrict__ bands, const int* __restrict__ offsets, int n_diags,
+    const T* __restrict__ u, T* __restrict__ y, int64_t n, int64_t nb, int min_off,
+    int max_off, int lt, int rows, int64_t strip_rows) {
+  using V = typename Vec<T>::type;
+  constexpr int kV = Vec<T>::kN;
+  constexpr int K = Vec<T>::kK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ring_rows = max_off - min_off + 2 * rows;
+  const int band_step = rows * n_diags * 4;
+  V* ring = reinterpret_cast<V*>(smem);  // [ring_rows][2][lt]
+  // two steps' band values, [2][D * 4][rows]
+  T* sb = reinterpret_cast<T*>(ring + static_cast<int64_t>(ring_rows) * 2 * lt);
+  int* s_so = reinterpret_cast<int*>(sb + 2 * band_step);  // [D]: offset - min_off
+
+  for (int d = threadIdx.x; d < n_diags; d += blockDim.x) s_so[d] = offsets[d] - min_off;
+
+  const int64_t s0 = static_cast<int64_t>(blockIdx.x) * strip_rows;
+  const int64_t s1 = s0 + strip_rows < n ? s0 + strip_rows : n;
+  const int64_t lane0 = static_cast<int64_t>(blockIdx.y) * lt * kV;
+  const int64_t g0 = s0 + min_off;  // the ring row in slot 0
+  const int steps = static_cast<int>((s1 - s0 + rows - 1) / rows);
+
+  // prologue: every row and band coefficient step 0 reads
+  ring_load<T>(ring, u, n, nb, lane0, lt, ring_rows, g0, g0, s0 + max_off + rows);
+  band_load<T>(sb, bands, n, n_diags, rows, s0, s1);
+  cp_async_commit();
+
+  const int v = threadIdx.x % lt, g = threadIdx.x / lt;
+  const int64_t lane = lane0 + static_cast<int64_t>(v) * kV;
+  const int64_t comp = n * nb;
+  int q = g * K;  // slot of row row0 + g K + min_off: (t rows + g K) mod ring_rows
+  for (int t = 0; t < steps; ++t) {
+    const int64_t row0 = s0 + static_cast<int64_t>(t) * rows;
+    if (t + 1 < steps) {
+      // the rows step t + 1 adds; their slots held rows only step t - 1 read
+      const int64_t ga = row0 + max_off + rows;
+      ring_load<T>(ring, u, n, nb, lane0, lt, ring_rows, g0, ga, ga + rows);
+      band_load<T>(sb + ((t + 1) & 1) * band_step, bands, n, n_diags, rows, row0 + rows, s1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const int64_t rowk = row0 + g * K;
+    if (rowk < s1 && lane < nb) {
+      // a row past s1 computes on band values never loaded; it is not stored
+      V acc0[K], acc1[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) acc0[j] = acc1[j] = vzero(V{});
+      const T* b = sb + (t & 1) * band_step + g * K;
+      const V* rv = ring + v;
+#pragma unroll 5
+      for (int d = 0; d < n_diags; ++d, b += 4 * rows) {
+        int slot = q + s_so[d];
+        if (slot >= ring_rows) slot -= ring_rows;
+        T b00[K], b01[K], b10[K], b11[K];
+        load_rows(b, b00);
+        load_rows(b + rows, b01);
+        load_rows(b + 2 * rows, b10);
+        load_rows(b + 3 * rows, b11);
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const V a0 = rv[slot * 2 * lt];
+          const V a1 = rv[slot * 2 * lt + lt];
+          axpy(acc0[j], b00[j], a0);
+          axpy(acc0[j], b01[j], a1);
+          axpy(acc1[j], b10[j], a0);
+          axpy(acc1[j], b11[j], a1);
+          if (++slot == ring_rows) slot = 0;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        if (rowk + j < s1) {
+          T* y0 = y + (rowk + j) * nb + lane;
+          T* y1 = y0 + comp;
+          if (lane + kV <= nb && aligned16(y0) && aligned16(y1)) {
+            *reinterpret_cast<V*>(y0) = acc0[j];
+            *reinterpret_cast<V*>(y1) = acc1[j];
+          } else {
+            store_lanes(y0, acc0[j], nb - lane);
+            store_lanes(y1, acc1[j], nb - lane);
+          }
+        }
+      }
+    }
+    q += rows;
+    if (q >= ring_rows) q -= ring_rows;
+    __syncthreads();  // step t's slots are free for step t + 2's rows
+  }
+}
+
+// ---- K8 -------------------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(kLanes * kRows) lane_dia3_kernel(
@@ -134,6 +441,52 @@ int launch(const void* bands, const void* offsets, int n_diags, const void* u, v
   return static_cast<int>(cudaGetLastError());
 }
 
+// The ring's shared memory: ring_rows x 2 components x lanes values, two
+// steps' band coefficients, the D shifted offsets (lane_window_plan
+// computes the same).
+int64_t ring_smem_bytes(int64_t span, int lanes, int rows, int n_diags, int64_t es) {
+  return ((span + 2 * rows) * 2 * lanes + 2 * rows * n_diags * 4) * es +
+         4 * static_cast<int64_t>(n_diags);
+}
+
+template <typename T>
+int launch_ring(const void* bands, const void* offsets, int n_diags, const void* u, void* y,
+                int64_t n, int64_t nb, int min_off, int max_off, int lanes, int rows,
+                int64_t strip_rows, int smem_bytes, cudaStream_t stream) {
+  constexpr int kV = Vec<T>::kN;
+  constexpr int K = Vec<T>::kK;
+  const int lt = lanes / kV;
+  const int64_t span = static_cast<int64_t>(max_off) - min_off;
+  const int64_t tiles = (nb + lanes - 1) / lanes;
+  const int64_t strips = (n + strip_rows - 1) / strip_rows;
+  if (lanes % kV != 0 || lt < 1 || rows < 2 || rows % (2 * K) != 0 || rows % kV != 0 ||
+      lt * rows / K > kRingMaxThreads || span < 0 || strip_rows < 1 ||
+      tiles > kMaxLaneBlocks || strips > INT32_MAX || smem_bytes > kMaxSmem ||
+      smem_bytes < ring_smem_bytes(span, lanes, rows, n_diags, sizeof(T))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // above 48 KB a block's dynamic shared memory must be allowed first, once
+  // per instance (the allowance is a cap: it reserves nothing)
+  static std::atomic<bool> allowed{false};
+  if (smem_bytes > 48 * 1024 && !allowed.load()) {
+    cudaError_t err = cudaFuncSetAttribute(
+        lane_dia_ring_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err == cudaSuccess) {  // and the largest shared-memory share of each SM
+      err = cudaFuncSetAttribute(lane_dia_ring_kernel<T>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed.store(true);
+  }
+  const dim3 grid(static_cast<unsigned>(strips), static_cast<unsigned>(tiles));
+  lane_dia_ring_kernel<T><<<grid, lt * rows / K, smem_bytes, stream>>>(
+      static_cast<const T*>(bands), static_cast<const int*>(offsets), n_diags,
+      static_cast<const T*>(u), static_cast<T*>(y), n, nb, min_off, max_off, lt, rows,
+      strip_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch3(const void* ba, const void* bb, const void* bc, const void* wa, const void* wb,
             const void* wc, const void* offsets, int n_diags, const void* u, void* y,
@@ -156,6 +509,28 @@ extern "C" int mt_lane_dia_matvec(int dtype, const void* bands, const void* offs
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(bands, offsets, n_diags, u, y, n, nb, s);
   if (dtype == 1) return launch<double>(bands, offsets, n_diags, u, y, n, nb, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K7 through the ring: min_off / max_off the extreme offsets, `lanes` the
+// lane tile (a multiple of 4 f32 / 2 f64 lanes), `rows` the rows per step
+// (a multiple of 2 K and of 16 bytes of values; K = Vec<T>::kK rows per
+// thread), `strip_rows` the rows of each block's strip, `smem_bytes` the
+// dynamic shared memory (at least ring_smem_bytes).
+extern "C" int mt_lane_dia_ring(int dtype, const void* bands, const void* offsets, int n_diags,
+                                const void* u, void* y, int64_t n, int64_t nb, int min_off,
+                                int max_off, int lanes, int rows, int64_t strip_rows,
+                                int smem_bytes, void* stream) {
+  if (n <= 0 || nb <= 0 || n_diags <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_ring<float>(bands, offsets, n_diags, u, y, n, nb, min_off, max_off, lanes,
+                              rows, strip_rows, smem_bytes, s);
+  }
+  if (dtype == 1) {
+    return launch_ring<double>(bands, offsets, n_diags, u, y, n, nb, min_off, max_off, lanes,
+                               rows, strip_rows, smem_bytes, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

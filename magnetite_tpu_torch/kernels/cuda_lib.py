@@ -15,6 +15,7 @@ request that cannot build or launch raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import os
 import shutil
@@ -151,6 +152,10 @@ def _bind(lib) -> None:
     lib.mt_df_dia_matvec.argtypes = [vp, vp, i32, vp, vp, i64, vp]
     lib.mt_lane_dia_matvec.restype = i32
     lib.mt_lane_dia_matvec.argtypes = [i32, vp, vp, i32, vp, vp, i64, i64, vp]
+    lib.mt_lane_dia_ring.restype = i32
+    lib.mt_lane_dia_ring.argtypes = [
+        i32, vp, vp, i32, vp, vp, i64, i64, i32, i32, i32, i32, i64, i32, vp,
+    ]
     lib.mt_lane_dia_matvec3.restype = i32
     lib.mt_lane_dia_matvec3.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, i32, vp, vp, i64, i64, vp,
@@ -163,6 +168,12 @@ def check(lib, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.mt_error_string(rc).decode()
         raise KernelError(f"{name} launch failed: {msg} (cudaError {rc})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -12,15 +12,114 @@ answers that). `lane_dia_matvec` / `lane_dia_matvec3` are the entry
 points: a CPU operand takes the plain PyTorch version (the JAX package's
 roll formulation), a CUDA operand launches the kernel or raises. Both take
 f32 and f64, any B >= 1 and any offsets.
+
+K7 has two kernels, chosen by shape (`lane_window_plan`): the ring kernel,
+which keeps a window of u rows in shared memory, wherever that window fits
+at the full tile width, and the direct kernel for wider offset spans.
 """
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from . import cuda_lib
+
+# The ring kernel's geometry (csrc/lane_dia_matvec.cu): a lane tile is
+# TILE_BYTES of each component row (32 f32 / 16 f64 lanes), a thread
+# carries VEC_BYTES of lanes, a block runs at most RING_THREADS threads, and
+# a step is at least MIN_ROWS rows. By value size, the rows each thread
+# computes (the kernel's K, fixed per instance) and the threads a block
+# aims for: the fastest measured at the sweep plate (PERF.md). A block may
+# use SMEM_LIMIT bytes of dynamic shared memory; an SM holds SM_SMEM, less
+# SM_RESERVED per resident block (NVIDIA H100).
+TILE_BYTES, VEC_BYTES, RING_THREADS, MIN_ROWS = 128, 16, 512, 8
+RING_GEOMETRY = {4: (2, 256), 8: (1, 512)}  # value bytes: (rows per thread, threads)
+SMEM_LIMIT, SM_SMEM, SM_RESERVED = 232_448, 233_472, 1_024
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class LanePlan:
+    """How K7 runs at one shape: `route` "ring" or "direct"; for the ring,
+    the lane tile (`lanes`), the rows per step (`rows`), the row strips
+    (`strips` of `strip_rows` rows) and the dynamic shared memory per
+    block."""
+
+    route: str
+    min_off: int
+    max_off: int
+    lanes: int = 0
+    rows: int = 0
+    strips: int = 0
+    strip_rows: int = 0
+    smem_bytes: int = 0
+
+
+def ring_smem_bytes(span: int, lanes: int, rows: int, n_diags: int, es: int) -> int:
+    """Shared memory of one ring block: span + 2 rows ring rows x 2
+    components x lanes values, two steps' band coefficients (D x 4 x rows
+    each), then the D shifted offsets."""
+    return ((span + 2 * rows) * 2 * lanes + 2 * rows * n_diags * 4) * es + 4 * n_diags
+
+
+def lane_window_plan(offsets, n: int, nb: int, dtype, *, sms: int = H100_SMS) -> LanePlan:
+    """Route and geometry of K7 for `offsets` at N = n nodes, B = nb lanes
+    on a card of `sms` SMs.
+
+    The ring route needs its rows (span + 2 P of them) and two steps of band
+    coefficients to fit shared memory at the full tile width with some step
+    P >= MIN_ROWS, whatever B is; wider spans take the direct kernel (the
+    rule depends on the offsets, the value size and D alone). The tile is
+    narrowed to B when B is smaller; P is the largest step that gives a
+    block at most RING_GEOMETRY's threads and fits (a multiple of 2 K and of
+    16 bytes of values: the loader pairs threads to the two components and
+    copies band values 16 bytes at a time). The strips trade the halo
+    against filling the SMs: the count minimises waves x (strip_rows + span
+    + P), the rows each block's SM streams, with waves = ceil(tiles x
+    strips / (sms x blocks per SM)). Cached: the sweeps ask once per
+    launch."""
+    return _plan(tuple(offsets), int(n), int(nb), dtype.itemsize, int(sms))
+
+
+def _fit_rows(span, lanes, n_diags, es, rows, quantum):
+    """The largest step of at most `rows` rows, a multiple of `quantum` and
+    at least MIN_ROWS, whose ring fits a block's shared memory, or None."""
+    rows = rows // quantum * quantum
+    while rows >= MIN_ROWS:
+        if ring_smem_bytes(span, lanes, rows, n_diags, es) <= SMEM_LIMIT:
+            return rows
+        rows -= quantum
+    return None
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(offsets, n, nb, es, sms) -> LanePlan:
+    min_off, max_off = int(min(offsets)), int(max(offsets))
+    span, vec, d = max_off - min_off, VEC_BYTES // es, len(offsets)
+    k, threads = RING_GEOMETRY[es]
+    quantum = max(2 * k, vec)
+    if _fit_rows(span, TILE_BYTES // es, d, es, RING_THREADS * k, quantum) is None:
+        return LanePlan("direct", min_off, max_off)
+    lanes = min(TILE_BYTES // es, -(-nb // vec) * vec)
+    lt = lanes // vec
+    rows = _fit_rows(span, lanes, d, es, threads * k // lt, quantum)
+    smem = ring_smem_bytes(span, lanes, rows, d, es)
+    per_sm = max(1, min(SM_SMEM // (smem + SM_RESERVED), 2048 // (lt * rows // k), 32))
+    tiles = -(-nb // lanes)
+    best = None
+    for strips in range(1, min(-(-n // rows), 2 * sms * per_sm) + 1):
+        strip_rows = -(-(-(-n // strips)) // rows) * rows  # rows per strip, whole steps
+        used = -(-n // strip_rows)
+        waves = -(-(tiles * used) // (sms * per_sm))
+        cost = waves * (strip_rows + span + rows)
+        if best is None or cost < best[0]:
+            best = (cost, used, strip_rows)
+    _, strips, strip_rows = best
+    return LanePlan("ring", min_off, max_off, lanes, rows, strips, strip_rows, smem)
 
 
 def lane_dia_matvec_plain(bands: torch.Tensor, offsets, u: torch.Tensor) -> torch.Tensor:
@@ -86,7 +185,8 @@ def lane_dia_matvec(
 ) -> torch.Tensor:
     """K7: y = K u on [2, N, B] lane fields. `offsets`: the band offsets as
     Python ints; `offsets_dev`: the same as an int32 tensor on the card
-    (made here when not given)."""
+    (made here when not given). The route (ring or direct kernel) is
+    `lane_window_plan`'s."""
     if u.device.type == "cpu" and bands.device.type == "cpu":
         return lane_dia_matvec_plain(bands, offsets, u)
     u = u.contiguous()
@@ -95,15 +195,26 @@ def lane_dia_matvec(
     cuda_lib.require_cuda("lane_dia_matvec", u.dtype, bands, u, offsets_dev)
     _check_shapes("lane_dia_matvec", [bands], u, offsets_dev)
     _, n, nb = u.shape
+    plan = lane_window_plan(offsets, n, nb, u.dtype, sms=cuda_lib.sm_count(u.device))
+    return launch_lane_dia(bands, u, offsets_dev, plan)
+
+
+def launch_lane_dia(bands, u, offsets_dev, plan: LanePlan) -> torch.Tensor:
+    """K7 on checked card operands through `plan`'s kernel."""
+    _, n, nb = u.shape
     y = torch.empty_like(u)
     lib = cuda_lib.load()
-    rc = lib.mt_lane_dia_matvec(
-        cuda_lib.DTYPE_CODES[u.dtype], bands.data_ptr(), offsets_dev.data_ptr(),
-        bands.shape[0], u.data_ptr(), y.data_ptr(), n, nb, cuda_lib.stream_of(u),
-    )
-    cuda_lib.check(lib, rc, "lane_dia_matvec")
+    args = (cuda_lib.DTYPE_CODES[u.dtype], bands.data_ptr(), offsets_dev.data_ptr(),
+            bands.shape[0], u.data_ptr(), y.data_ptr(), n, nb)
+    if plan.route == "ring":
+        rc = lib.mt_lane_dia_ring(*args, plan.min_off, plan.max_off, plan.lanes, plan.rows,
+                                  plan.strip_rows, plan.smem_bytes, cuda_lib.stream_of(u))
+    else:
+        rc = lib.mt_lane_dia_matvec(*args, cuda_lib.stream_of(u))
+    cuda_lib.check(lib, rc, f"lane_dia_matvec ({plan.route})")
     lane_dia_matvec.launches += 1
     lane_dia_matvec.f64_launches += int(u.dtype == torch.float64)
+    lane_dia_matvec.ring_launches += int(plan.route == "ring")
     return y
 
 
@@ -138,6 +249,7 @@ def lane_dia_matvec3(
     return y
 
 
-# launches, and of those the f64 instance's (the refined sweeps run both)
-lane_dia_matvec.launches = lane_dia_matvec.f64_launches = 0
+# launches, of those the f64 instance's (the refined sweeps run both) and,
+# for K7, the ring kernel's
+lane_dia_matvec.launches = lane_dia_matvec.f64_launches = lane_dia_matvec.ring_launches = 0
 lane_dia_matvec3.launches = lane_dia_matvec3.f64_launches = 0

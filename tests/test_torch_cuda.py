@@ -295,12 +295,58 @@ def test_lane_kernel_matches_plain(nb, dtype, tol):
     bands = torch.as_tensor(random_bands(n, LANE_OFFSETS, 2, seed=20), dtype=dtype, device=dev)
     u = torch.as_tensor(np.random.default_rng(21).standard_normal((2, n, nb)),
                         dtype=dtype, device=dev)
-    before = lane_dia_matvec.launches
+    before = (lane_dia_matvec.launches, lane_dia_matvec.ring_launches)
     y = lane_dia_matvec(bands, LANE_OFFSETS, u)
     torch.cuda.synchronize()
-    assert lane_dia_matvec.launches == before + 1
+    # offsets this wide take the direct kernel (lane_window_plan's rule)
+    assert (lane_dia_matvec.launches, lane_dia_matvec.ring_launches) == (before[0] + 1,
+                                                                         before[1])
     ref = lane_dia_matvec_plain(bands, LANE_OFFSETS, u)
     scale = float(lane_dia_matvec_plain(bands.abs(), LANE_OFFSETS, u.abs()).max())
+    # another summation order (FMA chain per output vs rolled sums)
+    assert float((y - ref).abs().max()) <= tol * scale
+
+
+# the design-sweep plate's 35 band offsets at h = 0.03 (3,774 nodes)
+SWEEP_OFFSETS = (-200, -199, -186, -185, -174, -173, -102, -101, -100, -99, -89, -88, -87,
+                 -86, -85, -84, -1, 0, 1, 84, 85, 86, 87, 88, 89, 99, 100, 101, 102, 173,
+                 174, 185, 186, 199, 200)
+RING_CASES = {"plate-b4096": (3774, 4096), "plate-b1000": (3774, 1000),
+              "plate-b1": (3774, 1), "n-1001": (1001, 256), "unaligned-u": (3774, 1000)}
+
+
+@pytest.mark.parametrize("case", list(RING_CASES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13), (torch.float32, 1e-6)])
+def test_lane_ring_kernel_matches_plain(case, dtype, tol):
+    """K7's ring route at the sweep plate's offsets: 4,096, 1,000 and 1
+    lanes, N a multiple of neither the step nor the strip, and a u whose
+    data_ptr is not 16-byte aligned (every lane vector takes the scalar
+    path)."""
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import (
+        lane_dia_matvec, lane_dia_matvec_plain, lane_window_plan,
+    )
+
+    dev = require_cuda()
+    n, nb = RING_CASES[case]
+    bands = torch.as_tensor(random_bands(n, SWEEP_OFFSETS, 2, seed=25), dtype=dtype, device=dev)
+    u = torch.as_tensor(np.random.default_rng(26).standard_normal((2, n, nb)), dtype=dtype,
+                        device=dev)
+    if case == "unaligned-u":
+        flat = torch.empty(2 * n * nb + 1, dtype=dtype, device=dev)
+        flat[1:].view(2, n, nb).copy_(u)
+        u = flat[1:].view(2, n, nb)
+        assert u.is_contiguous() and u.data_ptr() % 16 != 0
+    plan = lane_window_plan(SWEEP_OFFSETS, n, nb, dtype)
+    assert plan.route == "ring"
+    if case == "n-1001":
+        assert n % plan.rows and n % plan.strip_rows
+    before = (lane_dia_matvec.launches, lane_dia_matvec.ring_launches)
+    y = lane_dia_matvec(bands, SWEEP_OFFSETS, u)
+    torch.cuda.synchronize()
+    assert (lane_dia_matvec.launches, lane_dia_matvec.ring_launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    ref = lane_dia_matvec_plain(bands, SWEEP_OFFSETS, u)
+    scale = float(lane_dia_matvec_plain(bands.abs(), SWEEP_OFFSETS, u.abs()).max())
     # another summation order (FMA chain per output vs rolled sums)
     assert float((y - ref).abs().max()) <= tol * scale
 

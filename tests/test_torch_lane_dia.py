@@ -15,10 +15,16 @@ import torch
 from magnetite_tpu.pallas.lane_dia_kernel import make_lane_dia_matvec, make_lane_dia_matvec3
 from magnetite_tpu.parallel.sweep import _lane_weighted_band_matvec
 from magnetite_tpu_torch.kernels.lane_dia_kernel import (
+    RING_GEOMETRY,
+    RING_THREADS,
+    SMEM_LIMIT,
+    TILE_BYTES,
+    VEC_BYTES,
     lane_dia_matvec,
     lane_dia_matvec3,
     lane_dia_matvec3_plain,
     lane_dia_matvec_plain,
+    lane_window_plan,
 )
 from tests.torch_cases import one_thread  # noqa: F401  (autouse)
 from tests.torch_cases import random_bands
@@ -117,9 +123,61 @@ def test_wrappers_take_the_plain_versions_on_cpu_tensors():
     t3 = tuple(torch.as_tensor(b) for b in bands3)
     tw = tuple(torch.as_tensor(w) for w in w3)
     tu = torch.as_tensor(u)
-    before = (lane_dia_matvec.launches, lane_dia_matvec3.launches)
+    counts = (lambda: (lane_dia_matvec.launches, lane_dia_matvec.ring_launches,
+                       lane_dia_matvec3.launches))
+    before = counts()
     assert torch.equal(lane_dia_matvec(t3[0], OFFSETS, tu),
                        lane_dia_matvec_plain(t3[0], OFFSETS, tu))
     assert torch.equal(lane_dia_matvec3(t3, tw, OFFSETS, tu),
                        lane_dia_matvec3_plain(t3, tw, OFFSETS, tu))
-    assert (lane_dia_matvec.launches, lane_dia_matvec3.launches) == before
+    assert counts() == before
+
+
+# The design-sweep plate's 35 band offsets at h = 0.03 (3,774 nodes, no
+# renumbering; compile_unstructured_sweep on chip_smoke.plate_case(0.03)),
+# and the card tests' offsets that reach past N = 997 (chip_smoke.py).
+SWEEP_OFFSETS = (-200, -199, -186, -185, -174, -173, -102, -101, -100, -99, -89, -88, -87,
+                 -86, -85, -84, -1, 0, 1, 84, 85, 86, 87, 88, 89, 99, 100, 101, 102, 173,
+                 174, 185, 186, 199, 200)
+LANE_OFFSETS = (-1300, -512, -200, -199, -37, -1, 0, 1, 37, 199, 200, 512, 1300)
+
+
+@pytest.mark.parametrize("offsets,n,nb,dtype,route", [
+    (SWEEP_OFFSETS, 3774, 4096, torch.float32, "ring"),
+    (SWEEP_OFFSETS, 3774, 4096, torch.float64, "ring"),
+    (SWEEP_OFFSETS, 3774, 1000, torch.float32, "ring"),
+    (SWEEP_OFFSETS, 3774, 1, torch.float64, "ring"),
+    (SWEEP_OFFSETS, 150, 64, torch.float32, "ring"),  # N smaller than the span
+    (LANE_OFFSETS, 997, 4096, torch.float32, "direct"),
+    (LANE_OFFSETS, 997, 1000, torch.float64, "direct"),
+    (LANE_OFFSETS, 2011, 1, torch.float32, "direct"),
+    ((3, 4, 9, 40), 500, 37, torch.float32, "ring"),  # all positive
+    ((-40, -9, -4, -3), 500, 37, torch.float64, "ring"),  # all negative
+    ((0,), 100, 7, torch.float32, "ring"),
+    ((0,), 1, 1, torch.float64, "ring"),
+], ids=["plate-f32", "plate-f64", "plate-b1000", "plate-b1-f64", "n-below-span",
+        "past-n-f32", "past-n-f64", "past-n-b1", "positive", "negative", "zero", "one-node"])
+def test_lane_window_plan(offsets, n, nb, dtype, route):
+    """The route rule and the ring's geometry: the ring wherever its rows fit
+    shared memory at the full tile width, a tile that covers B in 16-byte
+    lane vectors, a step the loaders can split, and strips that cover
+    [0, N) exactly once."""
+    plan = lane_window_plan(offsets, n, nb, dtype)
+    assert plan.route == route
+    assert (plan.min_off, plan.max_off) == (min(offsets), max(offsets))
+    if route == "direct":
+        return
+    es = torch.empty((), dtype=dtype).element_size()
+    vec = VEC_BYTES // es
+    lt = plan.lanes // vec
+    k = RING_GEOMETRY[es][0]
+    assert plan.lanes == min(TILE_BYTES // es, -(-nb // vec) * vec)
+    assert plan.rows >= 8 and plan.rows % max(2 * k, vec) == 0
+    assert lt * plan.rows // k <= RING_THREADS
+    assert 0 < plan.smem_bytes <= SMEM_LIMIT
+    assert plan.strip_rows % plan.rows == 0
+    assert (plan.strips - 1) * plan.strip_rows < n <= plan.strips * plan.strip_rows
+    covered = np.zeros(n, dtype=int)
+    for k in range(plan.strips):
+        covered[k * plan.strip_rows:min(n, (k + 1) * plan.strip_rows)] += 1
+    assert (covered == 1).all()

@@ -6,6 +6,8 @@
         --sweep-h 0.05 --lanes 512 --sweep-small 0.08 32
                                        # a quick rehearsal
     python3 chip_smoke.py --profile    # also trace one 1M structured solve and both sweeps
+    python3 chip_smoke.py --only transfers
+                                       # phases 0 to 3 alone (no "ok" line)
     python3 chip_smoke.py --only lane-kernels
                                        # phases 0, 1 and 10 alone (no "ok" line)
 
@@ -15,9 +17,11 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
   1. build: the CUDA kernels (nvcc, sm_90a) and the C++ host library (g++);
   2. the band-matvec kernel against its plain version on the card, at the
      Delaunay plate's level-0 operator (2x2 blocks) and a banded coarse AMG
-     level (3x3 blocks), in f64 and f32;
+     level (3x3 blocks), in f64 and f32; the coarse level timed against
+     its cuSPARSE call in interleaved rounds;
   3. the level-0 AMG transfer kernels (prolong / restrict) against their
-     plain gathers, in f64 and f32, plus the adjoint identity;
+     plain gathers, in f64 and f32, plus the adjoint identity; each timed
+     against its cuSPARSE call in interleaved rounds;
   4. the double-float band kernel against its plain version and against
      the exact f64 product, timed beside dia_matvec<double>;
   5. the f64 main path through the CLI entry point on the Delaunay plate:
@@ -39,7 +43,7 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      mesh) compiled for both AMG-lane sweeps; the lane kernels (K7 and the
      material K8) against their plain versions at its level-0 bands and
      basis band sets, --lanes lanes, f32 and f64, then 1000 lanes and
-     offsets reaching past N; K7's route (ring or direct kernel), its
+     offsets reaching past N; each kernel's route (ring or direct), ring
      geometry and ptxas line, and both routes timed in turn at the plate;
  11. the load sweep at full width (25 iterations, f32 CG; bench.py's batch):
      first and warm solve_s, solves/s, K7's launch count (every launch on
@@ -49,13 +53,16 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      (refined, the sweeps' default for f32: the f64 instance of K7 runs the
      CG operator, and its launches are counted apart);
  12. the material sweep at full width (30 iterations; per-lane E, nu, t):
-     the same checks with K8, f32 CG and then f64 CG (refined);
+     the same checks with K8 (every launch on the ring route), f32 CG and
+     then f64 CG (refined);
  13. both sweeps on the card against the CPU at --sweep-small.
 Every kernel is timed with CUDA events (median of --reps launches, L2
 flushed before each) beside its plain version, its bound (the larger of
 bytes moved once over 3.35 TB/s and operations over the peak rate of their
 type) and one PyTorch call computing the same function (a cuSPARSE CSR
-SpMV of the same operator). Each main path runs with every launch counter
+SpMV of the same operator); where the two are close (the transfers, the
+coarse band level) they are timed in ROUNDS interleaved rounds, every
+reading printed and the medians kept. Each main path runs with every launch counter
 set to 0 just before it and read just after. The last lines are the card's
 nvidia-smi line, a JSON line of per-kernel results, and
 {"ok": true, "device": {...}}.
@@ -117,6 +124,12 @@ SWEEP_H, SWEEP_LANES, LOAD_ITERS, MATERIAL_ITERS = 0.03, 4096, 25, 30
 # (material): 30 iterations stop short as f32 CG does (measured on the CPU:
 # residual 1.4-1.7e-6, u 4.2-4.5e-4; 60 iterations reach 1e-12 and 2.2e-8),
 # so only its residual bar is tighter than f32 CG's.
+# interleaved kernel / library rounds of the kernels that run near their
+# cuSPARSE call (the transfers, the coarse band level): single readings
+# swing 2-3x between calls
+ROUNDS = 5
+# clock cycles the device spins before each timed call (~0.1 ms)
+SPIN_CYCLES = 200_000
 SWEEP_BARS = {"f32": {"residual": 1e-4, "u": 2e-3}, "refined": {"residual": 1e-10, "u": 1e-6},
               "material refined": {"residual": 1e-5, "u": 2e-3}}
 
@@ -147,8 +160,8 @@ def main_path(name: str, totals: dict, expect: tuple):
     """Counts set to 0 just before the path, read just after; every kernel
     in `expect` must have launched. Yields a dict that holds the counts of
     the run once the block has ended, under "<name> f64" the f64 launches
-    of the lane kernels (which count them apart) and under
-    "lane_dia_matvec ring" K7's ring-route launches."""
+    of the lane kernels (which count them apart) and under "<name> ring"
+    their ring-route launches."""
     ks = counters()
     split = [(k, attr) for k in ks for attr in ("f64_launches", "ring_launches")
              if hasattr(k, attr)]
@@ -228,7 +241,10 @@ def write_case_files(dirname: str, h: float) -> list:
 
 def event_ms(fn, reps: int, flush) -> float:
     """Median of `reps` CUDA-event timings of one call each, L2 flushed
-    before every call (the solver finds these operands cold)."""
+    before every call (the solver finds these operands cold). The device
+    spins after the flush while the host enqueues the call, so the events
+    time the device's work and not the host's pace (a transfer kernel takes
+    less device time than its wrapper takes to launch it)."""
     import torch
 
     for _ in range(3):
@@ -236,6 +252,7 @@ def event_ms(fn, reps: int, flush) -> float:
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -313,11 +330,34 @@ def csr_of_stencil(st, wrap):
     return csr(rows, cols, vals, (2 * rr * cc, 2 * rr * cc))
 
 
-def time_kernel(tag, fn, plain, library, reps, flush, nbytes, flops, dtype):
-    """Kernel, plain and library times beside the bound; returns the row."""
-    ms = event_ms(fn, reps, flush)
+def interleaved(tag, fns: dict, reps, flush, rounds) -> dict:
+    """`rounds` rounds, each timing every call of `fns` in turn (kernel,
+    library, kernel, library, ...); prints every reading, the medians and
+    the spread, and returns the medians."""
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            times[k].append(event_ms(fn, reps, flush))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    for k, v in times.items():
+        say(f"    {tag} {k} in {rounds} rounds: " + " / ".join(f"{t:.4f}" for t in v)
+            + f" ms; median {med[k]:.4f}, spread {min(v):.4f}-{max(v):.4f}")
+    return med
+
+
+def time_kernel(tag, fn, plain, library, reps, flush, nbytes, flops, dtype, rounds=1):
+    """Kernel, plain and library times beside the bound; returns the row.
+    With rounds > 1, kernel and library are the medians of interleaved
+    rounds, and the line says which is faster."""
+    if rounds > 1:
+        med = interleaved(tag, {"kernel": fn, "library": library}, reps, flush, rounds)
+        ms, library_ms = med["kernel"], med["library"]
+        say(f"    {tag}: kernel median {'below' if ms < library_ms else 'NOT below'} "
+            f"the library's ({ms / library_ms:.3f}x)")
+    else:
+        ms = event_ms(fn, reps, flush)
+        library_ms = event_ms(library, reps, flush) if library is not None else None
     plain_ms = event_ms(plain, reps, flush)
-    library_ms = event_ms(library, reps, flush) if library is not None else None
     b_ms, b_by = bound(nbytes, flops, dtype)
     lib = f"{library_ms:.4f}" if library_ms is not None else "none"
     say(f"  {tag}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s, "
@@ -363,7 +403,7 @@ def phase_band_and_transfer(problem, reps, flush, rand):
                 tag, lambda: dia_matvec(bands, offsets, u, offsets_dev),
                 lambda: dia_matvec_blocks(bands, offsets, u), lambda: torch.mv(a, x),
                 reps, flush, (d * m * m * n + 2 * m * n) * bands.element_size() + 4 * d,
-                2 * d * m * m * n, dtype,
+                2 * d * m * m * n, dtype, rounds=1 if label.startswith("level-0") else ROUNDS,
             )
             del a
             if label.startswith("level-0") and dtype == torch.float64:
@@ -409,7 +449,7 @@ def phase_band_and_transfer(problem, reps, flush, rand):
              (6 * n1 * w0 + 2 * n0 + 3 * n1) * es + 4 * n1 * w0, err_r),
         ):
             row = time_kernel(f"{kname} {name}", fn, plain, lib, reps, flush,
-                              nbytes, 12 * n0, dtype)
+                              nbytes, 12 * n0, dtype, rounds=ROUNDS)
             if dtype == torch.float64:
                 results[kname] = dict(max_abs_err=err, **row)
         del p_csr, pt_csr
@@ -884,51 +924,57 @@ def ptxas_of(kernel: str) -> list:
     return out
 
 
-def k7_route(fn, route):
-    """Run fn (one K7 call) and require that it took `route`."""
-    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec
-
-    before = lane_dia_matvec.ring_launches
+def took_route(wrapper, fn, route):
+    """Run fn (one call of the lane wrapper `wrapper`, K7's or K8's) and
+    require that it took `route`."""
+    before = wrapper.ring_launches
     y = fn()
-    took = "ring" if lane_dia_matvec.ring_launches > before else "direct"
-    require(took == route, f"K7 took the {took} route, expected {route}")
+    took = "ring" if wrapper.ring_launches > before else "direct"
+    require(took == route, f"{wrapper.__name__} took the {took} route, expected {route}")
     return y
 
 
-def k7_routes_timed(bands, offsets, u, od, reps, flush, ref, scale, tol):
-    """K7's two kernels on the same operands, each checked against the plain
-    version's `ref` and timed in turn (direct, ring, direct, ring), so that
-    the route rule's choice is measured within one run."""
-    from magnetite_tpu_torch.kernels import cuda_lib
-    from magnetite_tpu_torch.kernels.lane_dia_kernel import (
-        LanePlan, launch_lane_dia, lane_window_plan,
-    )
+def routes_timed(launch, ring_plan, reps, flush, ref, scale, tol):
+    """A lane kernel's two routes on the same operands (`launch(plan)` runs
+    it through `plan`'s kernel), each checked against the plain version's
+    `ref` and timed in turn (direct, ring, direct, ring), so that the route
+    rule's choice is measured within one run."""
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import LanePlan
 
-    _, n, nb = u.shape
-    plans = {"direct": LanePlan("direct", min(offsets), max(offsets)),
-             "ring": lane_window_plan(offsets, n, nb, u.dtype, sms=cuda_lib.sm_count(u.device))}
+    plans = {"direct": LanePlan("direct", ring_plan.min_off, ring_plan.max_off),
+             "ring": ring_plan}
     for route, plan in plans.items():
-        err = float((launch_lane_dia(bands, u, od, plan) - ref).abs().max())
-        require(err <= tol * float(scale), f"K7 {route} disagrees: {err:.3e}")
+        err = float((launch(plan) - ref).abs().max())
+        require(err <= tol * float(scale), f"{route} route disagrees: {err:.3e}")
     times = {route: [] for route in plans}
     for _ in range(2):
         for route, plan in plans.items():
-            times[route].append(event_ms(lambda: launch_lane_dia(bands, u, od, plan), reps, flush))
+            times[route].append(event_ms(lambda: launch(plan), reps, flush))
     say("    " + "; ".join(f"{route} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
                           for route, ts in times.items()))
     return times
 
 
+def describe_plan(name, plan, sets, es):
+    """One line of a ring plan's geometry."""
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import RING_GEOMETRY
+
+    k = RING_GEOMETRY[sets, es][0]
+    say(f"  {name} route {plan.route}: {plan.lanes} lanes x {plan.rows} rows per step, "
+        f"{k} per thread ({plan.lanes // (16 // es) * plan.rows // k} threads), "
+        f"{plan.strips} strips of {plan.strip_rows} rows, {plan.smem_bytes} B shared memory")
+
+
 def phase_lane_kernels(sweeps, reps, flush, rand):
     """Phase 10: the lane kernels (K7, K8) against their plain versions at
     the sweep plate's level-0 bands / basis band sets, full lane count, f32
-    and f64; then odd shapes (B = 1000; offsets past N). K7 must take the
+    and f64; then odd shapes (B = 1000; offsets past N). Both must take the
     ring route at the plate's offsets and the direct route past N."""
     import torch
     from magnetite_tpu_torch.kernels import cuda_lib
     from magnetite_tpu_torch.kernels.lane_dia_kernel import (
-        RING_GEOMETRY, lane_dia_matvec, lane_dia_matvec3, lane_dia_matvec3_plain,
-        lane_dia_matvec_plain, lane_window_plan,
+        launch_lane_dia, launch_lane_dia3, lane_dia_matvec, lane_dia_matvec3,
+        lane_dia_matvec3_plain, lane_dia_matvec_plain, lane_window_plan,
     )
     from magnetite_tpu_torch.parallel.sweep import material_weights
 
@@ -948,21 +994,19 @@ def phase_lane_kernels(sweeps, reps, flush, rand):
         return tuple(w.to(DEV, dtype) for w in material_weights(e, nu, t))
 
     for dtype, tol7, tol8 in ((torch.float32, 1e-6, 1e-5), (torch.float64, 1e-13, 1e-13)):
-        name = str(dtype)[6:]
+        name, es = str(dtype)[6:], torch.empty((), dtype=dtype).element_size()
+        sms = cuda_lib.sm_count(torch.device(DEV)) if DEV == "cuda" else 132
         bands = load.bands.to(dtype).contiguous()
         u = rand(2, n, nb, dtype=dtype)
         ref = lane_dia_matvec_plain(bands, offsets, u)
         scale = lane_dia_matvec_plain(bands.abs(), offsets, u.abs()).max()
         tag = f"lane_dia_matvec D={len(offsets)} N={n} B={nb} {name}"
-        plan = lane_window_plan(offsets, n, nb, dtype, sms=cuda_lib.sm_count(u.device))
+        plan = lane_window_plan(offsets, n, nb, dtype, sms=sms)
         require(plan.route == "ring", f"K7 {name} at the sweep plate left the ring route")
-        err = compare(tag, k7_route(lambda: lane_dia_matvec(bands, offsets, u, od), "ring"),
+        err = compare(tag, took_route(lane_dia_matvec,
+                                      lambda: lane_dia_matvec(bands, offsets, u, od), "ring"),
                       ref, scale, tol7)
-        k, _ = RING_GEOMETRY[u.element_size()]
-        say(f"  K7 {name} route {plan.route}: {plan.lanes} lanes x {plan.rows} rows per step, "
-            f"{k} per thread ({plan.lanes // (16 // u.element_size()) * plan.rows // k} "
-            f"threads), {plan.strips} strips of {plan.strip_rows} rows, "
-            f"{plan.smem_bytes} B shared memory")
+        describe_plan(f"K7 {name}", plan, 1, es)
         a = csr_of_bands(bands, offsets)
         x = u.reshape(2 * n, nb)
         compare(f"library CSR SpMM {tag}", torch.sparse.mm(a, x).reshape(2, n, nb), ref, scale,
@@ -970,12 +1014,13 @@ def phase_lane_kernels(sweeps, reps, flush, rand):
         row = time_kernel(
             tag, lambda: lane_dia_matvec(bands, offsets, u, od),
             lambda: lane_dia_matvec_plain(bands, offsets, u), lambda: torch.sparse.mm(a, x),
-            reps, flush, *lane_bound(offsets, n, nb, 1, bands.element_size()), dtype,
+            reps, flush, *lane_bound(offsets, n, nb, 1, es), dtype,
         )
         results[f"lane_dia_matvec {name}"] = dict(max_abs_err=err, **row)
         del a, x
         say(f"  K7 {name} at the sweep plate, each route in turn:")
-        k7_routes_timed(bands, offsets, u, od, reps, flush, ref, scale, tol7)
+        routes_timed(lambda p: launch_lane_dia(bands, u, od, p), plan, reps, flush, ref, scale,
+                     tol7)
         del ref
 
         bands3 = tuple(b.to(dtype).contiguous() for b in mat.bands3)
@@ -983,15 +1028,23 @@ def phase_lane_kernels(sweeps, reps, flush, rand):
         ref = lane_dia_matvec3_plain(bands3, w3, offsets, u)
         scale = lane_dia_matvec3_plain(tuple(b.abs() for b in bands3), w3, offsets, u.abs()).max()
         tag = f"lane_dia_matvec3 D={len(offsets)} N={n} B={nb} {name}"
-        err = compare(tag, lane_dia_matvec3(bands3, w3, offsets, u, od), ref, scale, tol8)
+        plan3 = lane_window_plan(offsets, n, nb, dtype, sms=sms, sets=3)
+        require(plan3.route == "ring", f"K8 {name} at the sweep plate left the ring route")
+        err = compare(tag, took_route(lane_dia_matvec3,
+                                      lambda: lane_dia_matvec3(bands3, w3, offsets, u, od),
+                                      "ring"), ref, scale, tol8)
+        describe_plan(f"K8 {name}", plan3, 3, es)
         row = time_kernel(
             tag, lambda: lane_dia_matvec3(bands3, w3, offsets, u, od),
             lambda: lane_dia_matvec3_plain(bands3, w3, offsets, u), None,
-            reps, flush, *lane_bound(offsets, n, nb, 3, bands.element_size()), dtype,
+            reps, flush, *lane_bound(offsets, n, nb, 3, es), dtype,
         )
         say("  (lane_dia_matvec3: no single PyTorch call computes a per-lane "
             "weighted sum of three operators: library none)")
         results[f"lane_dia_matvec3 {name}"] = dict(max_abs_err=err, **row)
+        say(f"  K8 {name} at the sweep plate, each route in turn:")
+        routes_timed(lambda p: launch_lane_dia3(bands3, w3, u, od, p), plan3, reps, flush, ref,
+                     scale, tol8)
         del ref, u
 
         # odd shapes: 1000 lanes on the plate's bands; a short random-band
@@ -1004,10 +1057,11 @@ def phase_lane_kernels(sweeps, reps, flush, rand):
             u = rand(2, b7.shape[-1], 1000, dtype=dtype)
             w3 = weights(1000, dtype)
             compare(f"lane_dia_matvec {label} {name} ({route})",
-                    k7_route(lambda: lane_dia_matvec(b7, offs, u), route),
+                    took_route(lane_dia_matvec, lambda: lane_dia_matvec(b7, offs, u), route),
                     lane_dia_matvec_plain(b7, offs, u),
                     lane_dia_matvec_plain(b7.abs(), offs, u.abs()).max(), tol7)
-            compare(f"lane_dia_matvec3 {label} {name}", lane_dia_matvec3(b3, w3, offs, u),
+            compare(f"lane_dia_matvec3 {label} {name} ({route})",
+                    took_route(lane_dia_matvec3, lambda: lane_dia_matvec3(b3, w3, offs, u), route),
                     lane_dia_matvec3_plain(b3, w3, offs, u),
                     lane_dia_matvec3_plain(tuple(b.abs() for b in b3), w3, offs, u.abs()).max(),
                     tol8)
@@ -1196,9 +1250,11 @@ def phase_material_sweep(sweeps, totals, bars, profile):
     # z0's two and the true final residual
     want = expected_launches(MATERIAL_ITERS, 3, 5)
     require(got["lane_dia_matvec3"] == want and got["lane_dia_matvec3 f64"] == 0
-            and got["lane_dia_matvec"] == 0,
-            f"material sweep launches {got}, expected {want} of lane_dia_matvec3, all f32")
-    say(f"  lane_dia_matvec3 launches {got['lane_dia_matvec3']} = {MATERIAL_ITERS} x 3 + 5")
+            and got["lane_dia_matvec3 ring"] == want and got["lane_dia_matvec"] == 0,
+            f"material sweep launches {got}, expected {want} of lane_dia_matvec3, all f32 "
+            "and all on the ring route")
+    say(f"  lane_dia_matvec3 launches {got['lane_dia_matvec3']} = {MATERIAL_ITERS} x 3 + 5, "
+        f"ring route {got['lane_dia_matvec3 ring']}")
 
     u_values = torch.as_tensor(bca.u_value.astype(np.float32)[None] * args[0][:, None, None])
     f_values = torch.as_tensor(bca.f_value.astype(np.float32)[None] * args[1][:, None, None])
@@ -1229,10 +1285,12 @@ def phase_material_sweep(sweeps, totals, bars, profile):
             # f64: the CG operator each iteration, rhs, r0 and the final
             # residual; the V-cycle's two stay f32
             require(got["lane_dia_matvec3"] == want and got["lane_dia_matvec"] == 0
-                    and got["lane_dia_matvec3 f64"] == MATERIAL_ITERS + 3,
-                    f"refined launches {got}, expected {want}, {MATERIAL_ITERS + 3} of them f64")
+                    and got["lane_dia_matvec3 f64"] == MATERIAL_ITERS + 3
+                    and got["lane_dia_matvec3 ring"] == want,
+                    f"refined launches {got}, expected {want}, {MATERIAL_ITERS + 3} of them f64, "
+                    "all on the ring route")
             say(f"  lane_dia_matvec3 launches {want}, f64 {got['lane_dia_matvec3 f64']} = "
-                f"{MATERIAL_ITERS} + 3")
+                f"{MATERIAL_ITERS} + 3, ring route {got['lane_dia_matvec3 ring']}")
         rel = lane_residuals(s, sweep64.bands3, r, u_values, f_values, k_op)
         say(f"  {label}: per-lane true relative residual (f64, plain operator) max "
             f"{float(rel.max()):.3e}, median {float(rel.median()):.3e} (<= {bar['residual']:g})")
@@ -1300,8 +1358,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace one structured f32-refined solve and one warm solve of "
                     "each sweep with torch.profiler")
-    ap.add_argument("--only", choices=("lane-kernels",),
-                    help="lane-kernels: phases 0, 1 and 10 alone; ends without the ok line")
+    ap.add_argument("--only", choices=("transfers", "lane-kernels"),
+                    help="transfers: phases 0 to 3 alone (the Delaunay plate's band and "
+                    "transfer kernels); lane-kernels: phases 0, 1 and 10 alone; either ends "
+                    "without the ok line")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1356,6 +1416,10 @@ def main() -> int:
         f"{problem.timings['amg_levels']}, prepared in {time.perf_counter() - t0:.2f} s")
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)
     results = phase_band_and_transfer(problem, args.reps, flush, rand)
+    if args.only == "transfers":
+        say(f"phases 0 to 3 passed in {time.perf_counter() - t_start:.1f} s "
+            "(--only transfers: no ok line)")
+        return 0
     results.update(phase_df(problem, args.reps, flush, rand))
     torch.cuda.empty_cache()
 

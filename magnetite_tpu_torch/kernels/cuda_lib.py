@@ -156,6 +156,10 @@ def _bind(lib) -> None:
     lib.mt_lane_dia_ring.argtypes = [
         i32, vp, vp, i32, vp, vp, i64, i64, i32, i32, i32, i32, i64, i32, vp,
     ]
+    lib.mt_lane_dia_ring3.restype = i32
+    lib.mt_lane_dia_ring3.argtypes = [
+        i32, vp, vp, vp, vp, vp, vp, vp, i32, vp, vp, i64, i64, i32, i32, i32, i32, i64, i32, vp,
+    ]
     lib.mt_lane_dia_matvec3.restype = i32
     lib.mt_lane_dia_matvec3.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, i32, vp, vp, i64, i64, vp,

@@ -13,9 +13,11 @@ points: a CPU operand takes the plain PyTorch version (the JAX package's
 roll formulation), a CUDA operand launches the kernel or raises. Both take
 f32 and f64, any B >= 1 and any offsets.
 
-K7 has two kernels, chosen by shape (`lane_window_plan`): the ring kernel,
-which keeps a window of u rows in shared memory, wherever that window fits
-at the full tile width, and the direct kernel for wider offset spans.
+Each has two kernels, chosen by shape (`lane_window_plan`, `sets` = 1 for
+K7, 3 for K8): the ring kernel, one template over the basis count that
+keeps a window of u rows in shared memory, wherever that window and the
+staged band values fit at the full tile width, and the direct kernel for
+wider offset spans (csrc/lane_dia_matvec.cu).
 """
 
 from __future__ import annotations
@@ -30,21 +32,24 @@ from . import cuda_lib
 
 # The ring kernel's geometry (csrc/lane_dia_matvec.cu): a lane tile is
 # TILE_BYTES of each component row (32 f32 / 16 f64 lanes), a thread
-# carries VEC_BYTES of lanes, a block runs at most RING_THREADS threads, and
-# a step is at least MIN_ROWS rows. By value size, the rows each thread
-# computes (the kernel's K, fixed per instance) and the threads a block
-# aims for: the fastest measured at the sweep plate (PERF.md). A block may
-# use SMEM_LIMIT bytes of dynamic shared memory; an SM holds SM_SMEM, less
+# carries VEC_BYTES of lanes, and a step is at least MIN_ROWS rows. By
+# basis count (1: K7, 3: K8) and value size, as csrc's Ring<T, S>: the rows
+# each thread computes (the kernel's K), the most threads a block runs, the
+# offsets whose band values one stage holds (0: all D) and the stages, the
+# fastest measured at the sweep plate (PERF.md). A block may use
+# SMEM_LIMIT bytes of dynamic shared memory; an SM holds SM_SMEM, less
 # SM_RESERVED per resident block (NVIDIA H100).
-TILE_BYTES, VEC_BYTES, RING_THREADS, MIN_ROWS = 128, 16, 512, 8
-RING_GEOMETRY = {4: (2, 256), 8: (1, 512)}  # value bytes: (rows per thread, threads)
+TILE_BYTES, VEC_BYTES, MIN_ROWS = 128, 16, 8
+# (basis count, value bytes): (rows per thread, threads, offsets per stage, stages)
+RING_GEOMETRY = {(1, 4): (2, 256, 0, 2), (1, 8): (1, 512, 0, 2), (3, 4): (1, 512, 9, 3),
+                 (3, 8): (1, 512, 5, 3)}
 SMEM_LIMIT, SM_SMEM, SM_RESERVED = 232_448, 233_472, 1_024
 H100_SMS = 132
 
 
 @dataclass(frozen=True)
 class LanePlan:
-    """How K7 runs at one shape: `route` "ring" or "direct"; for the ring,
+    """How K7 / K8 run at one shape: `route` "ring" or "direct"; for the ring,
     the lane tile (`lanes`), the rows per step (`rows`), the row strips
     (`strips` of `strip_rows` rows) and the dynamic shared memory per
     block."""
@@ -59,55 +64,66 @@ class LanePlan:
     smem_bytes: int = 0
 
 
-def ring_smem_bytes(span: int, lanes: int, rows: int, n_diags: int, es: int) -> int:
-    """Shared memory of one ring block: span + 2 rows ring rows x 2
-    components x lanes values, two steps' band coefficients (D x 4 x rows
-    each), then the D shifted offsets."""
-    return ((span + 2 * rows) * 2 * lanes + 2 * rows * n_diags * 4) * es + 4 * n_diags
+def ring_smem_bytes(span: int, lanes: int, rows: int, n_diags: int, es: int,
+                    sets: int = 1) -> int:
+    """Shared memory of one ring block: the ring (span + m steps of rows,
+    x 2 components x lanes values), `stages` stages of band coefficients
+    (G offsets x `sets` bases x 4 x rows each, G = min(D, RING_GEOMETRY's
+    offsets per stage), all D for 0), then the D shifted offsets; m = 1 +
+    ceil((stages - 1) / ceil(D / G)), how far ahead the copies run (csrc's
+    ring_steps)."""
+    _, _, group, stages = RING_GEOMETRY[sets, es]
+    group = n_diags if group == 0 else min(n_diags, group)
+    steps = 1 + -(-(stages - 1) // -(-n_diags // group))
+    bands = stages * group * 4 * sets * rows
+    return ((span + steps * rows) * 2 * lanes + bands) * es + 4 * n_diags
 
 
-def lane_window_plan(offsets, n: int, nb: int, dtype, *, sms: int = H100_SMS) -> LanePlan:
-    """Route and geometry of K7 for `offsets` at N = n nodes, B = nb lanes
-    on a card of `sms` SMs.
+def lane_window_plan(offsets, n: int, nb: int, dtype, *, sms: int = H100_SMS,
+                     sets: int = 1) -> LanePlan:
+    """Route and geometry of K7 (`sets` = 1) or K8 (`sets` = 3, three
+    basis band sets) for `offsets` at N = n nodes, B = nb lanes on a card of
+    `sms` SMs.
 
-    The ring route needs its rows (span + 2 P of them) and two steps of band
-    coefficients to fit shared memory at the full tile width with some step
-    P >= MIN_ROWS, whatever B is; wider spans take the direct kernel (the
-    rule depends on the offsets, the value size and D alone). The tile is
-    narrowed to B when B is smaller; P is the largest step that gives a
-    block at most RING_GEOMETRY's threads and fits (a multiple of 2 K and of
+    The ring route needs its rows and its staged band coefficients
+    (`ring_smem_bytes`) to fit shared memory at the full tile width with
+    some step P >= MIN_ROWS, whatever B is; wider spans take the direct
+    kernel (the rule depends on the offsets, the value size, D and the
+    basis count alone). The tile is narrowed to B when
+    B is smaller; P is the largest step that gives a block at most
+    RING_GEOMETRY's threads and fits (a multiple of 2 K and of
     16 bytes of values: the loader pairs threads to the two components and
     copies band values 16 bytes at a time). The strips trade the halo
     against filling the SMs: the count minimises waves x (strip_rows + span
     + P), the rows each block's SM streams, with waves = ceil(tiles x
     strips / (sms x blocks per SM)). Cached: the sweeps ask once per
     launch."""
-    return _plan(tuple(offsets), int(n), int(nb), dtype.itemsize, int(sms))
+    return _plan(tuple(offsets), int(n), int(nb), dtype.itemsize, int(sms), int(sets))
 
 
-def _fit_rows(span, lanes, n_diags, es, rows, quantum):
+def _fit_rows(span, lanes, n_diags, es, sets, rows, quantum):
     """The largest step of at most `rows` rows, a multiple of `quantum` and
     at least MIN_ROWS, whose ring fits a block's shared memory, or None."""
     rows = rows // quantum * quantum
     while rows >= MIN_ROWS:
-        if ring_smem_bytes(span, lanes, rows, n_diags, es) <= SMEM_LIMIT:
+        if ring_smem_bytes(span, lanes, rows, n_diags, es, sets) <= SMEM_LIMIT:
             return rows
         rows -= quantum
     return None
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(offsets, n, nb, es, sms) -> LanePlan:
+def _plan(offsets, n, nb, es, sms, sets) -> LanePlan:
     min_off, max_off = int(min(offsets)), int(max(offsets))
     span, vec, d = max_off - min_off, VEC_BYTES // es, len(offsets)
-    k, threads = RING_GEOMETRY[es]
+    k, threads, _, _ = RING_GEOMETRY[sets, es]
     quantum = max(2 * k, vec)
-    if _fit_rows(span, TILE_BYTES // es, d, es, RING_THREADS * k, quantum) is None:
+    if _fit_rows(span, TILE_BYTES // es, d, es, sets, threads * k, quantum) is None:
         return LanePlan("direct", min_off, max_off)
     lanes = min(TILE_BYTES // es, -(-nb // vec) * vec)
     lt = lanes // vec
-    rows = _fit_rows(span, lanes, d, es, threads * k // lt, quantum)
-    smem = ring_smem_bytes(span, lanes, rows, d, es)
+    rows = _fit_rows(span, lanes, d, es, sets, threads * k // lt, quantum)
+    smem = ring_smem_bytes(span, lanes, rows, d, es, sets)
     per_sm = max(1, min(SM_SMEM // (smem + SM_RESERVED), 2048 // (lt * rows // k), 32))
     tiles = -(-nb // lanes)
     best = None
@@ -226,7 +242,8 @@ def lane_dia_matvec3(
     offsets_dev: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K8: y_b = (wa_b Ka + wb_b Kb + wc_b Kc) u_b. bands3: three
-    [D, 2, 2, N] basis band sets; w3: (wa, wb, wc), each [B]."""
+    [D, 2, 2, N] basis band sets; w3: (wa, wb, wc), each [B]. The route
+    (ring or direct kernel) is `lane_window_plan(..., sets=3)`'s."""
     if u.device.type == "cpu" and bands3[0].device.type == "cpu":
         return lane_dia_matvec3_plain(bands3, w3, offsets, u)
     u = u.contiguous()
@@ -236,20 +253,31 @@ def lane_dia_matvec3(
     cuda_lib.require_cuda("lane_dia_matvec3", u.dtype, *bands3, *w3, u, offsets_dev)
     _check_shapes("lane_dia_matvec3", list(bands3), u, offsets_dev, w3)
     _, n, nb = u.shape
+    plan = lane_window_plan(offsets, n, nb, u.dtype, sms=cuda_lib.sm_count(u.device), sets=3)
+    return launch_lane_dia3(bands3, w3, u, offsets_dev, plan)
+
+
+def launch_lane_dia3(bands3, w3, u, offsets_dev, plan: LanePlan) -> torch.Tensor:
+    """K8 on checked card operands through `plan`'s kernel."""
+    _, n, nb = u.shape
     y = torch.empty_like(u)
     lib = cuda_lib.load()
-    rc = lib.mt_lane_dia_matvec3(
-        cuda_lib.DTYPE_CODES[u.dtype], *(b.data_ptr() for b in bands3),
-        *(w.data_ptr() for w in w3), offsets_dev.data_ptr(), bands3[0].shape[0],
-        u.data_ptr(), y.data_ptr(), n, nb, cuda_lib.stream_of(u),
-    )
-    cuda_lib.check(lib, rc, "lane_dia_matvec3")
+    args = (cuda_lib.DTYPE_CODES[u.dtype], *(b.data_ptr() for b in bands3),
+            *(w.data_ptr() for w in w3), offsets_dev.data_ptr(), bands3[0].shape[0],
+            u.data_ptr(), y.data_ptr(), n, nb)
+    if plan.route == "ring":
+        rc = lib.mt_lane_dia_ring3(*args, plan.min_off, plan.max_off, plan.lanes, plan.rows,
+                                   plan.strip_rows, plan.smem_bytes, cuda_lib.stream_of(u))
+    else:
+        rc = lib.mt_lane_dia_matvec3(*args, cuda_lib.stream_of(u))
+    cuda_lib.check(lib, rc, f"lane_dia_matvec3 ({plan.route})")
     lane_dia_matvec3.launches += 1
     lane_dia_matvec3.f64_launches += int(u.dtype == torch.float64)
+    lane_dia_matvec3.ring_launches += int(plan.route == "ring")
     return y
 
 
-# launches, of those the f64 instance's (the refined sweeps run both) and,
-# for K7, the ring kernel's
+# launches, of those the f64 instance's (the refined sweeps run both) and
+# the ring kernel's
 lane_dia_matvec.launches = lane_dia_matvec.f64_launches = lane_dia_matvec.ring_launches = 0
-lane_dia_matvec3.launches = lane_dia_matvec3.f64_launches = 0
+lane_dia_matvec3.launches = lane_dia_matvec3.f64_launches = lane_dia_matvec3.ring_launches = 0

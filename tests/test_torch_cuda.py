@@ -122,6 +122,63 @@ def test_transfer_kernels_match_plain_and_are_adjoint(fast0, dtype, tol):
     assert abs(lhs - rhs) <= tol * mag
 
 
+def synthetic_transfer(n1: int, w0: int, seed: int):
+    """A random aggregation of n1 aggregates of 1..w0 members each (w0 for
+    the first), scattered over the fine nodes: agg [n0], p0 [n0, 2, 3] and
+    the per-aggregate ELL lists of P0^T, pt0_cols [n1, w0] (padding: col 0,
+    zero values) and pt0_vals [n1, w0, 3, 2], as AMGSetup.fast0 lays them
+    out."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, w0 + 1, n1)
+    sizes[0] = w0
+    n0 = int(sizes.sum())
+    node = rng.permutation(n0)
+    agg = np.empty(n0, dtype=np.int32)
+    agg[node] = np.repeat(np.arange(n1), sizes)
+    p0 = rng.standard_normal((n0, 2, 3))
+    ptc = np.zeros((n1, w0), dtype=np.int32)
+    ptv = np.zeros((n1, w0, 3, 2))
+    start = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    for a in range(n1):
+        members = node[start[a]:start[a] + sizes[a]]
+        ptc[a, :sizes[a]] = members
+        ptv[a, :sizes[a]] = p0[members].transpose(0, 2, 1)
+    return agg, p0, ptc, ptv
+
+
+@pytest.mark.parametrize("w0", [1, 14, 40])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_restrict_team_kernel_matches_plain_and_is_adjoint(w0, dtype, tol):
+    """restrict0's teams (the power of two >= w0, at most 32 threads per
+    aggregate): one thread per aggregate at w0 = 1, 16-thread teams at the
+    1M plate's w0 = 14, 32-thread teams that loop at w0 = 40; n1 = 1,001 is
+    a multiple of no team count per 256-thread block."""
+    from magnetite_tpu_torch.kernels.transfer_kernel import (
+        prolong0, restrict0, restrict0_plain,
+    )
+
+    dev = require_cuda()
+    n1 = 1001
+    agg, p0, ptc, ptv = synthetic_transfer(n1, w0, seed=w0)
+    rng = np.random.default_rng(4)
+    ec = torch.as_tensor(rng.standard_normal((n1, 3)), dtype=dtype, device=dev)
+    tmp = torch.as_tensor(rng.standard_normal((2, agg.size)), dtype=dtype, device=dev)
+    agg_t, ptc_t = torch.as_tensor(agg, device=dev), torch.as_tensor(ptc, device=dev)
+    p0_t = torch.as_tensor(p0, dtype=dtype, device=dev)
+    ptv_t = torch.as_tensor(ptv, dtype=dtype, device=dev)
+    before = restrict0.launches
+    rc = restrict0(tmp, ptc_t, ptv_t)
+    torch.cuda.synchronize()
+    assert restrict0.launches == before + 1
+    # another summation order (team partial sums, shuffle tree): rounding of
+    # each output's magnitude
+    assert float((rc - restrict0_plain(tmp, ptc_t, ptv_t)).abs().max()) <= tol * float(
+        restrict0_plain(tmp.abs(), ptc_t, ptv_t.abs()).max())
+    lhs, rhs = float((prolong0(ec, agg_t, p0_t) * tmp).sum()), float((ec * rc).sum())
+    mag = float((prolong0(ec.abs(), agg_t, p0_t.abs()) * tmp.abs()).sum())
+    assert abs(lhs - rhs) <= tol * mag
+
+
 def test_kernels_refuse_what_they_do_not_take():
     from magnetite_tpu_torch.kernels.cuda_lib import KernelError
     from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
@@ -315,38 +372,55 @@ RING_CASES = {"plate-b4096": (3774, 4096), "plate-b1000": (3774, 1000),
               "plate-b1": (3774, 1), "n-1001": (1001, 256), "unaligned-u": (3774, 1000)}
 
 
+@pytest.mark.parametrize("kernel", ["k7", "k8"])
 @pytest.mark.parametrize("case", list(RING_CASES))
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13), (torch.float32, 1e-6)])
-def test_lane_ring_kernel_matches_plain(case, dtype, tol):
-    """K7's ring route at the sweep plate's offsets: 4,096, 1,000 and 1
-    lanes, N a multiple of neither the step nor the strip, and a u whose
-    data_ptr is not 16-byte aligned (every lane vector takes the scalar
-    path)."""
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lane_ring_kernel_matches_plain(case, dtype, kernel):
+    """The ring route of K7 and of K8 (three basis band sets, per-lane
+    weights) at the sweep plate's offsets: 4,096, 1,000 and 1 lanes, N a
+    multiple of neither the step nor the strip, and a u whose data_ptr is
+    not 16-byte aligned (every lane vector takes the scalar path)."""
     from magnetite_tpu_torch.kernels.lane_dia_kernel import (
-        lane_dia_matvec, lane_dia_matvec_plain, lane_window_plan,
+        lane_dia_matvec, lane_dia_matvec3, lane_dia_matvec3_plain, lane_dia_matvec_plain,
+        lane_window_plan,
     )
 
     dev = require_cuda()
     n, nb = RING_CASES[case]
-    bands = torch.as_tensor(random_bands(n, SWEEP_OFFSETS, 2, seed=25), dtype=dtype, device=dev)
-    u = torch.as_tensor(np.random.default_rng(26).standard_normal((2, n, nb)), dtype=dtype,
-                        device=dev)
+    sets = 3 if kernel == "k8" else 1
+    rng = np.random.default_rng(26)
+    u = torch.as_tensor(rng.standard_normal((2, n, nb)), dtype=dtype, device=dev)
+    bands = tuple(torch.as_tensor(random_bands(n, SWEEP_OFFSETS, 2, seed=25 + k), dtype=dtype,
+                                  device=dev) for k in range(sets))
+    w3 = tuple(torch.as_tensor(rng.uniform(0.5, 2.0, nb), dtype=dtype, device=dev)
+               for _ in range(3))
     if case == "unaligned-u":
         flat = torch.empty(2 * n * nb + 1, dtype=dtype, device=dev)
         flat[1:].view(2, n, nb).copy_(u)
         u = flat[1:].view(2, n, nb)
         assert u.is_contiguous() and u.data_ptr() % 16 != 0
-    plan = lane_window_plan(SWEEP_OFFSETS, n, nb, dtype)
+    plan = lane_window_plan(SWEEP_OFFSETS, n, nb, dtype, sets=sets)
     assert plan.route == "ring"
     if case == "n-1001":
         assert n % plan.rows and n % plan.strip_rows
-    before = (lane_dia_matvec.launches, lane_dia_matvec.ring_launches)
-    y = lane_dia_matvec(bands, SWEEP_OFFSETS, u)
+    if kernel == "k8":
+        wrapper, tol = lane_dia_matvec3, (1e-13 if dtype == torch.float64 else 1e-5)
+
+        def run(b, v, plain=False):
+            fn = lane_dia_matvec3_plain if plain else lane_dia_matvec3
+            return fn(b, w3, SWEEP_OFFSETS, v)
+    else:
+        wrapper, tol = lane_dia_matvec, (1e-13 if dtype == torch.float64 else 1e-6)
+
+        def run(b, v, plain=False):
+            fn = lane_dia_matvec_plain if plain else lane_dia_matvec
+            return fn(b[0], SWEEP_OFFSETS, v)
+    before = (wrapper.launches, wrapper.ring_launches)
+    y = run(bands, u)
     torch.cuda.synchronize()
-    assert (lane_dia_matvec.launches, lane_dia_matvec.ring_launches) == (before[0] + 1,
-                                                                         before[1] + 1)
-    ref = lane_dia_matvec_plain(bands, SWEEP_OFFSETS, u)
-    scale = float(lane_dia_matvec_plain(bands.abs(), SWEEP_OFFSETS, u.abs()).max())
+    assert (wrapper.launches, wrapper.ring_launches) == (before[0] + 1, before[1] + 1)
+    ref = run(bands, u, plain=True)
+    scale = float(run(tuple(b.abs() for b in bands), u.abs(), plain=True).max())
     # another summation order (FMA chain per output vs rolled sums)
     assert float((y - ref).abs().max()) <= tol * scale
 
@@ -354,7 +428,8 @@ def test_lane_ring_kernel_matches_plain(case, dtype, tol):
 @pytest.mark.parametrize("nb", [1, 37, 128, 4096])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13), (torch.float32, 1e-5)])
 def test_material_lane_kernel_matches_plain(nb, dtype, tol):
-    """K8: three basis band sets combined with per-lane weights."""
+    """K8's direct kernel: three basis band sets combined with per-lane
+    weights, offsets reaching past N."""
     from magnetite_tpu_torch.kernels.lane_dia_kernel import (
         lane_dia_matvec3, lane_dia_matvec3_plain,
     )
@@ -369,10 +444,12 @@ def test_material_lane_kernel_matches_plain(nb, dtype, tol):
     w3 = tuple(torch.as_tensor(rng.uniform(0.5, 2.0, nb), dtype=dtype, device=dev)
                for _ in range(3))
     u = torch.as_tensor(rng.standard_normal((2, n, nb)), dtype=dtype, device=dev)
-    before = lane_dia_matvec3.launches
+    before = (lane_dia_matvec3.launches, lane_dia_matvec3.ring_launches)
     y = lane_dia_matvec3(bands3, w3, LANE_OFFSETS, u)
     torch.cuda.synchronize()
-    assert lane_dia_matvec3.launches == before + 1
+    # offsets this wide take the direct kernel (lane_window_plan's rule)
+    assert (lane_dia_matvec3.launches, lane_dia_matvec3.ring_launches) == (before[0] + 1,
+                                                                           before[1])
     ref = lane_dia_matvec3_plain(bands3, w3, LANE_OFFSETS, u)
     scale = float(lane_dia_matvec3_plain(
         tuple(b.abs() for b in bands3), w3, LANE_OFFSETS, u.abs()).max())

@@ -16,7 +16,6 @@ from magnetite_tpu.pallas.lane_dia_kernel import make_lane_dia_matvec, make_lane
 from magnetite_tpu.parallel.sweep import _lane_weighted_band_matvec
 from magnetite_tpu_torch.kernels.lane_dia_kernel import (
     RING_GEOMETRY,
-    RING_THREADS,
     SMEM_LIMIT,
     TILE_BYTES,
     VEC_BYTES,
@@ -25,6 +24,7 @@ from magnetite_tpu_torch.kernels.lane_dia_kernel import (
     lane_dia_matvec3_plain,
     lane_dia_matvec_plain,
     lane_window_plan,
+    ring_smem_bytes,
 )
 from tests.torch_cases import one_thread  # noqa: F401  (autouse)
 from tests.torch_cases import random_bands
@@ -142,6 +142,7 @@ SWEEP_OFFSETS = (-200, -199, -186, -185, -174, -173, -102, -101, -100, -99, -89,
 LANE_OFFSETS = (-1300, -512, -200, -199, -37, -1, 0, 1, 37, 199, 200, 512, 1300)
 
 
+@pytest.mark.parametrize("sets", [1, 3], ids=["k7", "k8"])
 @pytest.mark.parametrize("offsets,n,nb,dtype,route", [
     (SWEEP_OFFSETS, 3774, 4096, torch.float32, "ring"),
     (SWEEP_OFFSETS, 3774, 4096, torch.float64, "ring"),
@@ -157,12 +158,14 @@ LANE_OFFSETS = (-1300, -512, -200, -199, -37, -1, 0, 1, 37, 199, 200, 512, 1300)
     ((0,), 1, 1, torch.float64, "ring"),
 ], ids=["plate-f32", "plate-f64", "plate-b1000", "plate-b1-f64", "n-below-span",
         "past-n-f32", "past-n-f64", "past-n-b1", "positive", "negative", "zero", "one-node"])
-def test_lane_window_plan(offsets, n, nb, dtype, route):
-    """The route rule and the ring's geometry: the ring wherever its rows fit
-    shared memory at the full tile width, a tile that covers B in 16-byte
-    lane vectors, a step the loaders can split, and strips that cover
-    [0, N) exactly once."""
-    plan = lane_window_plan(offsets, n, nb, dtype)
+def test_lane_window_plan(offsets, n, nb, dtype, route, sets):
+    """The route rule and the ring's geometry, for K7 (one basis) and K8
+    (three basis band sets, staged a few offsets at a time): the ring
+    wherever its rows fit shared memory at the full tile width (the plate's
+    35 offsets in f32 and f64 alike; +-1300 past N = 997 takes the direct
+    kernel), a tile that covers B in 16-byte lane vectors, a step the
+    loaders can split, and strips that cover [0, N) exactly once."""
+    plan = lane_window_plan(offsets, n, nb, dtype, sets=sets)
     assert plan.route == route
     assert (plan.min_off, plan.max_off) == (min(offsets), max(offsets))
     if route == "direct":
@@ -170,10 +173,15 @@ def test_lane_window_plan(offsets, n, nb, dtype, route):
     es = torch.empty((), dtype=dtype).element_size()
     vec = VEC_BYTES // es
     lt = plan.lanes // vec
-    k = RING_GEOMETRY[es][0]
+    k, threads, _, _ = RING_GEOMETRY[sets, es]
     assert plan.lanes == min(TILE_BYTES // es, -(-nb // vec) * vec)
     assert plan.rows >= 8 and plan.rows % max(2 * k, vec) == 0
-    assert lt * plan.rows // k <= RING_THREADS
+    assert lt * plan.rows // k <= threads
+    span, d = plan.max_off - plan.min_off, len(offsets)
+    assert plan.smem_bytes == ring_smem_bytes(span, plan.lanes, plan.rows, d, es, sets)
+    if sets == 1:  # span + 2 P ring rows and two steps of all D offsets' band values
+        assert plan.smem_bytes == ((span + 2 * plan.rows) * 2 * plan.lanes
+                                   + 2 * plan.rows * d * 4) * es + 4 * d
     assert 0 < plan.smem_bytes <= SMEM_LIMIT
     assert plan.strip_rows % plan.rows == 0
     assert (plan.strips - 1) * plan.strip_rows < n <= plan.strips * plan.strip_rows

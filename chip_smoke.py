@@ -8,6 +8,9 @@
     python3 chip_smoke.py --profile    # also trace one 1M structured solve and both sweeps
     python3 chip_smoke.py --only transfers
                                        # phases 0 to 3 alone (no "ok" line)
+    python3 chip_smoke.py --only transfers --baseline _archive/parent
+                                       # the same, the parent tree's band and prolong
+                                       # kernels timed in the same rounds
     python3 chip_smoke.py --only lane-kernels
                                        # phases 0, 1 and 10 alone (no "ok" line)
 
@@ -15,10 +18,12 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
   0. environment: torch / CUDA versions, the card's name and power limit;
      exits non-zero at once when no CUDA device is available;
   1. build: the CUDA kernels (nvcc, sm_90a) and the C++ host library (g++);
-  2. the band-matvec kernel against its plain version on the card, at the
-     Delaunay plate's level-0 operator (2x2 blocks) and a banded coarse AMG
-     level (3x3 blocks), in f64 and f32; the coarse level timed against
-     its cuSPARSE call in interleaved rounds;
+  2. the band-matvec kernels against their plain version on the card, at
+     the Delaunay plate's level-0 operator (2x2 blocks) and every banded
+     coarse AMG level the V-cycle launches (3x3 blocks), in f64 and f32,
+     each call repeated bit for bit; the coarse levels timed against their
+     cuSPARSE call in interleaved rounds, and the V-cycle's node-major call
+     op(x.T).T and its copy beside the bare kernel;
   3. the level-0 AMG transfer kernels (prolong / restrict) against their
      plain gathers, in f64 and f32, plus the adjoint identity; each timed
      against its cuSPARSE call in interleaved rounds;
@@ -33,8 +38,9 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
   7. the structured main path: the 1M-element plate with a hole through
      compile_problem / solve (stencil operator, geometric multigrid, f32
      storage + f64 refinement to rtol 1e-8), and the same plate in f64;
-  8. the stencil kernel against its plain version at the 1M plate's
-     reduced level-0 stencil, the 4M plate's grid, and a non-wrapped grid
+  8. the stencil kernel against its plain version at every multigrid level
+     of the 1M plate (level 0: the reduced operator; each with its
+     launches over phase 7), the 4M plate's grid, and a non-wrapped grid
      whose cols are not a multiple of 32, in f64 and f32;
   9. card against CPU (plain versions): the Delaunay plate at --small-h in
      f64 and mixed precision, the structured 64x128 plate in f64 and f32
@@ -61,10 +67,13 @@ flushed before each) beside its plain version, its bound (the larger of
 bytes moved once over 3.35 TB/s and operations over the peak rate of their
 type) and one PyTorch call computing the same function (a cuSPARSE CSR
 SpMV of the same operator); where the two are close (the transfers, the
-coarse band level) they are timed in ROUNDS interleaved rounds, every
-reading printed and the medians kept. Each main path runs with every launch counter
-set to 0 just before it and read just after. The last lines are the card's
-nvidia-smi line, a JSON line of per-kernel results, and
+coarse band levels) they are timed in ROUNDS interleaved rounds, every
+reading printed and the medians kept; with --baseline DIR an older
+tree's band and prolong kernels join those rounds. Each main path runs
+with every launch counter set to 0 just before it and read just after
+(dia_matvec and stencil_matvec also per shape). The last lines are the
+card's nvidia-smi line, a JSON line of per-kernel results (the band
+matvec's 2x2 and 3x3 kernels as two rows), and
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -96,8 +105,12 @@ DEV = "cuda"
 PTXAS = ""  # nvcc's ptxas report of phase 1's build
 KERNELS = {
     # name: (source, replaced TPU kernel)
+    # level 0 (2x2 blocks) and the coarse AMG levels (3x3 blocks): two
+    # kernels of one source, counted apart
     "dia_matvec": ("magnetite_tpu_torch/csrc/dia_matvec.cu",
                    "magnetite_tpu/pallas/dia_kernel.py:146"),
+    "dia_matvec m=3": ("magnetite_tpu_torch/csrc/dia_matvec.cu",
+                       "magnetite_tpu/pallas/dia_kernel.py:146"),
     "prolong0": ("magnetite_tpu_torch/csrc/transfer.cu",
                  "magnetite_tpu/pallas/transfer_kernel.py:182"),
     "restrict0": ("magnetite_tpu_torch/csrc/transfer.cu",
@@ -155,28 +168,54 @@ def counters():
             lane_dia_matvec, lane_dia_matvec3)
 
 
+def shape_label(kernel: str, key) -> str:
+    """A `.shape_launches` key as text: (m, N, dtype) of dia_matvec,
+    (rows, cols, dtype) of stencil_matvec."""
+    a, b, dtype = key
+    name = str(dtype).replace("torch.", "")
+    return f"m={a} N={b} {name}" if kernel == "dia_matvec" else f"{a}x{b} {name}"
+
+
 @contextlib.contextmanager
 def main_path(name: str, totals: dict, expect: tuple):
     """Counts set to 0 just before the path, read just after; every kernel
     in `expect` must have launched. Yields a dict that holds the counts of
     the run once the block has ended, under "<name> f64" the f64 launches
-    of the lane kernels (which count them apart) and under "<name> ring"
-    their ring-route launches."""
+    of the lane kernels (which count them apart), under "<name> ring"
+    their ring-route launches, and under "dia_matvec m=2" / "m=3" the band
+    kernel's launches per block size. `totals["per shape"]` sums the
+    launches per shape ("<name> <shape>") over the main paths."""
     ks = counters()
     split = [(k, attr) for k in ks for attr in ("f64_launches", "ring_launches")
              if hasattr(k, attr)]
+    shaped = [k for k in ks if hasattr(k, "shape_launches")]
     for k in ks:
         k.launches = 0
     for k, attr in split:
         setattr(k, attr, 0)
+    for k in shaped:
+        k.shape_launches.clear()
     got: dict = {}
     yield got
     got.update({k.__name__: k.launches for k in ks})
     parts = {f"{k.__name__} {attr[:-9]}": getattr(k, attr) for k, attr in split}
+    dia = next(k for k in ks if k.__name__ == "dia_matvec")
+    for m in (2, 3):
+        parts[f"dia_matvec m={m}"] = sum(
+            c for key, c in dia.shape_launches.items() if key[0] == m)
     say(f"  kernel launches in {name}: {got}; of those: {parts}")
+    for k in shaped:
+        if k.shape_launches:
+            say(f"  {k.__name__} launches per shape: " + "; ".join(
+                f"{shape_label(k.__name__, key)}: {c}" for key, c in sorted(
+                    k.shape_launches.items(), key=lambda kv: (str(kv[0][2]), -kv[0][1]))))
+        shapes = totals.setdefault("per shape", {})
+        for key, c in k.shape_launches.items():
+            label = f"{k.__name__} {shape_label(k.__name__, key)}"
+            shapes[label] = shapes.get(label, 0) + c
+    got.update(parts)
     for k, v in got.items():
         totals[k] = totals.get(k, 0) + v
-    got.update(parts)
     missing = [k for k in expect if got[k] == 0]
     require(not missing, f"{name}: kernels of the path never launched: {missing}")
 
@@ -345,47 +384,135 @@ def interleaved(tag, fns: dict, reps, flush, rounds) -> dict:
     return med
 
 
-def time_kernel(tag, fn, plain, library, reps, flush, nbytes, flops, dtype, rounds=1):
+def time_kernel(tag, fn, plain, library, reps, flush, nbytes, flops, dtype, rounds=1,
+                parent=None):
     """Kernel, plain and library times beside the bound; returns the row.
-    With rounds > 1, kernel and library are the medians of interleaved
-    rounds, and the line says which is faster."""
-    if rounds > 1:
-        med = interleaved(tag, {"kernel": fn, "library": library}, reps, flush, rounds)
-        ms, library_ms = med["kernel"], med["library"]
-        say(f"    {tag}: kernel median {'below' if ms < library_ms else 'NOT below'} "
-            f"the library's ({ms / library_ms:.3f}x)")
+    With rounds > 1, or beside `parent` (the same call through an older
+    tree's kernel, --baseline), kernel, parent and library are the medians
+    of interleaved rounds, and a line says which is faster."""
+    parent_ms = None
+    if rounds > 1 or parent is not None:
+        fns = {"kernel": fn, "parent": parent, "library": library}
+        med = interleaved(tag, {k: f for k, f in fns.items() if f is not None}, reps, flush,
+                          max(rounds, ROUNDS))
+        ms, parent_ms, library_ms = med["kernel"], med.get("parent"), med.get("library")
+        for k in ("parent", "library"):
+            if k in med:
+                say(f"    {tag}: kernel median {'below' if ms < med[k] else 'NOT below'} "
+                    f"the {k}'s ({ms / med[k]:.3f}x)")
     else:
         ms = event_ms(fn, reps, flush)
         library_ms = event_ms(library, reps, flush) if library is not None else None
     plain_ms = event_ms(plain, reps, flush)
     b_ms, b_by = bound(nbytes, flops, dtype)
     lib = f"{library_ms:.4f}" if library_ms is not None else "none"
+    par = (f", parent {parent_ms:.4f} ms ({b_ms / parent_ms:.1%} of bound)"
+           if parent_ms is not None else "")
     say(f"  {tag}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s, "
-        f"{b_ms / ms:.1%} of bound {b_ms:.4f} ms by {b_by}), plain {plain_ms:.4f} ms, "
+        f"{b_ms / ms:.1%} of bound {b_ms:.4f} ms by {b_by}){par}, plain {plain_ms:.4f} ms, "
         f"library {lib} ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms)
 
 
-def phase_band_and_transfer(problem, reps, flush, rand):
+# the sources of --baseline's kernels, and the only entries called there
+BASELINE_SOURCES = ("dia_matvec.cu", "transfer.cu")
+
+
+def load_baseline(tree: str):
+    """An older checkout's dia_matvec and prolong0 kernels (`tree`, e.g. the
+    parent commit unpacked by git archive), built apart from this tree's
+    library with their C signatures bound here: (seconds, ctypes library)."""
+    import ctypes
+    import shutil
+    from magnetite_tpu_torch.kernels import cuda_lib
+
+    csrc = os.path.join(tree, "magnetite_tpu_torch", "csrc")
+    out = os.path.join(cuda_lib.BUILD_DIR, "baseline")
+    os.makedirs(out, exist_ok=True)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    t0 = time.perf_counter()
+    objs, procs = [], []
+    for src in BASELINE_SOURCES:
+        objs.append(os.path.join(out, f"{src}.o"))
+        procs.append(subprocess.Popen(
+            [nvcc, *cuda_lib.NVCC_FLAGS, "-c", os.path.join(csrc, src), "-o", objs[-1]],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    for src, proc in zip(BASELINE_SOURCES, procs):
+        _, err = proc.communicate(timeout=600)
+        require(proc.returncode == 0, f"baseline {src} did not build:\n{err[-4000:]}")
+        for line in err.splitlines():
+            if "registers" in line:
+                say(f"    baseline {src}: {line.strip()}")
+    so = os.path.join(out, "libbaseline_kernels.so")
+    link = subprocess.run(
+        [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", *objs, "-o", so],
+        capture_output=True, text=True, timeout=600)
+    require(link.returncode == 0, f"baseline link failed:\n{link.stderr[-4000:]}")
+    lib = ctypes.CDLL(so)
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.mt_dia_matvec.restype = i32
+    lib.mt_dia_matvec.argtypes = [i32, i32, vp, vp, i32, vp, vp, i64, vp]
+    lib.mt_prolong0.restype = i32
+    lib.mt_prolong0.argtypes = [i32, vp, vp, vp, vp, i64, vp]
+    lib.mt_error_string.restype = ctypes.c_char_p
+    lib.mt_error_string.argtypes = [i32]
+    return time.perf_counter() - t0, lib
+
+
+def baseline_launchers(base):
+    """Calls of an older tree's band and prolong kernels (`base`, the
+    library of --baseline) on the same operands as the wrappers', or
+    (None, None) without one."""
+    if base is None:
+        return None, None
+    import torch
+    from magnetite_tpu_torch.kernels import cuda_lib
+
+    def dia(bands, u, offsets_dev):
+        d, m, _, n = bands.shape
+        y = torch.empty_like(u)
+        rc = base.mt_dia_matvec(cuda_lib.DTYPE_CODES[u.dtype], m, bands.data_ptr(),
+                                offsets_dev.data_ptr(), d, u.data_ptr(), y.data_ptr(), n,
+                                cuda_lib.stream_of(u))
+        cuda_lib.check(base, rc, "baseline dia_matvec")
+        return y
+
+    def prolong(ec, agg, p0):
+        n0 = agg.shape[0]
+        u0 = torch.empty((2, n0), dtype=ec.dtype, device=ec.device)
+        rc = base.mt_prolong0(cuda_lib.DTYPE_CODES[ec.dtype], ec.data_ptr(), agg.data_ptr(),
+                              p0.data_ptr(), u0.data_ptr(), n0, cuda_lib.stream_of(ec))
+        cuda_lib.check(base, rc, "baseline prolong0")
+        return u0
+
+    return dia, prolong
+
+
+def phase_band_and_transfer(problem, reps, flush, rand, base=None):
     """Phases 2 and 3: the band and transfer kernels against their plain
-    versions on the card."""
+    versions on the card (and against an older tree's, `base`)."""
     import torch
     from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec, dia_matvec_blocks
     from magnetite_tpu_torch.kernels.transfer_kernel import (
         prolong0, prolong0_plain, restrict0, restrict0_plain,
     )
 
+    base_dia, base_prolong = baseline_launchers(base)
     results = {}
-    coarse = [
-        (l, cb) for l, cb in enumerate(problem.amg.coarse_bands) if cb is not None
-    ]
-    require(bool(coarse), "the hierarchy has no banded coarse level")
-    level, cb = coarse[0]
-    say("phase 2: band matvec kernel against dia_matvec_blocks on the card")
+    # the banded levels the V-cycle runs its matvec on: all but the
+    # coarsest, and the coarsest only where it has no dense inverse
+    # (amg.make_coarse_cycle)
+    amg = problem.amg
+    last = len(amg.coarse_bands) - 1
+    coarse = [(l, cb) for l, cb in enumerate(amg.coarse_bands)
+              if cb is not None and (l < last or amg.ci is None)]
+    require(bool(coarse), "the V-cycle runs no banded coarse level")
+    say("phase 2: band matvec kernel against dia_matvec_blocks on the card, level 0 and "
+        f"every banded coarse level the V-cycle launches ({len(coarse)})")
     for label, bands64, offsets in (
         ("level-0 m=2", problem.bands, problem.offsets),
-        (f"coarse level {level + 1} m=3", cb.bands, cb.offsets),
+        *((f"coarse level {l + 1} m=3", cb.bands, cb.offsets) for l, cb in coarse),
     ):
         d, m, _, n = bands64.shape
         offsets_dev = torch.tensor(offsets, dtype=torch.int32, device=DEV)
@@ -395,19 +522,38 @@ def phase_band_and_transfer(problem, reps, flush, rand):
             scale = dia_matvec_blocks(bands.abs(), offsets, u.abs()).max()
             ref = dia_matvec_blocks(bands, offsets, u)
             tag = f"dia_matvec {label} D={d} N={n} {str(dtype)[6:]}"
-            err = compare(tag, dia_matvec(bands, offsets, u, offsets_dev), ref, scale, tol)
+            y = dia_matvec(bands, offsets, u, offsets_dev)
+            err = compare(tag, y, ref, scale, tol)
+            require(torch.equal(y, dia_matvec(bands, offsets, u, offsets_dev)),
+                    f"{tag}: a second call differs")
+            parent = None
+            if base_dia is not None:
+                compare(f"parent {tag}", base_dia(bands, u, offsets_dev), ref, scale, tol)
+                parent = lambda: base_dia(bands, u, offsets_dev)  # noqa: E731
             a = csr_of_bands(bands, offsets)
             x = u.reshape(-1)
             compare(f"library CSR SpMV {tag}", torch.mv(a, x).reshape(m, n), ref, scale, tol)
+            nbytes = (d * m * m * n + 2 * m * n) * bands.element_size() + 4 * d
             row = time_kernel(
                 tag, lambda: dia_matvec(bands, offsets, u, offsets_dev),
                 lambda: dia_matvec_blocks(bands, offsets, u), lambda: torch.mv(a, x),
-                reps, flush, (d * m * m * n + 2 * m * n) * bands.element_size() + 4 * d,
-                2 * d * m * m * n, dtype, rounds=1 if label.startswith("level-0") else ROUNDS,
+                reps, flush, nbytes, 2 * d * m * m * n, dtype,
+                rounds=1 if m == 2 else ROUNDS, parent=parent,
             )
             del a
-            if label.startswith("level-0") and dtype == torch.float64:
-                results["dia_matvec"] = dict(max_abs_err=err, **row)
+            if m == 3:
+                # the V-cycle's call: a node-major [n, 3] field through
+                # op(x.T).T, whose wrapper copies x.T to [3, n] first
+                xn = u.T.contiguous()
+                call = event_ms(lambda: dia_matvec(bands, offsets, xn.T, offsets_dev).T,
+                                reps, flush)
+                copy = event_ms(lambda: xn.T.contiguous(), reps, flush)
+                say(f"    {tag}: the V-cycle's call op(x.T).T {call:.4f} ms, the copy alone "
+                    f"{copy:.4f} ms; the kernel's gap to its bound "
+                    f"{row['ms'] - row['bound_ms']:.4f} ms")
+            if dtype == torch.float64 and (m == 2 or "dia_matvec m=3" not in results):
+                results["dia_matvec" if m == 2 else "dia_matvec m=3"] = dict(
+                    max_abs_err=err, **row)
 
     say("phase 3: level-0 transfer kernels against the plain gathers on the card")
     agg, p0_64, ptc, ptv_64, _ = problem.amg.fast0
@@ -430,6 +576,10 @@ def phase_band_and_transfer(problem, reps, flush, rand):
         err_p = compare(f"prolong0 n0={n0} n1={n1} {name}", uf, ref_p, scale_p, tol)
         compare(f"library CSR prolong {name}", torch.mv(p_csr, ec.reshape(-1)).reshape(2, n0),
                 ref_p, scale_p, tol)
+        parent = None
+        if base_prolong is not None:
+            compare(f"parent prolong0 {name}", base_prolong(ec, agg, p0), ref_p, scale_p, tol)
+            parent = lambda: base_prolong(ec, agg, p0)  # noqa: E731
         scale_r = restrict0_plain(tmp.abs(), ptc, ptv.abs()).max()
         rc = restrict0(tmp, ptc, ptv)
         ref_r = restrict0_plain(tmp, ptc, ptv)
@@ -441,15 +591,16 @@ def phase_band_and_transfer(problem, reps, flush, rand):
         say(f"  adjoint {name}: |<P0 x, y> - <x, P0^T y>| = {abs(lhs - rhs):.3e} "
             f"<= {tol:g} x {mag:.3e}")
         require(abs(lhs - rhs) <= tol * mag, "prolong0 / restrict0 are not adjoint")
-        for kname, fn, plain, lib, nbytes, err in (
+        for kname, fn, plain, lib, nbytes, err, par in (
             ("prolong0", lambda: prolong0(ec, agg, p0), lambda: prolong0_plain(ec, agg, p0),
-             lambda: torch.mv(p_csr, ec.reshape(-1)), (8 * n0 + 3 * n1) * es + 4 * n0, err_p),
+             lambda: torch.mv(p_csr, ec.reshape(-1)), (8 * n0 + 3 * n1) * es + 4 * n0, err_p,
+             parent),
             ("restrict0", lambda: restrict0(tmp, ptc, ptv),
              lambda: restrict0_plain(tmp, ptc, ptv), lambda: torch.mv(pt_csr, tmp.reshape(-1)),
-             (6 * n1 * w0 + 2 * n0 + 3 * n1) * es + 4 * n1 * w0, err_r),
+             (6 * n1 * w0 + 2 * n0 + 3 * n1) * es + 4 * n1 * w0, err_r, None),
         ):
             row = time_kernel(f"{kname} {name}", fn, plain, lib, reps, flush,
-                              nbytes, 12 * n0, dtype, rounds=ROUNDS)
+                              nbytes, 12 * n0, dtype, rounds=ROUNDS, parent=par)
             if dtype == torch.float64:
                 results[kname] = dict(max_abs_err=err, **row)
         del p_csr, pt_csr
@@ -550,7 +701,7 @@ def cli_path(name, problem, mesh, h, workdir, extra, tol, totals):
         "--device", DEV, "--backend", "delaunay", "--skip", "--out-dir", case_dir,
     ] + extra
     t0 = time.perf_counter()
-    with main_path(name, totals, ("dia_matvec", "prolong0", "restrict0")):
+    with main_path(name, totals, ("dia_matvec m=2", "dia_matvec m=3", "prolong0", "restrict0")):
         out = run_cli(argv)
     wall = time.perf_counter() - t0
     op, pre = re.search(r"info: operator=(\w+) preconditioner=(\w+)", out).groups()
@@ -638,7 +789,9 @@ def vcycles(inner_per_pass, maxiter):
 
 
 def phase_structured(nr, nt, totals, profile):
-    """Phase 7: the structured plate, f32 storage + refinement, and f64."""
+    """Phase 7: the structured plate, f32 storage + refinement, and f64.
+    Returns the f64 solve's multigrid level stencils, finest (the reduced
+    operator) first."""
     import torch
     from magnetite_tpu_torch.config import SolverOptions
     from magnetite_tpu_torch.fem.solve import compile_problem
@@ -677,8 +830,8 @@ def phase_structured(nr, nt, totals, profile):
         require(rel <= 1e-8, f"structured {key}: true residual too large")
         if profile and refine:
             profile_solve(problem)
-        if refine:
-            keep = problem.reduced
+        if not refine:
+            keep = [lv.stencil for lv in problem.mg_levels]
         del problem
         torch.cuda.empty_cache()
     return keep
@@ -743,8 +896,10 @@ def profile_solve(problem):
         "(median of 10)")
 
 
-def phase_stencil_kernel(reduced_1m, big, rect_cells, reps, flush, rand):
-    """Phase 8: the stencil kernel against its plain version at three shapes."""
+def phase_stencil_kernel(levels_1m, big, rect_cells, reps, flush, rand, totals):
+    """Phase 8: the stencil kernel against its plain version at every
+    multigrid level of the 1M plate (with each shape's launches over the
+    structured main path), the 4M plate's grid and a non-wrapped grid."""
     import torch
     from magnetite_tpu_torch.fem.stencil import assemble_stencil_structured
     from magnetite_tpu_torch.kernels.stencil_kernel import (
@@ -766,7 +921,7 @@ def phase_stencil_kernel(reduced_1m, big, rect_cells, reps, flush, rand):
 
     results = {}
     for label, st64, wrap in (
-        ("1M plate reduced level 0", reduced_1m, True),
+        *((f"1M plate multigrid level {k}", st, True) for k, st in enumerate(levels_1m)),
         (f"{big[0]}x{big[1]} plate", assembled(mesh4m), True),
         ("rect, no wrap", assembled(rect), False),
     ):
@@ -787,9 +942,13 @@ def phase_stencil_kernel(reduced_1m, big, rect_cells, reps, flush, rand):
                 lambda: stencil_matvec_plain(st, u, wrap), lambda: torch.mv(a, x),
                 reps, flush, (36 + 4) * rr * cc * st.element_size(), 72 * rr * cc, dtype,
             )
+            if label.startswith("1M"):
+                shape = f"stencil_matvec {rr}x{cc} {str(dtype)[6:]}"
+                say(f"    {tag}: {totals['per shape'].get(shape, 0)} launches over the "
+                    "structured main path")
             del a
             # the main path's hot call: the f32 inner solves at the 1M grid
-            if label.startswith("1M") and dtype == torch.float32:
+            if label == "1M plate multigrid level 0" and dtype == torch.float32:
                 results["stencil_matvec"] = dict(max_abs_err=err, **row)
         del st64
         torch.cuda.empty_cache()
@@ -1358,6 +1517,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace one structured f32-refined solve and one warm solve of "
                     "each sweep with torch.profiler")
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="another checkout (e.g. the parent commit unpacked by git archive): "
+                    "its dia_matvec and prolong0 kernels are built apart and timed beside "
+                    "this tree's in phases 2 and 3, in the same interleaved rounds")
     ap.add_argument("--only", choices=("transfers", "lane-kernels"),
                     help="transfers: phases 0 to 3 alone (the Delaunay plate's band and "
                     "transfer kernels); lane-kernels: phases 0, 1 and 10 alone; either ends "
@@ -1393,6 +1556,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say("    " + line.strip())
     say(f"  host library (g++): {native.build():.2f} s")
+    base = None
+    if args.baseline:
+        seconds, base = load_baseline(args.baseline)
+        say(f"  baseline kernels of {args.baseline}: {seconds:.2f} s")
 
     gen = torch.Generator(device=DEV).manual_seed(0)
 
@@ -1415,7 +1582,7 @@ def main() -> int:
         f"elements, {len(problem.offsets)} offsets, AMG levels "
         f"{problem.timings['amg_levels']}, prepared in {time.perf_counter() - t0:.2f} s")
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)
-    results = phase_band_and_transfer(problem, args.reps, flush, rand)
+    results = phase_band_and_transfer(problem, args.reps, flush, rand, base)
     if args.only == "transfers":
         say(f"phases 0 to 3 passed in {time.perf_counter() - t_start:.1f} s "
             "(--only transfers: no ok line)")
@@ -1434,11 +1601,10 @@ def main() -> int:
     del problem
     torch.cuda.empty_cache()
 
-    reduced_1m = phase_structured(*args.plate, totals, args.profile)
-    results.update(
-        phase_stencil_kernel(reduced_1m, args.big, args.rect, args.reps, flush, rand)
-    )
-    del reduced_1m, flush
+    levels_1m = phase_structured(*args.plate, totals, args.profile)
+    results.update(phase_stencil_kernel(levels_1m, args.big, args.rect, args.reps, flush, rand,
+                                        totals))
+    del levels_1m, flush
     torch.cuda.empty_cache()
     phase_card_vs_cpu(args.small_h, args.small_plate)
 
@@ -1457,10 +1623,13 @@ def main() -> int:
     phase_sweeps_card_vs_cpu(args.sweep_small[0], int(args.sweep_small[1]))
 
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    say("launches per shape over the main paths: " + "; ".join(
+        f"{k}: {v}" for k, v in totals["per shape"].items()))
     kernels = [
         {
             "name": name, "route": "cuda", "source": KERNELS[name][0],
-            "replaces": KERNELS[name][1], "launches": totals[name],
+            "replaces": KERNELS[name][1],
+            "launches": totals["dia_matvec m=2" if name == "dia_matvec" else name],
             **{k: results[name][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             )},

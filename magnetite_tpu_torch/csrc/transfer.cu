@@ -15,7 +15,12 @@
 // What bounds them: device-memory bandwidth. Prolong streams p0 (6 values per
 // fine node) and writes u0 (2 per node); the ec gather hits a coarse vector
 // ~1/6 the size of p0 that stays in L2. One thread per fine node (coalesced
-// p0 / u0).
+// p0 / u0). At the 1M plate that is 18.6 MB in f32, so a call is mostly the
+// card's fixed cost per kernel (~7 us on an H100 with the timer of
+// chip_smoke.py) plus the bytes at ~2.8 TB/s, and this design already sits on
+// that line: threads of 4 (f32) / 2 (f64) consecutive nodes with 16-byte
+// loads, and warps staging their p0 blocks through shared memory for
+// coalesced reads, measured no faster in the same call (PERF.md).
 //
 // Restrict streams pt0_vals (6 values per member, w0 members per aggregate,
 // 33 MB in f64 at the 1M plate) and gathers tmp at the member columns. One

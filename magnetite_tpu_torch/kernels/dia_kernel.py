@@ -4,12 +4,16 @@
 
 Replaces magnetite_tpu/pallas/dia_kernel.py::_kernel (see
 csrc/dia_matvec.cu for what bounds it on Hopper and how the design answers
-that). `dia_matvec` is the one entry point: a CPU operand takes the plain
-PyTorch version, a CUDA operand launches the kernel or raises.
+that: one thread per node for the level-0 2x2 blocks, a block of warps
+splitting the offsets of 32 nodes for the coarse levels' 3x3 blocks).
+`dia_matvec` is the one entry point: a CPU operand takes the plain PyTorch
+version, a CUDA operand launches the kernel or raises. It counts its
+launches in `.launches` and, per (m, N, dtype), in `.shape_launches`.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -71,7 +75,9 @@ def dia_matvec(
     )
     cuda_lib.check(lib, rc, "dia_matvec")
     dia_matvec.launches += 1
+    dia_matvec.shape_launches[m, n, u.dtype] += 1
     return y
 
 
 dia_matvec.launches = 0
+dia_matvec.shape_launches = Counter()

@@ -8,10 +8,13 @@ Rows outside the grid contribute 0; columns wrap when `wrap` is set
 magnetite_tpu/pallas/stencil_kernel.py::_kernel and ::_kernel_blocked (see
 csrc/stencil_matvec.cu for what bounds it on Hopper). `stencil_matvec` is
 the one entry point: a CPU operand takes the plain PyTorch version, a CUDA
-operand launches the kernel or raises.
+operand launches the kernel or raises. It counts its launches in
+`.launches` and, per (rows, cols, dtype), in `.shape_launches`.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -85,7 +88,9 @@ def stencil_matvec(
     )
     cuda_lib.check(lib, rc, "stencil_matvec")
     stencil_matvec.launches += 1
+    stencil_matvec.shape_launches[rows, cols, u.dtype] += 1
     return y
 
 
 stencil_matvec.launches = 0
+stencil_matvec.shape_launches = Counter()

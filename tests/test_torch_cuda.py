@@ -122,15 +122,86 @@ def test_transfer_kernels_match_plain_and_are_adjoint(fast0, dtype, tol):
     assert abs(lhs - rhs) <= tol * mag
 
 
-def synthetic_transfer(n1: int, w0: int, seed: int):
+# the coarse-level band kernel (3x3 blocks; the warps of a block split the
+# offsets of 32 nodes; warps and offsets per batch derived from D and N:
+# on a 132-SM card N >= 16,896 takes at most 8 warps of 4-offset batches,
+# smaller N up to 32 warps of one offset): name -> (N, offsets)
+COARSE_CASES = {
+    # D = 13: 7 warps of 2 offsets, one warp short; N = 20,001 is no
+    # multiple of 32; +-20,500 reach past N on both sides
+    "d13_n20001_past_n": (20001, (-20500, -4001, -650, -77, -9, -1, 0, 1, 9, 77, 650, 4001,
+                                  20500)),
+    # the coarse-level cap (_COARSE_MAX_DIAGS): 8 warps of 10 offsets, the
+    # third batch short
+    "d80_n20001": (20001, tuple(range(-40, 0)) + tuple(range(0, 40))),
+    # 19 warps of 2 offsets, one short (the 1M plate's second level's D)
+    "d37_n5003": (5003, tuple(range(-18, 19))),
+    # one offset: one warp writes all three components
+    "d1_n77": (77, (0,)),
+}
+
+
+@pytest.fixture(scope="module")
+def coarse_level():
+    """The first banded coarse level of the plate's AMG hierarchy (a real
+    3x3 band set: n1 = 1,493, 21 offsets at h = 0.015)."""
+    from magnetite_tpu_torch.fem.amg import amg_device_arrays, build_amg_setup
+
+    mesh, bca, md = port_plate(0.015)
+    setup = build_amg_setup(
+        mesh.coords, mesh.tris, md.youngs_modulus, md.poisson_ratio,
+        md.part_thickness, (~bca.u_known).astype(np.float64),
+    )
+    cb = next(cb for cb in amg_device_arrays(setup, torch.float64, "cpu").coarse_bands
+              if cb is not None)
+    return cb.bands.numpy(), cb.offsets
+
+
+@pytest.mark.parametrize("case", [*COARSE_CASES, "amg_coarse_level"])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_coarse_dia_kernel_matches_plain_and_repeats(case, dtype, tol, request):
+    """K1's m = 3 kernel against dia_matvec_blocks; a second call on the
+    same operands is bitwise the same (the warps' partial sums meet in a
+    fixed order, no atomics)."""
+    from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec, dia_matvec_blocks
+
+    dev = require_cuda()
+    if case == "amg_coarse_level":
+        bands_np, offsets = request.getfixturevalue("coarse_level")
+        n = bands_np.shape[-1]
+    else:
+        n, offsets = COARSE_CASES[case]
+        bands_np = random_bands(n, offsets, 3, seed=len(offsets))
+    bands = torch.as_tensor(bands_np, dtype=dtype, device=dev)
+    u = torch.as_tensor(np.random.default_rng(11).standard_normal((3, n)),
+                        dtype=dtype, device=dev)
+    before = dia_matvec.shape_launches[3, n, dtype]
+    y = dia_matvec(bands, offsets, u)
+    again = dia_matvec(bands, offsets, u)
+    torch.cuda.synchronize()
+    assert dia_matvec.shape_launches[3, n, dtype] == before + 2
+    assert torch.equal(y, again)
+    ref = dia_matvec_blocks(bands, offsets, u)
+    scale = float(dia_matvec_blocks(bands.abs(), offsets, u.abs()).max())
+    # another summation order (warp partial sums vs rolled sums): rounding
+    # of the row magnitude
+    assert float((y - ref).abs().max()) <= tol * scale
+    # the V-cycle's call on a node-major field, op(x.T).T
+    x = u.T.contiguous()
+    assert torch.equal(dia_matvec(bands, offsets, x.T).T, y.T)
+
+
+def synthetic_transfer(n1: int, w0: int, seed: int, n0_mod4=None):
     """A random aggregation of n1 aggregates of 1..w0 members each (w0 for
     the first), scattered over the fine nodes: agg [n0], p0 [n0, 2, 3] and
     the per-aggregate ELL lists of P0^T, pt0_cols [n1, w0] (padding: col 0,
     zero values) and pt0_vals [n1, w0, 3, 2], as AMGSetup.fast0 lays them
-    out."""
+    out. `n0_mod4` picks n0's remainder mod 4 (w0 >= 4)."""
     rng = np.random.default_rng(seed)
     sizes = rng.integers(1, w0 + 1, n1)
     sizes[0] = w0
+    while n0_mod4 is not None and sizes.sum() % 4 != n0_mod4:
+        sizes[-1] = sizes[-1] % w0 + 1
     n0 = int(sizes.sum())
     node = rng.permutation(n0)
     agg = np.empty(n0, dtype=np.int32)
@@ -175,6 +246,45 @@ def test_restrict_team_kernel_matches_plain_and_is_adjoint(w0, dtype, tol):
     assert float((rc - restrict0_plain(tmp, ptc_t, ptv_t)).abs().max()) <= tol * float(
         restrict0_plain(tmp.abs(), ptc_t, ptv_t.abs()).max())
     lhs, rhs = float((prolong0(ec, agg_t, p0_t) * tmp).sum()), float((ec * rc).sum())
+    mag = float((prolong0(ec.abs(), agg_t, p0_t.abs()) * tmp.abs()).sum())
+    assert abs(lhs - rhs) <= tol * mag
+
+
+@pytest.mark.parametrize("n0_mod4", [0, 1, 2, 3])
+@pytest.mark.parametrize("agg_aligned", [True, False], ids=["aligned", "agg_offset"])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_prolong_kernel_matches_plain_at_any_n0_and_is_adjoint(n0_mod4, agg_aligned, dtype,
+                                                                tol):
+    """prolong0 at n0 of every remainder mod 4 (a partial last warp or
+    16-byte group, a second u0 row off 16-byte alignment) and with agg one
+    element into its storage (no vector loads of it). The restrict0 /
+    prolong0 pair stays adjoint."""
+    from magnetite_tpu_torch.kernels.transfer_kernel import (
+        prolong0, prolong0_plain, restrict0,
+    )
+
+    dev = require_cuda()
+    n1 = 1001
+    agg, p0, ptc, ptv = synthetic_transfer(n1, 14, seed=20 + n0_mod4, n0_mod4=n0_mod4)
+    assert agg.size % 4 == n0_mod4
+    rng = np.random.default_rng(5)
+    ec = torch.as_tensor(rng.standard_normal((n1, 3)), dtype=dtype, device=dev)
+    tmp = torch.as_tensor(rng.standard_normal((2, agg.size)), dtype=dtype, device=dev)
+    agg_t = torch.as_tensor(np.concatenate([[0], agg]).astype(np.int32), device=dev)
+    agg_t = agg_t[1:] if not agg_aligned else agg_t[1:].clone()
+    assert (agg_t.data_ptr() % 16 == 0) == agg_aligned
+    ptc_t = torch.as_tensor(ptc, device=dev)
+    p0_t = torch.as_tensor(p0, dtype=dtype, device=dev)
+    ptv_t = torch.as_tensor(ptv, dtype=dtype, device=dev)
+    before = prolong0.launches
+    uf = prolong0(ec, agg_t, p0_t)
+    torch.cuda.synchronize()
+    assert prolong0.launches == before + 1
+    # each node's sums in the plain version's order: rounding only
+    assert float((uf - prolong0_plain(ec, agg_t, p0_t)).abs().max()) <= tol * float(
+        prolong0_plain(ec.abs(), agg_t, p0_t.abs()).max())
+    rc = restrict0(tmp, ptc_t, ptv_t)
+    lhs, rhs = float((uf * tmp).sum()), float((ec * rc).sum())
     mag = float((prolong0(ec.abs(), agg_t, p0_t.abs()) * tmp.abs()).sum())
     assert abs(lhs - rhs) <= tol * mag
 

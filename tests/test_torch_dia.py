@@ -12,11 +12,39 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_cases import random_bands
+from tests.torch_cases import jax_plate, random_bands
 from tests.torch_cases import one_thread  # noqa: F401  (autouse)
 
 OFFSETS_M2 = (-1300, -512, -37, -1, 0, 1, 37, 512, 1300)
 OFFSETS_M3 = (-601, -37, -1, 0, 1, 37, 601)
+# stands for the first banded coarse level of a real AMG hierarchy
+COARSE = "coarse_level"
+
+
+@pytest.fixture(scope="module")
+def coarse_level():
+    """(bands [D, 3, 3, n1] f64, offsets) of the first banded coarse level of
+    the plate's AMG hierarchy at h = 0.009 (n1 = 4,113 -- the Pallas
+    kernel takes n >= 4,096 --, 29 offsets reaching +-199), as the port
+    uploads it for its V-cycle."""
+    from magnetite_tpu_torch.fem.amg import amg_device_arrays, build_amg_setup
+
+    mesh, bca, md = jax_plate(0.009)
+    setup = build_amg_setup(
+        mesh.coords, mesh.tris, md.youngs_modulus, md.poisson_ratio,
+        md.part_thickness, (~bca.u_known).astype(np.float64),
+    )
+    cb = next(cb for cb in amg_device_arrays(setup, torch.float64, "cpu").coarse_bands
+              if cb is not None)
+    return cb.bands.numpy(), cb.offsets
+
+
+def _operands(m, offsets, n, seed, request):
+    """(bands, offsets, n): random bands at `offsets`, or the coarse level's."""
+    if offsets == COARSE:
+        bands, offsets = request.getfixturevalue("coarse_level")
+        return bands, offsets, bands.shape[-1]
+    return random_bands(n, offsets, m, seed=seed), offsets, n
 
 
 def _scale(bands, offsets, u):
@@ -28,13 +56,12 @@ def _scale(bands, offsets, u):
                                    torch.as_tensor(np.abs(u))).max())
 
 
-@pytest.mark.parametrize("m,offsets", [(2, OFFSETS_M2), (3, OFFSETS_M3)])
-def test_plain_matvec_matches_jax_f64(m, offsets):
+@pytest.mark.parametrize("m,offsets", [(2, OFFSETS_M2), (3, OFFSETS_M3), (3, COARSE)])
+def test_plain_matvec_matches_jax_f64(m, offsets, request):
     from magnetite_tpu.fem.dia import dia_matvec_blocks as jax_mv
     from magnetite_tpu_torch.fem.dia import dia_matvec_blocks as port_mv
 
-    n = 5000
-    bands = random_bands(n, offsets, m, seed=0)
+    bands, offsets, n = _operands(m, offsets, 5000, 0, request)
     u = np.random.default_rng(1).standard_normal((m, n))
     y_jax = np.asarray(jax_mv(jnp.asarray(bands), offsets, jnp.asarray(u)))
     y_port = port_mv(torch.as_tensor(bands), offsets, torch.as_tensor(u)).numpy()
@@ -43,16 +70,17 @@ def test_plain_matvec_matches_jax_f64(m, offsets):
                                atol=1e-13 * _scale(bands, offsets, u))
 
 
-@pytest.mark.parametrize("m,offsets", [(2, OFFSETS_M2), (3, OFFSETS_M3)])
-def test_plain_matvec_matches_pallas_interpret_f32(m, offsets):
+@pytest.mark.parametrize("m,offsets", [(2, OFFSETS_M2), (3, OFFSETS_M3), (3, COARSE)])
+def test_plain_matvec_matches_pallas_interpret_f32(m, offsets, request):
     from magnetite_tpu.pallas.dia_kernel import (
         dia_pallas_applicable, make_pallas_dia_operator,
     )
     from magnetite_tpu_torch.fem.dia import make_dia_operator
 
-    n = 4096 + 517  # past one lane tile, not a multiple of it
+    # random bands: n past one lane tile, not a multiple of it
+    bands, offsets, n = _operands(m, offsets, 4096 + 517, 2, request)
     assert dia_pallas_applicable(offsets, n, m=m)
-    bands = random_bands(n, offsets, m, seed=2).astype(np.float32)
+    bands = bands.astype(np.float32)
     u = np.random.default_rng(3).standard_normal((m, n)).astype(np.float32)
     op = make_pallas_dia_operator(jnp.asarray(bands), offsets, interpret=True)
     y_pal = np.asarray(op(jnp.asarray(u)))

@@ -13,6 +13,8 @@
                                        # kernels timed in the same rounds
     python3 chip_smoke.py --only lane-kernels
                                        # phases 0, 1 and 10 alone (no "ok" line)
+    python3 chip_smoke.py --only multigrid
+                                       # phases 0, 1 and 14 alone (no "ok" line)
 
 Phases (any failure exits non-zero; no phase is wrapped in a catch):
   0. environment: torch / CUDA versions, the card's name and power limit;
@@ -38,6 +40,9 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
   7. the structured main path: the 1M-element plate with a hole through
      compile_problem / solve (stencil operator, geometric multigrid, f32
      storage + f64 refinement to rtol 1e-8), and the same plate in f64;
+     each V-cycle level through the two fused smoothing kernels (exact
+     launch counts per V-cycle; no coarse-level stencil_matvec), and one
+     V-cycle's host enqueue against its device time;
   8. the stencil kernel against its plain version at every multigrid level
      of the 1M plate (level 0: the reduced operator; each with its
      launches over phase 7), the 4M plate's grid, and a non-wrapped grid
@@ -61,7 +66,16 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
  12. the material sweep at full width (30 iterations; per-lane E, nu, t):
      the same checks with K8 (every launch on the ring route), f32 CG and
      then f64 CG (refined);
- 13. both sweeps on the card against the CPU at --sweep-small.
+ 13. both sweeps on the card against the CPU at --sweep-small;
+ 14. (run after phase 8) the fused V-cycle kernels mg_presmooth /
+     mg_postsmooth against their plain versions at every smoothing level
+     of the 1M plate (phase 7's f64 hierarchy and its f32 copy), and over
+     the hierarchy of the non-wrapped --rect grid (cols not a multiple of
+     the tile; its coarsest level smooths, 48 sweeps, no dense inverse),
+     in f64 and f32, each timed against the unfused sequence it replaced
+     (stencil_matvec kernel + torch ops; with --baseline also the older
+     tree's fused kernels) in interleaved rounds; then that hierarchy's
+     whole V-cycle on the card against the CPU's.
 Every kernel is timed with CUDA events (median of --reps launches, L2
 flushed before each) beside its plain version, its bound (the larger of
 bytes moved once over 3.35 TB/s and operations over the peak rate of their
@@ -71,7 +85,7 @@ coarse band levels) they are timed in ROUNDS interleaved rounds, every
 reading printed and the medians kept; with --baseline DIR an older
 tree's band and prolong kernels join those rounds. Each main path runs
 with every launch counter set to 0 just before it and read just after
-(dia_matvec and stencil_matvec also per shape). The last lines are the
+(dia_matvec, stencil_matvec and the smoothing kernels also per shape). The last lines are the
 card's nvidia-smi line, a JSON line of per-kernel results (the band
 matvec's 2x2 and 3x3 kernels as two rows), and
 {"ok": true, "device": {...}}.
@@ -118,6 +132,12 @@ KERNELS = {
     # also replaces the row-blocked variant, stencil_kernel.py:191
     "stencil_matvec": ("magnetite_tpu_torch/csrc/stencil_matvec.cu",
                        "magnetite_tpu/pallas/stencil_kernel.py:91"),
+    # the V-cycle's use of the stencil kernel: both smoothing phases of a
+    # level with the residual and the transfers, one kernel each
+    "mg_presmooth": ("magnetite_tpu_torch/csrc/mg_smooth.cu",
+                     "magnetite_tpu/pallas/stencil_kernel.py:91"),
+    "mg_postsmooth": ("magnetite_tpu_torch/csrc/mg_smooth.cu",
+                      "magnetite_tpu/pallas/stencil_kernel.py:91"),
     "df_dia_matvec": ("magnetite_tpu_torch/csrc/df_dia_matvec.cu",
                       "magnetite_tpu/pallas/dia_kernel.py:330"),
     "lane_dia_matvec": ("magnetite_tpu_torch/csrc/lane_dia_matvec.cu",
@@ -157,20 +177,21 @@ def require(cond: bool, msg: str) -> None:
 
 
 def counters():
-    """The seven kernel wrappers, each carrying its `.launches` count."""
+    """The nine kernel wrappers, each carrying its `.launches` count."""
     from magnetite_tpu_torch.kernels.df_kernel import df_dia_matvec
     from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
     from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec, lane_dia_matvec3
+    from magnetite_tpu_torch.kernels.mg_smooth_kernel import mg_postsmooth, mg_presmooth
     from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
     from magnetite_tpu_torch.kernels.transfer_kernel import prolong0, restrict0
 
-    return (dia_matvec, prolong0, restrict0, stencil_matvec, df_dia_matvec,
-            lane_dia_matvec, lane_dia_matvec3)
+    return (dia_matvec, prolong0, restrict0, stencil_matvec, mg_presmooth, mg_postsmooth,
+            df_dia_matvec, lane_dia_matvec, lane_dia_matvec3)
 
 
 def shape_label(kernel: str, key) -> str:
     """A `.shape_launches` key as text: (m, N, dtype) of dia_matvec,
-    (rows, cols, dtype) of stencil_matvec."""
+    (rows, cols, dtype) of the stencil and smoothing kernels."""
     a, b, dtype = key
     name = str(dtype).replace("torch.", "")
     return f"m={a} N={b} {name}" if kernel == "dia_matvec" else f"{a}x{b} {name}"
@@ -415,14 +436,16 @@ def time_kernel(tag, fn, plain, library, reps, flush, nbytes, flops, dtype, roun
                 library_ms=library_ms)
 
 
-# the sources of --baseline's kernels, and the only entries called there
-BASELINE_SOURCES = ("dia_matvec.cu", "transfer.cu")
+# the sources of --baseline's kernels (mg_smooth.cu where the tree has
+# it), and the only entries called there
+BASELINE_SOURCES = ("dia_matvec.cu", "transfer.cu", "mg_smooth.cu")
 
 
 def load_baseline(tree: str):
-    """An older checkout's dia_matvec and prolong0 kernels (`tree`, e.g. the
-    parent commit unpacked by git archive), built apart from this tree's
-    library with their C signatures bound here: (seconds, ctypes library)."""
+    """An older checkout's dia_matvec, prolong0 and fused smoothing kernels
+    (`tree`, e.g. the parent commit unpacked by git archive), built apart
+    from this tree's library with their C signatures bound here: (seconds,
+    ctypes library)."""
     import ctypes
     import shutil
     from magnetite_tpu_torch.kernels import cuda_lib
@@ -433,12 +456,13 @@ def load_baseline(tree: str):
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     t0 = time.perf_counter()
     objs, procs = [], []
-    for src in BASELINE_SOURCES:
+    sources = [src for src in BASELINE_SOURCES if os.path.exists(os.path.join(csrc, src))]
+    for src in sources:
         objs.append(os.path.join(out, f"{src}.o"))
         procs.append(subprocess.Popen(
             [nvcc, *cuda_lib.NVCC_FLAGS, "-c", os.path.join(csrc, src), "-o", objs[-1]],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    for src, proc in zip(BASELINE_SOURCES, procs):
+    for src, proc in zip(sources, procs):
         _, err = proc.communicate(timeout=600)
         require(proc.returncode == 0, f"baseline {src} did not build:\n{err[-4000:]}")
         for line in err.splitlines():
@@ -455,6 +479,12 @@ def load_baseline(tree: str):
     lib.mt_dia_matvec.argtypes = [i32, i32, vp, vp, i32, vp, vp, i64, vp]
     lib.mt_prolong0.restype = i32
     lib.mt_prolong0.argtypes = [i32, vp, vp, vp, vp, i64, vp]
+    if "mg_smooth.cu" in sources:
+        lib.mt_mg_presmooth.restype = i32
+        lib.mt_mg_presmooth.argtypes = [i32, i32, vp, vp, vp, vp, vp, i32, i32, vp]
+        lib.mt_mg_postsmooth.restype = i32
+        lib.mt_mg_postsmooth.argtypes = [i32, i32, vp, vp, vp, vp, vp, vp, i32, i32, vp]
+    lib.has_mg_smooth = "mg_smooth.cu" in sources
     lib.mt_error_string.restype = ctypes.c_char_p
     lib.mt_error_string.argtypes = [i32]
     return time.perf_counter() - t0, lib
@@ -487,6 +517,40 @@ def baseline_launchers(base):
         return u0
 
     return dia, prolong
+
+
+def baseline_mg_launchers(base):
+    """Calls of an older tree's mg_presmooth / mg_postsmooth kernels on the
+    same operands as the wrappers', or (None, None) where --baseline is
+    absent or its tree has none."""
+    if base is None or not base.has_mg_smooth:
+        return None, None
+    import torch
+    from magnetite_tpu_torch.kernels import cuda_lib
+    from magnetite_tpu_torch.kernels.mg_smooth_kernel import coarse_shape
+
+    def pre(st, dinv, r, wrap):
+        rows, cols = r.shape[-2:]
+        e = torch.empty_like(r)
+        rc = torch.empty((2, *coarse_shape(rows, cols, wrap)), dtype=r.dtype, device=r.device)
+        code = base.mt_mg_presmooth(cuda_lib.DTYPE_CODES[r.dtype], int(wrap), st.data_ptr(),
+                                    dinv.data_ptr(), r.data_ptr(), e.data_ptr(), rc.data_ptr(),
+                                    rows, cols, cuda_lib.stream_of(r))
+        cuda_lib.check(base, code, "baseline mg_presmooth")
+        return e, rc
+
+    def post(st, dinv, r, e, ec, wrap):
+        rows, cols = r.shape[-2:]
+        out = torch.empty_like(r)
+        code = base.mt_mg_postsmooth(
+            cuda_lib.DTYPE_CODES[r.dtype], int(wrap), st.data_ptr(), dinv.data_ptr(),
+            r.data_ptr(), None if e is None else e.data_ptr(),
+            None if ec is None else ec.data_ptr(), out.data_ptr(), rows, cols,
+            cuda_lib.stream_of(r))
+        cuda_lib.check(base, code, "baseline mg_postsmooth")
+        return out
+
+    return pre, post
 
 
 def phase_band_and_transfer(problem, reps, flush, rand, base=None):
@@ -788,10 +852,32 @@ def vcycles(inner_per_pass, maxiter):
     )
 
 
+def check_vcycle_launches(key, problem, got, vcycles_run):
+    """Each smoothing level of each V-cycle is one mg_presmooth and one
+    mg_postsmooth launch (a coarsest level without a dense inverse adds
+    COARSE_SWEEPS / SWEEPS post-smoothing launches), and no coarse level
+    calls stencil_matvec."""
+    from magnetite_tpu_torch.fem.multigrid import COARSE_SWEEPS, SWEEPS
+    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
+
+    levels = problem.mg_levels
+    pre = len(levels) - 1
+    post = pre + (0 if levels[-1].dense_inv is not None else COARSE_SWEEPS // SWEEPS)
+    say(f"  {key}: {vcycles_run} V-cycles; mg_presmooth {got['mg_presmooth']} launches "
+        f"(expected {pre} x {vcycles_run}), mg_postsmooth {got['mg_postsmooth']} "
+        f"(expected {post} x {vcycles_run})")
+    require(got["mg_presmooth"] == pre * vcycles_run
+            and got["mg_postsmooth"] == post * vcycles_run,
+            f"structured {key}: fused smoothing launches per V-cycle")
+    coarse = {(lv.rows, lv.cols) for lv in levels[1:]}
+    stray = [k for k in stencil_matvec.shape_launches if k[:2] in coarse]
+    require(not stray, f"structured {key}: stencil_matvec launched at coarse levels {stray}")
+
+
 def phase_structured(nr, nt, totals, profile):
     """Phase 7: the structured plate, f32 storage + refinement, and f64.
-    Returns the f64 solve's multigrid level stencils, finest (the reduced
-    operator) first."""
+    Returns the f64 solve's multigrid levels, finest (the reduced operator)
+    first."""
     import torch
     from magnetite_tpu_torch.config import SolverOptions
     from magnetite_tpu_torch.fem.solve import compile_problem
@@ -804,7 +890,8 @@ def phase_structured(nr, nt, totals, profile):
         ("f32 refined", SolverOptions(dtype="float32", cg_rtol=1e-8), True),
         ("f64", SolverOptions(dtype="float64", cg_rtol=1e-8), False),
     ):
-        with main_path(f"the structured {key} solve", totals, ("stencil_matvec",)):
+        expect = ("stencil_matvec", "mg_presmooth", "mg_postsmooth")
+        with main_path(f"the structured {key} solve", totals, expect) as got:
             t0 = time.perf_counter()
             problem = compile_problem(mesh, bca, md, opts, device=DEV)
             prep = time.perf_counter() - t0
@@ -823,15 +910,21 @@ def phase_structured(nr, nt, totals, profile):
         extra = ""
         if refine:
             inner = t["refine_inner"]
+            run = vcycles(inner, problem.refine_inner_iters)
             extra = (f", outer passes {t['refine_outer']}, inner iterations per pass "
-                     f"{inner}, V-cycles launched {vcycles(inner, problem.refine_inner_iters)}")
+                     f"{inner}")
+        else:
+            run = vcycles([res.iterations], problem.maxiter)
         say(f"  {key}: {res.iterations} iterations{extra}; reported residual_rel "
             f"{res.residual_rel:.3e}; true relative residual {rel:.3e} (<= 1e-08)")
         require(rel <= 1e-8, f"structured {key}: true residual too large")
-        if profile and refine:
-            profile_solve(problem)
+        check_vcycle_launches(key, problem, got, run)
+        if refine:
+            if profile:
+                profile_call("solve", problem.solve)
+            vcycle_times(problem)
         if not refine:
-            keep = [lv.stencil for lv in problem.mg_levels]
+            keep = problem.mg_levels
         del problem
         torch.cuda.empty_cache()
     return keep
@@ -864,13 +957,11 @@ def profile_call(label, fn):
         say(f"    {ms:9.3f} ms  {n:6d}x  {name[:90]}")
 
 
-def profile_solve(problem):
-    """One warm structured solve under torch.profiler, then one V-cycle's
-    host enqueue time against its device time."""
+def vcycle_times(problem):
+    """One V-cycle of the f32 hierarchy: host enqueue time against device
+    time (median of 10)."""
     import torch
     from magnetite_tpu_torch.fem.multigrid import vcycle_preconditioner
-
-    profile_call("solve", problem.solve)
 
     apply = vcycle_preconditioner(problem.mg_levels, problem.grid.wrap)
     r = torch.randn(2, problem.grid.rows, problem.grid.cols, device=DEV)
@@ -921,7 +1012,7 @@ def phase_stencil_kernel(levels_1m, big, rect_cells, reps, flush, rand, totals):
 
     results = {}
     for label, st64, wrap in (
-        *((f"1M plate multigrid level {k}", st, True) for k, st in enumerate(levels_1m)),
+        *((f"1M plate multigrid level {k}", lv.stencil, True) for k, lv in enumerate(levels_1m)),
         (f"{big[0]}x{big[1]} plate", assembled(mesh4m), True),
         ("rect, no wrap", assembled(rect), False),
     ):
@@ -952,6 +1043,178 @@ def phase_stencil_kernel(levels_1m, big, rect_cells, reps, flush, rand, totals):
                 results["stencil_matvec"] = dict(max_abs_err=err, **row)
         del st64
         torch.cuda.empty_cache()
+    return results
+
+
+def unfused_presmooth(st, dinv, r, wrap):
+    """The V-cycle's pre-smoothing as it ran before the fused kernels: the
+    stencil_matvec kernel and torch ops."""
+    import torch
+    from magnetite_tpu_torch.fem.blocks import apply_blocks
+    from magnetite_tpu_torch.kernels.mg_smooth_kernel import OMEGA, SWEEPS, restrict
+    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
+
+    e = torch.zeros_like(r)
+    for _ in range(SWEEPS):
+        e = e + OMEGA * apply_blocks(dinv, r - stencil_matvec(st, e, wrap))
+    return e, restrict(r - stencil_matvec(st, e, wrap), wrap)
+
+
+def unfused_postsmooth(st, dinv, r, e, ec, wrap):
+    """The V-cycle's post-smoothing as it ran before the fused kernels."""
+    import torch
+    from magnetite_tpu_torch.fem.blocks import apply_blocks
+    from magnetite_tpu_torch.kernels.mg_smooth_kernel import OMEGA, SWEEPS, prolong
+    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
+
+    e = torch.zeros_like(r) if e is None else e
+    if ec is not None:
+        e = e + prolong(ec, wrap)
+    for _ in range(SWEEPS):
+        e = e + OMEGA * apply_blocks(dinv, r - stencil_matvec(st, e, wrap))
+    return e
+
+
+def rect_problem(rect_cells, dtype):
+    """The non-wrapped --rect grid (tensile BCs) compiled for the structured
+    path; its multigrid hierarchy ends on a level that smooths."""
+    from magnetite_tpu_torch.config import ModelMetadata, SolverOptions
+    from magnetite_tpu_torch.fem.solve import compile_problem
+    from magnetite_tpu_torch.meshing.generators import rect_mesh, tensile_bcs_for_rect
+
+    rect = rect_mesh(*rect_cells, width=3.0, height=1.0)
+    md = ModelMetadata(E_MOD, NU, THICK, 0.0, 0.01)
+    return compile_problem(rect, tensile_bcs_for_rect(rect.coords), md,
+                           SolverOptions(dtype=dtype, cg_rtol=1e-8), device=DEV)
+
+
+def phase_mg_smooth(levels_1m, rect_cells, reps, flush, rand, totals, base=None):
+    """Phase 14: the fused V-cycle kernels against their plain versions at
+    every smoothing level of the 1M plate and of the --rect hierarchy, f64
+    and f32, timed against the unfused sequence (and with --baseline the
+    older tree's kernels) in interleaved rounds; then the --rect
+    hierarchy's V-cycle on the card against the CPU's."""
+    import torch
+    from magnetite_tpu_torch.fem.multigrid import (
+        COARSE_SWEEPS, SWEEPS, MGLevel, _center_inverse, vcycle_preconditioner,
+    )
+    from magnetite_tpu_torch.kernels import mg_smooth_kernel as mgk
+
+    def parts(x):  # a kernel's outputs as a tuple
+        return x if isinstance(x, tuple) else (x,)
+
+    say("phase 14: fused V-cycle kernels against their plain versions on the card")
+    rect = rect_problem(rect_cells, "float64")
+    require(rect.mode == "stencil" and rect.preconditioner == "multigrid",
+            f"--rect grid: {rect.mode}/{rect.preconditioner}")
+    rlev = rect.mg_levels
+    rr, rcols = rlev[0].rows, rlev[0].cols
+    require(rcols % 32 != 0 and rlev[-1].dense_inv is None,
+            f"--rect grid {rr}x{rcols}: needs cols not a multiple of the tile and a "
+            "coarsest level without a dense inverse")
+    say(f"  --rect hierarchy: {[(lv.rows, lv.cols) for lv in rlev]}, coarsest smooths")
+    # (label, level, wrap); a level with a dense inverse never smooths
+    cases = [(f"1M plate level {k}", lv, True) for k, lv in enumerate(levels_1m)
+             if lv.dense_inv is None]
+    cases += [(f"rect level {k}", lv, False) for k, lv in enumerate(rlev)]
+    results = {}
+    parent_pre, parent_post = baseline_mg_launchers(base)
+    for label, lv, wrap in cases:
+        rows, cols = lv.rows, lv.cols
+        coarsest = lv is rlev[-1]
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            st = lv.stencil.to(dtype).contiguous()
+            dinv = _center_inverse(st)
+            es, n = st.element_size(), rows * cols
+            r = rand(2, rows, cols, dtype=dtype)
+            e = rand(2, rows, cols, dtype=dtype)
+            neg, ad = -st.abs(), dinv.abs()  # every term adds: the rounding scale
+            name = str(dtype)[6:]
+            rows_out = {}
+            if not coarsest:
+                ec = rand(2, *mgk.coarse_shape(rows, cols, wrap), dtype=dtype)
+                calls = {
+                    "mg_presmooth": (
+                        lambda: mgk.mg_presmooth(st, dinv, r, wrap),
+                        parent_pre and (lambda: parent_pre(st, dinv, r, wrap)),
+                        lambda: mgk.mg_presmooth_plain(st, dinv, r, wrap),
+                        lambda: unfused_presmooth(st, dinv, r, wrap),
+                        mgk.mg_presmooth_plain(neg, ad, r.abs(), wrap),
+                        44.5 * n * es, 170 * n),
+                    "mg_postsmooth": (
+                        lambda: mgk.mg_postsmooth(st, dinv, r, e, ec, wrap),
+                        parent_post and (lambda: parent_post(st, dinv, r, e, ec, wrap)),
+                        lambda: mgk.mg_postsmooth_plain(st, dinv, r, e, ec, wrap),
+                        lambda: unfused_postsmooth(st, dinv, r, e, ec, wrap),
+                        mgk.mg_postsmooth_plain(neg, ad, r.abs(), e.abs(), ec.abs(), wrap),
+                        46.5 * n * es, 175 * n),
+                }
+            else:  # the coarsest solve's calls: from e = 0, then from e
+                calls = {
+                    "mg_postsmooth from 0": (
+                        lambda: mgk.mg_postsmooth(st, dinv, r, None, None, wrap),
+                        parent_post and (lambda: parent_post(st, dinv, r, None, None, wrap)),
+                        lambda: mgk.mg_postsmooth_plain(st, dinv, r, None, None, wrap),
+                        lambda: unfused_postsmooth(st, dinv, r, None, None, wrap),
+                        mgk.mg_postsmooth_plain(neg, ad, r.abs(), None, None, wrap),
+                        44 * n * es, 92 * n),
+                    "mg_postsmooth": (
+                        lambda: mgk.mg_postsmooth(st, dinv, r, e, None, wrap),
+                        parent_post and (lambda: parent_post(st, dinv, r, e, None, wrap)),
+                        lambda: mgk.mg_postsmooth_plain(st, dinv, r, e, None, wrap),
+                        lambda: unfused_postsmooth(st, dinv, r, e, None, wrap),
+                        mgk.mg_postsmooth_plain(neg, ad, r.abs(), e.abs(), None, wrap),
+                        46 * n * es, 168 * n),
+                }
+            for kname, (fused, parent, plain, unfused, scale, nbytes, flops) in calls.items():
+                tag = f"{kname} {label} {rows}x{cols} wrap={wrap} {name}"
+                got, ref, scale = parts(fused()), parts(plain()), parts(scale)
+                err = max(compare(f"{tag} {part}", g, p, sc.max(), tol)
+                          for part, g, p, sc in zip(("e", "rc"), got, ref, scale))
+                require(all(torch.equal(a, b) for a, b in zip(parts(fused()), got)),
+                        f"{tag}: a second launch differs")
+                fns = {"kernel": fused, "unfused": unfused}
+                if parent is not None:
+                    fns["parent"] = parent
+                med = interleaved(tag, fns, reps, flush, ROUNDS)
+                plain_ms = event_ms(plain, reps, flush)
+                b_ms, b_by = bound(nbytes, flops, dtype)
+                ms = med["kernel"]
+                per_shape = totals.get("per shape")
+                launches = ("phase 7 not run" if per_shape is None
+                            else per_shape.get(f"{kname.split()[0]} {rows}x{cols} {name}", 0))
+                par = (f", parent {med['parent']:.4f} ms ({med['parent'] / ms:.2f}x)"
+                       if "parent" in med else "")
+                say(f"  {tag}: kernel {ms:.4f} ms ({b_ms / ms:.1%} of bound {b_ms:.4f} ms by "
+                    f"{b_by}){par}, unfused {med['unfused']:.4f} ms ({med['unfused'] / ms:.2f}x "
+                    f"the kernel's), plain {plain_ms:.4f} ms; launches over phase 7: {launches}")
+                rows_out[kname] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                       bound_by=b_by, library_ms=None)
+            # the main path's hot calls: the f32 inner solves at the 1M grid
+            if label == "1M plate level 0" and dtype == torch.float32:
+                results.update(rows_out)
+            del st, dinv, r, e
+        torch.cuda.empty_cache()
+
+    # the whole V-cycle over the coarsest-smoothing hierarchy, card against
+    # CPU (plain versions on the same levels)
+    r = rand(2, rr, rcols, dtype=torch.float64)
+    before = {k.__name__: k.launches for k in (mgk.mg_presmooth, mgk.mg_postsmooth)}
+    card = vcycle_preconditioner(rlev, False)(r)
+    torch.cuda.synchronize()
+    pre = mgk.mg_presmooth.launches - before["mg_presmooth"]
+    post = mgk.mg_postsmooth.launches - before["mg_postsmooth"]
+    require(pre == len(rlev) - 1 and post == len(rlev) - 1 + COARSE_SWEEPS // SWEEPS,
+            f"--rect V-cycle launched {pre} / {post} fused kernels")
+    cpu_levels = [MGLevel(stencil=lv.stencil.cpu(), diag_inv=lv.diag_inv.cpu(), rows=lv.rows,
+                          cols=lv.cols) for lv in rlev]
+    ref = vcycle_preconditioner(cpu_levels, False)(r.cpu())
+    # FMA-contracted sums against the plain version's, through 3 levels and
+    # the coarsest level's 48 sweeps
+    compare(f"--rect V-cycle ({pre} + {post} fused launches) card vs CPU", card.cpu(), ref,
+            ref.abs().max(), 1e-10)
+    del rect, rlev
+    torch.cuda.empty_cache()
     return results
 
 
@@ -1502,8 +1765,9 @@ def main() -> int:
     ap.add_argument("--big", type=int, nargs=2, default=(1024, 2048),
                     help="the larger structured grid of the stencil kernel phase (4M)")
     ap.add_argument("--rect", type=int, nargs=2, default=(1000, 600),
-                    help="x and y cells of the non-wrapped grid of the stencil kernel "
-                    "phase (1001 cols: not a multiple of 32)")
+                    help="x and y cells of the non-wrapped grid of the stencil and "
+                    "smoothing kernel phases (1001 cols: not a multiple of 32; its "
+                    "hierarchy's coarsest level, 76x126, smooths)")
     ap.add_argument("--small-plate", type=int, nargs=2, default=(64, 128),
                     help="the structured plate of the card-against-CPU phase")
     ap.add_argument("--sweep-h", type=float, default=SWEEP_H,
@@ -1519,12 +1783,14 @@ def main() -> int:
                     "each sweep with torch.profiler")
     ap.add_argument("--baseline", metavar="DIR",
                     help="another checkout (e.g. the parent commit unpacked by git archive): "
-                    "its dia_matvec and prolong0 kernels are built apart and timed beside "
-                    "this tree's in phases 2 and 3, in the same interleaved rounds")
-    ap.add_argument("--only", choices=("transfers", "lane-kernels"),
+                    "its dia_matvec and prolong0 kernels (and mg_presmooth / mg_postsmooth "
+                    "where it has them) are built apart and timed beside this tree's in "
+                    "phases 2, 3 and 14, in the same interleaved rounds")
+    ap.add_argument("--only", choices=("transfers", "lane-kernels", "multigrid"),
                     help="transfers: phases 0 to 3 alone (the Delaunay plate's band and "
-                    "transfer kernels); lane-kernels: phases 0, 1 and 10 alone; either ends "
-                    "without the ok line")
+                    "transfer kernels); lane-kernels: phases 0, 1 and 10 alone; multigrid: "
+                    "phases 0, 1 and 14 alone (the 1M plate's hierarchy built, not solved); "
+                    "each ends without the ok line")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1574,6 +1840,17 @@ def main() -> int:
         say(f"phases 0, 1 and 10 passed in {time.perf_counter() - t_start:.1f} s "
             "(--only lane-kernels: no ok line)")
         return 0
+    if args.only == "multigrid":
+        mesh, bca, md = structured_case(*args.plate)
+        levels_1m = compile_problem(mesh, bca, md, SolverOptions(dtype="float64", cg_rtol=1e-8),
+                                    device=DEV).mg_levels
+        say(f"  1M plate hierarchy (f64, not solved): "
+            f"{[(lv.rows, lv.cols) for lv in levels_1m]}")
+        flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)
+        phase_mg_smooth(levels_1m, args.rect, args.reps, flush, rand, {}, base)
+        say(f"phases 0, 1 and 14 passed in {time.perf_counter() - t_start:.1f} s "
+            "(--only multigrid: no ok line)")
+        return 0
 
     t0 = time.perf_counter()
     mesh, bca, md = plate_case(args.h)
@@ -1604,6 +1881,7 @@ def main() -> int:
     levels_1m = phase_structured(*args.plate, totals, args.profile)
     results.update(phase_stencil_kernel(levels_1m, args.big, args.rect, args.reps, flush, rand,
                                         totals))
+    results.update(phase_mg_smooth(levels_1m, args.rect, args.reps, flush, rand, totals, base))
     del levels_1m, flush
     torch.cuda.empty_cache()
     phase_card_vs_cpu(args.small_h, args.small_plate)

@@ -2,18 +2,22 @@
 (port of magnetite_tpu/fem/multigrid.py).
 
   * transfers: bilinear prolongation and its exact adjoint restriction on
-    the logical (rows, cols) grid, wrap-aware in cols (annulus);
+    the logical (rows, cols) grid, wrap-aware in cols (annulus), defined
+    beside the fused smoothing kernels (kernels/mg_smooth_kernel.py) and
+    re-exported here;
   * coarse operators: Galerkin RAP computed on the device by stencil
     probing -- R(A(P(.))) applied to a few periodic comb vectors reads off
     all nine coarse 2x2 blocks exactly;
   * smoother: damped block-Jacobi (symmetric, so the V-cycle stays SPD and
     CG-compatible); the coarsest level is one dense inverse when small.
 
-Fields are [2, rows, cols] (fem/stencil.py's layout). On the card every
-level's matvec is the hand-written stencil kernel; the Galerkin probing
-runs through the plain version, whose leading batch dimension takes the
-place of the JAX package's `vmap` over probes. Every 2x2 block product is
-written out as multiply-adds, so no TF32 path can reach it.
+Fields are [2, rows, cols] (fem/stencil.py's layout). On the card each
+smoothing level of a V-cycle is two hand-written kernels (pre-smoothing
+with the residual's restriction; prolongation with post-smoothing); the
+Galerkin probing runs through the plain stencil matvec, whose leading
+batch dimension takes the place of the JAX package's `vmap` over probes.
+Every 2x2 block product is written out as multiply-adds, so no TF32 path
+can reach it.
 """
 
 from __future__ import annotations
@@ -22,50 +26,16 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
-import torch.nn.functional as F
 
-from .blocks import apply_blocks
-from .stencil import CENTER, OFFSETS, make_stencil_operator, stencil_matvec_plain
-
-
-# ----------------------------- transfers ---------------------------------
-
-
-def prolong(uc: torch.Tensor, wrap_cols: bool) -> torch.Tensor:
-    """Bilinear interpolation coarse -> fine on [..., Rc, Cc] grids.
-
-    Fine dims: rows 2*Rc-1; cols 2*Cc if wrap_cols else 2*Cc-1. Fine even
-    nodes coincide with coarse nodes; odd nodes average their neighbours."""
-    # along cols
-    if wrap_cols:
-        mid = 0.5 * (uc + torch.roll(uc, -1, dims=-1))
-        x = torch.stack([uc, mid], dim=-1).reshape(*uc.shape[:-1], -1)
-    else:
-        mid = 0.5 * (uc[..., :-1] + uc[..., 1:])
-        body = torch.stack([uc[..., :-1], mid], dim=-1).reshape(*uc.shape[:-1], -1)
-        x = torch.cat([body, uc[..., -1:]], dim=-1)
-    # along rows (never wrapped)
-    mid = 0.5 * (x[..., :-1, :] + x[..., 1:, :])
-    body = torch.stack([x[..., :-1, :], mid], dim=-2).reshape(
-        *x.shape[:-2], -1, x.shape[-1]
-    )
-    return torch.cat([body, x[..., -1:, :]], dim=-2)
-
-
-def restrict(rf: torch.Tensor, wrap_cols: bool) -> torch.Tensor:
-    """Exact adjoint of `prolong` (P^T), fine -> coarse."""
-    # rows adjoint: odd row k feeds even rows k and k + 1
-    even, odd = rf[..., ::2, :], rf[..., 1::2, :]
-    up = F.pad(odd, (0, 0, 1, 0))[..., : even.shape[-2], :]
-    down = F.pad(odd, (0, 0, 0, 1))[..., : even.shape[-2], :]
-    x = even + 0.5 * (up + down)
-    # cols adjoint
-    even, odd = x[..., ::2], x[..., 1::2]
-    if wrap_cols:
-        return even + 0.5 * (odd + torch.roll(odd, 1, dims=-1))
-    up = F.pad(odd, (1, 0))[..., : even.shape[-1]]
-    down = F.pad(odd, (0, 1))[..., : even.shape[-1]]
-    return even + 0.5 * (up + down)
+from ..kernels.mg_smooth_kernel import (  # noqa: F401  (prolong / restrict: their home)
+    SWEEPS,
+    coarse_shape,
+    mg_postsmooth,
+    mg_presmooth,
+    prolong,
+    restrict,
+)
+from .stencil import CENTER, OFFSETS, stencil_matvec_plain
 
 
 # --------------------------- Galerkin coarsening ---------------------------
@@ -131,7 +101,6 @@ class MGLevel:
     diag_inv: torch.Tensor  # [2, 2, R, C] inverse center blocks
     rows: int
     cols: int
-    op: Callable[[torch.Tensor], torch.Tensor] = None  # the level's matvec
     # dense inverse of the whole level operator [2RC, 2RC], node-major (set
     # on the coarsest level when small): an exact coarse solve
     dense_inv: Optional[torch.Tensor] = None
@@ -142,11 +111,10 @@ _DENSE_COARSE_MAX_DOF = 2048
 # the JAX package's defaults, which every caller takes: at most 10 levels,
 # none coarser than 8 cells a side; V(2, 2) damped block-Jacobi, and a deep
 # 48-sweep smoothing "solve" on a coarsest level without a dense inverse
+# (OMEGA and SWEEPS live beside the fused kernels that apply them)
 MAX_LEVELS = 10
 MIN_SIZE = 8
-SWEEPS = 2
 COARSE_SWEEPS = 48
-OMEGA = 0.7
 
 
 def stencil_to_dense_device(stencil: torch.Tensor, wrap_cols: bool) -> torch.Tensor:
@@ -219,12 +187,10 @@ def build_hierarchy(fine_stencil: torch.Tensor, wrap_cols: bool) -> list:
             diag_inv=_center_inverse(fine_stencil),
             rows=rows,
             cols=cols,
-            op=make_stencil_operator(fine_stencil, wrap_cols),
         )
     ]
     while len(levels) < MAX_LEVELS and can_coarsen(rows, cols, wrap_cols):
-        rc = (rows - 1) // 2 + 1
-        cc = cols // 2 if wrap_cols else (cols - 1) // 2 + 1
+        rc, cc = coarse_shape(rows, cols, wrap_cols)
         fine = levels[-1].stencil
         coarse = galerkin_coarse_stencil(
             lambda v: stencil_matvec_plain(fine, v, wrap_cols),
@@ -236,7 +202,6 @@ def build_hierarchy(fine_stencil: torch.Tensor, wrap_cols: bool) -> list:
                 diag_inv=_center_inverse(coarse),
                 rows=rc,
                 cols=cc,
-                op=make_stencil_operator(coarse, wrap_cols),
             )
         )
         rows, cols = rc, cc
@@ -249,29 +214,27 @@ def build_hierarchy(fine_stencil: torch.Tensor, wrap_cols: bool) -> list:
 # ------------------------------- V-cycle ----------------------------------
 
 
-def _smooth(level: MGLevel, e, r, sweeps: int):
-    """Damped block-Jacobi: e += omega * D^-1 (r - A e)."""
-    for _ in range(sweeps):
-        e = e + OMEGA * apply_blocks(level.diag_inv, r - level.op(e))
-    return e
-
-
 def vcycle_preconditioner(levels: list, wrap_cols: bool):
     """apply(r [2, R, C]) -> approximate solution of A e = r. Symmetric by
-    construction (matching pre/post Jacobi sweeps): an SPD preconditioner."""
+    construction (matching pre/post Jacobi sweeps): an SPD preconditioner.
+
+    Each smoothing level is two fused calls, `mg_presmooth` (two sweeps from
+    zero, the residual and its restriction) and `mg_postsmooth` (the coarse
+    correction and two sweeps); a coarsest level without a dense inverse
+    runs its COARSE_SWEEPS as COARSE_SWEEPS / SWEEPS post-smoothing calls."""
 
     def cycle(l: int, r: torch.Tensor) -> torch.Tensor:
         level = levels[l]
-        zero = torch.zeros_like(r)
         if l == len(levels) - 1:
             if level.dense_inv is not None:
                 return apply_dense_inverse(level.dense_inv, r)
-            return _smooth(level, zero, r, COARSE_SWEEPS)
-        e = _smooth(level, zero, r, SWEEPS)
-        res = r - level.op(e)
-        ec = cycle(l + 1, restrict(res, wrap_cols))
-        e = e + prolong(ec, wrap_cols)
-        return _smooth(level, e, r, SWEEPS)
+            e = None
+            for _ in range(COARSE_SWEEPS // SWEEPS):
+                e = mg_postsmooth(level.stencil, level.diag_inv, r, e, None, wrap_cols)
+            return e
+        e, rc = mg_presmooth(level.stencil, level.diag_inv, r, wrap_cols)
+        ec = cycle(l + 1, rc)
+        return mg_postsmooth(level.stencil, level.diag_inv, r, e, ec, wrap_cols)
 
     def apply(r: torch.Tensor) -> torch.Tensor:
         return cycle(0, r)

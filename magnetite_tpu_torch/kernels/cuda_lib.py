@@ -148,6 +148,10 @@ def _bind(lib) -> None:
     lib.mt_restrict0.argtypes = [i32, vp, vp, vp, vp, i64, i64, i32, vp]
     lib.mt_stencil_matvec.restype = i32
     lib.mt_stencil_matvec.argtypes = [i32, i32, vp, vp, vp, i32, i32, vp]
+    lib.mt_mg_presmooth.restype = i32
+    lib.mt_mg_presmooth.argtypes = [i32, i32, vp, vp, vp, vp, vp, i32, i32, vp]
+    lib.mt_mg_postsmooth.restype = i32
+    lib.mt_mg_postsmooth.argtypes = [i32, i32, vp, vp, vp, vp, vp, vp, i32, i32, vp]
     lib.mt_df_dia_matvec.restype = i32
     lib.mt_df_dia_matvec.argtypes = [vp, vp, i32, vp, vp, i64, vp]
     lib.mt_lane_dia_matvec.restype = i32

@@ -338,6 +338,84 @@ def test_stencil_kernel_matches_plain(wrap, dtype, tol):
     assert float((y - ref).abs().max()) <= tol * scale
 
 
+MG_GRIDS = {
+    # (mesh, wrap): the annulus wraps its cols; the rectangle's 101 cols are
+    # not a multiple of the 16-node tile; 17x32 is the 1M plate's level 5;
+    # on the 9x16 annulus a tile's halo wraps onto the tile's own nodes
+    "annulus_65x256": (lambda m: m.plate_with_hole_mesh(64, 256), True),
+    "rect_41x101": (lambda m: m.rect_mesh(100, 40), False),
+    "level5_17x32": (lambda m: m.plate_with_hole_mesh(16, 32), True),
+    "narrow_9x16": (lambda m: m.plate_with_hole_mesh(8, 16), True),
+}
+
+
+@pytest.mark.parametrize("grid", sorted(MG_GRIDS))
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_mg_smooth_kernels_match_plain(grid, dtype, tol):
+    from magnetite_tpu_torch.fem.multigrid import _center_inverse
+    from magnetite_tpu_torch.kernels import mg_smooth_kernel as mgk
+    from magnetite_tpu_torch.meshing import generators
+
+    dev = require_cuda()
+    make, wrap = MG_GRIDS[grid]
+    mesh = make(generators)
+    rows, cols = mesh.grid_shape
+    st = assembled_stencil(mesh, dev).to(dtype)
+    dinv = _center_inverse(st)
+    rng = np.random.default_rng(15)
+    r, e = (torch.as_tensor(rng.standard_normal((2, rows, cols)), dtype=dtype, device=dev)
+            for _ in range(2))
+    ec = torch.as_tensor(rng.standard_normal((2, *mgk.coarse_shape(rows, cols, wrap))),
+                         dtype=dtype, device=dev)
+    neg, ad = -st.abs(), dinv.abs()  # every term adds: the rounding scale
+    calls = [
+        (lambda: mgk.mg_presmooth(st, dinv, r, wrap), mgk.mg_presmooth,
+         mgk.mg_presmooth_plain(st, dinv, r, wrap),
+         mgk.mg_presmooth_plain(neg, ad, r.abs(), wrap)),
+        (lambda: mgk.mg_postsmooth(st, dinv, r, e, ec, wrap), mgk.mg_postsmooth,
+         mgk.mg_postsmooth_plain(st, dinv, r, e, ec, wrap),
+         mgk.mg_postsmooth_plain(neg, ad, r.abs(), e.abs(), ec.abs(), wrap)),
+        # the coarsest level's smoothing solve: from zero, then from e
+        (lambda: mgk.mg_postsmooth(st, dinv, r, None, None, wrap), mgk.mg_postsmooth,
+         mgk.mg_postsmooth_plain(st, dinv, r, None, None, wrap),
+         mgk.mg_postsmooth_plain(neg, ad, r.abs(), None, None, wrap)),
+        (lambda: mgk.mg_postsmooth(st, dinv, r, e, None, wrap), mgk.mg_postsmooth,
+         mgk.mg_postsmooth_plain(st, dinv, r, e, None, wrap),
+         mgk.mg_postsmooth_plain(neg, ad, r.abs(), e.abs(), None, wrap)),
+    ]
+    for call, wrapper, ref, scale in calls:
+        before = wrapper.launches
+        got = call()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        for g, p, sc in zip(*(x if isinstance(x, tuple) else (x,) for x in (got, ref, scale))):
+            # FMA-contracted sums: rounding of each output's magnitude
+            assert float((g - p).abs().max()) <= tol * float(sc.max())
+
+
+def test_mg_smooth_kernels_refuse_what_they_do_not_take():
+    from magnetite_tpu_torch.kernels.cuda_lib import KernelError
+    from magnetite_tpu_torch.kernels.mg_smooth_kernel import mg_postsmooth, mg_presmooth
+
+    dev = require_cuda()
+    st = torch.zeros((9, 2, 2, 17, 32), device=dev)
+    dinv = torch.zeros((2, 2, 17, 32), device=dev)
+    r = torch.zeros((2, 17, 32), device=dev)
+    with pytest.raises(KernelError):  # dtype mismatch
+        mg_presmooth(st, dinv, r.double(), True)
+    with pytest.raises(KernelError):  # r on another grid
+        mg_presmooth(st, dinv, torch.zeros((2, 17, 31), device=dev), True)
+    with pytest.raises(KernelError):  # 32 cols do not halve without wrapping
+        mg_presmooth(st, dinv, r, False)
+    with pytest.raises(KernelError):  # even rows have no coarse grid
+        mg_presmooth(st[..., :16, :].contiguous(), dinv[..., :16, :].contiguous(),
+                     r[:, :16].contiguous(), True)
+    with pytest.raises(KernelError):  # a correction on the wrong coarse grid
+        mg_postsmooth(st, dinv, r, r, torch.zeros((2, 9, 15), device=dev), True)
+    with pytest.raises(KernelError):  # a CPU operand beside card operands
+        mg_postsmooth(st, dinv, r, torch.zeros((2, 17, 32)), None, True)
+
+
 def test_df_kernel_matches_plain_and_exact_f64():
     from magnetite_tpu_torch.kernels.df_kernel import (
         df_dia_matvec, df_dia_matvec_plain, split_bands,
@@ -378,6 +456,7 @@ def test_new_kernels_refuse_what_they_do_not_take():
 
 def test_structured_solve_on_card_matches_cpu():
     from magnetite_tpu_torch import SolverOptions, compile_problem
+    from magnetite_tpu_torch.kernels.mg_smooth_kernel import mg_postsmooth, mg_presmooth
     from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
     from magnetite_tpu_torch.meshing.generators import plate_with_hole_mesh, tensile_bcs_for_rect
     from magnetite_tpu_torch.config import ModelMetadata
@@ -391,11 +470,13 @@ def test_structured_solve_on_card_matches_cpu():
         (SolverOptions(dtype="float32", cg_rtol=1e-10), (1e-6, 1e-5)),
     ):
         cpu = compile_problem(mesh, bca, md, opts, device="cpu").solve()
-        before = stencil_matvec.launches
+        before = [k.launches for k in (stencil_matvec, mg_presmooth, mg_postsmooth)]
         problem = compile_problem(mesh, bca, md, opts, device="cuda")
         assert (problem.mode, problem.preconditioner) == ("stencil", "multigrid")
         card = problem.solve()
-        assert stencil_matvec.launches > before
+        # the CG operator and both fused V-cycle kernels ran
+        after = [k.launches for k in (stencil_matvec, mg_presmooth, mg_postsmooth)]
+        assert all(a > b for a, b in zip(after, before))
         assert card.residual_rel <= 1e-10
         assert np.abs(card.u - cpu.u).max() <= bars[0] * np.abs(cpu.u).max()
         for field in ("f", "stress", "von_mises"):

@@ -15,6 +15,8 @@
                                        # phases 0, 1 and 10 alone (no "ok" line)
     python3 chip_smoke.py --only multigrid
                                        # phases 0, 1 and 14 alone (no "ok" line)
+    python3 chip_smoke.py --only structured-sweeps
+                                       # phases 0, 1 and 15-17 alone (no "ok" line)
 
 Phases (any failure exits non-zero; no phase is wrapped in a catch):
   0. environment: torch / CUDA versions, the card's name and power limit;
@@ -76,6 +78,21 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      (stencil_matvec kernel + torch ops; with --baseline also the older
      tree's fused kernels) in interleaved rounds; then that hierarchy's
      whole V-cycle on the card against the CPU's.
+ 15. the structured-grid load sweep (compile_sweep) on the JAX package's
+     sweep benchmark grid (rect_mesh(64, 32, width=2.0), 33x65 nodes), --lanes
+     lanes (pulls U(0.005, 0.02), k U(0.5, 2)), 20 iterations, f32 and f64:
+     first and warm solve_s (median and spread of fresh batches made on the
+     card), solves/s, the lane stencil kernel's launches per level shape
+     against the count derived from the hierarchy, every lane's true
+     residual in f64 against 10x the JAX package's (GRID_BARS), lanes 0, 1
+     and the last against single f64 solves; then the sweep on the card
+     against the CPU on the 17x33 rectangle and the wrapped 17x32 plate;
+ 16. the same for the structured material sweep (compile_material_sweep,
+     per-lane E, nu, t; S = 3 instance of the kernel);
+ 17. (run before 15-16) the lane stencil kernel, S = 1 and S = 3, against
+     its plain versions at the bench grid, its 17x33 and 9x17 levels and the
+     wrapped 33x64 plate, f32 and f64, each timed beside its bound and
+     plain version; S = 1 against cuSPARSE SpMM in interleaved rounds.
 Every kernel is timed with CUDA events (median of --reps launches, L2
 flushed before each) beside its plain version, its bound (the larger of
 bytes moved once over 3.35 TB/s and operations over the peak rate of their
@@ -87,7 +104,8 @@ tree's band and prolong kernels join those rounds. Each main path runs
 with every launch counter set to 0 just before it and read just after
 (dia_matvec, stencil_matvec and the smoothing kernels also per shape). The last lines are the
 card's nvidia-smi line, a JSON line of per-kernel results (the band
-matvec's 2x2 and 3x3 kernels as two rows), and
+matvec's 2x2 and 3x3 kernels as two rows, the lane stencil kernel's two
+instances as two rows), and
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -144,6 +162,14 @@ KERNELS = {
                         "magnetite_tpu/pallas/lane_dia_kernel.py:135"),
     "lane_dia_matvec3": ("magnetite_tpu_torch/csrc/lane_dia_matvec.cu",
                          "magnetite_tpu/pallas/lane_dia_kernel.py:161"),
+    # the structured sweeps' lane stencil matvec: no pallas_call stands
+    # behind it, the JAX package leaves it to XLA, which fuses it
+    "lane_stencil_matvec": ("magnetite_tpu_torch/csrc/lane_stencil_matvec.cu",
+                            "no pallas_call: XLA-fused in JAX, "
+                            "magnetite_tpu/parallel/sweep.py:340"),
+    "lane_stencil_matvec3": ("magnetite_tpu_torch/csrc/lane_stencil_matvec.cu",
+                             "no pallas_call: XLA-fused in JAX, "
+                             "magnetite_tpu/parallel/sweep.py:993"),
 }
 # the JAX package's sweep benchmarks (bench.py: bench_unstructured_sweep and
 # bench_unstructured_material_sweep): mesh size, lanes, CG iterations
@@ -165,6 +191,26 @@ ROUNDS = 5
 SPIN_CYCLES = 200_000
 SWEEP_BARS = {"f32": {"residual": 1e-4, "u": 2e-3}, "refined": {"residual": 1e-10, "u": 1e-6},
               "material refined": {"residual": 1e-5, "u": 2e-3}}
+# the JAX package's structured-grid sweep benchmarks (bench.py: bench_sweep
+# and bench_material_sweep): rect_mesh(64, 32, width=2.0), 33x65 nodes, 20 CG
+# iterations; warm batches timed per dtype
+GRID_CELLS, GRID_ITERS, GRID_WARM = (64, 32), 20, 4
+# their per-lane bars. The true relative residual (f64, plain operator):
+# 10 x the JAX package's on the CPU at the same mesh and iterations with 128
+# lanes ("jax", scripts/grid_sweep_bars.py: each answer's residual
+# recomputed in f64), and never above 1e-4. max|u - u_single| / max|u| of
+# lanes against single f64 solves (rtol 1e-10): 20 iterations of f32 CG
+# stop at a residual ~1.5e-6, which leaves u ~3-4e-5 off the converged
+# answer on the CPU at 16 lanes, so 1e-4; f64 CG reaches the single solve's
+# own tolerance (~1e-10 of max|u|), so 1e-8.
+GRID_BARS = {
+    "load float32": {"jax": 1.3269274684674583e-06, "u": 1e-4},
+    "load float64": {"jax": 3.567940353591736e-15, "u": 1e-8},
+    "material float32": {"jax": 1.5882044500208306e-06, "u": 1e-4},
+    "material float64": {"jax": 2.407376801032443e-13, "u": 1e-8},
+}
+for _bar in GRID_BARS.values():
+    _bar["residual"] = min(1e-4, 10 * _bar["jax"])
 
 
 def say(msg: str) -> None:
@@ -177,16 +223,20 @@ def require(cond: bool, msg: str) -> None:
 
 
 def counters():
-    """The nine kernel wrappers, each carrying its `.launches` count."""
+    """The eleven kernel wrappers, each carrying its `.launches` count."""
     from magnetite_tpu_torch.kernels.df_kernel import df_dia_matvec
     from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
     from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec, lane_dia_matvec3
+    from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
+        lane_stencil_matvec, lane_stencil_matvec3,
+    )
     from magnetite_tpu_torch.kernels.mg_smooth_kernel import mg_postsmooth, mg_presmooth
     from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
     from magnetite_tpu_torch.kernels.transfer_kernel import prolong0, restrict0
 
     return (dia_matvec, prolong0, restrict0, stencil_matvec, mg_presmooth, mg_postsmooth,
-            df_dia_matvec, lane_dia_matvec, lane_dia_matvec3)
+            df_dia_matvec, lane_dia_matvec, lane_dia_matvec3, lane_stencil_matvec,
+            lane_stencil_matvec3)
 
 
 def shape_label(kernel: str, key) -> str:
@@ -1753,6 +1803,364 @@ def phase_sweeps_card_vs_cpu(h, lanes):
         require(np.isfinite(a).all() and rel <= 1e-5, f"{label} sweep: card differs from CPU")
 
 
+
+# ------------------- structured-grid sweeps (phases 15-17) ------------------
+
+
+def grid_case(cells=None):
+    """bench.py's sweep grid: rect_mesh(64, 32, width=2.0) (33x65 nodes),
+    left edge fixed, right edge ux = 0.01, bench_sweep's metadata."""
+    from magnetite_tpu_torch.config import ModelMetadata
+    from magnetite_tpu_torch.meshing.generators import rect_mesh, tensile_bcs_for_rect
+
+    mesh = rect_mesh(*(cells or GRID_CELLS), width=2.0)
+    return mesh, tensile_bcs_for_rect(mesh.coords, pull=0.01), ModelMetadata(
+        E_MOD, NU, THICK, 0.0, 0.05)
+
+
+def compile_grid_sweeps():
+    """Phases 15-17's set-up: the bench grid compiled for both structured
+    sweeps in f32 (the JAX package's default) and f64."""
+    from magnetite_tpu_torch.parallel.sweep import compile_material_sweep, compile_sweep
+
+    mesh, bca, md = grid_case()
+    out = {"case": (mesh, bca, md)}
+    for dtype in ("float32", "float64"):
+        t0 = time.perf_counter()
+        out[f"load {dtype}"] = compile_sweep(mesh, bca, md, iterations=GRID_ITERS, dtype=dtype,
+                                             device=DEV)
+        sync()
+        t1 = time.perf_counter()
+        out[f"material {dtype}"] = compile_material_sweep(mesh, bca, iterations=GRID_ITERS,
+                                                          dtype=dtype, device=DEV)
+        sync()
+        say(f"  {dtype}: compiled in {t1 - t0:.3f} s (load), {time.perf_counter() - t1:.3f} s "
+            "(material)")
+    load = out["load float64"]
+    say(f"  bench grid {mesh.grid_shape}: {mesh.num_nodes} nodes, {mesh.num_elements} elements; "
+        f"load hierarchy {[tuple(lv.stencil.shape[-2:]) for lv in load.setup[2]]} (coarsest "
+        f"dense: {load.setup[2][-1].dense_inv is not None}), material hierarchy "
+        f"{[tuple(lv.sa.shape[-2:]) for lv in out['material float64'].setup[1]]}")
+    return out
+
+
+def grid_launches(shapes, dense, iterations, material):
+    """{(instance, (rows, cols)): launches} of one structured sweep solve,
+    derived from its hierarchy (`shapes` finest first; `dense`: the
+    coarsest level is a dense inverse). A V-cycle launches 4 matvecs per
+    smoothing level (2 + 2 sweeps, the first from zero without one, and
+    the residual) and COARSE_SWEEPS - 1 on a coarsest level that smooths;
+    the CG operator runs iterations + 2 times (r0, each iteration, the true
+    residual) at level 0, and the rhs takes 1 (load: the raw stencil) or 3
+    (material: the raw bases) S = 1 launches there."""
+    from magnetite_tpu_torch.fem.multigrid import COARSE_SWEEPS
+
+    op = "S3" if material else "S1"
+    out: dict = {}
+
+    def add(key, n):
+        if n:
+            out[key] = out.get(key, 0) + n
+
+    add((op, shapes[0]), iterations + 2)
+    add(("S1", shapes[0]), 3 if material else 1)
+    for lv, shape in enumerate(shapes):
+        per = 4 if lv < len(shapes) - 1 else (0 if dense else COARSE_SWEEPS - 1)
+        add((op, shape), per * (iterations + 1))
+    return out
+
+
+def check_grid_launches(label, sweep, material):
+    """The lane kernel's launches per shape in the run just counted (the
+    wrappers' .shape_launches) against grid_launches."""
+    from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
+        lane_stencil_matvec, lane_stencil_matvec3,
+    )
+
+    if material:
+        shapes, dense = [tuple(lv.sa.shape[-2:]) for lv in sweep.setup[1]], False
+    else:
+        shapes = [tuple(lv.stencil.shape[-2:]) for lv in sweep.setup[2]]
+        dense = sweep.setup[2][-1].dense_inv is not None
+    want = grid_launches(shapes, dense, sweep.iterations, material)
+    seen = {}
+    for tag, k in (("S1", lane_stencil_matvec), ("S3", lane_stencil_matvec3)):
+        for (r, c, _), n in k.shape_launches.items():
+            seen[tag, (r, c)] = seen.get((tag, (r, c)), 0) + n
+    say(f"  {label}: lane stencil launches per shape {sorted(seen.items())}, derived from the "
+        f"hierarchy {sorted(want.items())}")
+    require(seen == want, f"{label}: lane stencil launches {seen}, expected {want}")
+
+
+def grid_batch(case, nb, seed, dtype, material):
+    """bench_sweep's / bench_material_sweep's batch on the card: the base BC
+    values (load: pulls U(0.005, 0.02) on the right edge per lane), no
+    forces, and k U(0.5, 2) (load) or E U(40e9, 250e9), nu U(0.22, 0.38),
+    t U(0.2, 1.0) (material)."""
+    import numpy as np
+    import torch
+
+    mesh, bca, _ = case
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(bca.u_value, dtype=dtype, device=DEV).expand(nb, -1, -1).clone()
+    f = torch.zeros_like(u)
+    if material:
+        return (u, f, *(torch.as_tensor(rng.uniform(lo, hi, nb), dtype=dtype, device=DEV)
+                        for lo, hi in ((40e9, 250e9), (0.22, 0.38), (0.2, 1.0))))
+    right = torch.as_tensor(np.isclose(mesh.coords[:, 0], mesh.coords[:, 0].max()), device=DEV)
+    u[:, right, 0] = torch.as_tensor(rng.uniform(0.005, 0.02, nb), dtype=dtype,
+                                     device=DEV)[:, None]
+    return u, f, torch.as_tensor(rng.uniform(0.5, 2.0, nb), dtype=dtype, device=DEV)
+
+
+def run_grid_sweep(name, sweep, case, material, expect, totals, profile=False):
+    """First solve under the launch counters, then GRID_WARM fresh batches
+    (made on the card before each timed call): warm solve_s median and
+    spread, up to the device sync."""
+    import torch
+
+    dtype = sweep.dtype
+    args = grid_batch(case, SWEEP_LANES, 0, dtype, material)
+    sync()
+    with main_path(name, totals, (expect,)):
+        t0 = time.perf_counter()
+        res = sweep.solve(*args)
+        sync()
+        first = time.perf_counter() - t0
+    check_grid_launches(name, sweep, material)
+    warm = []
+    for seed in range(1, GRID_WARM + 1):
+        batch = grid_batch(case, SWEEP_LANES, seed, dtype, material)
+        sync()
+        t0 = time.perf_counter()
+        sweep.solve(*batch)
+        sync()
+        warm.append(time.perf_counter() - t0)
+    med = statistics.median(warm)
+    say(f"  {name}: first solve_s {first:.4f}; warm solve_s median {med:.4f} over {len(warm)} "
+        f"fresh batches ({' / '.join(f'{w:.4f}' for w in warm)}), spread {min(warm):.4f}-"
+        f"{max(warm):.4f} -> {SWEEP_LANES / med:.0f} solves/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30 if DEV == 'cuda' else 0:.2f} GiB")
+    require(bool(torch.isfinite(res.u).all()), f"{name}: non-finite displacements")
+    if profile:
+        profile_call(f"{name} (one warm solve)", lambda: sweep.solve(*args))
+    return res, args
+
+
+def grid_residuals(grid, material, args, u):
+    """Per-lane true relative residual ||b - A u|| / ||b|| in f64 with the
+    plain lane operator of the f64 setup, for the batch `args` and the
+    answer u [B, N, 2]."""
+    import torch
+    from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
+        lane_material_matvec_plain, lane_stencil_matvec_plain,
+    )
+    from magnetite_tpu_torch.parallel.sweep import material_weights
+
+    ref = grid[f"{'material' if material else 'load'} float64"]
+    rows, cols = ref.rows, ref.cols
+    free = ref.free_g.double()[..., None]
+
+    def lanes(x):  # [B, N, 2] -> [2, R, C, B], f64
+        return x.to(DEV, torch.float64).permute(2, 1, 0).reshape(2, rows, cols, -1)
+
+    uf, fa, uu = lanes(args[0]), lanes(args[1]), lanes(u)
+    if material:
+        basis_raw, levels, _ = ref.setup
+        w3 = material_weights(*(a.to(DEV, torch.float64) for a in args[2:]))
+        kraw = sum(lane_stencil_matvec_plain(st, uf, False) * w for st, w in zip(basis_raw, w3))
+        b = free * (fa - kraw) + (1.0 - free) * uf
+        r = b - lane_material_matvec_plain(levels[0], w3, uu, False)
+    else:
+        raw, reduced = ref.setup[0], ref.setup[1]
+        ks = args[2].to(DEV, torch.float64)
+        b = free * (fa - lane_stencil_matvec_plain(raw, uf, False) * ks) + (1.0 - free) * uf
+        r = b - (free * lane_stencil_matvec_plain(reduced, uu, False) * ks + (1.0 - free) * uu)
+    return (r.square().sum(dim=(0, 1, 2)).sqrt() / b.square().sum(dim=(0, 1, 2)).sqrt()).cpu()
+
+
+def grid_single_solves(case, args, u, material, bar, label):
+    """Lanes 0, 1 and the last against single solves through compile_problem
+    (f64, rtol 1e-10) of the lane's own boundary values and material."""
+    import numpy as np
+    from magnetite_tpu_torch.bc import BCArrays
+    from magnetite_tpu_torch.config import ModelMetadata
+
+    mesh, bca, md = case
+    nb = u.shape[0]
+
+    def lane_case(b):
+        u_b = args[0][b].double().cpu().numpy()
+        bca_b = BCArrays(u_known=bca.u_known, u_value=u_b, f_value=np.zeros_like(u_b))
+        if material:
+            e, nu, t = (float(a[b]) for a in args[2:])
+            return bca_b, ModelMetadata(e, nu, t, 0.0, md.characteristic_length_max)
+        return bca_b, ModelMetadata(md.youngs_modulus * float(args[2][b]), md.poisson_ratio,
+                                    md.part_thickness, 0.0, md.characteristic_length_max)
+
+    return single_solves(case, u, (0, 1, nb - 1), lane_case, bar, label)
+
+
+def phase_grid_sweep(grid, totals, material, profile):
+    """Phase 15 (load) / 16 (material): the structured-grid sweep at full
+    width, f32 then f64: warm solve_s and solves/s, the lane kernel's
+    launches per shape against the hierarchy, every lane's true residual in
+    f64, lanes against single f64 solves; then the sweep on the card
+    against the CPU at small size."""
+    import torch
+
+    kind = "material" if material else "load"
+    expect = "lane_stencil_matvec3" if material else "lane_stencil_matvec"
+    say(f"phase {16 if material else 15}: structured {kind} sweep on the bench grid, "
+        f"{SWEEP_LANES} lanes, {GRID_ITERS} iterations, f32 and f64")
+    for dtype in ("float32", "float64"):
+        name = f"the structured {kind} sweep {dtype}"
+        res, args = run_grid_sweep(name, grid[f"{kind} {dtype}"], grid["case"], material, expect,
+                                   totals, profile and dtype == "float32")
+        rel = grid_residuals(grid, material, args, res.u)
+        bar = GRID_BARS[f"{kind} {dtype}"]
+        say(f"  {name}: per-lane true relative residual (f64, plain operator) max "
+            f"{float(rel.max()):.3e}, median {float(rel.median()):.3e} (<= {bar['residual']:g}: "
+            f"10 x the JAX package's {bar['jax']:.3e} on the CPU, at most 1e-4)")
+        require(bool(torch.isfinite(rel).all()) and float(rel.max()) <= bar["residual"],
+                f"{name}: residual above its bar")
+        grid_single_solves(grid["case"], args, res.u, material, bar["u"], name)
+        del res
+    grid_card_vs_cpu(material)
+
+
+def grid_card_vs_cpu(material):
+    """The sweep on the card (kernel) against the CPU (plain versions) on the
+    17x33 rectangle and the wrapped 17x32 plate, 32 lanes, f64."""
+    import numpy as np
+    import torch
+    from magnetite_tpu_torch.meshing.generators import plate_with_hole_mesh, tensile_bcs_for_rect
+    from magnetite_tpu_torch.parallel.sweep import compile_material_sweep, compile_sweep
+
+    kind = "material" if material else "load"
+    for label, mesh in (("17x33 rectangle", grid_case((32, 16))[0]),
+                        ("17x32 wrapped plate", plate_with_hole_mesh(16, 32))):
+        bca = tensile_bcs_for_rect(mesh.coords, pull=0.01)
+        md = grid_case()[2]
+        case = (mesh, bca, md)
+        out = {}
+        for dev in (DEV, "cpu"):
+            args = tuple(a.to(dev) for a in grid_batch(case, 32, 17, torch.float64, material))
+            if material:
+                sweep = compile_material_sweep(mesh, bca, GRID_ITERS, "float64", device=dev)
+            else:
+                sweep = compile_sweep(mesh, bca, md, GRID_ITERS, "float64", device=dev)
+            out[dev] = sweep.solve(*args).u.cpu().numpy()
+        a, b = out[DEV], out["cpu"]
+        rel = float(np.abs(a - b).max() / np.abs(b).max())
+        say(f"  {kind} sweep card vs CPU, {label}, 32 lanes, f64: max|du| {rel:.3e} of max|u| "
+            "(<= 1e-09)")
+        require(np.isfinite(a).all() and rel <= 1e-9, f"{kind} sweep on the {label}: card "
+                "differs from CPU")
+
+
+def lane_stencil_bound(rows, cols, nb, sets, es, wrap):
+    """(bytes moved once, operations) of one lane stencil matvec: u read
+    and y written once, the stencils (1, or 3 bases + Sfix) and S = 3's
+    weights once; 8 flops per stencil term inside the grid and lane, plus
+    S = 3's 24 to build the lane's 2x2 block."""
+    inside = sum((rows - abs(dr)) * (cols if wrap else cols - abs(dt))
+                 for dr in (-1, 0, 1) for dt in (-1, 0, 1))
+    nst = 4 if sets == 3 else 1
+    nbytes = (4 * rows * cols * nb + 36 * nst * rows * cols + (3 * nb if sets == 3 else 0)) * es
+    return nbytes, (8 if sets == 1 else 32) * inside * nb
+
+
+def phase_lane_stencil_kernel(grid, reps, flush, rand):
+    """Phase 17 (run before 15-16): both lane stencil kernel instances
+    against their plain versions at the bench grid and its 17x33 / 9x17
+    levels (the sweeps' own stencils) and on the wrapped 33x64 plate, f32
+    and f64, each timed beside its bound and plain version; S = 1 against
+    cuSPARSE SpMM of the same stencil in interleaved rounds."""
+    import torch
+    from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
+        lane_material_matvec_plain, lane_stencil_matvec, lane_stencil_matvec3,
+        lane_stencil_matvec_plain,
+    )
+    from magnetite_tpu_torch.meshing.generators import plate_with_hole_mesh, tensile_bcs_for_rect
+    from magnetite_tpu_torch.parallel.sweep import (
+        compile_material_sweep, compile_sweep, material_weights,
+    )
+
+    say("phase 17: the lane stencil kernel (S = 1, S = 3) against its plain versions")
+    for line in ptxas_of("lane_stencil_kernel"):
+        say(f"  ptxas: {line}")
+    plate = plate_with_hole_mesh(32, 64)
+    pbca = tensile_bcs_for_rect(plate.coords, pull=0.01)
+    nb = SWEEP_LANES
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        name, es = str(dtype)[6:], torch.empty((), dtype=dtype).element_size()
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        load, mat = grid[f"load {name}"], grid[f"material {name}"]
+        pload = compile_sweep(plate, pbca, grid["case"][2], GRID_ITERS, name, device=DEV)
+        pmat = compile_material_sweep(plate, pbca, GRID_ITERS, name, device=DEV)
+        shapes = [("bench 33x65", load.setup[1], mat.setup[1][0], False)]
+        shapes += [(f"level {lv} {'x'.join(map(str, load.setup[2][lv].stencil.shape[-2:]))}",
+                    load.setup[2][lv].stencil, mat.setup[1][lv], False) for lv in (1, 2)]
+        shapes += [("wrapped plate 33x64", pload.setup[1], pmat.setup[1][0], True)]
+        gen = torch.Generator(device="cpu").manual_seed(17)
+        w3 = material_weights(*(
+            (lo + (hi - lo) * torch.rand(nb, generator=gen, dtype=torch.float64)).to(DEV, dtype)
+            for lo, hi in ((40e9, 250e9), (0.22, 0.38), (0.2, 1.0))))
+        for label, st, level, wrap in shapes:
+            rows, cols = st.shape[-2:]
+            u = rand(2, rows, cols, nb, dtype=dtype)
+            tag = f"lane_stencil_matvec {label} B={nb} {name}"
+            ref = lane_stencil_matvec_plain(st, u, wrap)
+            scale = lane_stencil_matvec_plain(st.abs(), u.abs(), wrap).max()
+            err = compare(tag, lane_stencil_matvec(st, u, wrap), ref, scale, tol)
+            a = csr_of_stencil(st, wrap)
+            x = u.reshape(2 * rows * cols, nb)
+            compare(f"library CSR SpMM {tag}", torch.sparse.mm(a, x).reshape(u.shape), ref, scale,
+                    tol)
+            row = time_kernel(tag, lambda: lane_stencil_matvec(st, u, wrap),
+                              lambda: lane_stencil_matvec_plain(st, u, wrap),
+                              lambda: torch.sparse.mm(a, x), reps, flush,
+                              *lane_stencil_bound(rows, cols, nb, 1, es, wrap), dtype,
+                              rounds=ROUNDS)
+            results[f"lane_stencil_matvec {label} {name}"] = dict(max_abs_err=err, **row)
+            del a, x, ref
+            tag = f"lane_stencil_matvec3 {label} B={nb} {name}"
+            ref = lane_material_matvec_plain(level, w3, u, wrap)
+            scale = lane_material_matvec_plain(tuple(s.abs() for s in level), w3, u.abs(),
+                                               wrap).max()
+            err = compare(tag, lane_stencil_matvec3(level, w3, u, wrap), ref, scale, tol)
+            row = time_kernel(tag, lambda: lane_stencil_matvec3(level, w3, u, wrap),
+                              lambda: lane_material_matvec_plain(level, w3, u, wrap), None,
+                              reps, flush, *lane_stencil_bound(rows, cols, nb, 3, es, wrap), dtype)
+            results[f"lane_stencil_matvec3 {label} {name}"] = dict(max_abs_err=err, **row)
+            del ref, u
+        say("  (lane_stencil_matvec3: no single PyTorch call computes a per-lane weighted sum "
+            "of four stencils: library none)")
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    for k in ("lane_stencil_matvec", "lane_stencil_matvec3"):
+        results[k] = results[f"{k} bench 33x65 float32"]  # the main path's f32 bench call
+    return results
+
+
+def phase_grid_sweeps(args, rand, results, totals):
+    """Phases 17, 15 and 16 on the bench grid, set up once."""
+    import torch
+
+    say("phases 15-17: the bench grid compiled for both structured sweeps")
+    grid = compile_grid_sweeps()
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)
+    results.update(phase_lane_stencil_kernel(grid, args.reps, flush, rand))
+    del flush
+    torch.cuda.empty_cache()
+    phase_grid_sweep(grid, totals, False, args.profile)
+    phase_grid_sweep(grid, totals, True, args.profile)
+    del grid
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     global SWEEP_LANES, PTXAS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1786,11 +2194,13 @@ def main() -> int:
                     "its dia_matvec and prolong0 kernels (and mg_presmooth / mg_postsmooth "
                     "where it has them) are built apart and timed beside this tree's in "
                     "phases 2, 3 and 14, in the same interleaved rounds")
-    ap.add_argument("--only", choices=("transfers", "lane-kernels", "multigrid"),
+    ap.add_argument("--only", choices=("transfers", "lane-kernels", "multigrid",
+                                       "structured-sweeps"),
                     help="transfers: phases 0 to 3 alone (the Delaunay plate's band and "
                     "transfer kernels); lane-kernels: phases 0, 1 and 10 alone; multigrid: "
                     "phases 0, 1 and 14 alone (the 1M plate's hierarchy built, not solved); "
-                    "each ends without the ok line")
+                    "structured-sweeps: phases 0, 1 and 15-17 alone; each ends without the "
+                    "ok line")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1839,6 +2249,11 @@ def main() -> int:
         phase_lane_kernels(compile_sweeps(args.sweep_h), args.reps, flush, rand)
         say(f"phases 0, 1 and 10 passed in {time.perf_counter() - t_start:.1f} s "
             "(--only lane-kernels: no ok line)")
+        return 0
+    if args.only == "structured-sweeps":
+        phase_grid_sweeps(args, rand, {}, {})
+        say(f"phases 0, 1 and 15-17 passed in {time.perf_counter() - t_start:.1f} s "
+            "(--only structured-sweeps: no ok line)")
         return 0
     if args.only == "multigrid":
         mesh, bca, md = structured_case(*args.plate)
@@ -1899,6 +2314,7 @@ def main() -> int:
     del sweeps
     torch.cuda.empty_cache()
     phase_sweeps_card_vs_cpu(args.sweep_small[0], int(args.sweep_small[1]))
+    phase_grid_sweeps(args, rand, results, totals)
 
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     say("launches per shape over the main paths: " + "; ".join(

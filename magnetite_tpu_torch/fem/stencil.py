@@ -142,8 +142,14 @@ def assemble_stencil_structured(
     rows: int,
     cols: int,
     wrap_cols: bool,
+    dcoefs=None,
 ) -> torch.Tensor:
     """Scatter-free assembly for canonical generator grids -> [9,2,2,R,C].
+
+    `dcoefs`, when given, overrides the plane-stress coefficients
+    (d0, d1, d2) of D = [[d0,d1,0],[d1,d0,0],[0,0,d2]]: the stencil is
+    linear in them, so material sweeps assemble three basis stencils once
+    (unit d0 / d1 / d2, thickness 1) and combine them per lane.
 
     Connectivity is implied by the grid (two triangles per cell along the
     (r,t)-(r+1,t+1) diagonal), so each of the 2 triangle types x 9 node
@@ -161,7 +167,10 @@ def assemble_stencil_structured(
             return torch.roll(v, -dt, dims=1) if dt else v
         return v[:, dt : dt + ct]
 
-    d0, d1, d2 = _plane_stress_coefficients(e_mod, nu)
+    if dcoefs is None:
+        d0, d1, d2 = _plane_stress_coefficients(e_mod, nu)
+    else:
+        d0, d1, d2 = dcoefs
     stencil = torch.zeros(
         (9, 2, 2, rows, cols), dtype=coords.dtype, device=coords.device
     )

@@ -11,6 +11,7 @@ no helper: `fem.amg.setup_to_arrays` writes the dict the JAX package's
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .bc import BCArrays
 from .fem.amg import AMGMaterialSetup, AMGSetup, setup_from_arrays
@@ -39,6 +40,38 @@ def material_setup_from_arrays(
         level_sizes=[tuple(int(v) for v in s) for s in level_sizes],
         setup_info={"loaded": True},
         fingerprint=fingerprint,
+    )
+
+
+def _tensor(a):
+    return None if a is None else torch.from_numpy(np.array(a))
+
+
+def stencil_sweep_setup_from_arrays(raw, reduced, levels, b_mat, d_mat) -> tuple:
+    """The port's structured load-sweep setup (compile_sweep's `setup=`)
+    from the arrays of either package's `_stencil_sweep_setup` (as numpy):
+    the raw and reduced stencils [9, 2, 2, R, C], levels [(stencil,
+    diag_inv, dense_inv or None)], B matrices [E, 3, 6] and D [3, 3]."""
+    from .parallel.sweep import _LaneLevel
+
+    return (
+        _tensor(raw), _tensor(reduced),
+        tuple(_LaneLevel(*(_tensor(a) for a in lv)) for lv in levels),
+        _tensor(b_mat), _tensor(d_mat),
+    )
+
+
+def material_grid_sweep_setup_from_arrays(basis_raw, levels, b_mat) -> tuple:
+    """The port's structured material-sweep setup (compile_material_sweep's
+    `setup=`) from the arrays of either package's `_material_sweep_setup`
+    (as numpy): three raw basis stencils, levels [(sa, sb, sc, sfix)] and
+    the B matrices."""
+    from .parallel.sweep import _MaterialLevel
+
+    return (
+        tuple(_tensor(a) for a in basis_raw),
+        tuple(_MaterialLevel(*(_tensor(a) for a in lv)) for lv in levels),
+        _tensor(b_mat),
     )
 
 

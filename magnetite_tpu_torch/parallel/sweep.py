@@ -1,36 +1,39 @@
-"""Lane-batched design sweeps on arbitrary meshes: one assembled system,
-thousands of solves (port of the AMG-lane part of
-magnetite_tpu/parallel/sweep.py).
+"""Lane-batched design sweeps: one assembled system, thousands of solves
+(port of magnetite_tpu/parallel/sweep.py).
 
-A batch axis turns the solve into a design sweep. Fields are [2, N, B] with
-the BATCH as the minormost (lane) axis, the DIA band operator is shared by
-every lane, and ONE smoothed-aggregation AMG hierarchy (fem/amg.py)
-preconditions all of them with a fixed-iteration PCG (fem/cg.py), so every
-lane runs in lockstep and no iteration reads the host:
+A batch axis turns the solve into a design sweep. Fields carry the BATCH as
+the minormost (lane) axis, the operator is shared by every lane, and ONE
+multigrid hierarchy preconditions all of them with a fixed-iteration PCG
+(fem/cg.py), so every lane runs in lockstep and no iteration reads the
+host. Two families, picked per mesh as the JAX package picks them:
 
-  * load sweeps (`compile_unstructured_sweep`): per-lane prescribed
-    displacements, applied forces and a stiffness scale s_b (Young's
-    modulus x thickness at fixed Poisson ratio). The V-cycle is linear, so
-    V((s_b K))^-1 = (1/s_b) V(K)^-1: the shared hierarchy is the exact AMG
-    preconditioner of every lane.
-  * material sweeps (`compile_unstructured_material_sweep`): per-lane
-    (E, nu, t). The stiffness is linear in the plane-stress D coefficients
-    and in t, so three basis band sets span every material,
-    K(E, nu, t) = wa*Ka + wb*Kb + wc*Kc, and the basis hierarchy
-    (fem/amg.build_amg_material_setup) gives each lane the exact V-cycle of
-    its own operator.
+  * structured grids (`compile_sweep`, `compile_material_sweep`; canonical
+    generator grids, fields [2, R, C, B]): the stencil operator and one
+    geometric-multigrid hierarchy (fem/multigrid.py) whose coarsest level is
+    a dense inverse when small. The lane stencil matvec is the hand-written
+    kernel of kernels/lane_stencil_kernel.py (one instance for the shared
+    stencil, one for three basis stencils weighted per lane); the transfers
+    and block-Jacobi steps are torch ops.
+  * arbitrary meshes (`compile_unstructured_sweep`,
+    `compile_unstructured_material_sweep`; fields [2, N, B]): the DIA band
+    operator and one smoothed-aggregation AMG hierarchy (fem/amg.py), the
+    band matvecs the lane kernels K7 / K8 (kernels/lane_dia_kernel.py).
 
-On a CUDA device the band matvecs on lane fields are the hand-written lane
-kernels (kernels/lane_dia_kernel.py: K7 for load sweeps, K8 for material
-sweeps); on the CPU their plain PyTorch versions. The tensors' device alone
-picks which. The lane transfers and coarse levels are gathers, as in the
-JAX package.
+Load sweeps vary the prescribed displacements, applied forces and a
+stiffness scale s_b per lane (Young's modulus x thickness at fixed Poisson
+ratio); the V-cycle is linear, so V((s_b K))^-1 = (1/s_b) V(K)^-1 and the
+shared hierarchy is every lane's exact preconditioner. Material sweeps vary
+(E, nu, t): the stiffness is linear in the plane-stress D coefficients and
+in t, so three basis operators span every material, K(E, nu, t) = wa*Ka +
+wb*Kb + wc*Kc, and the basis hierarchy gives each lane the exact V-cycle of
+its own operator.
+
+On a CUDA device the lane matvecs are the kernels; on the CPU their plain
+PyTorch versions. The tensors' device alone picks which.
 
 Not yet ported, each raising a typed error that names its ROADMAP item:
-the structured-grid sweeps (`compile_sweep` / `compile_material_sweep`,
-`sweep_solve(impl="stencil")`), the DIA block-Jacobi lanes
-(`impl="lanes"`), the vmap fallback, and lane sharding over several GPUs
-(`device_mesh=`).
+the DIA block-Jacobi lanes (`impl="lanes"`), the vmap fallback, and lane
+sharding over several GPUs (`device_mesh=`).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..bc import BCArrays
 from ..config import ModelMetadata
@@ -51,10 +55,13 @@ from ..fem.amg import (
     amg_sweep_schedule,
     ieee_f32,
 )
-from ..fem.cg import pcg_fixed_iterations
-from ..fem.solve import resolve_device
 from ..fem.blocks import apply_blocks, guarded_inv2, reduce_diag_blocks, solve2
+from ..fem.cg import pcg_fixed_iterations
+from ..fem.multigrid import COARSE_SWEEPS as MG_COARSE_SWEEPS
+from ..fem.solve import resolve_device
 from ..kernels.lane_dia_kernel import lane_dia_matvec, lane_dia_matvec3, offsets_tensor
+from ..kernels.lane_stencil_kernel import lane_stencil_matvec, lane_stencil_matvec3
+from ..kernels.mg_smooth_kernel import OMEGA as MG_OMEGA
 from ..meshing.core import Mesh
 
 _LANE_KERNEL_MODES = ("auto", "interpret", "off")
@@ -412,7 +419,7 @@ def compile_unstructured_sweep(
     n = mesh.num_nodes
     mesh, bca, dia, perm = _banded_mesh_or_raise(
         mesh, base_bca, max_diags, "per-variant solve_system (the vmap sweep "
-        "path is not yet ported, ROADMAP Queue 1 item 9)"
+        "path is not yet ported, ROADMAP Queue 1 item 9.3)"
     )
 
     free_np = (~bca.u_known).astype(np.float64)
@@ -488,29 +495,35 @@ def sweep_solve(
 ) -> SweepResult:
     """Batched solve over B variants sharing one sparsity + base operator.
 
-    impl: "auto" | "amg" (arbitrary meshes, shared AMG hierarchy --
-    compile_unstructured_sweep) | "stencil" | "lanes" | vmap fallback. Of
-    these the AMG lanes are ported: "auto" takes them where the JAX package
-    does (a mesh without a grid at AMG scale) with the iteration budget
-    capped at 40, and every other route raises a typed "not yet ported"
-    error."""
+    impl: "auto" | "stencil" (grid + shared multigrid -- compile_sweep) |
+    "amg" (arbitrary meshes, shared AMG hierarchy --
+    compile_unstructured_sweep) | "lanes" | vmap fallback. As in the JAX
+    package, "auto" takes the stencil lanes on every coarsenable canonical
+    grid (with the caller's iteration budget) and the AMG lanes on a mesh
+    without a grid at AMG scale (budget capped at 40); the DIA block-Jacobi
+    lanes and the vmap fallback raise a typed "not yet ported" error."""
     from ..config import SolverOptions
     from ..utils.logging import log
 
     if impl not in ("auto", "amg", "stencil", "lanes", "vmap"):
         raise InputError(f"unknown sweep impl '{impl}' (auto | amg | stencil | lanes | vmap)")
+    if impl == "stencil" and mesh.grid_shape is None:
+        raise SolverError("mesh has no grid_shape; stencil sweep unavailable")
     structured = _grid_sweep_applies(mesh)
     if impl == "stencil" or (impl == "auto" and structured):
-        if impl == "stencil" and not structured:
+        if not structured:
             raise SolverError("mesh is not a coarsenable canonical grid; stencil sweep unavailable")
-        _not_ported("the structured-grid (stencil + multigrid) sweep", "Queue 1 item 9")
+        return _sweep_stencil_lanes(
+            mesh, base_bca, metadata, u_values, f_values, k_scales, iterations, dtype, device
+        )
     to_amg = impl == "amg" or (
         impl == "auto" and mesh.grid_shape is None
         and mesh.num_nodes >= SolverOptions().amg_auto_min_nodes
     )
     if not to_amg:
         _not_ported(
-            "the DIA block-Jacobi lane sweep and the vmap sweep fallback", "Queue 1 item 9"
+            "the DIA block-Jacobi lane sweep and the vmap sweep fallback",
+            "Queue 1 items 9.2 and 9.3",
         )
     amg_iters = iterations if impl == "amg" else min(int(iterations), 40)
     if amg_iters != iterations:
@@ -546,7 +559,7 @@ def sweep_solve(
         if impl == "amg":
             raise
         _not_ported(
-            f"the sweep fallback for band-hostile meshes ({err})", "Queue 1 item 9"
+            f"the sweep fallback for band-hostile meshes ({err})", "Queue 1 item 9.3"
         )
     return compiled.solve(u_values, f_values, k_scales)
 
@@ -887,3 +900,542 @@ def compile_unstructured_material_sweep(
         u_base=torch.from_numpy(np.asarray(bca.u_value, np.float64)).to(dev, user_t),
         f_base=torch.from_numpy(np.asarray(bca.f_value, np.float64)).to(dev, user_t),
     )
+
+
+# ------------------- structured-grid lanes (stencil + MG) -------------------
+#
+# Canonical generator grids: fields [2, R, C, B], the stencil operator
+# applied by the lane stencil kernel, and ONE geometric-multigrid hierarchy
+# shared by every lane. The V-cycles follow the JAX package's
+# (_lane_vcycle / _lane_material_vcycle): V(2, 2) damped block-Jacobi,
+# omega = 0.7, a dense inverse on a small coarsest level, else 48 sweeps
+# there. The first sweep of a smoothing run starts from e = 0, where
+# K e = 0: it is applied as e = omega * D^-1 r without the matvec, which
+# gives the same values as the JAX package's sweep from zero.
+
+
+class _LaneLevel(NamedTuple):
+    """One level of the shared hierarchy."""
+
+    stencil: torch.Tensor  # [9, 2, 2, R, C] BC-reduced
+    diag_inv: torch.Tensor  # [2, 2, R, C]
+    dense_inv: Optional[torch.Tensor] = None  # [2RC, 2RC] node-major, coarsest only
+
+
+def _lane_prolong(uc: torch.Tensor, wrap: bool) -> torch.Tensor:
+    """Bilinear coarse -> fine on [..., Rc, Cc, B] (lane-batched
+    fem/multigrid.prolong: col axis -2, row axis -3)."""
+    if wrap:
+        mid = 0.5 * (uc + torch.roll(uc, -1, dims=-2))
+        x = torch.stack([uc, mid], dim=-2).reshape(*uc.shape[:-2], -1, uc.shape[-1])
+    else:
+        a = uc[..., :-1, :]
+        mid = 0.5 * (uc[..., :-1, :] + uc[..., 1:, :])
+        body = torch.stack([a, mid], dim=-2).reshape(
+            *uc.shape[:-3], uc.shape[-3], -1, uc.shape[-1]
+        )
+        x = torch.cat([body, uc[..., -1:, :]], dim=-2)
+    a = x[..., :-1, :, :]
+    mid = 0.5 * (x[..., :-1, :, :] + x[..., 1:, :, :])
+    body = torch.stack([a, mid], dim=-3).reshape(*x.shape[:-3], -1, x.shape[-2], x.shape[-1])
+    return torch.cat([body, x[..., -1:, :, :]], dim=-3)
+
+
+def _lane_restrict(rf: torch.Tensor, wrap: bool) -> torch.Tensor:
+    """Exact adjoint of _lane_prolong, fine -> coarse on [..., R, C, B]."""
+    even = rf[..., ::2, :, :]
+    odd = rf[..., 1::2, :, :]
+    up = F.pad(odd, (0, 0, 0, 0, 1, 0))[..., : even.shape[-3], :, :]
+    down = F.pad(odd, (0, 0, 0, 0, 0, 1))[..., : even.shape[-3], :, :]
+    x = even + 0.5 * (up + down)
+    even = x[..., ::2, :]
+    odd = x[..., 1::2, :]
+    if wrap:
+        left = torch.roll(odd, 1, dims=-2)
+        return even + 0.5 * (odd + left)
+    up = F.pad(odd, (0, 0, 1, 0))[..., : even.shape[-2], :]
+    down = F.pad(odd, (0, 0, 0, 1))[..., : even.shape[-2], :]
+    return even + 0.5 * (up + down)
+
+
+def _lane_dense_coarse(dense_inv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Exact coarse solve for all lanes at once: one matrix product
+    [2RC, 2RC] x [2RC, B] (node-major flattening)."""
+    _, rows, cols, b = r.shape
+    r_flat = r.permute(1, 2, 0, 3).reshape(rows * cols * 2, b)
+    with ieee_f32():
+        e = torch.matmul(dense_inv, r_flat)
+    return e.reshape(rows, cols, 2, b).permute(2, 0, 1, 3)
+
+
+def _lane_vcycle(levels, wrap: bool, pre: int = 2, post: int = 2,
+                 coarse_sweeps: int = MG_COARSE_SWEEPS, omega: float = MG_OMEGA):
+    """V-cycle over lane fields sharing ONE hierarchy: the variants differ
+    only by the scale s_b, and V(s_b K) = (1/s_b) V(K) exactly. The coarsest
+    level solves exactly through its dense inverse when it has one."""
+
+    def smooth(level, e, r, sweeps):
+        for _ in range(sweeps):
+            res = r if e is None else r - lane_stencil_matvec(level.stencil, e, wrap)
+            step = omega * apply_blocks(level.diag_inv[..., None], res)
+            e = step if e is None else e + step
+        return e
+
+    def cycle(l, r):
+        level = levels[l]
+        if l == len(levels) - 1:
+            if level.dense_inv is not None:
+                return _lane_dense_coarse(level.dense_inv, r)
+            return smooth(level, None, r, coarse_sweeps)
+        e = smooth(level, None, r, pre)
+        res = r - lane_stencil_matvec(level.stencil, e, wrap)
+        ec = cycle(l + 1, _lane_restrict(res, wrap))
+        e = e + _lane_prolong(ec, wrap)
+        return smooth(level, e, r, post)
+
+    return lambda r: cycle(0, r)
+
+
+def _lane_grid_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-lane inner product on [2, R, C, B] -> [B]."""
+    return torch.sum(a * b, dim=(0, 1, 2))
+
+
+def _grid_mesh_or_raise(mesh: Mesh, what: str):
+    if mesh.grid_shape is None or not mesh.canonical_grid:
+        raise SolverError(f"{what} needs a canonical grid mesh")
+    rows, cols = mesh.grid_shape
+    return int(rows), int(cols), bool(mesh.wrap_cols)
+
+
+def _grid_arrays(mesh, base_bca, rows, cols, dev):
+    """(coords [N, 2], tris [E, 3] int64, free_g [2, R, C]) on dev; f64."""
+    from ..fem.solve import _grid
+
+    coords = torch.from_numpy(np.asarray(mesh.coords, np.float64)).to(dev)
+    tris = torch.from_numpy(np.asarray(mesh.tris, np.int64)).to(dev)
+    free = torch.from_numpy((~np.asarray(base_bca.u_known)).astype(np.float64)).to(dev)
+    return coords, tris, _grid(free, rows, cols)
+
+
+def _setup_to(setup, dtype, dev, rows: int, cols: int, what: str):
+    """A setup tuple (tensors, nested tuples, None) on `dev` in `dtype`,
+    checked against the mesh's grid."""
+    first = setup[0]
+    while isinstance(first, tuple):
+        first = first[0]
+    if tuple(first.shape[-2:]) != (rows, cols):
+        raise InputError(
+            f"{what} setup is for a {tuple(first.shape[-2:])} grid, the mesh is {(rows, cols)}"
+        )
+
+    def conv(x):
+        if x is None:
+            return None
+        if isinstance(x, tuple):
+            return type(x)(*(conv(v) for v in x)) if hasattr(x, "_fields") else tuple(
+                conv(v) for v in x)
+        return torch.as_tensor(x).to(dev, dtype)
+
+    return conv(tuple(setup))
+
+
+def _stencil_sweep_setup(coords, tris, free_g, e_mod, nu, t, rows, cols, wrap):
+    """One-time per-mesh work, in the dtype of `coords`: assembly, BC
+    reduction, the multigrid hierarchy (with the dense coarse inverse) and
+    the stress-recovery matrices -> (raw, reduced, levels, b_mat, d_mat)."""
+    from ..fem.element import (
+        element_areas, gather_element_coords, strain_displacement_matrices,
+        stress_strain_matrix,
+    )
+    from ..fem.multigrid import build_hierarchy
+    from ..fem.solve import _reduce_stencil
+    from ..fem.stencil import assemble_stencil_structured
+
+    raw = assemble_stencil_structured(coords, e_mod, nu, t, rows, cols, wrap)
+    reduced = _reduce_stencil(raw, free_g, wrap)
+    levels = tuple(
+        _LaneLevel(lv.stencil, lv.diag_inv, lv.dense_inv) for lv in build_hierarchy(reduced, wrap)
+    )
+    ecoords = gather_element_coords(coords, tris)
+    b_mat = strain_displacement_matrices(ecoords, element_areas(ecoords))
+    d_mat = stress_strain_matrix(e_mod, nu, coords.dtype, coords.device)
+    return raw, reduced, levels, b_mat, d_mat
+
+
+def _lane_fields(values: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """[B, N, 2] -> [2, R, C, B] on the device."""
+    return values.permute(2, 1, 0).reshape(2, rows, cols, values.shape[0])
+
+
+def _stencil_lanes(setup, tris, free_g, u_values, f_values, k_scales, rows, cols, wrap,
+                   iterations):
+    """The batched solve of CompiledSweep (the JAX package's
+    _stencil_lanes_jit)."""
+    raw, reduced, levels, b_mat, d_mat = setup
+    b = u_values.shape[0]
+    u_fixed = _lane_fields(u_values, rows, cols)
+    f_applied = _lane_fields(f_values, rows, cols)
+    free_b = free_g[..., None]  # [2, R, C, 1]
+    inv_scale = free_b / k_scales + (1.0 - free_b)
+
+    def op(v):  # lanes of s_b * K_reduced
+        y = lane_stencil_matvec(reduced, v, wrap)
+        return free_b * y * k_scales + (1.0 - free_b) * v
+
+    vcycle = _lane_vcycle(levels, wrap)
+
+    def precond(r):  # V(s_b K)^-1 = (1/s_b) V(K)^-1, identity on fixed DOFs
+        return vcycle(r) * inv_scale
+
+    rhs = free_b * (f_applied - lane_stencil_matvec(raw, u_fixed, wrap) * k_scales) + (
+        1.0 - free_b
+    ) * u_fixed
+    # residual_norm is the TRUE residual ||rhs - op(x)|| per lane, recomputed
+    # with op after the last iteration (the recursion's r drifts below the
+    # f32 floor and would over-report convergence)
+    result = pcg_fixed_iterations(
+        op, rhs, preconditioner=precond, x0=u_fixed, iterations=iterations, dot=_lane_grid_dot,
+    )
+    u_flat = result.x.reshape(2, rows * cols, b)
+
+    def sigma_fn(strain):  # [C, 3, B] -> D B u per lane (scaled after the root)
+        return tuple(d_mat[r, 0] * strain[:, 0] + d_mat[r, 1] * strain[:, 1]
+                     + d_mat[r, 2] * strain[:, 2] for r in range(3))
+
+    vm = _chunked_lane_vm(u_flat, tris, b_mat, sigma_fn) * k_scales[None, :]
+    return (
+        u_flat.permute(2, 1, 0).contiguous(),  # [B, N, 2]
+        result.residual_norm,
+        vm.T,  # [B, E]
+        torch.sqrt(_lane_grid_dot(rhs, rhs)),
+    )
+
+
+@dataclass
+class CompiledSweep:
+    """A canonical-grid mesh compiled for repeated design-sweep batches.
+
+    Setup (assembly, BC reduction, the multigrid hierarchy with its dense
+    coarse inverse, stress matrices) runs once and stays on `device`;
+    `solve(u_values, f_values, k_scales)` runs only the batched CG. Results
+    are tensors on `device`."""
+
+    setup: tuple  # (raw, reduced, levels, b_mat, d_mat)
+    tris: torch.Tensor
+    free_g: torch.Tensor  # [2, R, C]
+    rows: int
+    cols: int
+    wrap: bool
+    iterations: int
+    dtype: torch.dtype
+    device: torch.device
+
+    def _batch(self, arr) -> torch.Tensor:
+        return _batch_on(arr, self.dtype, self.device)
+
+    def solve(self, u_values, f_values, k_scales) -> SweepResult:
+        """u_values / f_values [B, N, 2] per-lane prescribed displacements and
+        applied forces, k_scales [B] stiffness scales."""
+        u, res, vm, rhs_norm = _stencil_lanes(
+            self.setup, self.tris, self.free_g, self._batch(u_values), self._batch(f_values),
+            self._batch(k_scales), self.rows, self.cols, self.wrap, self.iterations,
+        )
+        return SweepResult(u=u, residual_norm=res, von_mises=vm, rhs_norm=rhs_norm)
+
+
+def compile_sweep(
+    mesh: Mesh,
+    base_bca: BCArrays,
+    metadata: ModelMetadata,
+    iterations: int = 20,
+    dtype=np.float32,
+    device_mesh=None,
+    device="cuda",
+    setup=None,
+) -> CompiledSweep:
+    """Build a CompiledSweep for a coarsenable canonical-grid mesh on
+    `device` ("cuda" or "cpu", never chosen implicitly).
+
+    The setup is computed in `dtype`, the precision of the whole batched
+    solve, from the coordinates rounded to it (as the JAX package does).
+    `setup`: one built before for THIS mesh (either package's,
+    interop.stencil_sweep_setup_from_arrays), used instead."""
+    from ..fem.multigrid import can_coarsen
+
+    dev = resolve_device(device)
+    if device_mesh is not None:
+        _not_ported("lane sharding over several GPUs (device_mesh=)", "Queue 1 item 10")
+    user_t = _dtypes(dtype, False)[0]
+    rows, cols, wrap = _grid_mesh_or_raise(mesh, "compile_sweep")
+    if not can_coarsen(rows, cols, wrap):
+        raise SolverError("grid cannot coarsen; use sweep_solve's DIA path")
+    coords, tris, free_g = _grid_arrays(mesh, base_bca, rows, cols, dev)
+    free_g = free_g.to(user_t)
+    if setup is None:
+        setup = _stencil_sweep_setup(
+            coords.to(user_t), tris, free_g, float(metadata.youngs_modulus),
+            float(metadata.poisson_ratio), float(metadata.part_thickness), rows, cols, wrap,
+        )
+    return CompiledSweep(
+        setup=_setup_to(setup, user_t, dev, rows, cols, "compile_sweep"),
+        tris=tris,
+        free_g=free_g,
+        rows=rows,
+        cols=cols,
+        wrap=wrap,
+        iterations=int(iterations),
+        dtype=user_t,
+        device=dev,
+    )
+
+
+def _sweep_stencil_lanes(
+    mesh, base_bca, metadata, u_values, f_values, k_scales, iterations, dtype, device
+):
+    """Lane-batched sweep on the stencil operator with a SHARED multigrid
+    hierarchy: one V-cycle preconditions every variant at once."""
+    compiled = compile_sweep(mesh, base_bca, metadata, iterations, dtype, device=device)
+    return compiled.solve(u_values, f_values, k_scales)
+
+
+# ------------------- structured-grid material sweeps (E, nu, t) -------------
+#
+# Three basis stencils (unit d0 / d1 / d2, t = 1) assembled once span every
+# material; Galerkin coarsening is linear in the operator, so the hierarchy
+# carries the decomposition down every level -- one 4-stencil hierarchy (3
+# masked material bases + the fixed-DOF identity part) gives every lane its
+# EXACT coarse operators.
+
+
+class _MaterialLevel(NamedTuple):
+    """One hierarchy level: masked material bases + fixed-DOF identity."""
+
+    sa: torch.Tensor  # [9, 2, 2, R, C]
+    sb: torch.Tensor
+    sc: torch.Tensor
+    sfix: torch.Tensor
+
+
+def _mask_stencil(raw: torch.Tensor, free_g: torch.Tensor, wrap: bool) -> torch.Tensor:
+    """BC mask WITHOUT the fixed-DOF identity (that part is lane-invariant
+    and lives in its own stencil, so lane scaling stays exact)."""
+    from ..fem.stencil import OFFSETS, shift2d
+
+    out = []
+    for s, (dr, dt) in enumerate(OFFSETS):
+        fin = shift2d(free_g, dr, dt, wrap)
+        out.append(raw[s] * free_g[:, None] * fin[None, :])
+    return torch.stack(out)
+
+
+def _fixed_identity_stencil(free_g: torch.Tensor) -> torch.Tensor:
+    from ..fem.stencil import CENTER
+
+    _, rows, cols = free_g.shape
+    sfix = torch.zeros((9, 2, 2, rows, cols), dtype=free_g.dtype, device=free_g.device)
+    sfix[CENTER, 0, 0] = 1.0 - free_g[0]
+    sfix[CENTER, 1, 1] = 1.0 - free_g[1]
+    return sfix
+
+
+def _material_sweep_setup(coords, tris, free_g, rows, cols, wrap):
+    """One-time per-mesh work, in the dtype of `coords`: 3 raw + 4 masked
+    basis stencils, the 4-stencil Galerkin hierarchy (probed through the
+    plain stencil matvec) and the B matrices -> (basis_raw, levels, b_mat)."""
+    from ..fem.amg import _UNIT_DCOEFS
+    from ..fem.element import element_areas, gather_element_coords, strain_displacement_matrices
+    from ..fem.multigrid import can_coarsen, coarse_shape, galerkin_coarse_stencil
+    from ..fem.stencil import assemble_stencil_structured, stencil_matvec_plain
+
+    basis_raw = tuple(
+        assemble_stencil_structured(coords, 0.0, 0.0, 1.0, rows, cols, wrap, dcoefs=dc)
+        for dc in _UNIT_DCOEFS
+    )
+    levels = [_MaterialLevel(*(_mask_stencil(raw, free_g, wrap) for raw in basis_raw),
+                             _fixed_identity_stencil(free_g))]
+    r, c = rows, cols
+    while can_coarsen(r, c, wrap):
+        rc, cc = coarse_shape(r, c, wrap)
+        levels.append(_MaterialLevel(*(
+            galerkin_coarse_stencil(
+                lambda v, st=st: stencil_matvec_plain(st, v, wrap), rc, cc, wrap,
+                coords.dtype, coords.device,
+            )
+            for st in levels[-1]
+        )))
+        r, c = rc, cc
+    ecoords = gather_element_coords(coords, tris)
+    b_mat = strain_displacement_matrices(ecoords, element_areas(ecoords))
+    return basis_raw, tuple(levels), b_mat
+
+
+def _lane_material_matvec(level: _MaterialLevel, wa, wb, wc, u, wrap):
+    """Per-lane y = K(w) u on [2, R, C, B] lane fields (the S = 3 kernel)."""
+    return lane_stencil_matvec3(level, (wa, wb, wc), u, wrap)
+
+
+def _lane_material_center_inv(level: _MaterialLevel, wa, wb, wc) -> torch.Tensor:
+    """Per-lane inverse center blocks [2, 2, R, C, B] (built once per batch;
+    det = 0 -> 1, as the JAX package guards it)."""
+    from ..fem.stencil import CENTER
+
+    return guarded_inv2(
+        level.sa[CENTER][..., None] * wa + level.sb[CENTER][..., None] * wb
+        + level.sc[CENTER][..., None] * wc + level.sfix[CENTER][..., None]
+    )
+
+
+def _lane_material_vcycle(levels, dinvs, wa, wb, wc, wrap, pre: int = 2, post: int = 2,
+                          coarse_sweeps: int = MG_COARSE_SWEEPS, omega: float = MG_OMEGA):
+    """Lane V-cycle with EXACT per-lane operators at every level (the basis
+    decomposition survives Galerkin coarsening); the coarsest level smooths
+    (its dense inverse would depend on the material)."""
+
+    def smooth(l, e, r, sweeps):
+        for _ in range(sweeps):
+            res = r if e is None else r - _lane_material_matvec(levels[l], wa, wb, wc, e, wrap)
+            step = omega * apply_blocks(dinvs[l], res)
+            e = step if e is None else e + step
+        return e
+
+    def cycle(l, r):
+        if l == len(levels) - 1:
+            return smooth(l, None, r, coarse_sweeps)
+        e = smooth(l, None, r, pre)
+        res = r - _lane_material_matvec(levels[l], wa, wb, wc, e, wrap)
+        ec = cycle(l + 1, _lane_restrict(res, wrap))
+        e = e + _lane_prolong(ec, wrap)
+        return smooth(l, e, r, post)
+
+    return lambda r: cycle(0, r)
+
+
+def _material_lanes(setup, tris, free_g, u_values, f_values, e_moduli, poisson_ratios,
+                    thicknesses, rows, cols, wrap, iterations):
+    """The batched solve of CompiledMaterialSweep (the JAX package's
+    _material_lanes_jit)."""
+    basis_raw, levels, b_mat = setup
+    wa, wb, wc = material_weights(e_moduli, poisson_ratios, thicknesses)
+    b = u_values.shape[0]
+    u_fixed = _lane_fields(u_values, rows, cols)
+    f_applied = _lane_fields(f_values, rows, cols)
+    free_b = free_g[..., None]
+
+    # per-level per-lane center inverses, built once per batch
+    dinvs = tuple(_lane_material_center_inv(lv, wa, wb, wc) for lv in levels)
+
+    def op(v):  # masked bases + fixed identity = the reduced operator
+        return _lane_material_matvec(levels[0], wa, wb, wc, v, wrap)
+
+    def raw_mv(v):
+        ya, yb, yc = (lane_stencil_matvec(st, v, wrap) for st in basis_raw)
+        return ya * wa + yb * wb + yc * wc
+
+    precond = _lane_material_vcycle(levels, dinvs, wa, wb, wc, wrap)
+    rhs = free_b * (f_applied - raw_mv(u_fixed)) + (1.0 - free_b) * u_fixed
+    result = pcg_fixed_iterations(
+        op, rhs, preconditioner=precond, x0=u_fixed, iterations=iterations, dot=_lane_grid_dot,
+    )
+    u_flat = result.x.reshape(2, rows * cols, b)
+
+    # per-lane stress: sigma = D(E_b, nu_b) B u_b (thickness-free)
+    d0 = e_moduli / (1.0 - poisson_ratios * poisson_ratios)
+    d1 = d0 * poisson_ratios
+    d2 = d0 * (1.0 - poisson_ratios) / 2.0
+
+    def sigma_fn(strain):  # [C, 3, B]
+        return (d0 * strain[:, 0] + d1 * strain[:, 1], d1 * strain[:, 0] + d0 * strain[:, 1],
+                d2 * strain[:, 2])
+
+    vm = _chunked_lane_vm(u_flat, tris, b_mat, sigma_fn)
+    return (
+        u_flat.permute(2, 1, 0).contiguous(),
+        result.residual_norm,
+        vm.T,
+        torch.sqrt(_lane_grid_dot(rhs, rhs)),
+    )
+
+
+@dataclass
+class CompiledMaterialSweep:
+    """A canonical-grid mesh compiled for repeated (E, nu, t) material-sweep
+    batches."""
+
+    setup: tuple  # (basis_raw, levels, b_mat)
+    tris: torch.Tensor
+    free_g: torch.Tensor
+    rows: int
+    cols: int
+    wrap: bool
+    iterations: int
+    dtype: torch.dtype
+    device: torch.device
+
+    def _batch(self, arr) -> torch.Tensor:
+        return _batch_on(arr, self.dtype, self.device)
+
+    def solve(self, u_values, f_values, e_moduli, poisson_ratios, thicknesses) -> SweepResult:
+        u, res, vm, rhs_norm = _material_lanes(
+            self.setup, self.tris, self.free_g, self._batch(u_values), self._batch(f_values),
+            self._batch(e_moduli), self._batch(poisson_ratios), self._batch(thicknesses),
+            self.rows, self.cols, self.wrap, self.iterations,
+        )
+        return SweepResult(u=u, residual_norm=res, von_mises=vm, rhs_norm=rhs_norm)
+
+
+def compile_material_sweep(
+    mesh: Mesh,
+    base_bca: BCArrays,
+    iterations: int = 30,
+    dtype=np.float32,
+    device_mesh=None,
+    device="cuda",
+    setup=None,
+) -> CompiledMaterialSweep:
+    """Compile a canonical-grid mesh for true material sweeps on `device`.
+
+    Every lane gets its own (E, nu, t): three basis stencils are assembled
+    once and combined per lane with scalar weights, and the multigrid
+    hierarchy carries the decomposition down exactly. The setup is computed
+    in `dtype`, as compile_sweep's. Memory: the per-level per-lane center
+    inverses are [2, 2, R, C, B] -- at 4096 lanes on a 33x65 grid ~140 MB in
+    f32, shrinking 4x per level. `setup`: one built before for THIS mesh
+    (interop.material_grid_sweep_setup_from_arrays), used instead."""
+    dev = resolve_device(device)
+    if device_mesh is not None:
+        _not_ported("lane sharding over several GPUs (device_mesh=)", "Queue 1 item 10")
+    user_t = _dtypes(dtype, False)[0]
+    rows, cols, wrap = _grid_mesh_or_raise(mesh, "compile_material_sweep")
+    coords, tris, free_g = _grid_arrays(mesh, base_bca, rows, cols, dev)
+    free_g = free_g.to(user_t)
+    if setup is None:
+        setup = _material_sweep_setup(coords.to(user_t), tris, free_g, rows, cols, wrap)
+    return CompiledMaterialSweep(
+        setup=_setup_to(setup, user_t, dev, rows, cols, "compile_material_sweep"),
+        tris=tris,
+        free_g=free_g,
+        rows=rows,
+        cols=cols,
+        wrap=wrap,
+        iterations=int(iterations),
+        dtype=user_t,
+        device=dev,
+    )
+
+
+def material_sweep_solve(
+    mesh: Mesh,
+    base_bca: BCArrays,
+    u_values,  # [B, N, 2]
+    f_values,  # [B, N, 2]
+    e_moduli,  # [B] Young's modulus per variant
+    poisson_ratios,  # [B]
+    thicknesses,  # [B]
+    iterations: int = 30,
+    dtype=np.float32,
+    device="cuda",
+) -> SweepResult:
+    """One-shot material sweep (see compile_material_sweep for serving)."""
+    compiled = compile_material_sweep(mesh, base_bca, iterations, dtype, device=device)
+    return compiled.solve(u_values, f_values, e_moduli, poisson_ratios, thicknesses)

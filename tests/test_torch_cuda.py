@@ -731,3 +731,132 @@ def test_sweep_lane_kernel_modes_on_card():
         compile_unstructured_sweep(mesh, bca, md, lane_kernel="off")
     with pytest.raises(InputError, match="lane_kernel='off'"):
         compile_unstructured_material_sweep(mesh, bca, lane_kernel="off")
+
+
+# lane stencil kernel shapes: (rows, cols, wrap, lanes, unaligned u)
+LANE_STENCIL_CASES = {
+    "bench-33x65-b32": (33, 65, False, 32, False),
+    "bench-33x65-b4096": (33, 65, False, 4096, False),
+    "wrapped-17x32-b32": (17, 32, True, 32, False),
+    "coarse-9x17-b37": (9, 17, False, 37, False),
+    "wrapped-9x16-b1": (9, 16, True, 1, False),
+    "unaligned-u-17x33-b32": (17, 33, False, 32, True),
+}
+
+
+@pytest.mark.parametrize("sets", [1, 3])
+@pytest.mark.parametrize("case", list(LANE_STENCIL_CASES))
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_lane_stencil_kernel_matches_plain(case, dtype, tol, sets):
+    """Both instances of the lane stencil kernel (one shared stencil; three
+    basis stencils plus the fixed-DOF stencil with per-lane weights) on
+    random stencils: wrapped and zero columns, B a multiple of the lane
+    vector or not, and a u whose data_ptr is not 16-byte aligned (the
+    scalar path)."""
+    from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
+        lane_material_matvec_plain, lane_stencil_matvec, lane_stencil_matvec3,
+        lane_stencil_matvec_plain,
+    )
+
+    dev = require_cuda()
+    rows, cols, wrap, nb, unaligned = LANE_STENCIL_CASES[case]
+    rng = np.random.default_rng(40)
+    st = tuple(torch.as_tensor(rng.standard_normal((9, 2, 2, rows, cols)), dtype=dtype,
+                               device=dev) for _ in range(4 if sets == 3 else 1))
+    w3 = tuple(torch.as_tensor(rng.uniform(0.5, 2.0, nb), dtype=dtype, device=dev)
+               for _ in range(3))
+    u = torch.as_tensor(rng.standard_normal((2, rows, cols, nb)), dtype=dtype, device=dev)
+    if unaligned:
+        flat = torch.empty(u.numel() + 1, dtype=dtype, device=dev)
+        flat[1:].view(u.shape).copy_(u)
+        u = flat[1:].view(u.shape)
+        assert u.is_contiguous() and u.data_ptr() % 16 != 0
+    if sets == 3:
+        wrapper = lane_stencil_matvec3
+
+        def run(s, v, plain=False):
+            return (lane_material_matvec_plain if plain else lane_stencil_matvec3)(
+                s, w3, v, wrap)
+    else:
+        wrapper = lane_stencil_matvec
+
+        def run(s, v, plain=False):
+            return (lane_stencil_matvec_plain if plain else lane_stencil_matvec)(s[0], v, wrap)
+    before = wrapper.launches
+    y = run(st, u)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    ref = run(st, u, plain=True)
+    scale = float(run(tuple(s.abs() for s in st), u.abs(), plain=True).max())
+    assert float((y - ref).abs().max()) <= tol * scale
+
+
+def test_lane_stencil_kernels_refuse_what_they_do_not_take():
+    from magnetite_tpu_torch.kernels.cuda_lib import KernelError
+    from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
+        lane_stencil_matvec, lane_stencil_matvec3,
+    )
+
+    dev = require_cuda()
+    st = torch.zeros((9, 2, 2, 9, 17), device=dev)
+    with pytest.raises(KernelError):  # dtype mismatch
+        lane_stencil_matvec(st, torch.zeros((2, 9, 17, 8), dtype=torch.float64, device=dev),
+                            False)
+    with pytest.raises(KernelError):  # a grid field where a lane field belongs
+        lane_stencil_matvec(st, torch.zeros((2, 9, 17), device=dev), False)
+    with pytest.raises(KernelError):  # another grid
+        lane_stencil_matvec(st, torch.zeros((2, 9, 16, 8), device=dev), False)
+    w = torch.ones(8, device=dev)
+    with pytest.raises(KernelError):  # weights of another lane count
+        lane_stencil_matvec3((st,) * 4, (w, w, torch.ones(7, device=dev)),
+                             torch.zeros((2, 9, 17, 8), device=dev), False)
+
+
+@pytest.mark.parametrize("grid", ["rect-17x33", "plate-17x32-wrapped"])
+@pytest.mark.parametrize("material", [False, True], ids=["load", "material"])
+def test_grid_sweep_on_card_matches_cpu(grid, material):
+    """The structured-grid sweeps through their entry points, on the card
+    (the lane stencil kernel) against the CPU (its plain versions), 32
+    lanes, f64: u within 1e-9 of max|u|."""
+    from magnetite_tpu_torch.config import ModelMetadata
+    from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
+        lane_stencil_matvec, lane_stencil_matvec3,
+    )
+    from magnetite_tpu_torch.meshing.generators import (
+        plate_with_hole_mesh, rect_mesh, tensile_bcs_for_rect,
+    )
+    from magnetite_tpu_torch.parallel.sweep import compile_material_sweep, compile_sweep
+
+    require_cuda()
+    mesh = rect_mesh(32, 16, width=2.0) if grid == "rect-17x33" else plate_with_hole_mesh(16, 32)
+    bca = tensile_bcs_for_rect(mesh.coords, pull=0.01)
+    b = 32
+    rng = np.random.default_rng(41)
+    right = np.isclose(mesh.coords[:, 0], mesh.coords[:, 0].max())
+    u_values = np.tile(bca.u_value[None], (b, 1, 1))
+    u_values[:, right, 0] = rng.uniform(0.005, 0.02, b)[:, None]
+    f_values = np.zeros_like(u_values)
+    if material:
+        args = (u_values, f_values, rng.uniform(40e9, 250e9, b), rng.uniform(0.22, 0.38, b),
+                rng.uniform(0.2, 1.0, b))
+        kernel = lane_stencil_matvec3
+
+        def run(device):
+            return compile_material_sweep(mesh, bca, iterations=20, dtype=np.float64,
+                                          device=device).solve(*args)
+    else:
+        args = (u_values, f_values, rng.uniform(0.5, 2.0, b))
+        kernel = lane_stencil_matvec
+
+        def run(device):
+            return compile_sweep(mesh, bca, ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.05),
+                                 iterations=20, dtype=np.float64, device=device).solve(*args)
+
+    cpu = run("cpu")
+    before = kernel.launches
+    card = run("cuda")
+    torch.cuda.synchronize()
+    assert kernel.launches > before
+    u_cpu, u_card = cpu.u.numpy(), card.u.cpu().numpy()
+    assert np.isfinite(u_card).all()
+    assert np.abs(u_card - u_cpu).max() <= 1e-9 * np.abs(u_cpu).max()

@@ -121,6 +121,44 @@ def test_sweep_runs_with_jax_unimportable(tmp_path):
     assert "LEAKED []" in proc.stdout
 
 
+_CHILD_GRID_SWEEPS = r"""
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import numpy as np
+from magnetite_tpu_torch.config import ModelMetadata
+from magnetite_tpu_torch.meshing.generators import rect_mesh, tensile_bcs_for_rect
+from magnetite_tpu_torch.parallel.sweep import compile_material_sweep, compile_sweep
+mesh = rect_mesh(32, 16, width=2.0)
+bca = tensile_bcs_for_rect(mesh.coords)
+u = np.tile(bca.u_value[None], (2, 1, 1))
+f = np.zeros_like(u)
+load = compile_sweep(mesh, bca, ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.05), iterations=20,
+                     dtype=np.float64, device="cpu").solve(u, f, np.array([1.0, 2.0]))
+mat = compile_material_sweep(mesh, bca, iterations=10, dtype=np.float64, device="cpu").solve(
+    u, f, np.array([69e9, 200e9]), np.array([0.33, 0.25]), np.array([0.5, 1.0]))
+ok = [bool(np.isfinite(r.u.numpy()).all()) and tuple(r.u.shape) == (2, mesh.num_nodes, 2)
+      for r in (load, mat)]
+rel = (load.residual_norm / load.rhs_norm).numpy()
+leaked = [m for m in sys.modules
+          if m == "jax" and sys.modules[m] is not None
+          or m == "magnetite_tpu" or m.startswith("magnetite_tpu.")]
+print("GRID SWEEPS", ok, bool(rel.max() <= 1e-10))
+print("LEAKED", leaked)
+"""
+
+
+def test_grid_sweeps_run_with_jax_unimportable(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_GRID_SWEEPS],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "GRID SWEEPS [True, True] True" in proc.stdout
+    assert "LEAKED []" in proc.stdout
+
+
 def test_no_source_file_imports_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import|from) (jax|magnetite_tpu)\b")
     files = [os.path.join(REPO, "chip_smoke.py")]

@@ -165,8 +165,9 @@ def test_pcg_fixed_iterations_matches_jax():
 
 
 def test_sweep_solve_routes():
-    """sweep_solve(impl="amg") is compile + solve; every route the port
-    does not carry raises a typed error naming it."""
+    """sweep_solve(impl="amg") is compile + solve, and so is the grid route
+    (auto and impl="stencil" on a coarsenable canonical grid: compile_sweep);
+    every route the port does not carry raises a typed error naming it."""
     from magnetite_tpu_torch.meshing.generators import plate_with_hole_mesh, tensile_bcs_for_rect
 
     mesh, bca, md = to_port(*jax_plate(0.08)[:2], 0.08)
@@ -187,10 +188,20 @@ def test_sweep_solve_routes():
     grid = plate_with_hole_mesh(16, 32)
     gbca = tensile_bcs_for_rect(grid.coords)
     gu = np.tile(gbca.u_value[None], (b, 1, 1))
-    with pytest.raises(SolverError, match="not yet ported"):
-        ps.sweep_solve(grid, gbca, md, gu, np.zeros_like(gu), k_scales, device="cpu")
-    with pytest.raises(SolverError, match="not yet ported"):
-        ps.compile_unstructured_sweep(mesh, bca, md, device="cpu", device_mesh=object())
+    want = ps.compile_sweep(grid, gbca, md, iterations=6, device="cpu").solve(
+        gu, np.zeros_like(gu), k_scales)
+    for impl in ("auto", "stencil"):
+        got = ps.sweep_solve(grid, gbca, md, gu, np.zeros_like(gu), k_scales, iterations=6,
+                             impl=impl, device="cpu")
+        assert torch.equal(got.u, want.u)
+    with pytest.raises(SolverError, match="stencil sweep unavailable"):
+        ps.sweep_solve(mesh, bca, md, u_values, f_values, k_scales, impl="stencil",
+                       device="cpu")
+    for compile_fn, args in ((ps.compile_unstructured_sweep, (mesh, bca, md)),
+                             (ps.compile_sweep, (grid, gbca, md)),
+                             (ps.compile_material_sweep, (grid, gbca))):
+        with pytest.raises(SolverError, match="not yet ported"):
+            compile_fn(*args, device="cpu", device_mesh=object())
 
 
 def test_lane_kernel_modes_on_the_cpu():

@@ -17,6 +17,8 @@
                                        # phases 0, 1 and 14 alone (no "ok" line)
     python3 chip_smoke.py --only structured-sweeps
                                        # phases 0, 1 and 15-17 alone (no "ok" line)
+    python3 chip_smoke.py --only lane-sweeps
+                                       # phases 0, 1 and 18-20 alone (no "ok" line)
 
 Phases (any failure exits non-zero; no phase is wrapped in a catch):
   0. environment: torch / CUDA versions, the card's name and power limit;
@@ -93,6 +95,23 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      its plain versions at the bench grid, its 17x33 and 9x17 levels and the
      wrapped 33x64 plate, f32 and f64, each timed beside its bound and
      plain version; S = 1 against cuSPARSE SpMM in interleaved rounds.
+ 18. the DIA block-Jacobi lanes: sweep_solve(impl="auto") on the sweep plate
+     (--sweep-h) as meshed, --lanes lanes (pulls U(0.005, 0.02), k U(0.5,
+     2)), 200 iterations, f32 and f64: first and warm solve_s, solves/s
+     (with --profile a torch.profiler trace of one warm solve),
+     exactly 203 K7 launches per solve, all on the ring, and no other
+     kernel; every lane's true residual in f64 against 10x the JAX
+     package's (LANE_BARS), lanes 0, 1 and the last against single f64
+     solves;
+ 19. the vmap route: the same on the plate with its nodes shuffled (numpy
+     seed 7), exactly 203 lane ELL kernel launches and no other kernel, the
+     same checks, and the lanes against phase 18's mapped back to the
+     shuffled order; then both routes on the card against the CPU at h =
+     0.08, plain and shuffled;
+ 20. (run before 18-19) the lane ELL kernel against its plain version at
+     the sweep plate shuffled and as meshed, f32 and f64, B = --lanes,
+     1,000 and 1, each call repeated bit for bit; timed beside its bound,
+     plain version and cuSPARSE SpMM in interleaved rounds.
 Every kernel is timed with CUDA events (median of --reps launches, L2
 flushed before each) beside its plain version, its bound (the larger of
 bytes moved once over 3.35 TB/s and operations over the peak rate of their
@@ -105,7 +124,7 @@ with every launch counter set to 0 just before it and read just after
 (dia_matvec, stencil_matvec and the smoothing kernels also per shape). The last lines are the
 card's nvidia-smi line, a JSON line of per-kernel results (the band
 matvec's 2x2 and 3x3 kernels as two rows, the lane stencil kernel's two
-instances as two rows), and
+instances as two rows, the lane ELL kernel), and
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -170,6 +189,11 @@ KERNELS = {
     "lane_stencil_matvec3": ("magnetite_tpu_torch/csrc/lane_stencil_matvec.cu",
                              "no pallas_call: XLA-fused in JAX, "
                              "magnetite_tpu/parallel/sweep.py:993"),
+    # the vmap sweep route's block-ELL matvec: no pallas_call stands behind
+    # it, the JAX package vmaps ell_matvec over the lanes in XLA
+    "lane_ell_matvec": ("magnetite_tpu_torch/csrc/lane_ell_matvec.cu",
+                        "no pallas_call: XLA-fused in JAX, magnetite_tpu/fem/operator.py:27 "
+                        "under jax.vmap, magnetite_tpu/parallel/sweep.py:692"),
 }
 # the JAX package's sweep benchmarks (bench.py: bench_unstructured_sweep and
 # bench_unstructured_material_sweep): mesh size, lanes, CG iterations
@@ -211,6 +235,31 @@ GRID_BARS = {
 }
 for _bar in GRID_BARS.values():
     _bar["residual"] = min(1e-4, 10 * _bar["jax"])
+# the block-Jacobi sweep routes of sweep_solve (phases 18-19): the JAX
+# package's default budget, the vmap route's plate shuffled by this numpy
+# seed, warm batches timed per route and dtype
+LANE_SWEEP_ITERS, SHUFFLE_SEED, LANE_SWEEP_WARM = 200, 7, 2
+# the plate of both routes' card-against-CPU check (552 nodes)
+LANE_SMALL_H = 0.08
+# their per-lane bars: 10 x the JAX package's own on the CPU at the same
+# mesh and budget with 128 lanes (scripts/lane_sweep_bars.py). "residual":
+# the true relative residual (f64, plain operator); "single": lanes 0, 1 and
+# the last against converged single f64 solves; "routes": the vmap route's
+# answer mapped back to the meshed order against the lanes' (the same
+# arithmetic in another order). 200 block-Jacobi iterations stop far short
+# of convergence (residual ~2e-4), where CG amplifies the rounding of two
+# summation orders to ~1e-5 of max|u| even in f64 (measured on the CPU),
+# so no fixed bar holds any of the three.
+LANE_JAX = {  # scripts/lane_sweep_bars.py on the CPU: h = 0.03, 128 lanes, 200 iterations
+    "lanes float32": {"residual": 2.329814512733967e-04, "single": 2.5415012227689e-03},
+    "lanes float64": {"residual": 2.2493522727552685e-04, "single": 2.4969854046425597e-03},
+    "vmap float32": {"residual": 2.3721188976882495e-04, "single": 2.536318662832819e-03},
+    "vmap float64": {"residual": 2.242885642706875e-04, "single": 2.49715057985395e-03},
+    "routes float32": 4.087746559713298e-05,
+    "routes float64": 2.6894446216458525e-05,
+}
+LANE_BARS = {k: {m: 10 * x for m, x in v.items()} if isinstance(v, dict) else 10 * v
+             for k, v in LANE_JAX.items()}
 
 
 def say(msg: str) -> None:
@@ -223,10 +272,11 @@ def require(cond: bool, msg: str) -> None:
 
 
 def counters():
-    """The eleven kernel wrappers, each carrying its `.launches` count."""
+    """The twelve kernel wrappers, each carrying its `.launches` count."""
     from magnetite_tpu_torch.kernels.df_kernel import df_dia_matvec
     from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
     from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec, lane_dia_matvec3
+    from magnetite_tpu_torch.kernels.lane_ell_kernel import lane_ell_matvec
     from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
         lane_stencil_matvec, lane_stencil_matvec3,
     )
@@ -236,7 +286,7 @@ def counters():
 
     return (dia_matvec, prolong0, restrict0, stencil_matvec, mg_presmooth, mg_postsmooth,
             df_dia_matvec, lane_dia_matvec, lane_dia_matvec3, lane_stencil_matvec,
-            lane_stencil_matvec3)
+            lane_stencil_matvec3, lane_ell_matvec)
 
 
 def shape_label(kernel: str, key) -> str:
@@ -1562,19 +1612,25 @@ def lane_residuals(sweep, bands64, res, u_fixed, f_applied, operator_of):
     return (r.square().sum(dim=(0, 1)).sqrt() / b.square().sum(dim=(0, 1)).sqrt()).cpu()
 
 
-def single_solves(case, sweep_u, lanes, lane_case, tol, label):
+def single_solves(case, sweep_u, lanes, lane_case, tol, label, cache=None):
     """Lanes of a sweep against single solves through compile_problem (f64,
-    rtol 1e-10) of the lane's own material and boundary values."""
+    rtol 1e-10) of the lane's own material and boundary values (kept in
+    `cache` when given, keyed by those values)."""
     import numpy as np
     from magnetite_tpu_torch.config import SolverOptions
     from magnetite_tpu_torch.fem.solve import compile_problem
 
     mesh = case[0]
     worst = 0.0
+    cache = {} if cache is None else cache
     for b in lanes:
         bca_b, md_b = lane_case(b)
-        one = compile_problem(mesh, bca_b, md_b, SolverOptions(dtype="float64", cg_rtol=1e-10),
-                              device=DEV).solve()
+        key = (repr(md_b), bca_b.u_value.tobytes(), bca_b.f_value.tobytes())
+        if key not in cache:
+            cache[key] = compile_problem(
+                mesh, bca_b, md_b, SolverOptions(dtype="float64", cg_rtol=1e-10), device=DEV,
+            ).solve()
+        one = cache[key]
         got = sweep_u[b].cpu().numpy()
         err = float(np.abs(got - one.u).max() / np.abs(one.u).max())
         say(f"  {label} lane {b}: max|u - u_single| = {err:.3e} of max|u| (<= {tol:g}; "
@@ -1979,7 +2035,7 @@ def grid_residuals(grid, material, args, u):
     return (r.square().sum(dim=(0, 1, 2)).sqrt() / b.square().sum(dim=(0, 1, 2)).sqrt()).cpu()
 
 
-def grid_single_solves(case, args, u, material, bar, label):
+def grid_single_solves(case, args, u, material, bar, label, cache=None):
     """Lanes 0, 1 and the last against single solves through compile_problem
     (f64, rtol 1e-10) of the lane's own boundary values and material."""
     import numpy as np
@@ -1998,7 +2054,7 @@ def grid_single_solves(case, args, u, material, bar, label):
         return bca_b, ModelMetadata(md.youngs_modulus * float(args[2][b]), md.poisson_ratio,
                                     md.part_thickness, 0.0, md.characteristic_length_max)
 
-    return single_solves(case, u, (0, 1, nb - 1), lane_case, bar, label)
+    return single_solves(case, u, (0, 1, nb - 1), lane_case, bar, label, cache)
 
 
 def phase_grid_sweep(grid, totals, material, profile):
@@ -2161,6 +2217,320 @@ def phase_grid_sweeps(args, rand, results, totals):
     torch.cuda.empty_cache()
 
 
+# ------------- block-Jacobi sweep routes of sweep_solve (phases 18-20) -------
+
+
+def shuffled_case(case, seed=SHUFFLE_SEED):
+    """The plate with its nodes in the order of a numpy permutation (no band
+    structure left): ((mesh, bca, md), perm, inv), perm[new] = old,
+    inv[old] = new."""
+    import numpy as np
+    from magnetite_tpu_torch.bc import BCArrays
+    from magnetite_tpu_torch.meshing.core import Mesh
+
+    mesh, bca, md = case
+    perm = np.random.default_rng(seed).permutation(mesh.num_nodes)
+    inv = inverse(perm)
+    shuf = (Mesh(coords=mesh.coords[perm], tris=inv[mesh.tris].astype(np.int32)),
+            BCArrays(u_known=bca.u_known[perm], u_value=bca.u_value[perm],
+                     f_value=bca.f_value[perm]), md)
+    return shuf, perm, inv
+
+
+def lane_ell_bound(n, w, nb, es):
+    """(bytes moved once, operations) of one lane ELL matvec: u read and y
+    written once, the blocks and the int32 cols once; 8 flops per (slot,
+    lane)."""
+    return (4 * n * nb + 4 * n * w) * es + 4 * n * w, 8 * n * w * nb
+
+
+def csr_of_ell(ell, cols):
+    """K of block-ELL ell [N, W, 2, 2] / cols [N, W] on the flattened [2, N]
+    layout (the padding slots' zero blocks included)."""
+    import torch
+
+    n, w = cols.shape
+    node = torch.arange(n, device=ell.device)
+    rows, cs, vals = [], [], []
+    for k in range(w):
+        for i in range(2):
+            for j in range(2):
+                rows.append(i * n + node)
+                cs.append(j * n + cols[:, k].long())
+                vals.append(ell[:, k, i, j])
+    return csr(rows, cs, vals, (2 * n, 2 * n))
+
+
+def ell_operands(mesh, md, dtype):
+    """The port's block-ELL operator of `mesh` on the card: (ell, cols)."""
+    import numpy as np
+    import torch
+    from magnetite_tpu_torch.fem.assembly import assemble_ell, build_ell_structure
+
+    st = build_ell_structure(mesh.tris, mesh.num_nodes)
+    ell = assemble_ell(mesh.coords, mesh.tris, md.youngs_modulus, md.poisson_ratio,
+                       md.part_thickness, st).to(DEV, dtype)
+    return ell, torch.from_numpy(np.ascontiguousarray(st.cols)).to(DEV)
+
+
+def phase_lane_ell_kernel(case, shuf, reps, flush, rand):
+    """Phase 20 (run before 18-19): the lane ELL kernel against its plain
+    version at the sweep plate shuffled and as meshed, f32 and f64, B =
+    4,096 / 1,000 / 1, each call repeated bit for bit; at B = 4,096 timed
+    beside its bound, its plain version and cuSPARSE SpMM of the same CSR
+    matrix on u.reshape(2N, B)."""
+    import torch
+    from magnetite_tpu_torch.kernels.lane_ell_kernel import (
+        lane_ell_matvec, lane_ell_matvec_plain,
+    )
+
+    say("phase 20: the lane ELL kernel against its plain version")
+    for line in ptxas_of("lane_ell_kernel"):
+        say(f"  ptxas: {line}")
+    results = {}
+    for label, (mesh, _, md) in (("shuffled", shuf), ("as meshed", case)):
+        for dtype, tol in ((torch.float32, 1e-6), (torch.float64, 1e-13)):
+            name, es = str(dtype)[6:], torch.empty((), dtype=dtype).element_size()
+            ell, cols = ell_operands(mesh, md, dtype)
+            n, w = cols.shape
+            for nb in (SWEEP_LANES, 1000, 1):
+                u = rand(2, n, nb, dtype=dtype)
+                tag = f"lane_ell_matvec {label} N={n} W={w} B={nb} {name}"
+                before = lane_ell_matvec.launches
+                y, again = lane_ell_matvec(ell, cols, u), lane_ell_matvec(ell, cols, u)
+                require(lane_ell_matvec.launches == before + 2, f"{tag}: kernel not launched")
+                require(torch.equal(y, again), f"{tag}: a repeated call differs")
+                ref = lane_ell_matvec_plain(ell, cols, u)
+                scale = lane_ell_matvec_plain(ell.abs(), cols, u.abs()).max()
+                err = compare(f"{tag} (repeated bit for bit)", y, ref, scale, tol)
+                if nb == SWEEP_LANES:
+                    a = csr_of_ell(ell, cols)
+                    x = u.reshape(2 * n, nb)
+                    compare(f"library CSR SpMM {tag}", torch.sparse.mm(a, x).reshape(u.shape),
+                            ref, scale, 1e-5 if dtype == torch.float32 else 1e-12)
+                    row = time_kernel(tag, lambda: lane_ell_matvec(ell, cols, u),
+                                      lambda: lane_ell_matvec_plain(ell, cols, u),
+                                      lambda: torch.sparse.mm(a, x), reps, flush,
+                                      *lane_ell_bound(n, w, nb, es), dtype, rounds=ROUNDS)
+                    results[f"lane_ell_matvec {label} {name}"] = dict(max_abs_err=err, **row)
+                    del a, x
+                del u, y, again, ref
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    results["lane_ell_matvec"] = results["lane_ell_matvec shuffled float32"]  # the main path's
+    return results
+
+
+def lane_route_residuals(bands64, offsets, free, args, u):
+    """Per-lane true relative residual ||b - A u|| / ||b|| in f64 with the
+    plain K7 operator of the meshed order: args = (u_values, f_values,
+    k_scales), u [B, N, 2], all in the meshed node order."""
+    import torch
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec_plain
+
+    ks = args[2].to(DEV, torch.float64)
+
+    def lanes(x):  # [B, N, 2] -> [2, N, B], f64
+        return x.to(DEV, torch.float64).permute(2, 1, 0).contiguous()
+
+    def k_op(v):
+        return lane_dia_matvec_plain(bands64, offsets, v) * ks
+
+    uf, fa, uu = lanes(args[0]), lanes(args[1]), lanes(u)
+    b = free * (fa - k_op(uf)) + (1.0 - free) * uf
+    r = b - (free * k_op(free * uu) + (1.0 - free) * uu)
+    return (r.square().sum(dim=(0, 1)).sqrt() / b.square().sum(dim=(0, 1)).sqrt()).cpu()
+
+
+def run_lane_route(name, route_case, meshed, order, kernel, dtype, totals, profile=False):
+    """sweep_solve(impl="auto") on `route_case` in `dtype` ("float32" |
+    "float64") under the launch counters,
+    then LANE_SWEEP_WARM fresh batches: first and warm solve_s (set-up
+    included: these routes have no compiled object), solves/s. The batches
+    are made in the `meshed` order (grid_batch, seeds 0, 1, ...) and
+    gathered into the route case's by `order` before the clock starts.
+    Returns (u and the batch in the meshed order, counts)."""
+    import torch
+    from magnetite_tpu_torch.parallel.sweep import sweep_solve
+
+    idx = None if order is None else torch.as_tensor(order, device=DEV)
+    back = None if order is None else torch.as_tensor(inverse(order), device=DEV)
+
+    def batch(seed):
+        u, f, k = grid_batch(meshed, SWEEP_LANES, seed, getattr(torch, dtype), False)
+        return (u, f, k) if idx is None else (u[:, idx], f[:, idx], k)
+
+    def solve(args):
+        return sweep_solve(*route_case, *args, iterations=LANE_SWEEP_ITERS, dtype=dtype,
+                           impl="auto", device=DEV)
+
+    args = batch(0)
+    sync()
+    with main_path(name, totals, (kernel,)) as got:
+        t0 = time.perf_counter()
+        res = solve(args)
+        sync()
+        first = time.perf_counter() - t0
+    warm = []
+    for seed in range(1, LANE_SWEEP_WARM + 1):
+        a = batch(seed)
+        sync()
+        t0 = time.perf_counter()
+        solve(a)
+        sync()
+        warm.append(time.perf_counter() - t0)
+    med = statistics.median(warm)
+    say(f"  {name}: first solve_s {first:.4f}; warm solve_s median {med:.4f} over {len(warm)} "
+        f"fresh batches ({' / '.join(f'{t:.4f}' for t in warm)}) -> {SWEEP_LANES / med:.0f} "
+        f"solves/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30 if DEV == 'cuda' else 0:.2f} GiB")
+    require(bool(torch.isfinite(res.u).all()), f"{name}: non-finite displacements")
+    if profile:
+        profile_call(f"{name} (one warm sweep_solve)", lambda: solve(args))
+    if back is None:
+        return res.u, args, got
+    return res.u[:, back], grid_batch(meshed, SWEEP_LANES, 0, getattr(torch, dtype), False), got
+
+
+def inverse(order):
+    """inv[order[i]] = i."""
+    import numpy as np
+
+    inv = np.empty_like(order)
+    inv[order] = np.arange(order.size)
+    return inv
+
+
+def check_route_launches(name, got, kernel, dtype):
+    """Exactly `kernel`'s launches of one block-Jacobi PCG (the CG operator
+    at r0, each iteration and the true final residual, plus the RHS), and
+    no other kernel: no AMG, no other sweep operator."""
+    want = LANE_SWEEP_ITERS + 3
+    expect = {kernel: want}
+    if kernel == "lane_dia_matvec":  # K7 counts its ring and f64 launches apart
+        expect.update({"lane_dia_matvec ring": want,
+                       "lane_dia_matvec f64": want if dtype == "float64" else 0})
+    other = {k: v for k, v in got.items() if v and k not in expect}
+    require(all(got[k] == v for k, v in expect.items()) and not other,
+            f"{name}: launches {got}, expected {expect} and nothing else")
+    say(f"  {name}: {kernel} launches {got[kernel]} = {LANE_SWEEP_ITERS} + 3"
+        + (f" (ring {got['lane_dia_matvec ring']}, f64 {got['lane_dia_matvec f64']})"
+           if kernel == "lane_dia_matvec" else "")
+        + "; no other kernel launched")
+
+
+def lane_route_checks(name, sweep_case, bands64, offsets, free, args, u, bar, singles):
+    """Every lane's true residual against bar["residual"], lanes 0, 1 and the
+    last against converged single f64 solves (bar["single"]; `singles`
+    keeps them for the other route)."""
+    import torch
+
+    rel = lane_route_residuals(bands64, offsets, free, args, u)
+    say(f"  {name}: per-lane true relative residual (f64, plain operator) max "
+        f"{float(rel.max()):.3e}, median {float(rel.median()):.3e} (<= {bar['residual']:.3e}: "
+        "10 x the JAX package's on the CPU)")
+    require(bool(torch.isfinite(rel).all()) and float(rel.max()) <= bar["residual"],
+            f"{name}: residual above its bar")
+    grid_single_solves(sweep_case, args, u, False, bar["single"], name, singles)
+    return float(rel.max())
+
+
+def phase_lane_sweeps(args, rand, results, totals):
+    """Phases 20, 18 and 19 on the sweep plate, then both routes on the card
+    against the CPU."""
+    import torch
+    from magnetite_tpu_torch.fem.assembly import build_ell_structure
+    from magnetite_tpu_torch.fem.dia import build_dia_structure
+    from magnetite_tpu_torch.parallel.sweep import _assembled_bands
+
+    case = plate_case(args.sweep_h)
+    shuf, perm, _ = shuffled_case(case)
+    mesh, bca, md = case
+    n = mesh.num_nodes
+    dia = build_dia_structure(mesh.tris, n)
+    require(dia is not None and build_dia_structure(shuf[0].tris, n) is None,
+            "the sweep plate must be DIA-compatible as meshed and not once shuffled")
+    offsets = tuple(int(o) for o in dia.offsets)
+    say(f"phases 18-20: the sweep plate h={args.sweep_h}, {n} nodes as meshed ({len(offsets)} "
+        f"offsets, {min(offsets)}..{max(offsets)}, block-ELL width "
+        f"{build_ell_structure(mesh.tris, n).width}) and shuffled by numpy seed {SHUFFLE_SEED} "
+        f"(no band structure, block-ELL width {build_ell_structure(shuf[0].tris, n).width})")
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)
+    t0 = time.perf_counter()
+    results.update(phase_lane_ell_kernel(case, shuf, args.reps, flush, rand))
+    say(f"  (phase 20: {time.perf_counter() - t0:.1f} s)")
+    del flush
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    bands64 = _assembled_bands(mesh, md, dia).to(DEV)
+    free = torch.from_numpy((~bca.u_known).T.astype("float64")).to(DEV)[:, :, None]
+    say(f"phase 18: the DIA block-Jacobi lanes, sweep_solve(impl='auto') on the plate as "
+        f"meshed, {SWEEP_LANES} lanes, {LANE_SWEEP_ITERS} iterations, f32 and f64")
+    lanes_u, singles = {}, {}
+    t0 = time.perf_counter()
+    for dtype in ("float32", "float64"):
+        name = f"the DIA lane sweep {dtype}"
+        u, margs, got = run_lane_route(name, case, case, None, "lane_dia_matvec", dtype,
+                                       totals, args.profile)
+        check_route_launches(name, got, "lane_dia_matvec", dtype)
+        lane_route_checks(name, case, bands64, offsets, free, margs, u,
+                          LANE_BARS[f"lanes {dtype}"], singles)
+        lanes_u[dtype] = u
+    say(f"  (phase 18: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    say(f"phase 19: the vmap route, sweep_solve(impl='auto') on the plate shuffled, "
+        f"{SWEEP_LANES} lanes, {LANE_SWEEP_ITERS} iterations, f32 and f64")
+    for dtype in ("float32", "float64"):
+        name = f"the vmap sweep {dtype}"
+        u, margs, got = run_lane_route(name, shuf, case, perm, "lane_ell_matvec", dtype,
+                                       totals, args.profile)
+        check_route_launches(name, got, "lane_ell_matvec", dtype)
+        lane_route_checks(name, case, bands64, offsets, free, margs, u,
+                          LANE_BARS[f"vmap {dtype}"], singles)
+        scale = float(lanes_u[dtype].abs().max())
+        compare(f"{name} mapped back to the meshed order vs phase 18's lanes",
+                u.double(), lanes_u[dtype].double(), scale,
+                LANE_BARS[f"routes {dtype}"])
+    del lanes_u, bands64
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    lane_sweeps_card_vs_cpu(LANE_SMALL_H)
+    say(f"  (phase 19 with the card against the CPU: {time.perf_counter() - t0:.1f} s)")
+
+
+def lane_sweeps_card_vs_cpu(h, lanes=32, iterations=400):
+    """Both block-Jacobi routes through sweep_solve on the card (K7 / the lane
+    ELL kernel) against the CPU (their plain versions), the plate at h as
+    meshed and shuffled, f64, 400 iterations: converged (at 200 the two
+    summation orders' iterates part by up to ~1e-6 of max|u| at h = 0.08),
+    so u within 1e-9 of max|u|."""
+    import numpy as np
+    import torch
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec
+    from magnetite_tpu_torch.kernels.lane_ell_kernel import lane_ell_matvec
+    from magnetite_tpu_torch.parallel.sweep import sweep_solve
+
+    case = plate_case(h)
+    shuf, perm, _ = shuffled_case(case)
+    for label, c, order, kernel in (("lanes, as meshed", case, None, lane_dia_matvec),
+                                    ("vmap, shuffled", shuf, perm, lane_ell_matvec)):
+        out = {}
+        for dev in (DEV, "cpu"):
+            u, f, k = grid_batch(case, lanes, 18, torch.float64, False)
+            if order is not None:
+                u, f = u[:, order], f[:, order]
+            before = kernel.launches
+            out[dev] = sweep_solve(*c, u.to(dev), f.to(dev), k.to(dev), iterations=iterations,
+                                   dtype="float64", impl="auto", device=dev).u.cpu().numpy()
+            require((kernel.launches > before) == (dev == DEV),
+                    f"{label}: {kernel.__name__} launches on the {dev}")
+        a, b = out[DEV], out["cpu"]
+        rel = float(np.abs(a - b).max() / np.abs(b).max())
+        say(f"  {label} sweep card vs CPU, h={h} ({c[0].num_nodes} nodes), {lanes} lanes, f64, "
+            f"{iterations} iterations: max|du| {rel:.3e} of max|u| (<= 1e-09)")
+        require(np.isfinite(a).all() and rel <= 1e-9, f"{label} sweep: card differs from CPU")
+
+
 def main() -> int:
     global SWEEP_LANES, PTXAS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2195,12 +2565,12 @@ def main() -> int:
                     "where it has them) are built apart and timed beside this tree's in "
                     "phases 2, 3 and 14, in the same interleaved rounds")
     ap.add_argument("--only", choices=("transfers", "lane-kernels", "multigrid",
-                                       "structured-sweeps"),
+                                       "structured-sweeps", "lane-sweeps"),
                     help="transfers: phases 0 to 3 alone (the Delaunay plate's band and "
                     "transfer kernels); lane-kernels: phases 0, 1 and 10 alone; multigrid: "
                     "phases 0, 1 and 14 alone (the 1M plate's hierarchy built, not solved); "
-                    "structured-sweeps: phases 0, 1 and 15-17 alone; each ends without the "
-                    "ok line")
+                    "structured-sweeps: phases 0, 1 and 15-17 alone; lane-sweeps: phases "
+                    "0, 1 and 18-20 alone; each ends without the ok line")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -2254,6 +2624,11 @@ def main() -> int:
         phase_grid_sweeps(args, rand, {}, {})
         say(f"phases 0, 1 and 15-17 passed in {time.perf_counter() - t_start:.1f} s "
             "(--only structured-sweeps: no ok line)")
+        return 0
+    if args.only == "lane-sweeps":
+        phase_lane_sweeps(args, rand, {}, {})
+        say(f"phases 0, 1 and 18-20 passed in {time.perf_counter() - t_start:.1f} s "
+            "(--only lane-sweeps: no ok line)")
         return 0
     if args.only == "multigrid":
         mesh, bca, md = structured_case(*args.plate)
@@ -2315,6 +2690,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_sweeps_card_vs_cpu(args.sweep_small[0], int(args.sweep_small[1]))
     phase_grid_sweeps(args, rand, results, totals)
+    phase_lane_sweeps(args, rand, results, totals)
 
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     say("launches per shape over the main paths: " + "; ".join(

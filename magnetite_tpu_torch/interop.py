@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .bc import BCArrays
+from .fem.assembly import EllStructure
 from .fem.amg import AMGMaterialSetup, AMGSetup, setup_from_arrays
 from .meshing.core import Mesh
 
@@ -87,4 +88,15 @@ def bca_from_arrays(u_known, u_value, f_value) -> BCArrays:
         u_known=np.asarray(u_known, dtype=bool),
         u_value=np.asarray(u_value, dtype=np.float64),
         f_value=np.asarray(f_value, dtype=np.float64),
+    )
+
+
+def ell_structure_from_arrays(cols, slot_ids, n_nodes: int, width: int) -> EllStructure:
+    """The port's EllStructure from either package's fields (cols [N, K],
+    slot_ids [E*9])."""
+    return EllStructure(
+        cols=np.ascontiguousarray(cols, np.int32),
+        slot_ids=np.ascontiguousarray(slot_ids, np.int32),
+        n_nodes=int(n_nodes),
+        width=int(width),
     )

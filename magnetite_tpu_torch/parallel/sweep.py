@@ -5,7 +5,7 @@ A batch axis turns the solve into a design sweep. Fields carry the BATCH as
 the minormost (lane) axis, the operator is shared by every lane, and ONE
 multigrid hierarchy preconditions all of them with a fixed-iteration PCG
 (fem/cg.py), so every lane runs in lockstep and no iteration reads the
-host. Two families, picked per mesh as the JAX package picks them:
+host. The routes, picked per mesh as the JAX package picks them:
 
   * structured grids (`compile_sweep`, `compile_material_sweep`; canonical
     generator grids, fields [2, R, C, B]): the stencil operator and one
@@ -18,6 +18,13 @@ host. Two families, picked per mesh as the JAX package picks them:
     `compile_unstructured_material_sweep`; fields [2, N, B]): the DIA band
     operator and one smoothed-aggregation AMG hierarchy (fem/amg.py), the
     band matvecs the lane kernels K7 / K8 (kernels/lane_dia_kernel.py).
+  * small meshes as given (`_sweep_lanes`, `impl="lanes"`): the DIA band
+    operator through K7 with block-Jacobi, no renumbering, no hierarchy.
+  * band-hostile meshes (`_sweep_vmap`, `impl="vmap"`): the block-ELL
+    operator (fem/assembly.py, fem/operator.py) through the lane ELL kernel
+    (kernels/lane_ell_kernel.py) with block-Jacobi. The JAX package runs
+    this route as a `jax.vmap` of its single solve; the port keeps the
+    name and runs every lane at once in the [2, N, B] lane layout.
 
 Load sweeps vary the prescribed displacements, applied forces and a
 stiffness scale s_b per lane (Young's modulus x thickness at fixed Poisson
@@ -31,8 +38,7 @@ its own operator.
 On a CUDA device the lane matvecs are the kernels; on the CPU their plain
 PyTorch versions. The tensors' device alone picks which.
 
-Not yet ported, each raising a typed error that names its ROADMAP item:
-the DIA block-Jacobi lanes (`impl="lanes"`), the vmap fallback, and lane
+Not yet ported, raising a typed error that names its ROADMAP item: lane
 sharding over several GPUs (`device_mesh=`).
 """
 
@@ -55,11 +61,14 @@ from ..fem.amg import (
     amg_sweep_schedule,
     ieee_f32,
 )
+from ..fem.assembly import assemble_ell, build_ell_structure, extract_block_diagonal
 from ..fem.blocks import apply_blocks, guarded_inv2, reduce_diag_blocks, solve2
 from ..fem.cg import pcg_fixed_iterations
 from ..fem.multigrid import COARSE_SWEEPS as MG_COARSE_SWEEPS
+from ..fem.operator import block_jacobi_inverse, make_constrained_operator, reduced_rhs
 from ..fem.solve import resolve_device
 from ..kernels.lane_dia_kernel import lane_dia_matvec, lane_dia_matvec3, offsets_tensor
+from ..kernels.lane_ell_kernel import lane_ell_matvec
 from ..kernels.lane_stencil_kernel import lane_stencil_matvec, lane_stencil_matvec3
 from ..kernels.mg_smooth_kernel import OMEGA as MG_OMEGA
 from ..meshing.core import Mesh
@@ -134,6 +143,19 @@ def _chunked_lane_vm(u, tris, b_mat, sigma_fn, chunk: int = 512):
     return torch.cat(out)
 
 
+def _lane_vm(u, tris, b_mat, d_mat, k_scales=None):
+    """Per-lane von Mises [E, B] of sigma = D B u_b, each stress component
+    scaled by k_scales [B] (before the root) when given."""
+    ks = None if k_scales is None else k_scales[None, :]
+
+    def sigma_fn(strain):  # [C, 3, B] -> per-lane stress components
+        s = [d_mat[r, 0] * strain[:, 0] + d_mat[r, 1] * strain[:, 1] + d_mat[r, 2] * strain[:, 2]
+             for r in range(3)]
+        return tuple(s) if ks is None else (s[0] * ks, s[1] * ks, s[2] * ks)
+
+    return _chunked_lane_vm(u, tris, b_mat, sigma_fn)
+
+
 def _banded_mesh_or_raise(mesh, base_bca, max_diags: int, fallback_hint: str):
     """Band structure for an arbitrary mesh, renumbering when needed.
 
@@ -167,6 +189,23 @@ def _bands_from_flat(flat: np.ndarray, n_diags: int, n: int) -> torch.Tensor:
     return torch.from_numpy(
         np.ascontiguousarray(flat.reshape(n_diags, n, 2, 2).transpose(0, 2, 3, 1))
     )
+
+
+def _assembled_bands(mesh, metadata, dia) -> torch.Tensor:
+    """Unmasked DIA bands [D, 2, 2, N] (f64, host): the C++ closed-form
+    element blocks scattered into the band slots (as compile_problem)."""
+    from .. import native
+
+    n, e_count = mesh.num_nodes, mesh.tris.shape[0]
+    slots_pm = (  # the native assembly takes the slots pair-major: [3, 3, E]
+        np.asarray(dia.slot_ids, np.int64).reshape(e_count, 3, 3)
+        .transpose(1, 2, 0).reshape(-1)
+    )
+    flat = native.amg_assemble(
+        mesh.coords, mesh.tris, np.ones((n, 2)), metadata.youngs_modulus,
+        metadata.poisson_ratio, metadata.part_thickness, slots_pm, dia.n_diags * n,
+    )
+    return _bands_from_flat(flat, dia.n_diags, n)
 
 
 def _element_arrays(mesh, sm_dtype, dev):
@@ -276,15 +315,7 @@ def _dia_amg_lanes_core(
     )
     u = result.x  # [2, N, B]
 
-    dm = d_mat.to(cgt)
-    ks = k_scales[None, :]
-
-    def sigma_fn(strain):  # [C, 3, B] -> per-lane stress components
-        s = [dm[r, 0] * strain[:, 0] + dm[r, 1] * strain[:, 1] + dm[r, 2] * strain[:, 2]
-             for r in range(3)]
-        return s[0] * ks, s[1] * ks, s[2] * ks
-
-    vm = _chunked_lane_vm(u, tris, b_mat, sigma_fn)
+    vm = _lane_vm(u, tris, b_mat, d_mat.to(cgt), k_scales)
     return (
         u.permute(2, 1, 0),  # [B, N, 2]
         result.residual_norm,  # [B]
@@ -418,8 +449,7 @@ def compile_unstructured_sweep(
     sm_t = user_t
     n = mesh.num_nodes
     mesh, bca, dia, perm = _banded_mesh_or_raise(
-        mesh, base_bca, max_diags, "per-variant solve_system (the vmap sweep "
-        "path is not yet ported, ROADMAP Queue 1 item 9.3)"
+        mesh, base_bca, max_diags, "sweep_solve's vmap route (impl='vmap')"
     )
 
     free_np = (~bca.u_known).astype(np.float64)
@@ -438,17 +468,7 @@ def compile_unstructured_sweep(
     else:
         amg = _dense_inverse_amg(mesh, metadata, free_np, sm_t, dev)
 
-    # host C++ closed-form assembly into the band slots (as compile_problem)
-    e_count = mesh.tris.shape[0]
-    slots_pm = (
-        np.asarray(dia.slot_ids, np.int64).reshape(e_count, 3, 3)
-        .transpose(1, 2, 0).reshape(-1)
-    )
-    flat = native.amg_assemble(
-        mesh.coords, mesh.tris, np.ones((n, 2)), metadata.youngs_modulus,
-        metadata.poisson_ratio, metadata.part_thickness, slots_pm, dia.n_diags * n,
-    )
-    bands64 = _bands_from_flat(flat, dia.n_diags, n).to(dev)
+    bands64 = _assembled_bands(mesh, metadata, dia).to(dev)
     bands = bands64.to(cg_t)
     bands_sm = bands if cg_t == sm_t else bands64.to(sm_t)
     tris, b_mat = _element_arrays(mesh, sm_t, dev)
@@ -480,6 +500,114 @@ def compile_unstructured_sweep(
     )
 
 
+# -------------- DIA block-Jacobi lanes and the vmap fallback -----------------
+
+
+def _block_jacobi_lanes(base_matvec, inv_b, free, ks, u_fixed, f_applied, iterations,
+                        von_mises) -> SweepResult:
+    """Fixed-iteration PCG of every lane at once ([2, N, B] fields) on the
+    masked operator of `base_matvec` (K_b u = s_b K u), preconditioned by
+    the unscaled block-Jacobi inverse inv_b [2, 2, N, 1] un-scaled per lane:
+    M_b^-1 = (1/s_b) M^-1 on free DOFs, identity on fixed ones.
+    `von_mises(u)` -> [E, B]. Results in the caller's [B, N, 2]."""
+    free_b = free[:, :, None]  # broadcast over lanes
+    inv_scale = free_b / ks + (1.0 - free_b)
+    rhs = reduced_rhs(base_matvec, free_b, u_fixed, f_applied)
+    result = pcg_fixed_iterations(
+        make_constrained_operator(base_matvec, free_b), rhs,
+        preconditioner=lambda r: apply_blocks(inv_b, r) * inv_scale, x0=u_fixed,
+        iterations=iterations, dot=_lane_dot,
+    )
+    return SweepResult(
+        u=result.x.permute(2, 1, 0).contiguous(),
+        residual_norm=result.residual_norm,
+        von_mises=von_mises(result.x).T,
+        rhs_norm=torch.sqrt(_lane_dot(rhs, rhs)),
+    )
+
+
+def _route_operands(mesh, base_bca, metadata, u_values, f_values, k_scales, dtype, device):
+    """(dtype, device, free [2, N], tris, B matrices, D matrix, u_fixed,
+    f_applied [2, N, B], k_scales [B]) of the block-Jacobi routes, all in
+    the sweep's dtype (these routes have no refinement)."""
+    from ..fem.element import stress_strain_matrix
+
+    dev = resolve_device(device)
+    t = _dtypes(dtype, False)[0]
+    tris, b_mat = _element_arrays(mesh, t, dev)
+    d_mat = stress_strain_matrix(metadata.youngs_modulus, metadata.poisson_ratio, t, dev)
+    free = torch.from_numpy((~base_bca.u_known).T.astype(np.float64)).to(dev, t)
+
+    def lanes(x):  # [B, N, 2] -> [2, N, B]
+        return _batch_on(x, t, dev).permute(2, 1, 0).contiguous()
+
+    return (t, dev, free, tris, b_mat, d_mat, lanes(u_values), lanes(f_values),
+            _batch_on(k_scales, t, dev))
+
+
+def _sweep_lanes(
+    mesh, base_bca, metadata, u_values, f_values, k_scales, iterations, dtype, dia,
+    device="cuda",
+) -> SweepResult:
+    """The DIA block-Jacobi lanes (port of the JAX package's _sweep_lanes /
+    _lanes_core) on the mesh AS GIVEN (`dia` its band structure; no
+    renumbering): K_b = s_b K through K7, the reduced block-Jacobi inverse
+    (det == 0 guarded) un-scaled per lane, everything in `dtype`."""
+    t, dev, free, tris, b_mat, d_mat, u_fixed, f_applied, ks = _route_operands(
+        mesh, base_bca, metadata, u_values, f_values, k_scales, dtype, device)
+    bands = _assembled_bands(mesh, metadata, dia).to(dev, t)
+    offsets = tuple(int(o) for o in dia.offsets)
+    offsets_dev = offsets_tensor(offsets, dev)
+
+    def base_matvec(u):  # K_b u = s_b K u
+        return lane_dia_matvec(bands, offsets, u, offsets_dev) * ks
+
+    inv_b = guarded_inv2(reduce_diag_blocks(bands[offsets.index(0)], free))[..., None]
+    return _block_jacobi_lanes(
+        base_matvec, inv_b, free, ks, u_fixed, f_applied, int(iterations),
+        lambda u: _lane_vm(u, tris, b_mat, d_mat, ks),
+    )
+
+
+def _sweep_vmap(
+    mesh, base_bca, metadata, u_values, f_values, k_scales, iterations, dtype,
+    structure=None, device="cuda",
+) -> SweepResult:
+    """The fallback for band-hostile meshes (port of the JAX package's
+    _sweep_vmap): the block-ELL operator of `structure` (built from the mesh
+    as given when None) through the lane ELL kernel, K_b = s_b K; block-
+    Jacobi from its diagonal blocks (no det guard, as the JAX package's
+    single solve), un-scaled per lane. The JAX package vmaps its single
+    solve over the lanes; every lane here runs at once in [2, N, B]."""
+    t, dev, free, tris, b_mat, d_mat, u_fixed, f_applied, ks = _route_operands(
+        mesh, base_bca, metadata, u_values, f_values, k_scales, dtype, device)
+    if structure is None:
+        structure = build_ell_structure(mesh.tris, mesh.num_nodes)
+    ell = assemble_ell(
+        mesh.coords, mesh.tris, metadata.youngs_modulus, metadata.poisson_ratio,
+        metadata.part_thickness, structure,
+    ).to(dev, t)
+    cols = torch.from_numpy(np.ascontiguousarray(structure.cols, np.int32)).to(dev)
+
+    def base_matvec(u):  # K_b u = s_b K u
+        return lane_ell_matvec(ell, cols, u) * ks
+
+    inv = block_jacobi_inverse(extract_block_diagonal(ell, cols), free.T)  # [N, 2, 2]
+    return _block_jacobi_lanes(
+        base_matvec, inv.permute(1, 2, 0)[..., None], free, ks, u_fixed, f_applied,
+        int(iterations),
+        lambda u: _lane_vm(u, tris, b_mat, d_mat) * ks[None, :],  # scaled after the root
+    )
+
+
+def _amg_sweep_min_nodes() -> int:
+    """Auto-dispatch threshold for the AMG lanes, shared with the solver's
+    AMG auto-engage rule (config.SolverOptions.amg_auto_min_nodes)."""
+    from ..config import SolverOptions
+
+    return int(SolverOptions().amg_auto_min_nodes)
+
+
 def sweep_solve(
     mesh: Mesh,
     base_bca: BCArrays,
@@ -497,12 +625,15 @@ def sweep_solve(
 
     impl: "auto" | "stencil" (grid + shared multigrid -- compile_sweep) |
     "amg" (arbitrary meshes, shared AMG hierarchy --
-    compile_unstructured_sweep) | "lanes" | vmap fallback. As in the JAX
-    package, "auto" takes the stencil lanes on every coarsenable canonical
-    grid (with the caller's iteration budget) and the AMG lanes on a mesh
-    without a grid at AMG scale (budget capped at 40); the DIA block-Jacobi
-    lanes and the vmap fallback raise a typed "not yet ported" error."""
-    from ..config import SolverOptions
+    compile_unstructured_sweep) | "lanes" (DIA block-Jacobi on the mesh as
+    given) | "vmap" (block-ELL block-Jacobi, any mesh; `structure`, an
+    EllStructure, when given). As in the JAX package, "auto" takes the
+    stencil lanes on every coarsenable canonical grid (with the caller's
+    iteration budget), the AMG lanes on a mesh without a grid at AMG scale
+    (budget capped at 40; a mesh still band-hostile after renumbering
+    falls through), then the DIA lanes where the mesh as given has at most
+    48 band offsets, else the vmap route."""
+    from ..fem.dia import build_dia_structure
     from ..utils.logging import log
 
     if impl not in ("auto", "amg", "stencil", "lanes", "vmap"):
@@ -516,52 +647,58 @@ def sweep_solve(
         return _sweep_stencil_lanes(
             mesh, base_bca, metadata, u_values, f_values, k_scales, iterations, dtype, device
         )
-    to_amg = impl == "amg" or (
+    if impl == "amg" or (
         impl == "auto" and mesh.grid_shape is None
-        and mesh.num_nodes >= SolverOptions().amg_auto_min_nodes
-    )
-    if not to_amg:
-        _not_ported(
-            "the DIA block-Jacobi lane sweep and the vmap sweep fallback",
-            "Queue 1 items 9.2 and 9.3",
-        )
-    amg_iters = iterations if impl == "amg" else min(int(iterations), 40)
-    if amg_iters != iterations:
-        log(
-            "info: sweep auto-selected AMG lanes; translating the iteration "
-            f"budget {iterations} -> {amg_iters} AMG iterations (pass "
-            "impl='amg' to run the budget verbatim; check "
-            "result.residual_norm for per-lane quality)"
-        )
-    # auto must not run out of memory: refined mode (f64 CG over the f32
-    # V-cycle) doubles the [2, N, B] lane state; estimate it (~8 live
-    # state vectors) against the card's memory and drop to f32 CG when it
-    # would not fit
-    refined = None
-    dev = resolve_device(device)
-    if impl == "auto" and np.dtype(dtype) == np.float32 and dev.type == "cuda":
-        b_lanes = int(np.asarray(k_scales).shape[0])
-        est_f64 = 8 * 2 * mesh.num_nodes * max(b_lanes, 1) * 8
-        budget = torch.cuda.mem_get_info(dev)[1]
-        if est_f64 > 0.6 * budget:
-            refined = False
+        and mesh.num_nodes >= _amg_sweep_min_nodes()
+    ):
+        amg_iters = iterations if impl == "amg" else min(int(iterations), 40)
+        if amg_iters != iterations:
             log(
-                "info: sweep AMG lanes: f64 refined CG state "
-                f"(~{est_f64 / 1e9:.1f} GB for {b_lanes} lanes) exceeds the "
-                "device memory budget; running f32 CG (residuals floor near "
-                "the f32 wall ~6e-6 relative)"
+                "info: sweep auto-selected AMG lanes; translating the iteration "
+                f"budget {iterations} -> {amg_iters} AMG iterations (pass "
+                "impl='amg' to run the budget verbatim; check "
+                "result.residual_norm for per-lane quality)"
             )
-    try:
-        compiled = compile_unstructured_sweep(
-            mesh, base_bca, metadata, amg_iters, dtype, refined=refined, device=dev
-        )
-    except SolverError as err:
-        if impl == "amg":
-            raise
-        _not_ported(
-            f"the sweep fallback for band-hostile meshes ({err})", "Queue 1 item 9.3"
-        )
-    return compiled.solve(u_values, f_values, k_scales)
+        # auto must not run out of memory: refined mode (f64 CG over the f32
+        # V-cycle) doubles the [2, N, B] lane state; estimate it (~8 live
+        # state vectors) against the card's memory and drop to f32 CG when it
+        # would not fit
+        refined = None
+        dev = resolve_device(device)
+        if impl == "auto" and np.dtype(dtype) == np.float32 and dev.type == "cuda":
+            b_lanes = int(np.asarray(k_scales).shape[0])
+            est_f64 = 8 * 2 * mesh.num_nodes * max(b_lanes, 1) * 8
+            budget = torch.cuda.mem_get_info(dev)[1]
+            if est_f64 > 0.6 * budget:
+                refined = False
+                log(
+                    "info: sweep AMG lanes: f64 refined CG state "
+                    f"(~{est_f64 / 1e9:.1f} GB for {b_lanes} lanes) exceeds the "
+                    "device memory budget; running f32 CG (residuals floor near "
+                    "the f32 wall ~6e-6 relative)"
+                )
+        try:
+            compiled = compile_unstructured_sweep(
+                mesh, base_bca, metadata, amg_iters, dtype, refined=refined, device=dev
+            )
+        except SolverError:
+            if impl == "amg":
+                raise
+        else:
+            return compiled.solve(u_values, f_values, k_scales)
+    if impl in ("auto", "lanes"):
+        dia = build_dia_structure(mesh.tris, mesh.num_nodes)
+        if dia is not None:
+            return _sweep_lanes(
+                mesh, base_bca, metadata, u_values, f_values, k_scales, iterations, dtype, dia,
+                device,
+            )
+        if impl == "lanes":
+            raise SolverError("mesh is not DIA-compatible; lanes sweep unavailable")
+    return _sweep_vmap(
+        mesh, base_bca, metadata, u_values, f_values, k_scales, iterations, dtype, structure,
+        device,
+    )
 
 
 def _grid_sweep_applies(mesh: Mesh) -> bool:
@@ -1099,11 +1236,7 @@ def _stencil_lanes(setup, tris, free_g, u_values, f_values, k_scales, rows, cols
     )
     u_flat = result.x.reshape(2, rows * cols, b)
 
-    def sigma_fn(strain):  # [C, 3, B] -> D B u per lane (scaled after the root)
-        return tuple(d_mat[r, 0] * strain[:, 0] + d_mat[r, 1] * strain[:, 1]
-                     + d_mat[r, 2] * strain[:, 2] for r in range(3))
-
-    vm = _chunked_lane_vm(u_flat, tris, b_mat, sigma_fn) * k_scales[None, :]
+    vm = _lane_vm(u_flat, tris, b_mat, d_mat) * k_scales[None, :]  # scaled after the root
     return (
         u_flat.permute(2, 1, 0).contiguous(),  # [B, N, 2]
         result.residual_norm,

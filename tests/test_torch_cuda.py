@@ -2,7 +2,7 @@
 versions, and the port on the card against the port on the CPU: the
 banded path, the structured (stencil + multigrid) path, mixed precision
 with the double-float band kernel, and the lane-batched design sweeps with
-the lane band kernels.
+the lane band, lane stencil and lane ELL kernels.
 
 Every test here needs a CUDA device and skips itself without one. The file
 imports no JAX and no other test module (tests/conftest.py imports JAX), so
@@ -857,6 +857,127 @@ def test_grid_sweep_on_card_matches_cpu(grid, material):
     card = run("cuda")
     torch.cuda.synchronize()
     assert kernel.launches > before
+    u_cpu, u_card = cpu.u.numpy(), card.u.cpu().numpy()
+    assert np.isfinite(u_card).all()
+    assert np.abs(u_card - u_cpu).max() <= 1e-9 * np.abs(u_cpu).max()
+
+
+LANE_ELL_CASES = {  # (nodes, slots per row, lanes, u 16-byte aligned)
+    "w12-b4096": (997, 12, 4096, True),
+    "w12-b37": (997, 12, 37, True),
+    "w12-b1": (997, 12, 1, True),
+    "w1-b64": (300, 1, 64, True),
+    "w7-b32-unaligned": (501, 7, 32, False),
+}
+
+
+def random_ell(n: int, w: int, seed: int):
+    """Random block-ELL rows: distinct random columns in the first slots of
+    each row, the rest padding (the row's own node, a zero block)."""
+    rng = np.random.default_rng(seed)
+    cols = np.repeat(np.arange(n, dtype=np.int32)[:, None], w, 1)
+    ell = np.zeros((n, w, 2, 2))
+    for row in range(n):
+        k = int(rng.integers(1, w + 1))
+        cols[row, :k] = np.sort(rng.choice(n, k, replace=False))
+        ell[row, :k] = rng.standard_normal((k, 2, 2))
+    return ell, cols
+
+
+@pytest.mark.parametrize("case", list(LANE_ELL_CASES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13), (torch.float32, 1e-6)])
+def test_lane_ell_kernel_matches_plain(case, dtype, tol):
+    """The lane ELL kernel on random block-ELL operators: W up to 12, B a
+    multiple of the lane vector or not, and a u whose data_ptr is not
+    16-byte aligned (the scalar path); each call repeated bit for bit."""
+    from magnetite_tpu_torch.kernels.lane_ell_kernel import lane_ell_matvec, lane_ell_matvec_plain
+
+    dev = require_cuda()
+    n, w, nb, aligned = LANE_ELL_CASES[case]
+    ell_np, cols_np = random_ell(n, w, 50)
+    ell = torch.as_tensor(ell_np, dtype=dtype, device=dev)
+    cols = torch.as_tensor(cols_np, device=dev)
+    u = torch.as_tensor(np.random.default_rng(51).standard_normal((2, n, nb)), dtype=dtype,
+                        device=dev)
+    if not aligned:
+        flat = torch.empty(u.numel() + 1, dtype=dtype, device=dev)
+        flat[1:].view(u.shape).copy_(u)
+        u = flat[1:].view(u.shape)
+        assert u.is_contiguous() and u.data_ptr() % 16 != 0
+    before = lane_ell_matvec.launches
+    y, again = lane_ell_matvec(ell, cols, u), lane_ell_matvec(ell, cols, u)
+    torch.cuda.synchronize()
+    assert lane_ell_matvec.launches == before + 2 and torch.equal(y, again)
+    ref = lane_ell_matvec_plain(ell, cols, u)
+    scale = float(lane_ell_matvec_plain(ell.abs(), cols, u.abs()).max())
+    assert float((y - ref).abs().max()) <= tol * scale
+
+
+def test_lane_ell_kernel_refuses_what_it_does_not_take():
+    from magnetite_tpu_torch.kernels.cuda_lib import KernelError
+    from magnetite_tpu_torch.kernels.lane_ell_kernel import lane_ell_matvec
+
+    dev = require_cuda()
+    ell = torch.zeros((9, 3, 2, 2), device=dev)
+    cols = torch.zeros((9, 3), dtype=torch.int32, device=dev)
+    u = torch.zeros((2, 9, 8), device=dev)
+    with pytest.raises(KernelError):  # dtype mismatch
+        lane_ell_matvec(ell, cols, u.double())
+    with pytest.raises(KernelError):  # int64 cols
+        lane_ell_matvec(ell, cols.long(), u)
+    with pytest.raises(KernelError):  # cols of another width
+        lane_ell_matvec(ell, cols[:, :2].contiguous(), u)
+    with pytest.raises(KernelError):  # a node-major field where a lane field belongs
+        lane_ell_matvec(ell, cols, torch.zeros((9, 2), device=dev))
+    with pytest.raises(KernelError):  # another node count
+        lane_ell_matvec(ell, cols, torch.zeros((2, 8, 8), device=dev))
+    with pytest.raises(KernelError):  # operands on two devices
+        lane_ell_matvec(ell.cpu(), cols, u)
+    with pytest.raises(KernelError):  # non-contiguous blocks
+        lane_ell_matvec(ell.transpose(2, 3), cols, u)
+
+
+@pytest.mark.parametrize("shuffle", [False, True], ids=["lanes-as-meshed", "vmap-shuffled"])
+def test_block_jacobi_sweeps_on_card_match_cpu(shuffle):
+    """sweep_solve's DIA lanes (the plate as meshed) and vmap route (its
+    nodes shuffled) on the card (K7 / the lane ELL kernel) against the CPU
+    (their plain versions), 16 lanes, f64, 400 iterations (converged):
+    u within 1e-9 of max|u|."""
+    from magnetite_tpu_torch.bc import BCArrays
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec
+    from magnetite_tpu_torch.kernels.lane_ell_kernel import lane_ell_matvec
+    from magnetite_tpu_torch.meshing.core import Mesh
+    from magnetite_tpu_torch.parallel.sweep import sweep_solve
+
+    require_cuda()
+    mesh, bca, md = port_plate(0.08)
+    b = 16
+    rng = np.random.default_rng(52)
+    u_values = np.tile(bca.u_value[None], (b, 1, 1))
+    right = np.isclose(mesh.coords[:, 0], 3.0)
+    u_values[:, right, 0] = rng.uniform(0.005, 0.02, b)[:, None]
+    f_values = np.zeros_like(u_values)
+    k_scales = rng.uniform(0.5, 2.0, b)
+    kernel = lane_dia_matvec
+    if shuffle:
+        perm = np.random.default_rng(7).permutation(mesh.num_nodes)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(perm.size)
+        mesh = Mesh(coords=mesh.coords[perm], tris=inv[mesh.tris].astype(np.int32))
+        bca = BCArrays(u_known=bca.u_known[perm], u_value=bca.u_value[perm],
+                       f_value=bca.f_value[perm])
+        u_values, f_values = u_values[:, perm], f_values[:, perm]
+        kernel = lane_ell_matvec
+
+    def run(device):
+        return sweep_solve(mesh, bca, md, u_values, f_values, k_scales, iterations=400,
+                           dtype=np.float64, device=device)
+
+    cpu = run("cpu")
+    before = kernel.launches
+    card = run("cuda")
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 403
     u_cpu, u_card = cpu.u.numpy(), card.u.cpu().numpy()
     assert np.isfinite(u_card).all()
     assert np.abs(u_card - u_cpu).max() <= 1e-9 * np.abs(u_cpu).max()

@@ -67,6 +67,28 @@ def test_runner_from_csv_files_identical(tmp_path):
     np.testing.assert_array_equal(ba.u_value, bb.u_value)
 
 
+@pytest.mark.parametrize("use_native", [True, False], ids=["native", "numpy"])
+def test_ell_structure_identical(case, use_native, monkeypatch):
+    """The block-ELL structure from the port's native routine and from its
+    numpy fallback, each against the JAX package's from the same path."""
+    import magnetite_tpu.native
+    import magnetite_tpu_torch.native
+    from magnetite_tpu.fem import assembly as jasm
+    from magnetite_tpu_torch.fem import assembly as pasm
+
+    _, mesh, _, _ = case
+    n = mesh.num_nodes
+    if not use_native:  # both packages as on a host without the library
+        monkeypatch.setattr(magnetite_tpu.native, "ell_structure", lambda tris, n_nodes: None)
+        monkeypatch.setattr(magnetite_tpu_torch.native, "load", lambda: None)
+    want = jasm.build_ell_structure(mesh.tris, n)
+    got = pasm.build_ell_structure(mesh.tris, n)
+    assert got.width == want.width and got.n_nodes == want.n_nodes == n
+    for name in ("cols", "slot_ids"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+
+
 def test_band_structures_identical(case):
     from magnetite_tpu.fem import dia as jdia
     from magnetite_tpu_torch.fem import dia as pdia

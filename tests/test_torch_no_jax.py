@@ -159,6 +159,64 @@ def test_grid_sweeps_run_with_jax_unimportable(tmp_path):
     assert "LEAKED []" in proc.stdout
 
 
+_CHILD_LANE_SWEEPS = r"""
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import numpy as np
+from magnetite_tpu_torch.bc import BCArrays, apply_boundary_conditions
+from magnetite_tpu_torch.config import (
+    BoundaryRegion, BoundaryRule, BoundaryTarget, ModelMetadata,
+)
+from magnetite_tpu_torch.fem.dia import build_dia_structure
+from magnetite_tpu_torch.meshing.core import Mesh
+from magnetite_tpu_torch.meshing.delaunay_backend import triangulate
+from magnetite_tpu_torch.parallel.sweep import sweep_solve
+outer = np.array([[0.0, 0.0], [3.0, 0.0], [3.0, 1.0], [0.0, 1.0]])
+mesh = triangulate([outer], 0.0, 0.15)
+rules = (
+    BoundaryRule("left", BoundaryRegion(x_max=1e-6), BoundaryTarget(ux=0.0, uy=0.0)),
+    BoundaryRule("right", BoundaryRegion(x_min=3.0 - 1e-6), BoundaryTarget(ux=0.01, fy=0.0)),
+)
+bca = apply_boundary_conditions(mesh.coords, rules)
+md = ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.15)
+perm = np.random.default_rng(7).permutation(mesh.num_nodes)
+inv = np.empty_like(perm)
+inv[perm] = np.arange(perm.size)
+smesh = Mesh(coords=mesh.coords[perm], tris=inv[mesh.tris].astype(np.int32))
+sbca = BCArrays(u_known=bca.u_known[perm], u_value=bca.u_value[perm], f_value=bca.f_value[perm])
+u = np.tile(bca.u_value[None], (2, 1, 1)) * np.array([1.0, 2.0])[:, None, None]
+f, k = np.zeros_like(u), np.array([1.0, 0.5])
+lanes = sweep_solve(mesh, bca, md, u, f, k, iterations=400, dtype=np.float64, device="cpu")
+vmapped = sweep_solve(smesh, sbca, md, u[:, perm], f[:, perm], k, iterations=400,
+                      dtype=np.float64, device="cpu")
+rel = (lanes.residual_norm / lanes.rhs_norm).numpy()
+agree = np.abs(lanes.u.numpy() - vmapped.u.numpy()[:, inv]).max() <= 1e-8 * np.abs(
+    lanes.u.numpy()).max()
+leaked = [m for m in sys.modules
+          if m == "jax" and sys.modules[m] is not None
+          or m == "magnetite_tpu" or m.startswith("magnetite_tpu.")]
+routes = (build_dia_structure(mesh.tris, mesh.num_nodes) is not None,  # the lanes
+          build_dia_structure(smesh.tris, mesh.num_nodes) is None)  # vmap
+print("LANE SWEEPS", routes == (True, True), tuple(lanes.u.shape) == (2, mesh.num_nodes, 2),
+      bool(np.isfinite(lanes.u.numpy()).all()), bool(rel.max() <= 1e-10), bool(agree))
+print("LEAKED", leaked)
+"""
+
+
+def test_lane_sweeps_run_with_jax_unimportable(tmp_path):
+    """sweep_solve's auto route on a small plate as meshed (the DIA lanes)
+    and with its nodes shuffled (the vmap route), converged, agreeing."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_LANE_SWEEPS],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "LANE SWEEPS True True True True True" in proc.stdout
+    assert "LEAKED []" in proc.stdout
+
+
 def test_no_source_file_imports_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import|from) (jax|magnetite_tpu)\b")
     files = [os.path.join(REPO, "chip_smoke.py")]

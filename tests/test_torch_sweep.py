@@ -167,7 +167,12 @@ def test_pcg_fixed_iterations_matches_jax():
 def test_sweep_solve_routes():
     """sweep_solve(impl="amg") is compile + solve, and so is the grid route
     (auto and impl="stencil" on a coarsenable canonical grid: compile_sweep);
-    every route the port does not carry raises a typed error naming it."""
+    impl="lanes" and "vmap" are the DIA block-Jacobi lanes and the block-ELL
+    route, and auto below the AMG size is the lanes; lane sharding
+    (device_mesh=), which the port does not carry, raises a typed error
+    naming it."""
+    from magnetite_tpu_torch.fem.dia import build_dia_structure
+
     from magnetite_tpu_torch.meshing.generators import plate_with_hole_mesh, tensile_bcs_for_rect
 
     mesh, bca, md = to_port(*jax_plate(0.08)[:2], 0.08)
@@ -181,10 +186,17 @@ def test_sweep_solve_routes():
     want = ps.compile_unstructured_sweep(mesh, bca, md, iterations=6, device="cpu").solve(
         u_values, f_values, k_scales)
     assert torch.equal(got.u, want.u)
-    for impl in ("lanes", "vmap", "auto"):  # auto: below the AMG size, the DIA lanes
-        with pytest.raises(SolverError, match="not yet ported"):
-            ps.sweep_solve(mesh, bca, md, u_values, f_values, k_scales, impl=impl,
-                           device="cpu")
+    dia = build_dia_structure(mesh.tris, mesh.num_nodes)
+    lanes = ps._sweep_lanes(mesh, bca, md, u_values, f_values, k_scales, 6, np.float32, dia,
+                            "cpu")
+    vmapped = ps._sweep_vmap(mesh, bca, md, u_values, f_values, k_scales, 6, np.float32,
+                             None, "cpu")
+    for impl, want in (("lanes", lanes), ("vmap", vmapped), ("auto", lanes)):
+        # auto: below the AMG size, the DIA lanes
+        got = ps.sweep_solve(mesh, bca, md, u_values, f_values, k_scales, iterations=6,
+                             impl=impl, device="cpu")
+        assert torch.equal(got.u, want.u) and torch.equal(got.von_mises, want.von_mises)
+        assert torch.equal(got.residual_norm, want.residual_norm)
     grid = plate_with_hole_mesh(16, 32)
     gbca = tensile_bcs_for_rect(grid.coords)
     gu = np.tile(gbca.u_value[None], (b, 1, 1))

@@ -90,11 +90,18 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      and the last against single f64 solves; then the sweep on the card
      against the CPU on the 17x33 rectangle and the wrapped 17x32 plate;
  16. the same for the structured material sweep (compile_material_sweep,
-     per-lane E, nu, t; S = 3 instance of the kernel);
- 17. (run before 15-16) the lane stencil kernel, S = 1 and S = 3, against
-     its plain versions at the bench grid, its 17x33 and 9x17 levels and the
-     wrapped 33x64 plate, f32 and f64, each timed beside its bound and
-     plain version; S = 1 against cuSPARSE SpMM in interleaved rounds.
+     per-lane E, nu, t; S = 3 instance of the kernel, and the coarsest
+     level's 48 sweeps as one fused coarse-smoother launch per V-cycle:
+     exactly iterations + 1 per solve, no S = 3 launch at 9x17);
+ 17. (run after 15-16) the lane stencil kernel, S = 1 and S = 3 on packed
+     stencils, against its plain versions at the bench grid, its 17x33 and
+     9x17 levels and the wrapped 33x64 plate, f32 and f64, each timed beside
+     its bound and plain version, S = 1 against cuSPARSE SpMM, and with
+     --baseline both instances against the parent tree's kernel, in
+     interleaved rounds; then the fused coarse smoother at the material
+     sweep's 9x17 and wrapped 9x16 coarsest levels against its plain
+     version, timed against the unfused sequence it replaced (47 S = 3
+     launches and the torch passes) in interleaved rounds.
  18. the DIA block-Jacobi lanes: sweep_solve(impl="auto") on the sweep plate
      (--sweep-h) as meshed, --lanes lanes (pulls U(0.005, 0.02), k U(0.5,
      2)), 200 iterations, f32 and f64: first and warm solve_s, solves/s
@@ -124,7 +131,7 @@ with every launch counter set to 0 just before it and read just after
 (dia_matvec, stencil_matvec and the smoothing kernels also per shape). The last lines are the
 card's nvidia-smi line, a JSON line of per-kernel results (the band
 matvec's 2x2 and 3x3 kernels as two rows, the lane stencil kernel's two
-instances as two rows, the lane ELL kernel), and
+instances as two rows, the fused coarse smoother, the lane ELL kernel), and
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -189,6 +196,10 @@ KERNELS = {
     "lane_stencil_matvec3": ("magnetite_tpu_torch/csrc/lane_stencil_matvec.cu",
                              "no pallas_call: XLA-fused in JAX, "
                              "magnetite_tpu/parallel/sweep.py:993"),
+    # the material sweep's coarsest-level solve (48 sweeps) in one launch
+    "lane_coarse_smooth3": ("magnetite_tpu_torch/csrc/lane_coarse_smooth.cu",
+                            "no pallas_call: XLA-fused in JAX, "
+                            "magnetite_tpu/parallel/sweep.py:1055"),
     # the vmap sweep route's block-ELL matvec: no pallas_call stands behind
     # it, the JAX package vmaps ell_matvec over the lanes in XLA
     "lane_ell_matvec": ("magnetite_tpu_torch/csrc/lane_ell_matvec.cu",
@@ -272,9 +283,10 @@ def require(cond: bool, msg: str) -> None:
 
 
 def counters():
-    """The twelve kernel wrappers, each carrying its `.launches` count."""
+    """The thirteen kernel wrappers, each carrying its `.launches` count."""
     from magnetite_tpu_torch.kernels.df_kernel import df_dia_matvec
     from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
+    from magnetite_tpu_torch.kernels.lane_coarse_kernel import lane_coarse_smooth3
     from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec, lane_dia_matvec3
     from magnetite_tpu_torch.kernels.lane_ell_kernel import lane_ell_matvec
     from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
@@ -286,7 +298,7 @@ def counters():
 
     return (dia_matvec, prolong0, restrict0, stencil_matvec, mg_presmooth, mg_postsmooth,
             df_dia_matvec, lane_dia_matvec, lane_dia_matvec3, lane_stencil_matvec,
-            lane_stencil_matvec3, lane_ell_matvec)
+            lane_stencil_matvec3, lane_coarse_smooth3, lane_ell_matvec)
 
 
 def shape_label(kernel: str, key) -> str:
@@ -303,11 +315,13 @@ def main_path(name: str, totals: dict, expect: tuple):
     in `expect` must have launched. Yields a dict that holds the counts of
     the run once the block has ended, under "<name> f64" the f64 launches
     of the lane kernels (which count them apart), under "<name> ring"
-    their ring-route launches, and under "dia_matvec m=2" / "m=3" the band
-    kernel's launches per block size. `totals["per shape"]` sums the
-    launches per shape ("<name> <shape>") over the main paths."""
+    their ring-route launches, under "lane_coarse_smooth3 per_sweep" the
+    coarse solves that took the per-sweep route, and under "dia_matvec
+    m=2" / "m=3" the band kernel's launches per block size. `totals["per
+    shape"]` sums the launches per shape ("<name> <shape>") over the main
+    paths."""
     ks = counters()
-    split = [(k, attr) for k in ks for attr in ("f64_launches", "ring_launches")
+    split = [(k, attr) for k in ks for attr in ("f64_launches", "ring_launches", "per_sweep")
              if hasattr(k, attr)]
     shaped = [k for k in ks if hasattr(k, "shape_launches")]
     for k in ks:
@@ -319,7 +333,8 @@ def main_path(name: str, totals: dict, expect: tuple):
     got: dict = {}
     yield got
     got.update({k.__name__: k.launches for k in ks})
-    parts = {f"{k.__name__} {attr[:-9]}": getattr(k, attr) for k, attr in split}
+    parts = {f"{k.__name__} {attr.removesuffix('_launches')}": getattr(k, attr)
+             for k, attr in split}
     dia = next(k for k in ks if k.__name__ == "dia_matvec")
     for m in (2, 3):
         parts[f"dia_matvec m={m}"] = sum(
@@ -536,16 +551,18 @@ def time_kernel(tag, fn, plain, library, reps, flush, nbytes, flops, dtype, roun
                 library_ms=library_ms)
 
 
-# the sources of --baseline's kernels (mg_smooth.cu where the tree has
-# it), and the only entries called there
-BASELINE_SOURCES = ("dia_matvec.cu", "transfer.cu", "mg_smooth.cu")
+# the sources of --baseline's kernels (mg_smooth.cu and
+# lane_stencil_matvec.cu where the tree has them), and the only entries
+# called there
+BASELINE_SOURCES = ("dia_matvec.cu", "transfer.cu", "mg_smooth.cu", "lane_stencil_matvec.cu")
 
 
 def load_baseline(tree: str):
-    """An older checkout's dia_matvec, prolong0 and fused smoothing kernels
-    (`tree`, e.g. the parent commit unpacked by git archive), built apart
-    from this tree's library with their C signatures bound here: (seconds,
-    ctypes library)."""
+    """An older checkout's dia_matvec, prolong0, fused smoothing and lane
+    stencil kernels (`tree`, e.g. the parent commit unpacked by git
+    archive), built apart from this tree's library with their C signatures
+    bound here (the lane stencil kernel's are PR 9's, on stencils in the
+    JAX layout): (seconds, ctypes library)."""
     import ctypes
     import shutil
     from magnetite_tpu_torch.kernels import cuda_lib
@@ -585,6 +602,13 @@ def load_baseline(tree: str):
         lib.mt_mg_postsmooth.restype = i32
         lib.mt_mg_postsmooth.argtypes = [i32, i32, vp, vp, vp, vp, vp, vp, i32, i32, vp]
     lib.has_mg_smooth = "mg_smooth.cu" in sources
+    if "lane_stencil_matvec.cu" in sources:
+        lib.mt_lane_stencil_matvec.restype = i32
+        lib.mt_lane_stencil_matvec.argtypes = [i32, i32, i32, vp, vp, vp, i32, i32, i64, i32, vp]
+        lib.mt_lane_stencil_matvec3.restype = i32
+        lib.mt_lane_stencil_matvec3.argtypes = [
+            i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i64, i32, vp]
+    lib.has_lane_stencil = "lane_stencil_matvec.cu" in sources
     lib.mt_error_string.restype = ctypes.c_char_p
     lib.mt_error_string.argtypes = [i32]
     return time.perf_counter() - t0, lib
@@ -1900,16 +1924,19 @@ def compile_grid_sweeps():
     return out
 
 
-def grid_launches(shapes, dense, iterations, material):
+def grid_launches(shapes, dense, iterations, material, es):
     """{(instance, (rows, cols)): launches} of one structured sweep solve,
     derived from its hierarchy (`shapes` finest first; `dense`: the
-    coarsest level is a dense inverse). A V-cycle launches 4 matvecs per
-    smoothing level (2 + 2 sweeps, the first from zero without one, and
-    the residual) and COARSE_SWEEPS - 1 on a coarsest level that smooths;
-    the CG operator runs iterations + 2 times (r0, each iteration, the true
-    residual) at level 0, and the rhs takes 1 (load: the raw stencil) or 3
-    (material: the raw bases) S = 1 launches there."""
+    coarsest level is a dense inverse; `es`: bytes per value). A V-cycle
+    launches 4 matvecs per smoothing level (2 + 2 sweeps, the first from
+    zero without one, and the residual); a coarsest level that smooths
+    takes one fused coarse-smoother launch ("coarse") on the material
+    sweep where lane_coarse_route says it fits, else COARSE_SWEEPS - 1
+    matvecs; the CG operator runs iterations + 2 times (r0, each
+    iteration, the true residual) at level 0, and the rhs takes 1 (load:
+    the raw stencil) or 3 (material: the raw bases) S = 1 launches there."""
     from magnetite_tpu_torch.fem.multigrid import COARSE_SWEEPS
+    from magnetite_tpu_torch.kernels.lane_coarse_kernel import lane_coarse_route
 
     op = "S3" if material else "S1"
     out: dict = {}
@@ -1921,14 +1948,19 @@ def grid_launches(shapes, dense, iterations, material):
     add((op, shapes[0]), iterations + 2)
     add(("S1", shapes[0]), 3 if material else 1)
     for lv, shape in enumerate(shapes):
-        per = 4 if lv < len(shapes) - 1 else (0 if dense else COARSE_SWEEPS - 1)
-        add((op, shape), per * (iterations + 1))
+        if lv < len(shapes) - 1:
+            add((op, shape), 4 * (iterations + 1))
+        elif material and lane_coarse_route(*shape, es) == "fused":
+            add(("coarse", shape), iterations + 1)
+        elif not dense:
+            add((op, shape), (COARSE_SWEEPS - 1) * (iterations + 1))
     return out
 
 
 def check_grid_launches(label, sweep, material):
-    """The lane kernel's launches per shape in the run just counted (the
+    """The lane kernels' launches per shape in the run just counted (the
     wrappers' .shape_launches) against grid_launches."""
+    from magnetite_tpu_torch.kernels.lane_coarse_kernel import lane_coarse_smooth3
     from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
         lane_stencil_matvec, lane_stencil_matvec3,
     )
@@ -1938,14 +1970,17 @@ def check_grid_launches(label, sweep, material):
     else:
         shapes = [tuple(lv.stencil.shape[-2:]) for lv in sweep.setup[2]]
         dense = sweep.setup[2][-1].dense_inv is not None
-    want = grid_launches(shapes, dense, sweep.iterations, material)
+    es = sweep.dtype.itemsize
+    want = grid_launches(shapes, dense, sweep.iterations, material, es)
     seen = {}
-    for tag, k in (("S1", lane_stencil_matvec), ("S3", lane_stencil_matvec3)):
+    for tag, k in (("S1", lane_stencil_matvec), ("S3", lane_stencil_matvec3),
+                   ("coarse", lane_coarse_smooth3)):
         for (r, c, _), n in k.shape_launches.items():
             seen[tag, (r, c)] = seen.get((tag, (r, c)), 0) + n
-    say(f"  {label}: lane stencil launches per shape {sorted(seen.items())}, derived from the "
-        f"hierarchy {sorted(want.items())}")
-    require(seen == want, f"{label}: lane stencil launches {seen}, expected {want}")
+    say(f"  {label}: lane kernel launches per shape {sorted(seen.items())}, derived from the "
+        f"hierarchy {sorted(want.items())}; per-sweep coarse solves "
+        f"{lane_coarse_smooth3.per_sweep}")
+    require(seen == want, f"{label}: lane kernel launches {seen}, expected {want}")
 
 
 def grid_batch(case, nb, seed, dtype, material):
@@ -1978,7 +2013,7 @@ def run_grid_sweep(name, sweep, case, material, expect, totals, profile=False):
     dtype = sweep.dtype
     args = grid_batch(case, SWEEP_LANES, 0, dtype, material)
     sync()
-    with main_path(name, totals, (expect,)):
+    with main_path(name, totals, expect):
         t0 = time.perf_counter()
         res = sweep.solve(*args)
         sync()
@@ -2066,7 +2101,8 @@ def phase_grid_sweep(grid, totals, material, profile):
     import torch
 
     kind = "material" if material else "load"
-    expect = "lane_stencil_matvec3" if material else "lane_stencil_matvec"
+    expect = (("lane_stencil_matvec3", "lane_coarse_smooth3") if material
+              else ("lane_stencil_matvec",))
     say(f"phase {16 if material else 15}: structured {kind} sweep on the bench grid, "
         f"{SWEEP_LANES} lanes, {GRID_ITERS} iterations, f32 and f64")
     for dtype in ("float32", "float64"):
@@ -2115,105 +2151,254 @@ def grid_card_vs_cpu(material):
                 "differs from CPU")
 
 
+def lane_inside(rows, cols, wrap):
+    """Stencil terms (node, offset) whose neighbour lies inside the grid."""
+    return sum((rows - abs(dr)) * (cols if wrap else cols - abs(dt))
+               for dr in (-1, 0, 1) for dt in (-1, 0, 1))
+
+
 def lane_stencil_bound(rows, cols, nb, sets, es, wrap):
     """(bytes moved once, operations) of one lane stencil matvec: u read
     and y written once, the stencils (1, or 3 bases + Sfix) and S = 3's
     weights once; 8 flops per stencil term inside the grid and lane, plus
     S = 3's 24 to build the lane's 2x2 block."""
-    inside = sum((rows - abs(dr)) * (cols if wrap else cols - abs(dt))
-                 for dr in (-1, 0, 1) for dt in (-1, 0, 1))
     nst = 4 if sets == 3 else 1
     nbytes = (4 * rows * cols * nb + 36 * nst * rows * cols + (3 * nb if sets == 3 else 0)) * es
-    return nbytes, (8 if sets == 1 else 32) * inside * nb
+    return nbytes, (8 if sets == 1 else 32) * lane_inside(rows, cols, wrap) * nb
 
 
-def phase_lane_stencil_kernel(grid, reps, flush, rand):
-    """Phase 17 (run before 15-16): both lane stencil kernel instances
-    against their plain versions at the bench grid and its 17x33 / 9x17
-    levels (the sweeps' own stencils) and on the wrapped 33x64 plate, f32
-    and f64, each timed beside its bound and plain version; S = 1 against
-    cuSPARSE SpMM of the same stencil in interleaved rounds."""
+def lane_coarse_bound(rows, cols, nb, es, wrap, sweeps):
+    """(bytes moved once, operations) of one fused coarse solve: r, dinv,
+    the weights and the four stencils read once, e written once; 24 flops
+    per inside stencil term and lane to build the lane's blocks, the first
+    sweep's 2x2 apply (8 per node and lane), then per sweep 8 flops per
+    inside term and 12 per node (residual, 2x2 apply, omega, update)."""
+    n, inside = rows * cols, lane_inside(rows, cols, wrap)
+    nbytes = (8 * n * nb + 3 * nb + 144 * n) * es
+    return nbytes, nb * (24 * inside + 8 * n + (sweeps - 1) * (8 * inside + 12 * n))
+
+
+def parent_lane_plan(rows, cols, nb, es, aligned, sms):
+    """The parent tree's lane_stencil_plan (PR 9's register-window kernel):
+    (lanes per thread, rows per strip)."""
+    vec = 16 // es if aligned and nb % (16 // es) == 0 else 1
+    per_strip = -(-nb // vec) * cols
+    strips = min(rows, max(1, -(-(sms * 2048) // per_strip)))
+    return vec, -(-rows // strips)
+
+
+def baseline_lane_launchers(base):
+    """Calls of an older tree's lane stencil kernel, S = 1 and S = 3 (the
+    library of --baseline: PR 9's C signatures, stencils in the JAX layout,
+    contiguous), or (None, None) where --baseline is absent or its tree has
+    none."""
+    if base is None or not base.has_lane_stencil:
+        return None, None
     import torch
+    from magnetite_tpu_torch.kernels import cuda_lib
+
+    def plan(u, y, ws):
+        aligned = all(t.data_ptr() % 16 == 0 for t in (u, y, *ws))
+        return parent_lane_plan(u.shape[1], u.shape[2], u.shape[3], u.element_size(), aligned,
+                                cuda_lib.sm_count(u.device))
+
+    def s1(st, u, wrap):
+        y = torch.empty_like(u)
+        vec, strip = plan(u, y, ())
+        rc = base.mt_lane_stencil_matvec(cuda_lib.DTYPE_CODES[u.dtype], int(wrap), vec,
+                                         st.data_ptr(), u.data_ptr(), y.data_ptr(), u.shape[1],
+                                         u.shape[2], u.shape[3], strip, cuda_lib.stream_of(u))
+        cuda_lib.check(base, rc, "baseline lane_stencil_matvec")
+        return y
+
+    def s3(st4, w3, u, wrap):
+        y = torch.empty_like(u)
+        vec, strip = plan(u, y, w3)
+        rc = base.mt_lane_stencil_matvec3(
+            cuda_lib.DTYPE_CODES[u.dtype], int(wrap), vec, *(s.data_ptr() for s in st4),
+            *(w.data_ptr() for w in w3), u.data_ptr(), y.data_ptr(), u.shape[1], u.shape[2],
+            u.shape[3], strip, cuda_lib.stream_of(u))
+        cuda_lib.check(base, rc, "baseline lane_stencil_matvec3")
+        return y
+
+    return s1, s3
+
+
+def phase_lane_stencil_kernel(grid, reps, flush, rand, totals, base=None):
+    """Phase 17 (run after 15-16): both lane stencil kernel instances on
+    packed stencils against their plain versions at the bench grid and its
+    17x33 / 9x17 levels (the sweeps' own stencils) and on the wrapped 33x64
+    plate, f32 and f64, each timed beside its bound and plain version, in
+    interleaved rounds with cuSPARSE SpMM of the same stencil (S = 1) and
+    with --baseline the parent tree's kernel; then the fused coarse
+    smoother at the material sweep's coarsest levels (the bench grid's
+    9x17, the wrapped plate's 9x16) against its plain version, timed
+    against the unfused sequence it replaced (the per-sweep route: 47 S = 3
+    launches and the torch passes; with --baseline also through the parent
+    tree's S = 3 kernel) in interleaved rounds."""
+    import torch
+    from magnetite_tpu_torch.fem.multigrid import COARSE_SWEEPS
+    from magnetite_tpu_torch.kernels import lane_coarse_kernel as lc
     from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
         lane_material_matvec_plain, lane_stencil_matvec, lane_stencil_matvec3,
         lane_stencil_matvec_plain,
     )
+    from magnetite_tpu_torch.kernels.mg_smooth_kernel import OMEGA
     from magnetite_tpu_torch.meshing.generators import plate_with_hole_mesh, tensile_bcs_for_rect
     from magnetite_tpu_torch.parallel.sweep import (
-        compile_material_sweep, compile_sweep, material_weights,
+        _lane_material_center_inv, compile_material_sweep, compile_sweep, material_weights,
     )
 
-    say("phase 17: the lane stencil kernel (S = 1, S = 3) against its plain versions")
-    for line in ptxas_of("lane_stencil_kernel"):
-        say(f"  ptxas: {line}")
+    say("phase 17: the lane stencil kernel (S = 1, S = 3) and the fused coarse smoother "
+        "against their plain versions")
+    for kernel in ("lane_stencil_kernel", "lane_coarse_smooth3_kernel"):
+        for line in ptxas_of(kernel):
+            say(f"  ptxas: {line}")
+    parent1, parent3 = baseline_lane_launchers(base)
     plate = plate_with_hole_mesh(32, 64)
     pbca = tensile_bcs_for_rect(plate.coords, pull=0.01)
     nb = SWEEP_LANES
+    per_shape = totals.get("per shape", {})
     results = {}
+
+    def launches(kname, rows, cols, name):  # over the main paths run before this phase
+        return per_shape.get(f"{kname} {rows}x{cols} {name}", 0)
+
     for dtype in (torch.float32, torch.float64):
         name, es = str(dtype)[6:], torch.empty((), dtype=dtype).element_size()
         tol = 1e-5 if dtype == torch.float32 else 1e-12
         load, mat = grid[f"load {name}"], grid[f"material {name}"]
         pload = compile_sweep(plate, pbca, grid["case"][2], GRID_ITERS, name, device=DEV)
         pmat = compile_material_sweep(plate, pbca, GRID_ITERS, name, device=DEV)
-        shapes = [("bench 33x65", load.setup[1], mat.setup[1][0], False)]
+        # (label, S = 1 stencil and its packed copy, S = 3 level and its packed copy, wrap)
+        shapes = [("bench 33x65", load.setup[1], load.packed[1], mat.setup[1][0],
+                   mat.packed[1][0], False)]
         shapes += [(f"level {lv} {'x'.join(map(str, load.setup[2][lv].stencil.shape[-2:]))}",
-                    load.setup[2][lv].stencil, mat.setup[1][lv], False) for lv in (1, 2)]
-        shapes += [("wrapped plate 33x64", pload.setup[1], pmat.setup[1][0], True)]
+                    load.setup[2][lv].stencil, load.packed[2][lv].stencil, mat.setup[1][lv],
+                    mat.packed[1][lv], False) for lv in (1, 2)]
+        shapes += [("wrapped plate 33x64", pload.setup[1], pload.packed[1], pmat.setup[1][0],
+                    pmat.packed[1][0], True)]
         gen = torch.Generator(device="cpu").manual_seed(17)
         w3 = material_weights(*(
             (lo + (hi - lo) * torch.rand(nb, generator=gen, dtype=torch.float64)).to(DEV, dtype)
             for lo, hi in ((40e9, 250e9), (0.22, 0.38), (0.2, 1.0))))
-        for label, st, level, wrap in shapes:
+        for label, st, pst, level, plevel, wrap in shapes:
             rows, cols = st.shape[-2:]
+            st, level = st.contiguous(), tuple(s.contiguous() for s in level)
             u = rand(2, rows, cols, nb, dtype=dtype)
             tag = f"lane_stencil_matvec {label} B={nb} {name}"
             ref = lane_stencil_matvec_plain(st, u, wrap)
             scale = lane_stencil_matvec_plain(st.abs(), u.abs(), wrap).max()
-            err = compare(tag, lane_stencil_matvec(st, u, wrap), ref, scale, tol)
+            got = lane_stencil_matvec(pst, u, wrap)
+            err = compare(tag, got, ref, scale, tol)
+            require(torch.equal(lane_stencil_matvec(pst, u, wrap), got),
+                    f"{tag}: a second launch differs")
+            if parent1 is not None:
+                compare(f"parent {tag}", parent1(st, u, wrap), ref, scale, tol)
             a = csr_of_stencil(st, wrap)
             x = u.reshape(2 * rows * cols, nb)
             compare(f"library CSR SpMM {tag}", torch.sparse.mm(a, x).reshape(u.shape), ref, scale,
                     tol)
-            row = time_kernel(tag, lambda: lane_stencil_matvec(st, u, wrap),
+            row = time_kernel(tag, lambda: lane_stencil_matvec(pst, u, wrap),
                               lambda: lane_stencil_matvec_plain(st, u, wrap),
                               lambda: torch.sparse.mm(a, x), reps, flush,
                               *lane_stencil_bound(rows, cols, nb, 1, es, wrap), dtype,
-                              rounds=ROUNDS)
+                              rounds=ROUNDS,
+                              parent=parent1 and (lambda: parent1(st, u, wrap)))
+            say(f"    launches over the main paths: "
+                f"{launches('lane_stencil_matvec', rows, cols, name)}")
             results[f"lane_stencil_matvec {label} {name}"] = dict(max_abs_err=err, **row)
             del a, x, ref
             tag = f"lane_stencil_matvec3 {label} B={nb} {name}"
             ref = lane_material_matvec_plain(level, w3, u, wrap)
             scale = lane_material_matvec_plain(tuple(s.abs() for s in level), w3, u.abs(),
                                                wrap).max()
-            err = compare(tag, lane_stencil_matvec3(level, w3, u, wrap), ref, scale, tol)
-            row = time_kernel(tag, lambda: lane_stencil_matvec3(level, w3, u, wrap),
+            got = lane_stencil_matvec3(plevel, w3, u, wrap)
+            err = compare(tag, got, ref, scale, tol)
+            require(torch.equal(lane_stencil_matvec3(plevel, w3, u, wrap), got),
+                    f"{tag}: a second launch differs")
+            if parent3 is not None:
+                compare(f"parent {tag}", parent3(level, w3, u, wrap), ref, scale, tol)
+            row = time_kernel(tag, lambda: lane_stencil_matvec3(plevel, w3, u, wrap),
                               lambda: lane_material_matvec_plain(level, w3, u, wrap), None,
-                              reps, flush, *lane_stencil_bound(rows, cols, nb, 3, es, wrap), dtype)
+                              reps, flush, *lane_stencil_bound(rows, cols, nb, 3, es, wrap), dtype,
+                              parent=parent3 and (lambda: parent3(level, w3, u, wrap)))
+            say(f"    launches over the main paths: "
+                f"{launches('lane_stencil_matvec3', rows, cols, name)}")
             results[f"lane_stencil_matvec3 {label} {name}"] = dict(max_abs_err=err, **row)
-            del ref, u
+            del ref, u, got
         say("  (lane_stencil_matvec3: no single PyTorch call computes a per-lane weighted sum "
             "of four stencils: library none)")
+
+        # the fused coarse smoother at the material sweep's coarsest levels
+        for label, level, plevel, wrap in (
+                ("bench coarsest", mat.setup[1][-1], mat.packed[1][-1], False),
+                ("wrapped plate coarsest", pmat.setup[1][-1], pmat.packed[1][-1], True)):
+            rows, cols = level.sa.shape[-2:]
+            route = lc.lane_coarse_route(rows, cols, es)
+            require(route == "fused", f"{label} {rows}x{cols} {name}: route {route}, not fused")
+            level = type(level)(*(s.contiguous() for s in level))
+            dinv = _lane_material_center_inv(level, *w3)
+            r = rand(2, rows, cols, nb, dtype=dtype)
+            tag = f"lane_coarse_smooth3 {label} {rows}x{cols} B={nb} {name}"
+
+            def fused():
+                return lc.lane_coarse_smooth3(plevel, dinv, w3, r, wrap, COARSE_SWEEPS, OMEGA)
+
+            def plain():
+                return lc.lane_coarse_smooth3_plain(level, dinv, w3, r, wrap, COARSE_SWEEPS,
+                                                    OMEGA)
+
+            def unfused():  # the per-sweep route: the S = 3 kernel and torch passes
+                return lc._smooth(lambda e: lane_stencil_matvec3(plevel, w3, e, wrap), dinv, r,
+                                  COARSE_SWEEPS, OMEGA)
+
+            ref = plain()
+            # 48 sweeps of rounding in another order: held to max|e|
+            got = fused()
+            err = compare(tag, got, ref, ref.abs().max(), tol)
+            require(torch.equal(fused(), got), f"{tag}: a second launch differs")
+            compare(f"unfused {tag}", unfused(), ref, ref.abs().max(), tol)
+            fns = {"kernel": fused, "unfused": unfused}
+            if parent3 is not None:
+                fns["unfused parent"] = lambda: lc._smooth(
+                    lambda e: parent3(level, w3, e, wrap), dinv, r, COARSE_SWEEPS, OMEGA)
+            med = interleaved(tag, fns, reps, flush, ROUNDS)
+            plain_ms = event_ms(plain, reps, flush)
+            nbytes, flops = lane_coarse_bound(rows, cols, nb, es, wrap, COARSE_SWEEPS)
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            ms = med["kernel"]
+            par = (f", unfused through the parent's S = 3 {med['unfused parent']:.4f} ms"
+                   if "unfused parent" in med else "")
+            say(f"  {tag}: kernel {ms:.4f} ms ({b_ms / ms:.1%} of bound {b_ms:.4f} ms by "
+                f"{b_by}), unfused {med['unfused']:.4f} ms ({med['unfused'] / ms:.2f}x the "
+                f"kernel's){par}, plain {plain_ms:.4f} ms; launches over the main paths: "
+                f"{launches('lane_coarse_smooth3', rows, cols, name)}")
+            results[f"lane_coarse_smooth3 {label} {name}"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+            del dinv, r, ref, got
+        del pload, pmat
         if DEV == "cuda":
             torch.cuda.empty_cache()
     for k in ("lane_stencil_matvec", "lane_stencil_matvec3"):
         results[k] = results[f"{k} bench 33x65 float32"]  # the main path's f32 bench call
+    results["lane_coarse_smooth3"] = results["lane_coarse_smooth3 bench coarsest float32"]
     return results
 
 
-def phase_grid_sweeps(args, rand, results, totals):
-    """Phases 17, 15 and 16 on the bench grid, set up once."""
+def phase_grid_sweeps(args, rand, results, totals, base=None):
+    """Phases 15, 16 and 17 on the bench grid, set up once (17 after the
+    sweeps, so its lines can quote their launches per shape)."""
     import torch
 
     say("phases 15-17: the bench grid compiled for both structured sweeps")
     grid = compile_grid_sweeps()
-    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)
-    results.update(phase_lane_stencil_kernel(grid, args.reps, flush, rand))
-    del flush
-    torch.cuda.empty_cache()
     phase_grid_sweep(grid, totals, False, args.profile)
     phase_grid_sweep(grid, totals, True, args.profile)
-    del grid
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)
+    results.update(phase_lane_stencil_kernel(grid, args.reps, flush, rand, totals, base))
+    del flush, grid
     torch.cuda.empty_cache()
 
 
@@ -2562,8 +2747,9 @@ def main() -> int:
     ap.add_argument("--baseline", metavar="DIR",
                     help="another checkout (e.g. the parent commit unpacked by git archive): "
                     "its dia_matvec and prolong0 kernels (and mg_presmooth / mg_postsmooth "
-                    "where it has them) are built apart and timed beside this tree's in "
-                    "phases 2, 3 and 14, in the same interleaved rounds")
+                    "and the lane stencil kernel where it has them) are built apart and timed "
+                    "beside this tree's in phases 2, 3, 14 and 17, in the same interleaved "
+                    "rounds")
     ap.add_argument("--only", choices=("transfers", "lane-kernels", "multigrid",
                                        "structured-sweeps", "lane-sweeps"),
                     help="transfers: phases 0 to 3 alone (the Delaunay plate's band and "
@@ -2621,7 +2807,7 @@ def main() -> int:
             "(--only lane-kernels: no ok line)")
         return 0
     if args.only == "structured-sweeps":
-        phase_grid_sweeps(args, rand, {}, {})
+        phase_grid_sweeps(args, rand, {}, {}, base)
         say(f"phases 0, 1 and 15-17 passed in {time.perf_counter() - t_start:.1f} s "
             "(--only structured-sweeps: no ok line)")
         return 0
@@ -2689,7 +2875,7 @@ def main() -> int:
     del sweeps
     torch.cuda.empty_cache()
     phase_sweeps_card_vs_cpu(args.sweep_small[0], int(args.sweep_small[1]))
-    phase_grid_sweeps(args, rand, results, totals)
+    phase_grid_sweeps(args, rand, results, totals, base)
     phase_lane_sweeps(args, rand, results, totals)
 
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")

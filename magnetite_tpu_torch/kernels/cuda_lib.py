@@ -169,10 +169,14 @@ def _bind(lib) -> None:
         i32, vp, vp, vp, vp, vp, vp, vp, i32, vp, vp, i64, i64, vp,
     ]
     lib.mt_lane_stencil_matvec.restype = i32
-    lib.mt_lane_stencil_matvec.argtypes = [i32, i32, i32, vp, vp, vp, i32, i32, i64, i32, vp]
+    lib.mt_lane_stencil_matvec.argtypes = [i32, i32, i32, vp, vp, vp, i32, i32, i64, i32, i32, vp]
     lib.mt_lane_stencil_matvec3.restype = i32
     lib.mt_lane_stencil_matvec3.argtypes = [
-        i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i64, i32, vp,
+        i32, i32, i32, vp, vp, vp, vp, vp, vp, i32, i32, i64, i32, i32, vp,
+    ]
+    lib.mt_lane_coarse_smooth3.restype = i32
+    lib.mt_lane_coarse_smooth3.argtypes = [
+        i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i64, i32, ctypes.c_double, vp,
     ]
     lib.mt_lane_ell_matvec.restype = i32
     lib.mt_lane_ell_matvec.argtypes = [i32, i32, i32, vp, vp, vp, vp, i64, i32, i64, vp]

@@ -1,5 +1,5 @@
 """Lane-batched 9-point 2x2-block stencil SpMV: the CUDA kernel
-`lane_stencil_kernel<T, S, V>` (csrc/lane_stencil_matvec.cu) in two
+`lane_stencil_kernel<T, S>` (csrc/lane_stencil_matvec.cu) in two
 instances, and their plain versions.
 
     S = 1  y[i, r, c, b] = sum_s sum_j S[s, i, j, r, c] * u[j, r+dr_s, c+dt_s, b]
@@ -16,15 +16,22 @@ XLA (magnetite_tpu/parallel/sweep.py::_lane_stencil_matvec and
 `pallas_call` behind it. In eager PyTorch the plain version is ~40 (S = 1)
 or ~150 (S = 3) launches per matvec, hence the kernel.
 
+The kernel reads its stencils packed node-major (`pack_lane_stencils`,
+once per compiled sweep): S = 1 [R, C, 9, 2, 2], S = 3 [R, C, 9, 2, 2, 4]
+with (Sa, Sb, Sc, Sfix) innermost. The sweeps keep the JAX package's
+layout ([9, 2, 2, R, C] per stencil) in their setup and the packed copy
+beside it.
+
 `lane_stencil_matvec` / `lane_stencil_matvec3` are the entry points: CPU
-operands take the plain version, CUDA operands launch the kernel or raise.
-Each counts its launches in `.launches` and, per (rows, cols, dtype), in
-`.shape_launches`.
+operands take the plain version (the stencils packed or not), CUDA operands
+launch the kernel on packed stencils or raise. Each counts its launches in
+`.launches` and, per (rows, cols, dtype), in `.shape_launches`.
 """
 
 from __future__ import annotations
 
 from collections import Counter
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -32,11 +39,44 @@ import torch.nn.functional as F
 from . import cuda_lib
 from .stencil_kernel import OFFSETS
 
-# a thread carries VEC_BYTES of consecutive lanes when B allows it; the
-# grid aims at WAVE_THREADS resident threads per SM (csrc: one thread per
-# (lane vector, column, strip of rows))
-VEC_BYTES, WAVE_THREADS = 16, 2048
-H100_SMS = 132
+# csrc geometry: a 16-byte chunk of lanes, two chunks a thread, eight
+# threads a column, up to 16 columns a tile; strips of STRIP_ROWS rows, or
+# of SHORT_STRIP_ROWS on grids of at most SHORT_GRID_ROWS rows
+VEC_BYTES, MAX_TILE_COLS = 16, 16
+STRIP_ROWS, SHORT_STRIP_ROWS, SHORT_GRID_ROWS = 6, 2, 12
+
+
+class PackedStencils(NamedTuple):
+    """Stencils packed for the kernel: [R, C, 9, 2, 2] (one stencil) or
+    [R, C, 9, 2, 2, 4] ((Sa, Sb, Sc, Sfix) innermost)."""
+
+    data: torch.Tensor
+
+    @property
+    def sets(self) -> int:
+        return 3 if self.data.dim() == 6 else 1
+
+
+def pack_lane_stencils(stencils) -> PackedStencils:
+    """One stencil [9, 2, 2, R, C], or four (Sa, Sb, Sc, Sfix), packed
+    node-major for the kernel (a contiguous copy, made once)."""
+    if isinstance(stencils, torch.Tensor):
+        return PackedStencils(stencils.permute(3, 4, 0, 1, 2).contiguous())
+    st = torch.stack(tuple(stencils), dim=-1)  # [9, 2, 2, R, C, 4]
+    return PackedStencils(st.permute(3, 4, 0, 1, 2, 5).contiguous())
+
+
+def unpack_lane_stencils(packed: PackedStencils):
+    """The JAX layout back, as views: a [9, 2, 2, R, C] stencil, or the
+    four of S = 3."""
+    data = packed.data
+    if packed.sets == 1:
+        return data.permute(2, 3, 4, 0, 1)
+    return tuple(data[..., k].permute(2, 3, 4, 0, 1) for k in range(4))
+
+
+def _jax_layout(stencils):
+    return unpack_lane_stencils(stencils) if isinstance(stencils, PackedStencils) else stencils
 
 
 def _pad_lanes(u: torch.Tensor, wrap: bool) -> torch.Tensor:
@@ -48,10 +88,11 @@ def _pad_lanes(u: torch.Tensor, wrap: bool) -> torch.Tensor:
     return F.pad(u, (0, 0, 1, 1, 1, 1))
 
 
-def lane_stencil_matvec_plain(stencil: torch.Tensor, u: torch.Tensor, wrap: bool) -> torch.Tensor:
+def lane_stencil_matvec_plain(stencil, u: torch.Tensor, wrap: bool) -> torch.Tensor:
     """Plain version (the JAX package's _lane_stencil_matvec): stencil
-    [9, 2, 2, R, C], u [2, R, C, B] -> K u [2, R, C, B]; one padded copy of
-    u, then the nine offsets as static slices."""
+    [9, 2, 2, R, C] or packed, u [2, R, C, B] -> K u [2, R, C, B]; one
+    padded copy of u, then the nine offsets as static slices."""
+    stencil = _jax_layout(stencil)
     rows, cols = u.shape[-3], u.shape[-2]
     u_pad = _pad_lanes(u, wrap)
     y0 = torch.zeros_like(u[0])
@@ -66,12 +107,12 @@ def lane_stencil_matvec_plain(stencil: torch.Tensor, u: torch.Tensor, wrap: bool
 
 def lane_material_matvec_plain(stencils4, w3, u: torch.Tensor, wrap: bool) -> torch.Tensor:
     """Plain version of S = 3 (the JAX package's _lane_material_matvec):
-    stencils4 = (Sa, Sb, Sc, Sfix), each [9, 2, 2, R, C]; w3 = (wa, wb, wc),
-    each [B]. The basis blocks are combined per offset with the lane
-    weights; no per-lane stencil is kept."""
+    stencils4 = (Sa, Sb, Sc, Sfix), each [9, 2, 2, R, C], or packed; w3 =
+    (wa, wb, wc), each [B]. The basis blocks are combined per offset with
+    the lane weights; no per-lane stencil is kept."""
     rows, cols = u.shape[-3], u.shape[-2]
     u_pad = _pad_lanes(u, wrap)
-    sa, sb, sc, sfix = stencils4
+    sa, sb, sc, sfix = _jax_layout(stencils4)
     wa, wb, wc = w3
     y0 = torch.zeros_like(u[0])
     y1 = torch.zeros_like(u[1])
@@ -87,54 +128,80 @@ def lane_material_matvec_plain(stencils4, w3, u: torch.Tensor, wrap: bool) -> to
     return torch.stack([y0, y1])
 
 
-def lane_stencil_plan(rows: int, cols: int, nb: int, es: int, aligned: bool,
-                      sms: int = H100_SMS) -> tuple:
-    """(lanes per thread, rows per strip) of one launch: 16 bytes of lanes
-    per thread when B is a multiple of that and the lane fields are 16-byte
-    aligned (else one lane), and the fewest strips of rows that give
-    WAVE_THREADS threads per SM (a thread walks its strip down the rows,
-    so each strip re-reads two halo rows)."""
-    vec = VEC_BYTES // es if aligned and nb % (VEC_BYTES // es) == 0 else 1
-    per_strip = -(-nb // vec) * cols
-    strips = min(rows, max(1, -(-(sms * WAVE_THREADS) // per_strip)))
-    return vec, -(-rows // strips)
+class LaneStencilPlan(NamedTuple):
+    vec: bool  # 16-byte chunks of lanes (else one lane at a time)
+    tile_cols: int
+    strip_rows: int
 
 
-def _check(name, stencils, u, ws=()):
-    cuda_lib.require_cuda(name, u.dtype, *stencils, *ws, u)
-    rows, cols = stencils[0].shape[-2], stencils[0].shape[-1]
+def lane_stencil_plan(rows: int, cols: int, nb: int, es: int, aligned: bool) -> LaneStencilPlan:
+    """The launch geometry: 16-byte chunks when B is a multiple of the chunk
+    and the lane fields are 16-byte aligned; the columns cut into the
+    fewest tiles of at most MAX_TILE_COLS, evened out (65: 5 tiles of 13);
+    strips of STRIP_ROWS rows (SHORT_STRIP_ROWS on short grids). Small
+    blocks, many of them: several fit on an SM and the grid runs many
+    waves, so its last wave is short; each strip re-reads two halo rows,
+    mostly from L2 (measured on the H100 against other tile widths and
+    strips: PERF.md §6, PR 11)."""
+    vec = aligned and nb % (VEC_BYTES // es) == 0
+    tiles = -(-cols // MAX_TILE_COLS)
+    strip = SHORT_STRIP_ROWS if rows <= SHORT_GRID_ROWS else STRIP_ROWS
+    return LaneStencilPlan(vec, -(-cols // tiles), min(rows, strip))
+
+
+def _require_packed(name: str, stencils, sets: int) -> torch.Tensor:
+    if not isinstance(stencils, PackedStencils) or stencils.sets != sets:
+        raise cuda_lib.KernelError(
+            f"{name}: CUDA operands take stencils packed by pack_lane_stencils "
+            f"({'[R, C, 9, 2, 2, 4]' if sets == 3 else '[R, C, 9, 2, 2]'})")
+    return stencils.data
+
+
+def _check(name, packed, u, ws=()):
+    cuda_lib.require_cuda(name, u.dtype, packed, *ws, u)
+    rows, cols = packed.shape[0], packed.shape[1]
+    want = (rows, cols, 9, 2, 2) + ((4,) if packed.dim() == 6 else ())
     bad = (
         u.dim() != 4 or tuple(u.shape[:3]) != (2, rows, cols) or rows < 1 or cols < 2
-        or any(tuple(s.shape) != (9, 2, 2, rows, cols) or s.dtype != u.dtype for s in stencils)
+        or tuple(packed.shape) != want or packed.dtype != u.dtype
         or any(tuple(w.shape) != (u.shape[3],) or w.dtype != u.dtype for w in ws)
     )
     if bad:
         raise cuda_lib.KernelError(
-            f"{name}: stencils {[tuple(s.shape) for s in stencils]} {stencils[0].dtype}, "
-            f"u {tuple(u.shape)} {u.dtype}, weights {[tuple(w.shape) for w in ws]}"
+            f"{name}: packed stencils {tuple(packed.shape)} {packed.dtype}, u {tuple(u.shape)} "
+            f"{u.dtype}, weights {[tuple(w.shape) for w in ws]}"
         )
+    if packed.data_ptr() % VEC_BYTES:
+        raise cuda_lib.KernelError(f"{name}: packed stencils must be 16-byte aligned")
     return rows, cols, u.shape[3]
 
 
 def _plan_of(u, y, ws, rows, cols, nb):
     aligned = all(t.data_ptr() % VEC_BYTES == 0 for t in (u, y, *ws))
-    return lane_stencil_plan(rows, cols, nb, u.element_size(), aligned,
-                             cuda_lib.sm_count(u.device))
+    return lane_stencil_plan(rows, cols, nb, u.element_size(), aligned)
 
 
-def lane_stencil_matvec(stencil: torch.Tensor, u: torch.Tensor, wrap: bool) -> torch.Tensor:
-    """S = 1: y = K u for stencil [9, 2, 2, R, C] and lane fields u
-    [2, R, C, B], f32 or f64, any B >= 1."""
-    if u.device.type == "cpu" and stencil.device.type == "cpu":
+def _on_cpu(stencils, u) -> bool:
+    """u and the stencils (a tensor, a tuple of them, or packed) on the CPU."""
+    first = stencils if isinstance(stencils, torch.Tensor) else stencils[0]
+    return u.device.type == "cpu" and first.device.type == "cpu"
+
+
+def lane_stencil_matvec(stencil, u: torch.Tensor, wrap: bool) -> torch.Tensor:
+    """S = 1: y = K u for a stencil [9, 2, 2, R, C] (CPU) or packed (CPU or
+    CUDA) and lane fields u [2, R, C, B], f32 or f64, any B >= 1."""
+    if _on_cpu(stencil, u):
         return lane_stencil_matvec_plain(stencil, u, wrap)
+    packed = _require_packed("lane_stencil_matvec", stencil, 1)
     u = u.contiguous()
-    rows, cols, nb = _check("lane_stencil_matvec", (stencil,), u)
+    rows, cols, nb = _check("lane_stencil_matvec", packed, u)
     y = torch.empty_like(u)
-    vec, strip_rows = _plan_of(u, y, (), rows, cols, nb)
+    plan = _plan_of(u, y, (), rows, cols, nb)
     lib = cuda_lib.load()
     rc = lib.mt_lane_stencil_matvec(
-        cuda_lib.DTYPE_CODES[u.dtype], int(bool(wrap)), vec, stencil.data_ptr(), u.data_ptr(),
-        y.data_ptr(), rows, cols, nb, strip_rows, cuda_lib.stream_of(u),
+        cuda_lib.DTYPE_CODES[u.dtype], int(bool(wrap)), int(plan.vec), packed.data_ptr(),
+        u.data_ptr(), y.data_ptr(), rows, cols, nb, plan.tile_cols, plan.strip_rows,
+        cuda_lib.stream_of(u),
     )
     cuda_lib.check(lib, rc, "lane_stencil_matvec")
     lane_stencil_matvec.launches += 1
@@ -144,19 +211,21 @@ def lane_stencil_matvec(stencil: torch.Tensor, u: torch.Tensor, wrap: bool) -> t
 
 def lane_stencil_matvec3(stencils4, w3, u: torch.Tensor, wrap: bool) -> torch.Tensor:
     """S = 3: y_b = (wa_b Sa + wb_b Sb + wc_b Sc + Sfix) u_b. stencils4 =
-    (Sa, Sb, Sc, Sfix), each [9, 2, 2, R, C]; w3 = (wa, wb, wc), each [B]."""
-    if u.device.type == "cpu" and stencils4[0].device.type == "cpu":
+    (Sa, Sb, Sc, Sfix), each [9, 2, 2, R, C] (CPU), or packed (CPU or
+    CUDA); w3 = (wa, wb, wc), each [B]."""
+    if _on_cpu(stencils4, u):
         return lane_material_matvec_plain(stencils4, w3, u, wrap)
+    packed = _require_packed("lane_stencil_matvec3", stencils4, 3)
     u = u.contiguous()
     w3 = [w.contiguous() for w in w3]
-    rows, cols, nb = _check("lane_stencil_matvec3", stencils4, u, w3)
+    rows, cols, nb = _check("lane_stencil_matvec3", packed, u, w3)
     y = torch.empty_like(u)
-    vec, strip_rows = _plan_of(u, y, w3, rows, cols, nb)
+    plan = _plan_of(u, y, w3, rows, cols, nb)
     lib = cuda_lib.load()
     rc = lib.mt_lane_stencil_matvec3(
-        cuda_lib.DTYPE_CODES[u.dtype], int(bool(wrap)), vec,
-        *(s.data_ptr() for s in stencils4), *(w.data_ptr() for w in w3),
-        u.data_ptr(), y.data_ptr(), rows, cols, nb, strip_rows, cuda_lib.stream_of(u),
+        cuda_lib.DTYPE_CODES[u.dtype], int(bool(wrap)), int(plan.vec), packed.data_ptr(),
+        *(w.data_ptr() for w in w3), u.data_ptr(), y.data_ptr(), rows, cols, nb,
+        plan.tile_cols, plan.strip_rows, cuda_lib.stream_of(u),
     )
     cuda_lib.check(lib, rc, "lane_stencil_matvec3")
     lane_stencil_matvec3.launches += 1

@@ -12,8 +12,10 @@ host. The routes, picked per mesh as the JAX package picks them:
     geometric-multigrid hierarchy (fem/multigrid.py) whose coarsest level is
     a dense inverse when small. The lane stencil matvec is the hand-written
     kernel of kernels/lane_stencil_kernel.py (one instance for the shared
-    stencil, one for three basis stencils weighted per lane); the transfers
-    and block-Jacobi steps are torch ops.
+    stencil, one for three basis stencils weighted per lane), on stencils
+    packed once when the sweep compiles; the material sweep's coarsest
+    level is one launch of kernels/lane_coarse_kernel.py where it fits; the
+    transfers and the other block-Jacobi steps are torch ops.
   * arbitrary meshes (`compile_unstructured_sweep`,
     `compile_unstructured_material_sweep`; fields [2, N, B]): the DIA band
     operator and one smoothed-aggregation AMG hierarchy (fem/amg.py), the
@@ -69,7 +71,10 @@ from ..fem.operator import block_jacobi_inverse, make_constrained_operator, redu
 from ..fem.solve import resolve_device
 from ..kernels.lane_dia_kernel import lane_dia_matvec, lane_dia_matvec3, offsets_tensor
 from ..kernels.lane_ell_kernel import lane_ell_matvec
-from ..kernels.lane_stencil_kernel import lane_stencil_matvec, lane_stencil_matvec3
+from ..kernels.lane_coarse_kernel import lane_coarse_smooth3
+from ..kernels.lane_stencil_kernel import (
+    lane_stencil_matvec, lane_stencil_matvec3, pack_lane_stencils,
+)
 from ..kernels.mg_smooth_kernel import OMEGA as MG_OMEGA
 from ..meshing.core import Mesh
 
@@ -1054,7 +1059,7 @@ def compile_unstructured_material_sweep(
 class _LaneLevel(NamedTuple):
     """One level of the shared hierarchy."""
 
-    stencil: torch.Tensor  # [9, 2, 2, R, C] BC-reduced
+    stencil: torch.Tensor  # [9, 2, 2, R, C] BC-reduced (or packed, _pack_load_setup)
     diag_inv: torch.Tensor  # [2, 2, R, C]
     dense_inv: Optional[torch.Tensor] = None  # [2RC, 2RC] node-major, coarsest only
 
@@ -1205,11 +1210,20 @@ def _lane_fields(values: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return values.permute(2, 1, 0).reshape(2, rows, cols, values.shape[0])
 
 
-def _stencil_lanes(setup, tris, free_g, u_values, f_values, k_scales, rows, cols, wrap,
+def _pack_load_setup(setup) -> tuple:
+    """The load setup's stencils packed for the lane stencil kernel: (raw,
+    reduced, levels with packed stencils)."""
+    raw, reduced, levels, _, _ = setup
+    return (pack_lane_stencils(raw), pack_lane_stencils(reduced),
+            tuple(lv._replace(stencil=pack_lane_stencils(lv.stencil)) for lv in levels))
+
+
+def _stencil_lanes(setup, packed, tris, free_g, u_values, f_values, k_scales, rows, cols, wrap,
                    iterations):
     """The batched solve of CompiledSweep (the JAX package's
-    _stencil_lanes_jit)."""
-    raw, reduced, levels, b_mat, d_mat = setup
+    _stencil_lanes_jit); `packed` = _pack_load_setup(setup)."""
+    _, _, _, b_mat, d_mat = setup
+    raw, reduced, levels = packed
     b = u_values.shape[0]
     u_fixed = _lane_fields(u_values, rows, cols)
     f_applied = _lane_fields(f_values, rows, cols)
@@ -1255,6 +1269,7 @@ class CompiledSweep:
     are tensors on `device`."""
 
     setup: tuple  # (raw, reduced, levels, b_mat, d_mat)
+    packed: tuple  # _pack_load_setup(setup)
     tris: torch.Tensor
     free_g: torch.Tensor  # [2, R, C]
     rows: int
@@ -1271,8 +1286,9 @@ class CompiledSweep:
         """u_values / f_values [B, N, 2] per-lane prescribed displacements and
         applied forces, k_scales [B] stiffness scales."""
         u, res, vm, rhs_norm = _stencil_lanes(
-            self.setup, self.tris, self.free_g, self._batch(u_values), self._batch(f_values),
-            self._batch(k_scales), self.rows, self.cols, self.wrap, self.iterations,
+            self.setup, self.packed, self.tris, self.free_g, self._batch(u_values),
+            self._batch(f_values), self._batch(k_scales), self.rows, self.cols, self.wrap,
+            self.iterations,
         )
         return SweepResult(u=u, residual_norm=res, von_mises=vm, rhs_norm=rhs_norm)
 
@@ -1310,8 +1326,10 @@ def compile_sweep(
             coords.to(user_t), tris, free_g, float(metadata.youngs_modulus),
             float(metadata.poisson_ratio), float(metadata.part_thickness), rows, cols, wrap,
         )
+    setup = _setup_to(setup, user_t, dev, rows, cols, "compile_sweep")
     return CompiledSweep(
-        setup=_setup_to(setup, user_t, dev, rows, cols, "compile_sweep"),
+        setup=setup,
+        packed=_pack_load_setup(setup),
         tris=tris,
         free_g=free_g,
         rows=rows,
@@ -1403,8 +1421,17 @@ def _material_sweep_setup(coords, tris, free_g, rows, cols, wrap):
     return basis_raw, tuple(levels), b_mat
 
 
-def _lane_material_matvec(level: _MaterialLevel, wa, wb, wc, u, wrap):
-    """Per-lane y = K(w) u on [2, R, C, B] lane fields (the S = 3 kernel)."""
+def _pack_material_setup(setup) -> tuple:
+    """The material setup's stencils packed for the lane stencil kernels:
+    (the three raw bases, one packed 4-stencil set per level)."""
+    basis_raw, levels, _ = setup
+    return (tuple(pack_lane_stencils(st) for st in basis_raw),
+            tuple(pack_lane_stencils(lv) for lv in levels))
+
+
+def _lane_material_matvec(level, wa, wb, wc, u, wrap):
+    """Per-lane y = K(w) u on [2, R, C, B] lane fields (the S = 3 kernel);
+    level a _MaterialLevel or its packed stencils."""
     return lane_stencil_matvec3(level, (wa, wb, wc), u, wrap)
 
 
@@ -1423,7 +1450,9 @@ def _lane_material_vcycle(levels, dinvs, wa, wb, wc, wrap, pre: int = 2, post: i
                           coarse_sweeps: int = MG_COARSE_SWEEPS, omega: float = MG_OMEGA):
     """Lane V-cycle with EXACT per-lane operators at every level (the basis
     decomposition survives Galerkin coarsening); the coarsest level smooths
-    (its dense inverse would depend on the material)."""
+    (its dense inverse would depend on the material), `coarse_sweeps`
+    sweeps in one lane_coarse_smooth3 call. `levels`: _MaterialLevels or
+    their packed stencils."""
 
     def smooth(l, e, r, sweeps):
         for _ in range(sweeps):
@@ -1434,7 +1463,8 @@ def _lane_material_vcycle(levels, dinvs, wa, wb, wc, wrap, pre: int = 2, post: i
 
     def cycle(l, r):
         if l == len(levels) - 1:
-            return smooth(l, None, r, coarse_sweeps)
+            return lane_coarse_smooth3(levels[l], dinvs[l], (wa, wb, wc), r, wrap,
+                                       coarse_sweeps, omega)
         e = smooth(l, None, r, pre)
         res = r - _lane_material_matvec(levels[l], wa, wb, wc, e, wrap)
         ec = cycle(l + 1, _lane_restrict(res, wrap))
@@ -1444,11 +1474,12 @@ def _lane_material_vcycle(levels, dinvs, wa, wb, wc, wrap, pre: int = 2, post: i
     return lambda r: cycle(0, r)
 
 
-def _material_lanes(setup, tris, free_g, u_values, f_values, e_moduli, poisson_ratios,
+def _material_lanes(setup, packed, tris, free_g, u_values, f_values, e_moduli, poisson_ratios,
                     thicknesses, rows, cols, wrap, iterations):
     """The batched solve of CompiledMaterialSweep (the JAX package's
-    _material_lanes_jit)."""
-    basis_raw, levels, b_mat = setup
+    _material_lanes_jit); `packed` = _pack_material_setup(setup)."""
+    _, levels, b_mat = setup
+    basis_raw, packed_levels = packed
     wa, wb, wc = material_weights(e_moduli, poisson_ratios, thicknesses)
     b = u_values.shape[0]
     u_fixed = _lane_fields(u_values, rows, cols)
@@ -1459,13 +1490,13 @@ def _material_lanes(setup, tris, free_g, u_values, f_values, e_moduli, poisson_r
     dinvs = tuple(_lane_material_center_inv(lv, wa, wb, wc) for lv in levels)
 
     def op(v):  # masked bases + fixed identity = the reduced operator
-        return _lane_material_matvec(levels[0], wa, wb, wc, v, wrap)
+        return _lane_material_matvec(packed_levels[0], wa, wb, wc, v, wrap)
 
     def raw_mv(v):
         ya, yb, yc = (lane_stencil_matvec(st, v, wrap) for st in basis_raw)
         return ya * wa + yb * wb + yc * wc
 
-    precond = _lane_material_vcycle(levels, dinvs, wa, wb, wc, wrap)
+    precond = _lane_material_vcycle(packed_levels, dinvs, wa, wb, wc, wrap)
     rhs = free_b * (f_applied - raw_mv(u_fixed)) + (1.0 - free_b) * u_fixed
     result = pcg_fixed_iterations(
         op, rhs, preconditioner=precond, x0=u_fixed, iterations=iterations, dot=_lane_grid_dot,
@@ -1496,6 +1527,7 @@ class CompiledMaterialSweep:
     batches."""
 
     setup: tuple  # (basis_raw, levels, b_mat)
+    packed: tuple  # _pack_material_setup(setup)
     tris: torch.Tensor
     free_g: torch.Tensor
     rows: int
@@ -1510,9 +1542,9 @@ class CompiledMaterialSweep:
 
     def solve(self, u_values, f_values, e_moduli, poisson_ratios, thicknesses) -> SweepResult:
         u, res, vm, rhs_norm = _material_lanes(
-            self.setup, self.tris, self.free_g, self._batch(u_values), self._batch(f_values),
-            self._batch(e_moduli), self._batch(poisson_ratios), self._batch(thicknesses),
-            self.rows, self.cols, self.wrap, self.iterations,
+            self.setup, self.packed, self.tris, self.free_g, self._batch(u_values),
+            self._batch(f_values), self._batch(e_moduli), self._batch(poisson_ratios),
+            self._batch(thicknesses), self.rows, self.cols, self.wrap, self.iterations,
         )
         return SweepResult(u=u, residual_norm=res, von_mises=vm, rhs_norm=rhs_norm)
 
@@ -1544,8 +1576,10 @@ def compile_material_sweep(
     free_g = free_g.to(user_t)
     if setup is None:
         setup = _material_sweep_setup(coords.to(user_t), tris, free_g, rows, cols, wrap)
+    setup = _setup_to(setup, user_t, dev, rows, cols, "compile_material_sweep")
     return CompiledMaterialSweep(
-        setup=_setup_to(setup, user_t, dev, rows, cols, "compile_material_sweep"),
+        setup=setup,
+        packed=_pack_material_setup(setup),
         tris=tris,
         free_g=free_g,
         rows=rows,

@@ -2,7 +2,7 @@
 versions, and the port on the card against the port on the CPU: the
 banded path, the structured (stencil + multigrid) path, mixed precision
 with the double-float band kernel, and the lane-batched design sweeps with
-the lane band, lane stencil and lane ELL kernels.
+the lane band, lane stencil, fused coarse-smoother and lane ELL kernels.
 
 Every test here needs a CUDA device and skips itself without one. The file
 imports no JAX and no other test module (tests/conftest.py imports JAX), so
@@ -737,7 +737,10 @@ def test_sweep_lane_kernel_modes_on_card():
 LANE_STENCIL_CASES = {
     "bench-33x65-b32": (33, 65, False, 32, False),
     "bench-33x65-b4096": (33, 65, False, 4096, False),
+    "bench-33x65-b1000": (33, 65, False, 1000, False),
+    "bench-33x65-b1": (33, 65, False, 1, False),
     "wrapped-17x32-b32": (17, 32, True, 32, False),
+    "wrapped-33x64-b4096": (33, 64, True, 4096, False),
     "coarse-9x17-b37": (9, 17, False, 37, False),
     "wrapped-9x16-b1": (9, 16, True, 1, False),
     "unaligned-u-17x33-b32": (17, 33, False, 32, True),
@@ -750,12 +753,13 @@ LANE_STENCIL_CASES = {
 def test_lane_stencil_kernel_matches_plain(case, dtype, tol, sets):
     """Both instances of the lane stencil kernel (one shared stencil; three
     basis stencils plus the fixed-DOF stencil with per-lane weights) on
-    random stencils: wrapped and zero columns, B a multiple of the lane
-    vector or not, and a u whose data_ptr is not 16-byte aligned (the
-    scalar path)."""
+    random stencils packed by pack_lane_stencils: wrapped and zero columns,
+    one tile of columns or several, B a multiple of the lane slab or not (1
+    and 1,000 lanes among them), and a u whose data_ptr is not 16-byte
+    aligned (the lane-at-a-time path); each call repeated bit for bit."""
     from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
         lane_material_matvec_plain, lane_stencil_matvec, lane_stencil_matvec3,
-        lane_stencil_matvec_plain,
+        lane_stencil_matvec_plain, pack_lane_stencils,
     )
 
     dev = require_cuda()
@@ -771,21 +775,25 @@ def test_lane_stencil_kernel_matches_plain(case, dtype, tol, sets):
         flat[1:].view(u.shape).copy_(u)
         u = flat[1:].view(u.shape)
         assert u.is_contiguous() and u.data_ptr() % 16 != 0
+    packed = pack_lane_stencils(st if sets == 3 else st[0])
     if sets == 3:
         wrapper = lane_stencil_matvec3
 
         def run(s, v, plain=False):
-            return (lane_material_matvec_plain if plain else lane_stencil_matvec3)(
-                s, w3, v, wrap)
+            return (lane_material_matvec_plain(s, w3, v, wrap) if plain
+                    else lane_stencil_matvec3(packed, w3, v, wrap))
     else:
         wrapper = lane_stencil_matvec
 
         def run(s, v, plain=False):
-            return (lane_stencil_matvec_plain if plain else lane_stencil_matvec)(s[0], v, wrap)
+            return (lane_stencil_matvec_plain(s[0], v, wrap) if plain
+                    else lane_stencil_matvec(packed, v, wrap))
     before = wrapper.launches
     y = run(st, u)
+    again = run(st, u)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert wrapper.launches == before + 2
+    assert torch.equal(y, again)
     ref = run(st, u, plain=True)
     scale = float(run(tuple(s.abs() for s in st), u.abs(), plain=True).max())
     assert float((y - ref).abs().max()) <= tol * scale
@@ -794,31 +802,153 @@ def test_lane_stencil_kernel_matches_plain(case, dtype, tol, sets):
 def test_lane_stencil_kernels_refuse_what_they_do_not_take():
     from magnetite_tpu_torch.kernels.cuda_lib import KernelError
     from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
-        lane_stencil_matvec, lane_stencil_matvec3,
+        PackedStencils, lane_stencil_matvec, lane_stencil_matvec3, pack_lane_stencils,
     )
 
     dev = require_cuda()
     st = torch.zeros((9, 2, 2, 9, 17), device=dev)
+    packed = pack_lane_stencils(st)
+    with pytest.raises(KernelError, match="packed"):  # the JAX layout on the card
+        lane_stencil_matvec(st, torch.zeros((2, 9, 17, 8), device=dev), False)
     with pytest.raises(KernelError):  # dtype mismatch
-        lane_stencil_matvec(st, torch.zeros((2, 9, 17, 8), dtype=torch.float64, device=dev),
+        lane_stencil_matvec(packed, torch.zeros((2, 9, 17, 8), dtype=torch.float64, device=dev),
                             False)
     with pytest.raises(KernelError):  # a grid field where a lane field belongs
-        lane_stencil_matvec(st, torch.zeros((2, 9, 17), device=dev), False)
+        lane_stencil_matvec(packed, torch.zeros((2, 9, 17), device=dev), False)
     with pytest.raises(KernelError):  # another grid
-        lane_stencil_matvec(st, torch.zeros((2, 9, 16, 8), device=dev), False)
+        lane_stencil_matvec(packed, torch.zeros((2, 9, 16, 8), device=dev), False)
+    with pytest.raises(KernelError, match="packed"):  # S = 1's stencils for S = 3
+        lane_stencil_matvec3(packed, (torch.ones(8, device=dev),) * 3,
+                             torch.zeros((2, 9, 17, 8), device=dev), False)
+    flat = torch.zeros(packed.data.numel() + 1, device=dev)
+    with pytest.raises(KernelError, match="aligned"):  # packed stencils off 16 bytes
+        lane_stencil_matvec(PackedStencils(flat[1:].view(packed.data.shape)),
+                            torch.zeros((2, 9, 17, 8), device=dev), False)
     w = torch.ones(8, device=dev)
     with pytest.raises(KernelError):  # weights of another lane count
-        lane_stencil_matvec3((st,) * 4, (w, w, torch.ones(7, device=dev)),
+        lane_stencil_matvec3(pack_lane_stencils((st,) * 4), (w, w, torch.ones(7, device=dev)),
                              torch.zeros((2, 9, 17, 8), device=dev), False)
+
+
+def material_coarsest(grid: str, dtype, dev):
+    """(coarsest _MaterialLevel, its packed copy, wrap) of the structured
+    material sweep compiled on `grid`: rect 33x65 -> 9x17, the wrapped plate
+    33x64 -> 9x16, rect 17x33 -> 9x17 with its 17x33 level too."""
+    from magnetite_tpu_torch.meshing.generators import (
+        plate_with_hole_mesh, rect_mesh, tensile_bcs_for_rect,
+    )
+    from magnetite_tpu_torch.parallel.sweep import compile_material_sweep
+
+    mesh = {"rect-33x65": lambda: rect_mesh(64, 32, width=2.0),
+            "plate-33x64-wrapped": lambda: plate_with_hole_mesh(32, 64),
+            "rect-17x33": lambda: rect_mesh(32, 16, width=2.0)}[grid]()
+    sweep = compile_material_sweep(mesh, tensile_bcs_for_rect(mesh.coords, pull=0.01),
+                                   iterations=2, dtype=str(dtype)[6:], device=dev)
+    return sweep.setup[1], sweep.packed[1], bool(mesh.wrap_cols)
+
+
+@pytest.mark.parametrize("nb", [4096, 1000, 37, 1])
+@pytest.mark.parametrize("grid", ["rect-33x65", "plate-33x64-wrapped"])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_lane_coarse_smoother_matches_plain(grid, nb, dtype, tol):
+    """The fused coarse smoother (48 sweeps in one launch) against its plain
+    version at the material sweep's own coarsest levels (9x17, wrapped
+    9x16), real per-lane materials; f32 at 1e-5 and f64 at 1e-12 of max|e|
+    (48 sweeps of sums in another order); each call repeated bit for bit."""
+    from magnetite_tpu_torch.kernels import lane_coarse_kernel as lc
+    from magnetite_tpu_torch.parallel.sweep import _lane_material_center_inv, material_weights
+
+    dev = require_cuda()
+    levels, packed, wrap = material_coarsest(grid, dtype, dev)
+    level, plevel = levels[-1], packed[-1]
+    rows, cols = level.sa.shape[-2:]
+    assert lc.lane_coarse_route(rows, cols, level.sa.element_size()) == "fused"
+    rng = np.random.default_rng(42)
+    w3 = material_weights(*(torch.as_tensor(rng.uniform(lo, hi, nb), dtype=dtype, device=dev)
+                            for lo, hi in ((40e9, 250e9), (0.22, 0.38), (0.2, 1.0))))
+    dinv = _lane_material_center_inv(level, *w3)
+    r = torch.as_tensor(rng.standard_normal((2, rows, cols, nb)), dtype=dtype, device=dev)
+    before = (lc.lane_coarse_smooth3.launches, lc.lane_coarse_smooth3.per_sweep)
+    e = lc.lane_coarse_smooth3(plevel, dinv, w3, r, wrap, 48, 0.7)
+    again = lc.lane_coarse_smooth3(plevel, dinv, w3, r, wrap, 48, 0.7)
+    torch.cuda.synchronize()
+    assert (lc.lane_coarse_smooth3.launches, lc.lane_coarse_smooth3.per_sweep) == (
+        before[0] + 2, before[1])
+    assert torch.equal(e, again)
+    ref = lc.lane_coarse_smooth3_plain(level, dinv, w3, r, wrap, 48, 0.7)
+    assert torch.isfinite(e).all()
+    assert float((e - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+def test_lane_coarse_smoother_takes_the_per_sweep_route_where_it_does_not_fit():
+    """A 17x33 level (1,122 threads a slab) runs as 47 S = 3 launches and
+    the torch passes, counted in .per_sweep, and matches the plain loop."""
+    from magnetite_tpu_torch.kernels import lane_coarse_kernel as lc
+    from magnetite_tpu_torch.kernels.lane_stencil_kernel import lane_stencil_matvec3
+    from magnetite_tpu_torch.parallel.sweep import _lane_material_center_inv, material_weights
+
+    dev = require_cuda()
+    levels, packed, wrap = material_coarsest("rect-17x33", torch.float64, dev)
+    level, plevel = levels[0], packed[0]
+    assert lc.lane_coarse_route(17, 33, 8) == "per-sweep"
+    rng = np.random.default_rng(43)
+    nb = 64
+    w3 = material_weights(*(torch.as_tensor(rng.uniform(lo, hi, nb), dtype=torch.float64,
+                                            device=dev)
+                            for lo, hi in ((40e9, 250e9), (0.22, 0.38), (0.2, 1.0))))
+    dinv = _lane_material_center_inv(level, *w3)
+    r = torch.as_tensor(rng.standard_normal((2, 17, 33, nb)), device=dev)
+    before = (lc.lane_coarse_smooth3.launches, lc.lane_coarse_smooth3.per_sweep,
+              lane_stencil_matvec3.launches)
+    e = lc.lane_coarse_smooth3(plevel, dinv, w3, r, wrap, 48, 0.7)
+    torch.cuda.synchronize()
+    assert (lc.lane_coarse_smooth3.launches, lc.lane_coarse_smooth3.per_sweep,
+            lane_stencil_matvec3.launches) == (before[0], before[1] + 1, before[2] + 47)
+    ref = lc.lane_coarse_smooth3_plain(level, dinv, w3, r, wrap, 48, 0.7)
+    assert float((e - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+def test_lane_coarse_smoother_refuses_what_it_does_not_take():
+    from magnetite_tpu_torch.kernels.cuda_lib import KernelError
+    from magnetite_tpu_torch.kernels.lane_coarse_kernel import lane_coarse_smooth3
+    from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
+        PackedStencils, pack_lane_stencils,
+    )
+
+    dev = require_cuda()
+    st = torch.zeros((9, 2, 2, 9, 17), device=dev)
+    packed = pack_lane_stencils((st,) * 4)
+    w3 = (torch.ones(8, device=dev),) * 3
+    dinv = torch.zeros((2, 2, 9, 17, 8), device=dev)
+    r = torch.zeros((2, 9, 17, 8), device=dev)
+    with pytest.raises(KernelError, match="packed"):  # the JAX layout on the card
+        lane_coarse_smooth3((st,) * 4, dinv, w3, r, False, 48, 0.7)
+    with pytest.raises(KernelError, match="packed"):  # one stencil, not four
+        lane_coarse_smooth3(pack_lane_stencils(st), dinv, w3, r, False, 48, 0.7)
+    with pytest.raises(KernelError):  # dtype mismatch
+        lane_coarse_smooth3(packed, dinv.double(), w3, r, False, 48, 0.7)
+    with pytest.raises(KernelError):  # dinv of another lane count
+        lane_coarse_smooth3(packed, dinv[..., :7], w3, r, False, 48, 0.7)
+    with pytest.raises(KernelError):  # weights of another lane count
+        lane_coarse_smooth3(packed, dinv, (w3[0], w3[1], torch.ones(7, device=dev)), r, False,
+                            48, 0.7)
+    with pytest.raises(KernelError):  # no sweep
+        lane_coarse_smooth3(packed, dinv, w3, r, False, 0, 0.7)
+    flat = torch.zeros(packed.data.numel() + 1, device=dev)
+    with pytest.raises(KernelError, match="aligned"):  # packed stencils off 16 bytes
+        lane_coarse_smooth3(PackedStencils(flat[1:].view(packed.data.shape)), dinv, w3, r,
+                            False, 48, 0.7)
 
 
 @pytest.mark.parametrize("grid", ["rect-17x33", "plate-17x32-wrapped"])
 @pytest.mark.parametrize("material", [False, True], ids=["load", "material"])
 def test_grid_sweep_on_card_matches_cpu(grid, material):
     """The structured-grid sweeps through their entry points, on the card
-    (the lane stencil kernel) against the CPU (its plain versions), 32
-    lanes, f64: u within 1e-9 of max|u|."""
+    (the lane stencil kernel; the material sweep's coarsest level one fused
+    coarse-smoother launch per V-cycle) against the CPU (its plain
+    versions), 32 lanes, f64: u within 1e-9 of max|u|."""
     from magnetite_tpu_torch.config import ModelMetadata
+    from magnetite_tpu_torch.kernels.lane_coarse_kernel import lane_coarse_smooth3
     from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
         lane_stencil_matvec, lane_stencil_matvec3,
     )
@@ -853,10 +983,12 @@ def test_grid_sweep_on_card_matches_cpu(grid, material):
                                  iterations=20, dtype=np.float64, device=device).solve(*args)
 
     cpu = run("cpu")
-    before = kernel.launches
+    before = (kernel.launches, lane_coarse_smooth3.launches)
     card = run("cuda")
     torch.cuda.synchronize()
-    assert kernel.launches > before
+    assert kernel.launches > before[0]
+    # one fused coarse solve per V-cycle (iterations + 1) on the material sweep
+    assert lane_coarse_smooth3.launches - before[1] == (21 if material else 0)
     u_cpu, u_card = cpu.u.numpy(), card.u.cpu().numpy()
     assert np.isfinite(u_card).all()
     assert np.abs(u_card - u_cpu).max() <= 1e-9 * np.abs(u_cpu).max()

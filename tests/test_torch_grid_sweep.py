@@ -271,12 +271,15 @@ def test_compile_sweep_refuses_what_it_cannot_run():
                          device="cpu")
 
 
-@pytest.mark.parametrize("nb,es,aligned,vec,strip_rows", [
-    (4096, 4, True, 4, 7), (4096, 8, True, 2, 11), (37, 4, True, 1, 1), (32, 4, False, 1, 1),
-])
-def test_lane_stencil_plan(nb, es, aligned, vec, strip_rows):
-    """16 bytes of lanes per thread where B and the alignment allow it, and
-    the fewest strips of rows that give WAVE_THREADS threads per SM (at the
-    bench grid, 33x65: f32 4,096 lanes 1024 x 65 threads a strip, 5 strips
-    of 7 rows)."""
-    assert lk.lane_stencil_plan(33, 65, nb, es, aligned) == (vec, strip_rows)
+@pytest.mark.parametrize("rows,cols,nb,es,aligned,plan", [
+    (33, 65, 4096, 4, True, (True, 13, 6)), (33, 65, 4096, 8, True, (True, 13, 6)),
+    (33, 65, 37, 4, True, (False, 13, 6)), (33, 65, 32, 4, False, (False, 13, 6)),
+    (33, 64, 4096, 4, True, (True, 16, 6)), (9, 17, 4096, 8, True, (True, 9, 2)),
+    (17, 33, 1, 8, True, (False, 11, 6)), (1, 16, 8, 4, True, (True, 16, 1)),
+], ids=["bench-f32", "bench-f64", "b37", "unaligned", "wrapped-33x64-f32", "9x17-f64",
+        "17x33-b1", "one-row"])
+def test_lane_stencil_plan(rows, cols, nb, es, aligned, plan):
+    """16-byte chunks of lanes where B and the alignment allow it, the
+    columns in the fewest tiles of at most 16 evened out (65 columns: 5
+    tiles of 13), strips of 6 rows, of 2 on grids of at most 12 rows."""
+    assert lk.lane_stencil_plan(rows, cols, nb, es, aligned) == plan

@@ -19,6 +19,8 @@
                                        # phases 0, 1 and 15-17 alone (no "ok" line)
     python3 chip_smoke.py --only lane-sweeps
                                        # phases 0, 1 and 18-20 alone (no "ok" line)
+    python3 chip_smoke.py --only resume
+                                       # phases 0, 1 and 21 alone (no "ok" line)
 
 Phases (any failure exits non-zero; no phase is wrapped in a catch):
   0. environment: torch / CUDA versions, the card's name and power limit;
@@ -119,6 +121,19 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      the sweep plate shuffled and as meshed, f32 and f64, B = --lanes,
      1,000 and 1, each call repeated bit for bit; timed beside its bound,
      plain version and cuSPARSE SpMM in interleaved rounds.
+ 21. (run after 6) persistence and observability on the --h Delaunay plate:
+     a fresh f64 CLI run with --save-case (the three files' sizes, the save
+     stages, the operator cache holding the symmetric half), then --load-case
+     runs with no geometry in f64 and --precision mixed: each an operator-cache
+     hit with the AMG hierarchy loaded and no warning, CSVs within the golden
+     bars of the fresh run's, the true residual <= 1e-9, every prep stage
+     printed beside the fresh run's; the fresh run in child processes with
+     and without the glibc malloc tuning (MAGNETITE_NO_MALLOC_TUNE=1),
+     interleaved; residual_history=64 and cg_progress_every=8 on the plate
+     and the structured --plate in f64 (history length and last entry,
+     progress lines, the same band / stencil launches as without them, warm
+     solve_s with and without); --profile on a --small-h CLI run, whose trace
+     must name dia_matvec.
 Every kernel is timed with CUDA events (median of --reps launches, L2
 flushed before each) beside its plain version, its bound (the larger of
 bytes moved once over 3.35 TB/s and operations over the peak rate of their
@@ -841,21 +856,26 @@ def phase_df(problem, reps, flush, rand):
     return {"df_dia_matvec": dict(max_abs_err=err, **row)}
 
 
-def run_cli(argv) -> str:
-    """magnetite_tpu_torch.cli.main(argv), echoing and returning its stdout."""
+def run_cli(argv) -> tuple:
+    """magnetite_tpu_torch.cli.main(argv), echoing and returning its stdout
+    and its stderr (where the warnings go)."""
     from magnetite_tpu_torch import cli
 
     class Tee(io.StringIO):
+        def __init__(self, stream):
+            super().__init__()
+            self.stream = stream
+
         def write(self, s):
-            sys.__stdout__.write(s)
+            self.stream.write(s)
             return super().write(s)
 
-    buf = Tee()
-    with contextlib.redirect_stdout(buf):
+    out, err = Tee(sys.__stdout__), Tee(sys.__stderr__)
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(argv)
     sys.stdout.flush()
     require(rc == 0, f"cli.main returned {rc}")
-    return buf.getvalue()
+    return out.getvalue(), err.getvalue()
 
 
 def true_residual_banded(problem, u):
@@ -890,7 +910,7 @@ def cli_path(name, problem, mesh, h, workdir, extra, tol, totals):
     ] + extra
     t0 = time.perf_counter()
     with main_path(name, totals, ("dia_matvec m=2", "dia_matvec m=3", "prolong0", "restrict0")):
-        out = run_cli(argv)
+        out, _ = run_cli(argv)
     wall = time.perf_counter() - t0
     op, pre = re.search(r"info: operator=(\w+) preconditioner=(\w+)", out).groups()
     refine = re.search(r"refine=(\w+)", out).group(1)
@@ -942,6 +962,204 @@ def phase_mixed_df(problem, mesh, bca, md, totals):
     require(rel <= 2e-8, "df run: true residual too large")
     warm = [prob.solve().timings["solve_s"] for _ in range(2)]
     say(f"  df run warm solve_s: {warm}")
+
+
+# ---------------- persistence and observability (phase 21) -----------------
+
+
+# the host prep stages of a CLI run: meshing or the loads, then the compile's
+PREP_STAGES = ("mesh", "load-case", "load-amg", "load-operator", "structure_s",
+               "assemble_s", "amg_build_s", "upload_s", "amg_upload_s")
+
+
+def cli_stages(out: str) -> dict:
+    """Stage times of a CLI run: its `stage '...' took` lines and the
+    compile's `info: timings` keys; "prep" sums PREP_STAGES."""
+    stages = {name: float(s) for name, s in re.findall(r"stage '([\w-]+)' took ([\d.]+)s", out)}
+    stages.update(json.loads(re.search(r"info: timings (\{.*\})", out).group(1)))
+    stages["prep"] = sum(stages.get(k, 0.0) for k in PREP_STAGES)
+    return stages
+
+
+def read_csvs(out_dir):
+    import numpy as np
+
+    nodes = np.loadtxt(os.path.join(out_dir, "nodes.csv"), delimiter=",", skiprows=1)
+    elems = np.loadtxt(os.path.join(out_dir, "elements.csv"), delimiter=",", skiprows=1)
+    return nodes, elems
+
+
+def resume_cli(name, problem, argv, fresh, totals):
+    """A --load-case CLI run (no geometry): an operator-cache hit with the
+    AMG hierarchy loaded and no rebuild or miss warning, CSVs within the
+    golden bars of the `fresh` run's, the true residual <= 1e-9 with the
+    plain operator. Returns its stage times."""
+    import numpy as np
+
+    expect = ("dia_matvec m=2", "dia_matvec m=3", "prolong0", "restrict0")
+    with main_path(name, totals, expect):
+        out, err = run_cli(argv)
+    require("info: operator cache hit" in out, f"{name}: no operator cache hit")
+    require("info: loaded AMG hierarchy cache" in out, f"{name}: AMG cache not loaded")
+    require("warning" not in err, f"{name}: warned: {err.strip()[:300]}")
+    nodes, elems = read_csvs(argv[argv.index("--out-dir") + 1])
+    (nodes_f, elems_f), iters_f = fresh
+    require(np.array_equal(nodes[:, :2], nodes_f[:, :2])
+            and np.array_equal(elems[:, :3], elems_f[:, :3]), f"{name}: mesh differs")
+    for what, got, ref, tol in (("u", nodes[:, 2:], nodes_f[:, 2:], 1e-6),
+                                ("stress", elems[:, 3], elems_f[:, 3], 1e-5)):
+        err, lim = float(np.abs(got - ref).max()), tol * float(np.abs(ref).max())
+        say(f"  {name}: {what} against the fresh run: max|diff| {err:.3e} <= {lim:.3e}")
+        require(err <= lim, f"{name}: {what} outside the golden bar")
+    u = nodes[:, 2:] if problem.perm is None else nodes[problem.perm, 2:]
+    rel = true_residual_banded(problem, u)
+    iters = int(re.search(r"finished conjugate gradient in (\d+) iterations", out).group(1))
+    say(f"  {name}: {iters} iterations (fresh {iters_f}); true relative residual "
+        f"{rel:.3e} (<= 1e-09)")
+    require(rel <= 1e-9, f"{name}: true residual too large")
+    return cli_stages(out)
+
+
+def print_prep(label, runs: dict):
+    """Each prep stage of several CLI runs side by side (seconds)."""
+    say(f"  {label} (s): " + "; ".join(
+        f"{k}: " + " / ".join(f"{r[k]:.4f}" if k in r else "-" for r in runs.values())
+        for k in PREP_STAGES + ("prep", "solve_s")) + f"  [{' / '.join(runs)}]")
+
+
+def child_cli_stages(argv, env_extra) -> dict:
+    """The CLI in a fresh process (its own heap and CUDA context): its stage
+    times."""
+    env = dict(os.environ, **env_extra)
+    proc = subprocess.run([sys.executable, "-m", "magnetite_tpu_torch.cli", *argv],
+                          capture_output=True, text=True, timeout=600, env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    require(proc.returncode == 0, f"child CLI failed: {proc.stderr[-2000:]}")
+    return cli_stages(proc.stdout)
+
+
+def observed_solve(name, problem, kernel, totals):
+    """Phase 21d on one compiled problem with residual_history=64 and
+    cg_progress_every=8: the history's length and last entry, the progress
+    lines, the same `kernel` launches as the problem without them, and warm
+    solve_s with and without, interleaved."""
+    import dataclasses
+
+    plain = dataclasses.replace(problem, history=0, progress_every=0)
+    with main_path(f"the {name} solve with history and progress", totals, (kernel,)) as got:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = problem.solve()
+    with main_path(f"the {name} solve without them", totals, (kernel,)) as got_plain:
+        ref = plain.solve()
+    k, hist = res.iterations, res.residual_history
+    lines = re.findall(r"info: cg iteration (\d+): residual", buf.getvalue())
+    say(f"  {name}: {k} iterations (without: {ref.iterations}); history {len(hist)} entries, "
+        f"last {hist[-1]:.6e} vs residual_norm {res.residual_norm:.6e}; progress lines at "
+        f"{lines}")
+    require(len(hist) == min(k, 64), f"{name}: history length {len(hist)}")
+    if k <= 64:
+        require(abs(hist[-1] - res.residual_norm) <= 1e-12 * res.residual_norm,
+                f"{name}: last history entry is not the residual norm")
+    require([int(i) for i in lines] == list(range(8, k + 1, 8)), f"{name}: progress lines")
+    require(got[kernel] == got_plain[kernel] and k == ref.iterations,
+            f"{name}: {kernel} launches {got[kernel]} with history, {got_plain[kernel]} "
+            "without")
+    warm = {"with": [], "without": []}
+    for _ in range(3):
+        with contextlib.redirect_stdout(io.StringIO()):
+            warm["with"].append(problem.solve().timings["solve_s"])
+        warm["without"].append(plain.solve().timings["solve_s"])
+    say(f"  {name}: {kernel} launches {got[kernel]} with and without; warm solve_s with "
+        f"history + progress {warm['with']}, without {warm['without']}")
+
+
+def phase_resume(problem, mesh, bca, md, args, totals):
+    """Phase 21: the Delaunay plate saved by one CLI run and resumed by
+    others (f64 and mixed), the malloc tuning's prep A/B in fresh processes,
+    residual history and progress on the plate and the structured plate,
+    and --profile on a small CLI run."""
+    from magnetite_tpu_torch import persist
+    from magnetite_tpu_torch.config import SolverOptions
+    from magnetite_tpu_torch.fem.solve import compile_problem
+
+    h = args.h
+    with tempfile.TemporaryDirectory() as workdir:
+        say(f"phase 21: --save-case / --load-case on the Delaunay plate at h={h}")
+        paths = write_case_files(workdir, h)
+        case = os.path.join(workdir, "case.npz")
+        flags = ["--device", DEV, "--skip"]
+        dirs = {k: os.path.join(workdir, k) for k in ("fresh", "resumed", "mixed", "child")}
+        for d in dirs.values():
+            os.makedirs(d)
+        expect = ("dia_matvec m=2", "dia_matvec m=3", "prolong0", "restrict0")
+        with main_path("the --save-case CLI run", totals, expect):
+            out, _ = run_cli(paths + flags + [
+                "--backend", "delaunay", "--save-case", case, "--out-dir", dirs["fresh"]])
+        fresh_stages = cli_stages(out)
+        fresh = (read_csvs(dirs["fresh"]),
+                 int(re.search(r"finished conjugate gradient in (\d+)", out).group(1)))
+        u = fresh[0][0][:, 2:]
+        rel = true_residual_banded(problem, u if problem.perm is None else u[problem.perm])
+        say(f"  fresh run: true relative residual {rel:.3e} (<= 1e-09)")
+        require(rel <= 1e-9, "--save-case run: true residual too large")
+        sizes = {s or ".npz": os.path.getsize(case + s) for s in ("", ".amg.npz", ".op.npz")}
+        say("  files (bytes): " + json.dumps(sizes) + "; save stages (s): " + json.dumps(
+            {k: fresh_stages[k] for k in ("save-case", "save-amg", "save-operator")}))
+        op = persist.load_operator(case + ".op.npz")
+        n_neg = sum(1 for o in op.offsets if o < 0)
+        n = problem.bands.shape[-1]
+        say(f"  operator cache: mode {op.mode}, {len(op.offsets)} offsets, sym_half "
+            f"{op.sym_half}, flat {op.flat.shape} ({len(op.offsets) - n_neg} x {n} rows)")
+        require(op.sym_half and op.flat.shape == ((len(op.offsets) - n_neg) * n, 4),
+                "the operator cache does not hold the symmetric half")
+
+        resumed = resume_cli("the --load-case CLI run", problem, [
+            paths[0], "--load-case", case, "--out-dir", dirs["resumed"]] + flags,
+            fresh, totals)
+        mixed = resume_cli("the --load-case --precision mixed CLI run", problem, [
+            paths[0], "--load-case", case, "--precision", "mixed",
+            "--out-dir", dirs["mixed"]] + flags, fresh, totals)
+        print_prep("prep stages, fresh / resumed / resumed mixed",
+                   {"fresh": fresh_stages, "resumed": resumed, "mixed": mixed})
+        require(resumed["assemble_s"] < 0.1 * fresh_stages["assemble_s"]
+                and resumed["amg_build_s"] < 0.1 * fresh_stages["amg_build_s"]
+                and "mesh" not in resumed, "the resumed run did not skip its prep stages")
+
+        say("  malloc tuning: the same fresh CLI run in child processes, tuned and with "
+            "MAGNETITE_NO_MALLOC_TUNE=1, twice each, interleaved")
+        child = {}
+        for rnd in range(2):
+            for tag, env in (("tuned", {}), ("untuned", {"MAGNETITE_NO_MALLOC_TUNE": "1"})):
+                child[f"{tag} {rnd + 1}"] = child_cli_stages(
+                    paths + flags + ["--backend", "delaunay", "--out-dir", dirs["child"]], env)
+        print_prep("prep stages of the children", child)
+
+    say("  residual history (64) and progress (every 8) through compile_problem / solve")
+    opts = SolverOptions(residual_history=64, cg_progress_every=8)
+    observed_solve("Delaunay plate f64", compile_problem(
+        mesh, bca, md, opts, amg_setup=problem.amg_setup, device=DEV), "dia_matvec", totals)
+    smesh, sbca, smd = structured_case(*args.plate)
+    observed_solve("structured plate f64", compile_problem(
+        smesh, sbca, smd, SolverOptions(dtype="float64", cg_rtol=1e-8, residual_history=64,
+                                        cg_progress_every=8), device=DEV),
+        "stencil_matvec", totals)
+    del smesh, sbca
+
+    with tempfile.TemporaryDirectory() as workdir:
+        say(f"  --profile on the CLI at h={args.small_h}")
+        paths = write_case_files(workdir, args.small_h)
+        trace_dir = os.path.join(workdir, "trace")
+        with main_path("the --profile CLI run", totals, ("dia_matvec m=2",)):
+            run_cli(paths + ["--device", DEV, "--skip", "--backend", "delaunay",
+                                    "--out-dir", workdir, "--profile", trace_dir])
+        path = os.path.join(trace_dir, "trace.json")
+        require(os.path.exists(path), "no trace written")
+        with open(path) as f:
+            text = f.read()
+        n_kernel = text.count("dia_matvec")
+        say(f"  trace {path}: {len(text)} bytes, 'dia_matvec' named {n_kernel} times")
+        require(n_kernel > 0, "the trace does not name dia_matvec")
 
 
 def true_residual_stencil(problem, res):
@@ -2751,12 +2969,14 @@ def main() -> int:
                     "beside this tree's in phases 2, 3, 14 and 17, in the same interleaved "
                     "rounds")
     ap.add_argument("--only", choices=("transfers", "lane-kernels", "multigrid",
-                                       "structured-sweeps", "lane-sweeps"),
+                                       "structured-sweeps", "lane-sweeps", "resume"),
                     help="transfers: phases 0 to 3 alone (the Delaunay plate's band and "
                     "transfer kernels); lane-kernels: phases 0, 1 and 10 alone; multigrid: "
                     "phases 0, 1 and 14 alone (the 1M plate's hierarchy built, not solved); "
                     "structured-sweeps: phases 0, 1 and 15-17 alone; lane-sweeps: phases "
-                    "0, 1 and 18-20 alone; each ends without the ok line")
+                    "0, 1 and 18-20 alone; resume: phases 0, 1 and 21 alone (the "
+                    "Delaunay plate compiled, then saved and resumed); each ends without "
+                    "the ok line")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -2835,6 +3055,11 @@ def main() -> int:
         f"elements, {len(problem.offsets)} offsets, AMG levels "
         f"{problem.timings['amg_levels']}, prepared in {time.perf_counter() - t0:.2f} s")
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)
+    if args.only == "resume":
+        phase_resume(problem, mesh, bca, md, args, {})
+        say(f"phases 0, 1 and 21 passed in {time.perf_counter() - t_start:.1f} s "
+            "(--only resume: no ok line)")
+        return 0
     results = phase_band_and_transfer(problem, args.reps, flush, rand, base)
     if args.only == "transfers":
         say(f"phases 0 to 3 passed in {time.perf_counter() - t_start:.1f} s "
@@ -2851,6 +3076,8 @@ def main() -> int:
         cli_path("the mixed CLI run", problem, mesh, args.h, workdir,
                  ["--precision", "mixed"], 1e-9, totals)
     phase_mixed_df(problem, mesh, bca, md, totals)
+    torch.cuda.empty_cache()
+    phase_resume(problem, mesh, bca, md, args, totals)
     del problem
     torch.cuda.empty_cache()
 

@@ -13,6 +13,12 @@ matvec, the stencil matvec and the level-0 AMG transfers. This package
 never imports JAX.
 """
 
+from .utils.hostmem import tune_glibc_malloc as _tune_glibc_malloc
+
+# Large numpy temporaries (meshing, assembly, AMG setup) otherwise pay a
+# kernel mmap/fault/munmap round trip per allocation; see utils/hostmem.py.
+_tune_glibc_malloc()
+
 from .config import (
     BoundaryRegion,
     BoundaryRule,

@@ -8,9 +8,13 @@ Same flags, output files (nodes.csv, elements.csv) and error format
 plus --device (default cuda; a missing card is an error, never a silent
 CPU run). The default precision is f64 on both devices; --precision mixed
 is f32 storage with f64 refinement (f64 CG around the f32 AMG V-cycle on
-the meshes this CLI produces). Flags of the JAX CLI that this slice does
-not carry (--shard, --shard-layout, --save-case, --load-case, --profile,
---cg-progress) raise a typed "not yet ported" error.
+the meshes this CLI produces). --save-case / --load-case checkpoint the
+meshed case with its AMG hierarchy and assembled operator beside it
+(`<case>.npz.amg.npz`, `<case>.npz.op.npz`; the JAX CLI's files, either
+CLI reads the other's), --cg-progress N logs the CG residual every N
+iterations and --profile DIR writes a torch.profiler Chrome trace there.
+The multi-GPU flags (--shard, --shard-layout) raise a typed "not yet
+ported" error.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
         "input_file", metavar="FILE", help="Input Json with boundary conditions"
     )
     parser.add_argument(
-        "geometry_files", metavar="FILE", nargs="*", help="Geometry SVG or CSVs"
+        "geometry_files", metavar="FILE", nargs="*",
+        help="Geometry SVG or CSVs (omit when using --load-case)",
     )
     parser.add_argument(
         "-c", "--cmap", default="coolwarm", help="cmap for plot (default: coolwarm)"
@@ -79,24 +84,63 @@ def build_parser() -> argparse.ArgumentParser:
         help="CG preconditioner (default: auto -- smoothed-aggregation AMG "
         "on large meshes)",
     )
+    parser.add_argument(
+        "--profile",
+        default=None,
+        help="write a torch.profiler Chrome trace to this directory",
+    )
+    parser.add_argument(
+        "--cg-progress",
+        type=int,
+        default=0,
+        metavar="N",
+        help="log CG iteration/residual every N iterations during the solve",
+    )
+    parser.add_argument(
+        "--save-case",
+        default=None,
+        help="checkpoint mesh+BCs to this npz after meshing",
+    )
+    parser.add_argument(
+        "--load-case",
+        default=None,
+        help="resume from an npz checkpoint instead of meshing",
+    )
     # accepted for flag parity with the JAX CLI; each raises "not yet ported"
-    parser.add_argument("--profile", default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--cg-progress", type=int, default=0, help=argparse.SUPPRESS)
     parser.add_argument("--shard", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--shard-layout", default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--save-case", default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--load-case", default=None, help=argparse.SUPPRESS)
     return parser
 
 
 _NOT_PORTED = (
-    ("profile", "--profile"),
-    ("cg_progress", "--cg-progress"),
     ("shard", "--shard"),
     ("shard_layout", "--shard-layout"),
-    ("save_case", "--save-case"),
-    ("load_case", "--load-case"),
 )
+
+
+def _start_profile(args):
+    """A torch.profiler session (CPU activities, and CUDA on the card)
+    entered before loading or meshing; None without --profile."""
+    if not args.profile:
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if args.device == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    return prof
+
+
+def _stop_profile(prof, trace_dir: str) -> None:
+    from .utils.logging import log
+
+    prof.__exit__(None, None, None)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    log(f"info: wrote profiler trace to {path}")
 
 
 def entry(argv=None) -> None:
@@ -110,14 +154,13 @@ def entry(argv=None) -> None:
     import torch
 
     from .config import SolverOptions, load_simulation_input
-    from .fem.solve import compile_problem, resolve_device
+    from .fem.solve import resolve_device
 
     resolve_device(args.device)  # fail before meshing, never fall back
     # full-precision float32 products (TF32 keeps ~3 decimal digits)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from .meshing import runner
     from .post.csv_out import write_results
     from .utils.logging import log, stage
 
@@ -127,28 +170,143 @@ def entry(argv=None) -> None:
         opt_kwargs["refine"] = "on"
     if args.rtol is not None:
         opt_kwargs["cg_rtol"] = args.rtol
+    if args.cg_progress > 0:
+        opt_kwargs["cg_progress_every"] = args.cg_progress
     if args.operator is not None:
         opt_kwargs["operator"] = args.operator
     if args.preconditioner is not None:
         opt_kwargs["preconditioner"] = args.preconditioner
+    # the host copy of the assembled operator exists to feed
+    # persist.save_operator; skip it unless saving
+    opt_kwargs["keep_operator_host"] = bool(args.save_case)
     options = SolverOptions(**opt_kwargs)
 
-    if not args.geometry_files:
-        raise InputError("no geometry files given")
-    with stage("mesh"):
-        mesh, bca = runner.run(
-            args.geometry_files, sim, backend=args.backend, options=options, log=log
+    prof = _start_profile(args)
+    try:
+        mesh, result = _run(args, sim, options)
+        if args.von_mises:
+            result.stress = result.von_mises
+        nodes_path = os.path.join(args.out_dir, "nodes.csv")
+        elements_path = os.path.join(args.out_dir, "elements.csv")
+        with stage("output"):
+            write_results(mesh, result, nodes_path, elements_path, log=log)
+        if not args.skip or args.save_plot:
+            from .post.plot import plot_results
+
+            with stage("plot"):
+                plot_results(
+                    mesh, result, cmap=args.cmap, show=not args.skip,
+                    save_path=args.save_plot,
+                )
+    finally:
+        if prof is not None:
+            _stop_profile(prof, args.profile)
+
+
+def _load_caches(case: str):
+    """The AMG hierarchy and the assembled operator saved beside a case,
+    each None when absent or unreadable (a cache is an optimisation: an
+    unreadable one is a warning and a rebuild, never a failed run)."""
+    from .errors import InputError
+    from .persist import load_amg, load_operator
+    from .utils.logging import log, stage
+
+    amg_setup = operator_cache = None
+    if os.path.exists(case + ".amg.npz"):
+        try:
+            with stage("load-amg"):
+                amg_setup = load_amg(case + ".amg.npz")
+            log("info: loaded AMG hierarchy cache")
+        except InputError as err:
+            log(f"warning: ignoring unreadable AMG cache ({err})")
+    if os.path.exists(case + ".op.npz"):
+        try:
+            with stage("load-operator"):
+                operator_cache = load_operator(case + ".op.npz")
+            log("info: loaded assembled-operator cache")
+        except InputError as err:
+            log(f"warning: ignoring unreadable operator cache ({err})")
+    return amg_setup, operator_cache
+
+
+def _save_caches(args, problem, amg_setup) -> None:
+    """Write the AMG hierarchy and the assembled operator beside the saved
+    case; a cache loaded from that same case and reused unchanged is not
+    rewritten."""
+    from .persist import save_amg, save_operator
+    from .utils.logging import log, stage
+
+    # np.savez appends .npz to the case path; the siblings follow it, so
+    # `--load-case <case>.npz` finds <case>.npz.amg.npz / .op.npz
+    case = args.save_case if args.save_case.endswith(".npz") else args.save_case + ".npz"
+    resumed_same_case = bool(args.load_case) and case == args.load_case
+    if problem.amg_setup is not None:
+        if resumed_same_case and problem.amg_setup is amg_setup:
+            log("info: AMG hierarchy cache is current; not rewriting")
+        else:
+            with stage("save-amg"):
+                save_amg(case + ".amg.npz", problem.amg_setup)
+            log(f"info: cached AMG hierarchy to {case}.amg.npz")
+    if problem.operator_host is not None:
+        if resumed_same_case and problem.timings.get("operator_cache") == "hit":
+            log("info: assembled-operator cache is current; not rewriting")
+        else:
+            with stage("save-operator"):
+                save_operator(case + ".op.npz", problem)
+            log(f"info: cached assembled operator to {case}.op.npz")
+
+
+def _run(args, sim, options):
+    """Load or mesh the case, save it when asked, compile and solve:
+    (mesh, SolveResult)."""
+    from .errors import InputError
+    from .fem.solve import compile_problem
+    from .meshing import runner
+    from .persist import load_case, save_case
+    from .utils.logging import log, stage
+
+    structure = None
+    if args.load_case:
+        with stage("load-case"):
+            mesh, bca, case_md, structure = load_case(args.load_case)
+        log(
+            f"info: resumed case from {args.load_case} "
+            f"({mesh.num_nodes} nodes, {mesh.num_elements} elements)"
         )
+        if case_md is not None and case_md != sim.metadata:
+            log(
+                "warning: checkpoint metadata differs from the input "
+                "JSON; solving with the input JSON's material properties"
+            )
+    else:
+        if not args.geometry_files:
+            raise InputError("no geometry files given (or pass --load-case)")
+        with stage("mesh"):
+            mesh, bca = runner.run(
+                args.geometry_files, sim, backend=args.backend, options=options, log=log
+            )
+    if args.save_case:
+        with stage("save-case"):
+            save_case(args.save_case, mesh, bca, metadata=sim.metadata)
+        log(f"info: checkpointed case to {args.save_case}")
+    amg_setup = operator_cache = None
+    if args.load_case:
+        amg_setup, operator_cache = _load_caches(args.load_case)
     with stage("solve"):
         problem = compile_problem(
-            mesh, bca, sim.metadata, options, device=args.device
+            mesh, bca, sim.metadata, options, structure=structure,
+            amg_setup=amg_setup, operator_cache=operator_cache, device=args.device,
         )
         result = problem.solve()
+    if args.save_case:
+        _save_caches(args, problem, amg_setup)
     log(
         f"info: operator={problem.mode} preconditioner={problem.preconditioner} "
         f"device={args.device} dtype={str(problem.dtype).replace('torch.', '')} "
         f"refine={problem.refine}"
     )
+    if "operator_cache" in problem.timings:
+        log(f"info: operator cache {problem.timings['operator_cache']}")
     log(
         f"info: finished conjugate gradient in {result.iterations} "
         f"iterations (residual {result.residual_norm:.3e})"
@@ -157,20 +315,7 @@ def entry(argv=None) -> None:
     log("info: timings " + json.dumps(
         {k: v for k, v in result.timings.items() if k.endswith("_s")}
     ))
-    if args.von_mises:
-        result.stress = result.von_mises
-    nodes_path = os.path.join(args.out_dir, "nodes.csv")
-    elements_path = os.path.join(args.out_dir, "elements.csv")
-    with stage("output"):
-        write_results(mesh, result, nodes_path, elements_path, log=log)
-    if not args.skip or args.save_plot:
-        from .post.plot import plot_results
-
-        with stage("plot"):
-            plot_results(
-                mesh, result, cmap=args.cmap, show=not args.skip,
-                save_path=args.save_plot,
-            )
+    return mesh, result
 
 
 def main(argv=None) -> int:

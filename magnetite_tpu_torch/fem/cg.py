@@ -11,6 +11,12 @@ CHECK_EVERY iterations, which is the only synchronisation in the loop.
 Stopping rule and breakdown guards as in the JAX package:
 ||r|| <= max(rtol * ||b||, atol); alpha = 0 when p.Ap <= 0; rz == 0 is
 replaced by 1 in beta's denominator.
+
+Observability, as the JAX package's `history` / `progress_every`: the
+residual history is a device buffer written under a device-side mask (the
+entry of the active iteration k, never in a frozen one), and progress
+reads the host once every `progress_every` iterations, printing JAX's
+iteration numbers. With both off the loop is exactly the plain one.
 """
 
 from __future__ import annotations
@@ -31,10 +37,30 @@ class CGResult(NamedTuple):
     iterations: torch.Tensor  # int64 scalar, on the device
     residual_norm: torch.Tensor  # final ||r||_2
     converged: torch.Tensor  # bool scalar
+    # ||r|| of the first `history` active iterations, shape [history] (0-size
+    # when not requested); entries past `iterations` keep the init value 0
+    history: Optional[torch.Tensor] = None
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b)
+
+
+def empty_history(history: int, b: torch.Tensor) -> torch.Tensor:
+    """`history` zeros in b's dtype (no allocation kernel when 0)."""
+    if not history:
+        return torch.empty(0, dtype=b.dtype, device=b.device)
+    return torch.zeros(history, dtype=b.dtype, device=b.device)
+
+
+def default_progress_printer(k, rnorm, bnorm):
+    """Host-side observer: one log line per reporting interval (the JAX
+    package's text)."""
+    print(
+        f"info: cg iteration {int(k)}: residual {float(rnorm):.6e} "
+        f"(relative {float(rnorm) / max(float(bnorm), 1e-300):.3e})",
+        flush=True,
+    )
 
 
 def pcg(
@@ -46,8 +72,16 @@ def pcg(
     rtol: float = 1e-10,
     atol: float = 0.0,
     maxiter: int = 10_000_000,
+    history: int = 0,
+    progress_every: int = 0,
+    progress_callback: Optional[Callable] = None,
 ) -> CGResult:
-    """Solve A x = b for SPD A."""
+    """Solve A x = b for SPD A.
+
+    `history` > 0 records ||r|| after each of the first `history`
+    iterations. `progress_every` > 0 calls `progress_callback(k, ||r||,
+    ||b||)` (default: a log-line printer) after every iteration k that is
+    a multiple of it, up to the converged one: one host read each."""
     m = preconditioner if preconditioner is not None else (lambda r: r)
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
@@ -61,6 +95,10 @@ def pcg(
     k = torch.zeros((), dtype=torch.int64, device=b.device)
     one = torch.ones((), dtype=b.dtype, device=b.device)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    hist = empty_history(history, b)
+    slots = torch.arange(history, device=b.device) if history else None
+    callback = progress_callback or default_progress_printer
+    reporting = progress_every > 0
 
     steps = 0
     while steps < maxiter:
@@ -79,8 +117,21 @@ def pcg(
             p = torch.where(active, z + beta * p, p)
             rz = torch.where(active, rz_new, rz)
             rnorm2 = torch.where(active, _dot(r, r), rnorm2)
+            if history:
+                # entry k is the residual after iteration k + 1
+                hist = torch.where((slots == k) & active, torch.sqrt(rnorm2), hist)
             k = k + active.to(torch.int64)
             steps += 1
+            if reporting and steps % progress_every == 0:
+                # one host read: k falls behind `steps` once converged, and
+                # frozen iterations report nothing
+                done, rnorm, bn = (
+                    torch.stack([k.to(b.dtype), torch.sqrt(rnorm2), bnorm]).cpu().tolist()
+                )
+                if int(done) < steps:
+                    reporting = False
+                else:
+                    callback(steps, rnorm, bn)
         if not bool(rnorm2 > thresh2):
             break
     return CGResult(
@@ -88,6 +139,7 @@ def pcg(
         iterations=k,
         residual_norm=torch.sqrt(rnorm2),
         converged=rnorm2 <= thresh2,
+        history=hist,
     )
 
 

@@ -19,17 +19,25 @@ Mixed precision (`refine`), as in the JAX package: the AMG path runs ONE
 f64 PCG whose preconditioner is the f32 V-cycle; every other path runs
 classic refinement (fem/refine.py), f64 residuals around f32 inner PCG.
 
+Persistence, as in the JAX package: `keep_operator_host` keeps the host
+assembly as an `OperatorCache` (persist.save_operator writes it), and a
+matching `operator_cache` given to `compile_problem` skips the band
+structure, renumbering and the C++ assembly; with the symmetric offsets
+of an assembled stiffness only the d >= 0 half is kept, uploaded, and
+mirrored into the negative bands on the device. `residual_history` and
+`cg_progress_every` reach the PCG loops the JAX package gives them to.
+
 What the JAX package offers beyond this slice raises a typed error naming
 it (the JAX package's rule: an unhonourable combination raises, it is never
-silently substituted): the ELL and dense operators, device-side assembly of
-the banded formats, residual history, progress streaming and operator
-persistence.
+silently substituted): the ELL and dense operators and device-side
+assembly of the banded formats.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+import warnings
+from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -39,7 +47,7 @@ from ..bc import BCArrays
 from ..config import ModelMetadata, SolverOptions
 from ..errors import InputError, SolverError
 from ..meshing.core import Mesh
-from .cg import pcg
+from .cg import empty_history, pcg
 from .stress import element_stress_tensors, scalar_stress, von_mises_stress
 
 
@@ -55,8 +63,9 @@ class SolveResult:
     residual_rel: float  # residual_norm / ||b||
     converged: bool
     timings: dict
-    # residual history is not ported yet: always empty
-    residual_history: np.ndarray = None
+    # ||r|| per iteration for the first SolverOptions.residual_history
+    # iterations (empty unless requested; zeros under classic refinement)
+    residual_history: np.ndarray = field(default_factory=lambda: np.zeros(0))
 
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
@@ -87,7 +96,7 @@ def _check_options(options: SolverOptions, mesh: Mesh) -> None:
         raise SolverError(f"{what} is not yet ported to the PyTorch package")
 
     if options.operator == "ell":
-        not_ported("operator='ell'")
+        raise _ell_not_ported("operator='ell'")
     if options.operator not in ("auto", "stencil", "dia", "hybrid"):
         raise InputError(f"unknown operator format '{options.operator}'")
     if options.dense_cutoff > 0 and mesh.num_nodes <= options.dense_cutoff:
@@ -98,12 +107,6 @@ def _check_options(options: SolverOptions, mesh: Mesh) -> None:
         raise InputError(
             f"unknown assembly mode '{options.assembly}' (auto | host | device)"
         )
-    if options.residual_history:
-        not_ported("residual history (residual_history)")
-    if options.cg_progress_every:
-        not_ported("CG progress streaming (cg_progress_every, --cg-progress)")
-    if options.keep_operator_host:
-        not_ported("operator persistence (keep_operator_host)")
     if options.preconditioner not in (
         "auto", "none", "jacobi", "block_jacobi", "multigrid", "amg"
     ):
@@ -115,6 +118,13 @@ def _check_options(options: SolverOptions, mesh: Mesh) -> None:
             f"unknown df_matvec mode '{options.df_matvec}' "
             "(auto | on | off | interpret)"
         )
+
+
+def _ell_not_ported(what: str) -> SolverError:
+    return SolverError(
+        f"{what} is not yet ported to the PyTorch package (ROADMAP item 4: "
+        "the ELL operator)"
+    )
 
 
 def resolve_device(device) -> torch.device:
@@ -233,6 +243,16 @@ class CompiledProblem:
     reduced32: Optional[torch.Tensor] = None  # f32 copy when refining
     mg_levels: Optional[list] = None  # the multigrid hierarchy
     debug_nans: bool = False
+    # observability (SolverOptions.residual_history / cg_progress_every)
+    history: int = 0
+    progress_every: int = 0
+    # the host assembly kept for persist.save_operator (keep_operator_host)
+    operator_host: Optional["OperatorCache"] = None
+
+    def _observe(self) -> dict:
+        """The PCG loops' observability options (never classic refinement's
+        inner solves, as in the JAX package)."""
+        return dict(history=self.history, progress_every=self.progress_every)
 
     def _band_matvec(self, bands, rem_vals, dia_op=None):
         """K u on [2, N] vectors (unreduced) over the given band values."""
@@ -267,8 +287,11 @@ class CompiledProblem:
                     precond = make_amg_preconditioner(
                         self.amg, op, precond, a_op=a_op, sweeps=self.sweeps
                     )
-            result = pcg(op, b, preconditioner=precond, **cg_kwargs)
-            return matvec_t, result.x, result.iterations, result.residual_norm, result.converged, b
+            result = pcg(op, b, preconditioner=precond, **cg_kwargs, **self._observe())
+            return (
+                matvec_t, result.x, result.iterations, result.residual_norm,
+                result.converged, b, result.history,
+            )
 
         free32 = free_t.to(torch.float32)
         a_op32, op32 = _masked(self._band_matvec(self.bands32, self.rem_vals32), free32)
@@ -285,7 +308,10 @@ class CompiledProblem:
             info["refine_inner"] = result.inner_per_pass
             return (
                 matvec_t, result.x, result.inner_iterations,
+                # classic refinement reports `history` zeros, as the JAX
+                # package does (its inner solves restart every pass)
                 result.residual_norm, result.converged, b,
+                empty_history(self.history, b),
             )
 
         # ONE f64 PCG preconditioned by the f32 V-cycle: classic refinement
@@ -309,8 +335,11 @@ class CompiledProblem:
             # rhs and the force recovery keep the true f64 operator
             df_op = make_df_dia_operator(self.bands_hl, self.offsets)
             _, op_cg = _masked(self._band_matvec(bands, rem_vals, dia_op=df_op), free_t)
-        result = pcg(op_cg, b, preconditioner=precond64, **cg_kwargs)
-        return matvec_t, result.x, result.iterations, result.residual_norm, result.converged, b
+        result = pcg(op_cg, b, preconditioner=precond64, **cg_kwargs, **self._observe())
+        return (
+            matvec_t, result.x, result.iterations, result.residual_norm,
+            result.converged, b, result.history,
+        )
 
     def _stencil_solve(self, info: dict):
         from .stencil import make_stencil_operator
@@ -342,7 +371,8 @@ class CompiledProblem:
             )
             info["refine_outer"] = result.outer_steps
             info["refine_inner"] = result.inner_per_pass
-            iters = result.inner_iterations
+            # `history` zeros, as on the banded formats' classic refinement
+            iters, history = result.inner_iterations, empty_history(self.history, b)
         else:
             result = pcg(
                 op, b,
@@ -350,25 +380,27 @@ class CompiledProblem:
                     self.preconditioner, self.reduced, self.mg_levels, wrap
                 ),
                 x0=u_fixed_g, rtol=self.rtol, atol=self.atol, maxiter=self.maxiter,
+                **self._observe(),
             )
-            iters = result.iterations
+            iters, history = result.iterations, result.history
 
         def matvec_t(v):  # [2, N] <-> grid fields
             return raw_op(v.reshape(2, rows, cols)).reshape(2, -1)
 
         return (
             matvec_t, result.x.reshape(2, -1), iters,
-            result.residual_norm, result.converged, b,
+            result.residual_norm, result.converged, b, history,
         )
 
     def solve_device(self, info: Optional[dict] = None):
         """Raw device outputs (renumbered order): u, f, sigma, stress, vm,
-        iterations, residual norm, converged, ||b||. `info`, when given,
+        iterations, residual norm, converged, ||b|| and the residual history
+        ([history], zeros past the iterations). `info`, when given,
         receives facts of the run: the refinement passes (an int) and each
         pass's inner iterations (device scalars)."""
         info = {} if info is None else info
         solve = self._stencil_solve if self.mode == "stencil" else self._banded_solve
-        matvec_t, x, iters, resnorm, converged, b = solve(info)
+        matvec_t, x, iters, resnorm, converged, b, history = solve(info)
         u = x.T
         # unknown forces are K u rows; known applied forces pass through
         f = torch.where(self.u_known, matvec_t(x).T, self.f_value)
@@ -381,7 +413,7 @@ class CompiledProblem:
         stress = scalar_stress(sigma, sign_threshold=self.stress_sign_threshold)
         vm = von_mises_stress(sigma)
         bnorm = torch.sqrt(torch.sum(b * b))
-        return u, f, sigma, stress, vm, iters, resnorm, converged, bnorm
+        return u, f, sigma, stress, vm, iters, resnorm, converged, bnorm, history
 
     def solve(self) -> SolveResult:
         timings = dict(self.timings)
@@ -392,7 +424,7 @@ class CompiledProblem:
         if "refine_inner" in timings:
             timings["refine_inner"] = [int(k) for k in timings["refine_inner"]]
 
-        u, f, sigma, stress, vm, iters, resnorm, converged, bnorm = (
+        u, f, sigma, stress, vm, iters, resnorm, converged, bnorm, history = (
             t.cpu().numpy() for t in out
         )
         if self.perm is not None:
@@ -424,7 +456,7 @@ class CompiledProblem:
             residual_rel=float(resnorm) / max(float(bnorm), 1e-300),
             converged=True,
             timings=timings,
-            residual_history=np.zeros(0),
+            residual_history=history[: int(iters)],
         )
 
 
@@ -435,6 +467,12 @@ def _f32_rtol_floor() -> float:
 # the double-float matvec's attainable relative residual (~2^-46 of the
 # term scale through the stiffness matvec's cancellation at 1M elements)
 _DF_RTOL_FLOOR = 2e-9
+
+
+def _permuted_bca(bca: BCArrays, perm: np.ndarray) -> BCArrays:
+    return BCArrays(
+        u_known=bca.u_known[perm], u_value=bca.u_value[perm], f_value=bca.f_value[perm]
+    )
 
 
 def _renumber_if_needed(mesh, bca, options):
@@ -463,12 +501,7 @@ def _renumber_if_needed(mesh, bca, options):
         "offsets, out-of-band remainder "
         f"{orig.remainder_frac:.1%} -> {stats.remainder_frac:.1%}"
     )
-    bca = BCArrays(
-        u_known=bca.u_known[perm_r],
-        u_value=bca.u_value[perm_r],
-        f_value=bca.f_value[perm_r],
-    )
-    return mesh_r, bca, perm_r
+    return mesh_r, _permuted_bca(bca, perm_r), perm_r
 
 
 def _stencil_mode(mesh: Mesh, options: SolverOptions) -> Optional[StencilParams]:
@@ -500,10 +533,11 @@ def _stencil_mode(mesh: Mesh, options: SolverOptions) -> Optional[StencilParams]
 
 
 def _problem_arrays(mesh, bca, np_dtype, dev) -> dict:
+    # copies: the arrays of a loaded case are read-only
     return dict(
         coords=torch.from_numpy(mesh.coords.astype(np_dtype)).to(dev),
-        tris=torch.from_numpy(np.asarray(mesh.tris, np.int64)).to(dev),
-        u_known=torch.from_numpy(np.asarray(bca.u_known, bool)).to(dev),
+        tris=torch.from_numpy(np.array(mesh.tris, np.int64)).to(dev),
+        u_known=torch.from_numpy(np.array(bca.u_known, bool)).to(dev),
         u_value=torch.from_numpy(bca.u_value.astype(np_dtype)).to(dev),
         f_value=torch.from_numpy(bca.f_value.astype(np_dtype)).to(dev),
     )
@@ -577,20 +611,143 @@ def _decide_df64(options, refine, preconditioner, mode, dev, rtol) -> str:
     return df64
 
 
+@dataclass
+class OperatorCache:
+    """A persisted compile-time assembly product (persist.save_operator; the
+    port of the JAX package's fem/solve.py::OperatorCache, one file format).
+
+    Holds the slot-major flat [n_slots, 4] f64 stiffness values the banded
+    formats assemble once at compile time, keyed by the INPUT-ORDER mesh
+    identity (fem/amg.mesh_state_hash) + material. A resumed compile that
+    matches skips the band structure, renumbering and the C++ closed-form
+    assembly: prep becomes one upload."""
+
+    mesh_hash: str
+    material: tuple  # (youngs_modulus, poisson_ratio, part_thickness)
+    mode: str  # "dia" | "hybrid" | "ell" (the last one raises here)
+    offsets: tuple  # band offsets (dia / hybrid); () for ell
+    flat: np.ndarray  # [n_slots, 4] f64 slot-major assembled values
+    cols: Optional[np.ndarray]  # hybrid remainder index [2, R] / ell cols [n, w]
+    perm: Optional[np.ndarray]  # renumbering applied at compile, if any
+    # True: `flat` holds only the d >= 0 band slots (+ hybrid remainder);
+    # the negative bands are rebuilt on the device from block symmetry
+    sym_half: bool = False
+
+    def matches(self, mesh_hash: str, metadata) -> bool:
+        mat = (
+            float(metadata.youngs_modulus),
+            float(metadata.poisson_ratio),
+            float(metadata.part_thickness),
+        )
+        return self.mesh_hash == mesh_hash and tuple(self.material) == mat
+
+
+def _operator_cache_hit(cache, mesh_hash, metadata, options, timings):
+    """`cache` when this compile resumes from it, else None. A miss is
+    warned about and recorded in timings["operator_cache"], as the JAX
+    package does; a cache of the ELL format, which the JAX package would
+    resume, raises."""
+    from ..utils.logging import log
+
+    if cache is None:
+        return None
+    if cache.perm is not None and options.renumber == "off":
+        log(
+            "warning: operator cache was assembled under a renumbering "
+            "but renumber='off' pins the input order; re-assembling"
+        )
+        timings["operator_cache"] = "miss"
+        return None
+    if options.operator not in ("auto", cache.mode):
+        return None
+    if not cache.matches(mesh_hash, metadata):
+        log(
+            "warning: provided operator cache does not match this "
+            "problem (mesh bytes, BC mask, or material); re-assembling"
+        )
+        timings["operator_cache"] = "miss"
+        return None
+    if cache.mode == "ell":
+        raise _ell_not_ported("resuming from an ELL operator cache")
+    timings["operator_cache"] = "hit"
+    return cache
+
+
+def _sym_half_offsets(mode: str, offsets: tuple) -> tuple:
+    """The negative band offsets when every one has its mirror (the
+    symmetric-half layout applies), else ()."""
+    if mode not in ("dia", "hybrid"):
+        return ()
+    neg = tuple(o for o in offsets if o < 0)
+    return neg if neg and all(-o in offsets for o in neg) else ()
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on `dev`. A read-only array (a memory-mapped cache file)
+    is only read: every tensor the compile keeps is a copy of it."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        return torch.from_numpy(a).to(dev)
+
+
+def _upload_flat(mode, offsets, n, flat, np_dtype, dev, flat_is_half=False):
+    """Upload a slot-major flat assembly and lay it out as bands [D, 2, 2, N]
+    (and the hybrid remainder [R, 2, 2]) on the device.
+
+    The unreduced stiffness is block-symmetric, band(-o)[i] =
+    band(+o)[i - o]^T, and the sorted offsets put the d >= 0 band slots and
+    the hybrid remainder in one contiguous tail of `flat`: only that tail is
+    uploaded (the whole of `flat` when it is a cache's symmetric half), and
+    the negative bands are its rolled, transposed copies, made on the
+    device. Offsets without their mirrors upload everything."""
+    neg = _sym_half_offsets(mode, offsets)
+    if flat_is_half and not neg:
+        raise InputError(
+            "operator cache holds a symmetric-half assembly but the offset "
+            "set is not sign-symmetric; the cache file is corrupt"
+        )
+    d, d0 = len(offsets), len(neg)
+    host = flat if flat_is_half else flat[d0 * n :]
+    flat_d = _to_device(host.astype(np_dtype, copy=False), dev)
+    pos = flat_d[: (d - d0) * n].reshape(d - d0, n, 2, 2)
+    bands = torch.empty((d, 2, 2, n), dtype=flat_d.dtype, device=dev)
+    bands[d0:] = pos.permute(0, 2, 3, 1)
+    pos_offsets = offsets[d0:]
+    for i, o in enumerate(neg):
+        # band(o)[i] = band(-o)[i + o]^T; rows i < -o wrap to the positive
+        # band's last -o rows, which are zero (their column is past n)
+        bands[i] = torch.roll(pos[pos_offsets.index(-o)], -o, dims=0).permute(2, 1, 0)
+    rem_vals = None
+    if mode == "hybrid":
+        rem_vals = flat_d[(d - d0) * n :].reshape(-1, 2, 2).clone()
+    return bands, rem_vals, int(host.shape[0] * host.shape[1] * np.dtype(np_dtype).itemsize)
+
+
 def compile_problem(
     mesh: Mesh,
     bca: BCArrays,
     metadata: ModelMetadata,
     options: SolverOptions = SolverOptions(),
+    structure=None,
     amg_setup=None,
+    operator_cache: Optional[OperatorCache] = None,
     device="cuda",
 ) -> CompiledProblem:
     """Select the operator format, assemble, build the preconditioner and
     upload everything to `device` ("cuda" or "cpu", never chosen implicitly).
 
+    `structure`: a block-ELL sparsity (fem/assembly.EllStructure, from a
+    case checkpoint) pins the node order: no renumbering, as in the JAX
+    package; the ELL operator itself is not ported.
     `amg_setup`: a previously built AMGSetup for THIS problem (from either
-    package, see interop.py); a mismatch is warned about and rebuilt."""
+    package, see interop.py and persist.py); a mismatch is warned about and
+    rebuilt.
+    `operator_cache`: a persisted assembled operator for THIS mesh +
+    material (persist.load_operator); skips the band structure,
+    renumbering and the C++ assembly; a mismatch is warned about and
+    ignored."""
     from .. import native
+    from .amg import mesh_state_hash
     from .dia import build_dia_structure, build_hybrid_structure
 
     dev = resolve_device(device)
@@ -609,10 +766,33 @@ def compile_problem(
     mode = "stencil" if grid is not None else None
     perm = None
     cols = None
+    input_mesh_hash = None
     if mode is None:
         native.require()
-        if options.renumber != "off":
-            mesh, bca, perm = _renumber_if_needed(mesh, bca, options)
+        # the input-order identity, shared by the operator cache check, the
+        # AMG fingerprint (when no renumbering intervenes) and the cache a
+        # later persist.save_operator writes
+        input_mesh_hash = mesh_state_hash(
+            mesh.coords, mesh.tris, (~bca.u_known).astype(np.float64)
+        )
+        operator_cache = _operator_cache_hit(
+            operator_cache, input_mesh_hash, metadata, options, timings
+        )
+    else:
+        operator_cache = None
+    if operator_cache is not None:
+        mode = operator_cache.mode
+        offsets = operator_cache.offsets
+        if operator_cache.perm is not None:
+            from ..meshing.reorder import apply_permutation
+
+            perm = np.asarray(operator_cache.perm)
+            mesh = apply_permutation(mesh, perm)
+            bca = _permuted_bca(bca, perm)
+        if mode == "hybrid":
+            cols = np.asarray(operator_cache.cols, dtype=np.int64)
+    elif mode is None and options.renumber != "off" and structure is None:
+        mesh, bca, perm = _renumber_if_needed(mesh, bca, options)
     if mode is None and options.operator in ("auto", "dia"):
         dia = build_dia_structure(mesh.tris, n, max_diags=options.max_diags)
         if dia is not None:
@@ -704,6 +884,8 @@ def compile_problem(
         refine_max_outer=int(options.refine_max_outer),
         perm=perm,
         debug_nans=bool(options.debug_nans),
+        history=int(options.residual_history),
+        progress_every=int(options.cg_progress_every),
     )
     if mode == "stencil":
         return CompiledProblem(
@@ -715,23 +897,44 @@ def compile_problem(
         )
 
     offsets = tuple(int(o) for o in offsets)
-    # host C++ closed-form assembly, slot-major flat [S, 4]
+    # host C++ closed-form assembly, slot-major flat [S, 4], unless resumed
     t0 = time.perf_counter()
-    d = len(offsets)
-    n_slots = d * n + (cols.shape[1] if mode == "hybrid" else 0)
-    e_count = mesh.tris.shape[0]
-    slots_pm = (
-        np.asarray(slot_ids, np.int64)
-        .reshape(e_count, 3, 3)
-        .transpose(1, 2, 0)
-        .reshape(-1)
-    )
-    flat = native.amg_assemble(
-        mesh.coords, mesh.tris, np.ones((n, 2)),
-        metadata.youngs_modulus, metadata.poisson_ratio,
-        metadata.part_thickness, slots_pm, n_slots,
-    )
+    if operator_cache is not None:
+        flat, flat_is_half = operator_cache.flat, bool(operator_cache.sym_half)
+    else:
+        n_slots = len(offsets) * n + (cols.shape[1] if mode == "hybrid" else 0)
+        slots_pm = (
+            np.asarray(slot_ids, np.int64)
+            .reshape(mesh.tris.shape[0], 3, 3)
+            .transpose(1, 2, 0)
+            .reshape(-1)
+        )
+        flat = native.amg_assemble(
+            mesh.coords, mesh.tris, np.ones((n, 2)),
+            metadata.youngs_modulus, metadata.poisson_ratio,
+            metadata.part_thickness, slots_pm, n_slots,
+        )
+        flat_is_half = False
     timings["assemble_s"] = time.perf_counter() - t0
+    operator_host = None
+    if options.keep_operator_host:
+        # the d >= 0 half when symmetry allows: halves the host copy and
+        # the persisted file
+        neg = _sym_half_offsets(mode, offsets)
+        operator_host = OperatorCache(
+            mesh_hash=input_mesh_hash,
+            material=(
+                float(metadata.youngs_modulus),
+                float(metadata.poisson_ratio),
+                float(metadata.part_thickness),
+            ),
+            mode=mode,
+            offsets=offsets,
+            flat=flat if flat_is_half or not neg else flat[len(neg) * n :].copy(),
+            cols=cols if mode == "hybrid" else None,
+            perm=perm,
+            sym_half=flat_is_half or bool(neg),
+        )
 
     setup = None
     if preconditioner == "amg":
@@ -741,9 +944,13 @@ def compile_problem(
         t0 = time.perf_counter()
         free = (~bca.u_known).astype(np.float64)
         cell_factor = float(options.amg_cell_factor)
+        # the input-order hash holds for the compiled mesh only when no
+        # renumbering intervened
+        amg_hash = input_mesh_hash if perm is None else None
         setup = amg_setup
         if setup is not None and not setup_matches(
-            setup, mesh.coords, mesh.tris, free, metadata, cell_factor, perm
+            setup, mesh.coords, mesh.tris, free, metadata, cell_factor, perm,
+            mesh_hash=amg_hash,
         ):
             log(
                 "warning: provided AMG hierarchy does not match this "
@@ -756,23 +963,24 @@ def compile_problem(
                 mesh.coords, mesh.tris,
                 metadata.youngs_modulus, metadata.poisson_ratio,
                 metadata.part_thickness, free, cell_factor=cell_factor,
+                mesh_hash=amg_hash,
             )
         timings["amg_build_s"] = time.perf_counter() - t0
         timings["amg_levels"] = setup.level_sizes
 
-    # ONE upload of the flat assembly, relaid out to bands on the device
+    # ONE upload of the flat assembly (its symmetric half), relaid out to
+    # bands on the device
     t0 = time.perf_counter()
-    flat_d = torch.from_numpy(flat.astype(np_dtype, copy=False)).to(dev)
-    bands = flat_d[: d * n].reshape(d, n, 2, 2).permute(0, 2, 3, 1).contiguous()
+    bands, rem_vals, timings["upload_bytes"] = _upload_flat(
+        mode, offsets, n, flat, np_dtype, dev, flat_is_half
+    )
     rem = None
     if mode == "hybrid":
         cols_d = torch.from_numpy(cols).to(dev)
-        rem = (flat_d[d * n :].reshape(-1, 2, 2).clone(), cols_d[0], cols_d[1])
-    del flat_d  # the bands and the remainder are copies: free the flat upload
+        rem = (rem_vals, cols_d[0], cols_d[1])
     arrays = _problem_arrays(mesh, bca, np_dtype, dev)
     _sync(dev)
     timings["upload_s"] = time.perf_counter() - t0
-    timings["upload_bytes"] = int(flat.size * np.dtype(np_dtype).itemsize)
 
     amg = None
     if setup is not None:
@@ -803,6 +1011,7 @@ def compile_problem(
         df64=df64,
         amg=amg,
         amg_setup=setup,
+        operator_host=operator_host,
         **extra,
         **arrays,
     )
@@ -813,10 +1022,14 @@ def solve_system(
     bca: BCArrays,
     metadata: ModelMetadata,
     options: SolverOptions = SolverOptions(),
+    structure=None,
     amg_setup=None,
+    operator_cache: Optional[OperatorCache] = None,
     device="cuda",
 ) -> SolveResult:
-    """Full FEA solve of one mesh + boundary-condition set on `device`."""
+    """Full FEA solve of one mesh + boundary-condition set on `device`
+    (`structure`, `amg_setup`, `operator_cache`: see compile_problem)."""
     return compile_problem(
-        mesh, bca, metadata, options, amg_setup=amg_setup, device=device
+        mesh, bca, metadata, options, structure=structure, amg_setup=amg_setup,
+        operator_cache=operator_cache, device=device,
     ).solve()

@@ -52,10 +52,6 @@ def test_port_cli_matches_jax_cli(tmp_path, von_mises):
     [
         ["--shard"],
         ["--shard-layout", "2x4"],
-        ["--save-case", "case.npz"],
-        ["--load-case", "case.npz"],
-        ["--profile", "trace"],
-        ["--cg-progress", "10"],
     ],
     ids=lambda f: f[0].lstrip("-"),
 )

@@ -526,6 +526,81 @@ def test_solve_on_card_matches_cpu(kwargs):
         assert np.abs(a - b).max() <= 1e-7 * np.abs(b).max(), field
 
 
+@pytest.mark.parametrize("kwargs", [{}, {"max_diags": 20}], ids=["dia", "hybrid"])
+def test_resume_on_card_matches_cpu(tmp_path, kwargs):
+    """Files saved by a CPU compile resume on the card: an operator-cache
+    hit whose bands, mirrored from the symmetric half on the card, equal the
+    CPU's bit for bit, and whose answer matches the CPU's."""
+    from magnetite_tpu_torch import SolverOptions, compile_problem, persist
+
+    require_cuda()
+    mesh, bca, md = port_plate(0.02)
+    cpu_problem = compile_problem(
+        mesh, bca, md, SolverOptions(keep_operator_host=True, **kwargs), device="cpu")
+    cpu = cpu_problem.solve()
+    case = str(tmp_path / "case.npz")
+    persist.save_amg(case + ".amg.npz", cpu_problem.amg_setup)
+    persist.save_operator(case + ".op.npz", cpu_problem)
+    amg = persist.load_amg(case + ".amg.npz")
+    problem = compile_problem(
+        mesh, bca, md, SolverOptions(**kwargs), amg_setup=amg,
+        operator_cache=persist.load_operator(case + ".op.npz"), device="cuda")
+    assert problem.timings["operator_cache"] == "hit" and problem.amg_setup is amg
+    assert torch.equal(problem.bands.cpu(), cpu_problem.bands)
+    card = problem.solve()
+    assert np.abs(card.u - cpu.u).max() <= 1e-6 * np.abs(cpu.u).max()
+
+
+@pytest.mark.parametrize("structured", [False, True], ids=["amg", "stencil"])
+def test_history_and_progress_on_card_match_cpu(structured):
+    """residual_history and cg_progress_every on the card: the CPU's
+    lengths and iteration numbers, entries within 1e-8 (f64), and the same
+    kernel launches as the run without them."""
+    from magnetite_tpu_torch import SolverOptions, compile_problem
+    from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
+    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
+    from magnetite_tpu_torch.meshing.generators import plate_with_hole_mesh, tensile_bcs_for_rect
+
+    require_cuda()
+    if structured:
+        from magnetite_tpu_torch.config import ModelMetadata
+
+        mesh = plate_with_hole_mesh(32, 64)
+        case = (mesh, tensile_bcs_for_rect(mesh.coords), ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.01))
+        kernel = stencil_matvec
+    else:
+        case, kernel = port_plate(0.02), dia_matvec
+    opts = SolverOptions(dtype="float64", residual_history=64, cg_progress_every=4)
+    lines = {}
+
+    def run(device, options):
+        seen = []
+        import magnetite_tpu_torch.fem.cg as cg
+
+        printer = cg.default_progress_printer
+        cg.default_progress_printer = lambda k, r, b: seen.append((int(k), r))
+        try:
+            before = kernel.launches
+            res = compile_problem(*case, options, device=device).solve()
+        finally:
+            cg.default_progress_printer = printer
+        lines[device] = seen
+        return res, kernel.launches - before
+
+    cpu, _ = run("cpu", opts)
+    card, launches = run("cuda", opts)
+    _, plain_launches = run("cuda", SolverOptions(dtype="float64"))
+    assert launches == plain_launches > 0
+    # f64 on both, summed in other orders: the crossing may move by one
+    assert abs(card.iterations - cpu.iterations) <= 1
+    assert card.residual_history.shape == (min(64, card.iterations),)
+    k = min(card.iterations, cpu.iterations, 64)
+    got, ref = card.residual_history[:k], cpu.residual_history[:k]
+    assert (np.abs(got - ref) <= 1e-8 * np.maximum(ref, 1e-10 * ref.max())).all()
+    for device, res in (("cuda", card), ("cpu", cpu)):
+        assert [i for i, _ in lines[device]] == list(range(4, res.iterations + 1, 4))
+
+
 LANE_OFFSETS = (-1300, -512, -200, -199, -37, -1, 0, 1, 37, 199, 200, 512, 1300)
 
 

@@ -8,6 +8,9 @@ the same numpy code and the same C++ sources built with the same flags, so
 any difference at all means a copy drifted.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 
@@ -174,3 +177,57 @@ def test_amg_material_setup_identical(case):
             np.testing.assert_array_equal(ac, bc)
             for x, y in zip(av3 + d3, bv3 + e3):
                 np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("env", [None, "1", "0"],
+                         ids=["unset", "opted_out", "other_value"])
+def test_tune_glibc_malloc_as_jax(monkeypatch, env):
+    """Both packages' tune_glibc_malloc at the default threshold: applied on
+    Linux unless MAGNETITE_NO_MALLOC_TUNE is exactly "1"."""
+    from magnetite_tpu.utils.hostmem import tune_glibc_malloc as jax_tune
+    from magnetite_tpu_torch.utils.hostmem import tune_glibc_malloc
+
+    if env is None:
+        monkeypatch.delenv("MAGNETITE_NO_MALLOC_TUNE", raising=False)
+    else:
+        monkeypatch.setenv("MAGNETITE_NO_MALLOC_TUNE", env)
+    got = tune_glibc_malloc()
+    assert got == jax_tune()
+    assert got == (env != "1" and sys.platform.startswith("linux"))
+
+
+# records the mallopt calls made while the package imports (glibc's
+# M_MMAP_THRESHOLD is -3, M_TRIM_THRESHOLD -1)
+_CHILD_TUNE = r"""
+import ctypes, sys
+sys.modules["jax"] = None
+calls = []
+real = ctypes.CDLL
+
+class Libc:
+    def __init__(self, lib):
+        self.lib = lib
+    def mallopt(self, param, value):
+        calls.append((param, value))
+        return self.lib.mallopt(param, value)
+
+ctypes.CDLL = lambda name, *a, **k: Libc(real(None)) if name is None else real(name, *a, **k)
+import magnetite_tpu_torch
+print("MALLOPT AT IMPORT", calls)
+"""
+
+
+@pytest.mark.parametrize("opt_out", [False, True])
+def test_package_import_tunes_malloc_unless_opted_out(opt_out):
+    import subprocess
+
+    env = {k: v for k, v in os.environ.items() if k != "MAGNETITE_NO_MALLOC_TUNE"}
+    if opt_out:
+        env["MAGNETITE_NO_MALLOC_TUNE"] = "1"
+    env["PYTHONPATH"] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _CHILD_TUNE], capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    expected = [] if opt_out or not sys.platform.startswith("linux") else [
+        (-3, 1 << 30), (-1, 1 << 30)]
+    assert f"MALLOPT AT IMPORT {expected}" in proc.stdout

@@ -46,6 +46,35 @@ def test_cli_runs_with_jax_unimportable(tmp_path):
     assert nodes.shape[1] == 4 and np.isfinite(nodes).all()
 
 
+def test_cli_save_and_resume_with_jax_unimportable(tmp_path):
+    """--save-case then --load-case (no geometry) in two JAX-free processes:
+    the resume hits the operator cache, loads the AMG hierarchy and writes
+    the same CSVs within the golden bars."""
+    paths = write_case(str(tmp_path), 0.05)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1")
+    case = str(tmp_path / "case.npz")
+    runs = {}
+    for name, argv in (("fresh", paths + ["--save-case", case]),
+                       ("resumed", [paths[0], "--load-case", case])):
+        out = tmp_path / name
+        out.mkdir()
+        proc = subprocess.run(
+            [sys.executable, "-c", _CHILD, *argv,
+             "--device", "cpu", "--skip", "--out-dir", str(out)],
+            capture_output=True, text=True, timeout=300, env=env, cwd=str(tmp_path),
+        )
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        assert "LEAKED []" in proc.stdout
+        runs[name] = (proc.stdout, np.loadtxt(out / "nodes.csv", delimiter=",", skiprows=1))
+    assert "info: cached assembled operator to" in runs["fresh"][0]
+    out = runs["resumed"][0]
+    assert "info: operator cache hit" in out and "info: loaded AMG hierarchy cache" in out
+    fresh, resumed = runs["fresh"][1], runs["resumed"][1]
+    np.testing.assert_array_equal(resumed[:, :2], fresh[:, :2])
+    assert np.abs(resumed[:, 2:] - fresh[:, 2:]).max() <= 1e-6 * np.abs(fresh[:, 2:]).max()
+
+
 _CHILD_STRUCTURED = r"""
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError

@@ -73,10 +73,7 @@ def test_f32_solve_converges_to_its_floor():
     [
         ({"operator": "ell"}, "not yet ported"),
         ({"operator": "stencil"}, "structured-grid"),
-        ({"keep_operator_host": True}, "operator persistence"),
         ({"assembly": "device"}, "device-side assembly"),
-        ({"residual_history": 10}, "residual history"),
-        ({"cg_progress_every": 5}, "progress"),
         ({"dense_cutoff": 10_000}, "dense direct solve"),
         ({"preconditioner": "multigrid"}, "structured-grid"),
     ],
@@ -89,6 +86,53 @@ def test_unported_options_raise_typed_errors(kwargs, match):
             pmesh, pbca, pmd, magnetite_tpu_torch.SolverOptions(**kwargs),
             device="cpu",
         )
+
+
+@pytest.mark.parametrize("pinned", ["structure_with_operator_ell", "ell_operator_cache"])
+def test_ell_pinned_resume_raises_not_ported(pinned):
+    """A resume that would run the ELL operator (a checkpoint's block-ELL
+    structure under operator='ell', or an operator cache of the ELL format
+    that matches the problem) raises the typed not-ported error."""
+    from magnetite_tpu_torch.fem.amg import mesh_state_hash
+    from magnetite_tpu_torch.fem.assembly import build_ell_structure
+    from magnetite_tpu_torch.fem.solve import OperatorCache
+
+    mesh, bca, md = jax_plate(0.05)
+    pmesh, pbca, pmd = to_port(mesh, bca, 0.05)
+    structure = build_ell_structure(pmesh.tris, pmesh.num_nodes)
+    kwargs = {"structure": structure, "options": magnetite_tpu_torch.SolverOptions(operator="ell")}
+    if pinned == "ell_operator_cache":
+        kwargs = {"operator_cache": OperatorCache(
+            mesh_hash=mesh_state_hash(pmesh.coords, pmesh.tris,
+                                      (~pbca.u_known).astype(np.float64)),
+            material=(pmd.youngs_modulus, pmd.poisson_ratio, pmd.part_thickness),
+            mode="ell", offsets=(), flat=np.zeros((structure.nnz_blocks, 4)),
+            cols=structure.cols, perm=None,
+        )}
+    with pytest.raises(magnetite_tpu_torch.SolverError, match=r"not yet ported .*ROADMAP item 4"):
+        magnetite_tpu_torch.compile_problem(pmesh, pbca, pmd, device="cpu", **kwargs)
+
+
+def test_pinned_structure_skips_renumbering_as_jax_does():
+    """A checkpoint's block-ELL structure pins the node order: no
+    renumbering, the band format the order allows, the JAX package's
+    choice and answer."""
+    from magnetite_tpu.fem.assembly import build_ell_structure
+    from magnetite_tpu_torch import interop
+
+    mesh, bca, md = jax_plate(0.05)
+    mesh, bca = shuffled(mesh, bca)
+    structure = build_ell_structure(mesh.tris, mesh.num_nodes)
+    ref_problem = magnetite_tpu.compile_problem(mesh, bca, md, structure=structure)
+    ref = ref_problem.solve()
+    pstructure = interop.ell_structure_from_arrays(
+        structure.cols, structure.slot_ids, structure.n_nodes, structure.width)
+    problem = magnetite_tpu_torch.compile_problem(
+        *to_port(mesh, bca, 0.05), structure=pstructure, device="cpu")
+    assert problem.perm is None and ref_problem.perm is None
+    assert problem.mode == ref_problem.mode == "hybrid"
+    res = problem.solve()
+    assert np.abs(res.u - ref.u).max() <= 1e-6 * np.abs(ref.u).max()
 
 
 def test_structured_grid_mesh_names_the_stencil_operator():

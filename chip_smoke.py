@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (magnetite_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py              # full size: 1M-element plates, ~2 minutes
+    python3 chip_smoke.py              # full size: 1M-element plates, ~6 minutes on one H100
     python3 chip_smoke.py --h 0.01 --small-h 0.02 --plate 64 128 --big 128 256 --reps 3 \
         --sweep-h 0.05 --lanes 512 --sweep-small 0.08 32
                                        # a quick rehearsal
@@ -21,6 +21,8 @@
                                        # phases 0, 1 and 18-20 alone (no "ok" line)
     python3 chip_smoke.py --only resume
                                        # phases 0, 1 and 21 alone (no "ok" line)
+    python3 chip_smoke.py --only ell
+                                       # phases 0, 1, 5, 6 and 22 alone (no "ok" line)
 
 Phases (any failure exits non-zero; no phase is wrapped in a catch):
   0. environment: torch / CUDA versions, the card's name and power limit;
@@ -134,6 +136,22 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      progress lines, the same band / stencil launches as without them, warm
      solve_s with and without); --profile on a --small-h CLI run, whose trace
      must name dia_matvec.
+ 22. (run after 6) the ELL and dense modes: the ELL kernel against its plain
+     version at the Delaunay plate's level-0 operator (slot-major [K, 2, 2,
+     N]), f64 and f32, each call repeated bit for bit, timed against the
+     plain version and a cuSPARSE CSR SpMV in interleaved rounds; the
+     --operator ell CLI on the plate in f64 and --precision mixed, from a
+     case holding the mesh and phase 5's AMG hierarchy (f64 values): AMG by
+     auto, iterations within +-1 and u / stress on the golden bars of
+     phases 5-6's DIA runs, the true residual <= 1e-9 with the plain ELL
+     operator, exactly the launches of the ELL kernel, the transfers and
+     the m = 3 band kernel per coarse shape that the iterations and the
+     hierarchy imply, and no other kernel; the f64 run saves the ELL
+     operator cache and a --load-case run resumes from it (a hit, the same
+     iterations, u within 1e-12); prep and warm solve_s beside DIA's; then
+     dense_cutoff on the h = 0.03 plate (3,774 nodes) in f64 and f32
+     against the f64 DIA + AMG answer and against the CPU, with the
+     assembly and the LU (torch.linalg.solve) timed apart.
 Every kernel is timed with CUDA events (median of --reps launches, L2
 flushed before each) beside its plain version, its bound (the larger of
 bytes moved once over 3.35 TB/s and operations over the peak rate of their
@@ -146,7 +164,8 @@ with every launch counter set to 0 just before it and read just after
 (dia_matvec, stencil_matvec and the smoothing kernels also per shape). The last lines are the
 card's nvidia-smi line, a JSON line of per-kernel results (the band
 matvec's 2x2 and 3x3 kernels as two rows, the lane stencil kernel's two
-instances as two rows, the fused coarse smoother, the lane ELL kernel), and
+instances as two rows, the fused coarse smoother, the lane ELL kernel, the
+ELL kernel), and
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -220,6 +239,11 @@ KERNELS = {
     "lane_ell_matvec": ("magnetite_tpu_torch/csrc/lane_ell_matvec.cu",
                         "no pallas_call: XLA-fused in JAX, magnetite_tpu/fem/operator.py:27 "
                         "under jax.vmap, magnetite_tpu/parallel/sweep.py:692"),
+    # the ELL solve mode's level-0 operator: no pallas_call stands behind
+    # it, the JAX package's ell_matvec (a gather and an einsum) is XLA's
+    "ell_matvec_t": ("magnetite_tpu_torch/csrc/ell_matvec.cu",
+                     "no pallas_call: XLA-fused in JAX, magnetite_tpu/fem/operator.py:27 "
+                     "(ell_matvec), run by magnetite_tpu/fem/solve.py:541 (_solve_ell)"),
 }
 # the JAX package's sweep benchmarks (bench.py: bench_unstructured_sweep and
 # bench_unstructured_material_sweep): mesh size, lanes, CG iterations
@@ -298,9 +322,10 @@ def require(cond: bool, msg: str) -> None:
 
 
 def counters():
-    """The thirteen kernel wrappers, each carrying its `.launches` count."""
+    """The fourteen kernel wrappers, each carrying its `.launches` count."""
     from magnetite_tpu_torch.kernels.df_kernel import df_dia_matvec
     from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
+    from magnetite_tpu_torch.kernels.ell_kernel import ell_matvec_t
     from magnetite_tpu_torch.kernels.lane_coarse_kernel import lane_coarse_smooth3
     from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec, lane_dia_matvec3
     from magnetite_tpu_torch.kernels.lane_ell_kernel import lane_ell_matvec
@@ -313,7 +338,7 @@ def counters():
 
     return (dia_matvec, prolong0, restrict0, stencil_matvec, mg_presmooth, mg_postsmooth,
             df_dia_matvec, lane_dia_matvec, lane_dia_matvec3, lane_stencil_matvec,
-            lane_stencil_matvec3, lane_coarse_smooth3, lane_ell_matvec)
+            lane_stencil_matvec3, lane_coarse_smooth3, lane_ell_matvec, ell_matvec_t)
 
 
 def shape_label(kernel: str, key) -> str:
@@ -706,7 +731,7 @@ def phase_band_and_transfer(problem, reps, flush, rand, base=None):
     # the banded levels the V-cycle runs its matvec on: all but the
     # coarsest, and the coarsest only where it has no dense inverse
     # (amg.make_coarse_cycle)
-    amg = problem.amg
+    amg = problem.system.amg
     last = len(amg.coarse_bands) - 1
     coarse = [(l, cb) for l, cb in enumerate(amg.coarse_bands)
               if cb is not None and (l < last or amg.ci is None)]
@@ -714,7 +739,7 @@ def phase_band_and_transfer(problem, reps, flush, rand, base=None):
     say("phase 2: band matvec kernel against dia_matvec_blocks on the card, level 0 and "
         f"every banded coarse level the V-cycle launches ({len(coarse)})")
     for label, bands64, offsets in (
-        ("level-0 m=2", problem.bands, problem.offsets),
+        ("level-0 m=2", problem.system.bands, problem.system.offsets),
         *((f"coarse level {l + 1} m=3", cb.bands, cb.offsets) for l, cb in coarse),
     ):
         d, m, _, n = bands64.shape
@@ -759,7 +784,7 @@ def phase_band_and_transfer(problem, reps, flush, rand, base=None):
                     max_abs_err=err, **row)
 
     say("phase 3: level-0 transfer kernels against the plain gathers on the card")
-    agg, p0_64, ptc, ptv_64, _ = problem.amg.fast0
+    agg, p0_64, ptc, ptv_64, _ = problem.system.amg.fast0
     n0, n1, w0 = agg.shape[0], ptc.shape[0], ptc.shape[1]
     node = torch.arange(n0, device=DEV)
     agg64 = agg.long()
@@ -819,7 +844,7 @@ def phase_df(problem, reps, flush, rand):
     from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec, dia_matvec_blocks
 
     say("phase 4: double-float band kernel against its plain version and exact f64")
-    bands, offsets = problem.bands, problem.offsets
+    bands, offsets = problem.system.bands, problem.system.offsets
     d, _, _, n = bands.shape
     offsets_dev = torch.tensor(offsets, dtype=torch.int32, device=DEV)
     hl = split_bands(bands)
@@ -878,29 +903,42 @@ def run_cli(argv) -> tuple:
     return out.getvalue(), err.getvalue()
 
 
-def true_residual_banded(problem, u):
-    """||b - K u|| / ||b|| of the reduced system, f64, plain band operator;
-    u [N, 2] in the problem's (renumbered) node order."""
+def true_residual(problem, u, k_op):
+    """||b - K u|| / ||b|| of the reduced system in f64 for the unreduced
+    operator `k_op` on [2, N] fields; u [N, 2] in the problem's node
+    order."""
     import torch
-    from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec_blocks
 
     u_t = torch.from_numpy(u.T.copy()).to(DEV, torch.float64)
     free_t = (~problem.u_known).double().T
     fixed_t = 1.0 - free_t
     uf_t, f_t = problem.u_value.double().T, problem.f_value.double().T
-    bands = problem.bands.double()
-
-    def k_op(v):
-        return dia_matvec_blocks(bands, problem.offsets, v)
-
     b = free_t * (f_t - k_op(uf_t)) + fixed_t * uf_t
     res = b - (free_t * k_op(free_t * u_t) + fixed_t * u_t)
     return float(res.norm() / b.norm())
 
 
+def true_residual_banded(problem, u):
+    """The true relative residual with the plain band operator; u [N, 2] in
+    the problem's (renumbered) node order."""
+    from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec_blocks
+
+    bands, offsets = problem.system.bands.double(), problem.system.offsets
+    return true_residual(problem, u, lambda v: dia_matvec_blocks(bands, offsets, v))
+
+
+def cli_summary(out: str) -> tuple:
+    """(operator, preconditioner, refine, iterations) of a CLI run's log."""
+    op, pre = re.search(r"info: operator=(\w+) preconditioner=(\w+)", out).groups()
+    refine = re.search(r"refine=(\w+)", out).group(1)
+    iters = int(re.search(r"finished conjugate gradient in (\d+) iterations", out).group(1))
+    return op, pre, refine, iters
+
+
 def cli_path(name, problem, mesh, h, workdir, extra, tol, totals):
     """The Delaunay plate through the CLI; checks the CSVs and the true
-    residual against `tol`."""
+    residual against `tol`. Returns the CSVs' rows (nodes, elements), the
+    iterations and the stage times."""
     import numpy as np
 
     case_dir = os.path.join(workdir, name)
@@ -912,9 +950,7 @@ def cli_path(name, problem, mesh, h, workdir, extra, tol, totals):
     with main_path(name, totals, ("dia_matvec m=2", "dia_matvec m=3", "prolong0", "restrict0")):
         out, _ = run_cli(argv)
     wall = time.perf_counter() - t0
-    op, pre = re.search(r"info: operator=(\w+) preconditioner=(\w+)", out).groups()
-    refine = re.search(r"refine=(\w+)", out).group(1)
-    iters = int(re.search(r"finished conjugate gradient in (\d+) iterations", out).group(1))
+    op, pre, refine, iters = cli_summary(out)
     timings = json.loads(re.search(r"info: timings (\{.*\})", out).group(1))
     mesh_s = float(re.search(r"stage 'mesh' took ([\d.]+)s", out).group(1))
     say(f"  cli wall {wall:.2f} s; operator={op} preconditioner={pre} refine={refine} "
@@ -938,7 +974,7 @@ def cli_path(name, problem, mesh, h, workdir, extra, tol, totals):
     rel = true_residual_banded(problem, u)
     say(f"  true relative residual ||b - K u|| / ||b|| = {rel:.3e} (<= {tol:g})")
     require(rel <= tol, "true residual too large")
-    return nodes
+    return nodes, elems, iters, cli_stages(out)
 
 
 def phase_mixed_df(problem, mesh, bca, md, totals):
@@ -953,7 +989,7 @@ def phase_mixed_df(problem, mesh, bca, md, totals):
         prob = compile_problem(mesh, bca, md, opts, amg_setup=problem.amg_setup, device=DEV)
         prep = time.perf_counter() - t0
         res = prob.solve()
-    require(prob.df64 == "kernel" and prob.refine, f"df64={prob.df64!r} refine={prob.refine}")
+    require(prob.system.df64 == "kernel" and prob.refine, f"df64={prob.system.df64!r} refine={prob.refine}")
     u = res.u if prob.perm is None else res.u[prob.perm]
     rel = true_residual_banded(problem, u)
     say(f"  df run: prep {prep:.2f} s, solve_s {res.timings['solve_s']:.4f}, "
@@ -994,8 +1030,6 @@ def resume_cli(name, problem, argv, fresh, totals):
     AMG hierarchy loaded and no rebuild or miss warning, CSVs within the
     golden bars of the `fresh` run's, the true residual <= 1e-9 with the
     plain operator. Returns its stage times."""
-    import numpy as np
-
     expect = ("dia_matvec m=2", "dia_matvec m=3", "prolong0", "restrict0")
     with main_path(name, totals, expect):
         out, err = run_cli(argv)
@@ -1004,13 +1038,7 @@ def resume_cli(name, problem, argv, fresh, totals):
     require("warning" not in err, f"{name}: warned: {err.strip()[:300]}")
     nodes, elems = read_csvs(argv[argv.index("--out-dir") + 1])
     (nodes_f, elems_f), iters_f = fresh
-    require(np.array_equal(nodes[:, :2], nodes_f[:, :2])
-            and np.array_equal(elems[:, :3], elems_f[:, :3]), f"{name}: mesh differs")
-    for what, got, ref, tol in (("u", nodes[:, 2:], nodes_f[:, 2:], 1e-6),
-                                ("stress", elems[:, 3], elems_f[:, 3], 1e-5)):
-        err, lim = float(np.abs(got - ref).max()), tol * float(np.abs(ref).max())
-        say(f"  {name}: {what} against the fresh run: max|diff| {err:.3e} <= {lim:.3e}")
-        require(err <= lim, f"{name}: {what} outside the golden bar")
+    golden_against(f"{name} against the fresh run", nodes, elems, nodes_f, elems_f)
     u = nodes[:, 2:] if problem.perm is None else nodes[problem.perm, 2:]
     rel = true_residual_banded(problem, u)
     iters = int(re.search(r"finished conjugate gradient in (\d+) iterations", out).group(1))
@@ -1108,7 +1136,7 @@ def phase_resume(problem, mesh, bca, md, args, totals):
             {k: fresh_stages[k] for k in ("save-case", "save-amg", "save-operator")}))
         op = persist.load_operator(case + ".op.npz")
         n_neg = sum(1 for o in op.offsets if o < 0)
-        n = problem.bands.shape[-1]
+        n = problem.system.bands.shape[-1]
         say(f"  operator cache: mode {op.mode}, {len(op.offsets)} offsets, sym_half "
             f"{op.sym_half}, flat {op.flat.shape} ({len(op.offsets) - n_neg} x {n} rows)")
         require(op.sym_half and op.flat.shape == ((len(op.offsets) - n_neg) * n, 4),
@@ -1167,8 +1195,8 @@ def true_residual_stencil(problem, res):
     import torch
     from magnetite_tpu_torch.fem.stencil import stencil_matvec_plain
 
-    rows, cols, wrap, _ = problem.grid
-    raw, red = problem.stencil.double(), problem.reduced.double()
+    rows, cols, wrap, _ = problem.system.grid
+    raw, red = problem.system.stencil.double(), problem.system.reduced.double()
 
     def grid(a):
         return torch.from_numpy(a.T.copy()).to(DEV, torch.float64).reshape(2, rows, cols)
@@ -1202,7 +1230,7 @@ def check_vcycle_launches(key, problem, got, vcycles_run):
     from magnetite_tpu_torch.fem.multigrid import COARSE_SWEEPS, SWEEPS
     from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
 
-    levels = problem.mg_levels
+    levels = problem.system.mg_levels
     pre = len(levels) - 1
     post = pre + (0 if levels[-1].dense_inv is not None else COARSE_SWEEPS // SWEEPS)
     say(f"  {key}: {vcycles_run} V-cycles; mg_presmooth {got['mg_presmooth']} launches "
@@ -1266,7 +1294,7 @@ def phase_structured(nr, nt, totals, profile):
                 profile_call("solve", problem.solve)
             vcycle_times(problem)
         if not refine:
-            keep = problem.mg_levels
+            keep = problem.system.mg_levels
         del problem
         torch.cuda.empty_cache()
     return keep
@@ -1305,8 +1333,8 @@ def vcycle_times(problem):
     import torch
     from magnetite_tpu_torch.fem.multigrid import vcycle_preconditioner
 
-    apply = vcycle_preconditioner(problem.mg_levels, problem.grid.wrap)
-    r = torch.randn(2, problem.grid.rows, problem.grid.cols, device=DEV)
+    apply = vcycle_preconditioner(problem.system.mg_levels, problem.system.grid.wrap)
+    r = torch.randn(2, problem.system.grid.rows, problem.system.grid.cols, device=DEV)
     for _ in range(3):
         apply(r)
     torch.cuda.synchronize()
@@ -1324,7 +1352,7 @@ def vcycle_times(problem):
         end.record()
         end.synchronize()
         device.append(start.elapsed_time(end))
-    say(f"  one V-cycle ({len(problem.mg_levels)} levels, f32): host enqueue "
+    say(f"  one V-cycle ({len(problem.system.mg_levels)} levels, f32): host enqueue "
         f"{statistics.median(host):.3f} ms, device {statistics.median(device):.3f} ms "
         "(median of 10)")
 
@@ -1449,7 +1477,7 @@ def phase_mg_smooth(levels_1m, rect_cells, reps, flush, rand, totals, base=None)
     rect = rect_problem(rect_cells, "float64")
     require(rect.mode == "stencil" and rect.preconditioner == "multigrid",
             f"--rect grid: {rect.mode}/{rect.preconditioner}")
-    rlev = rect.mg_levels
+    rlev = rect.system.mg_levels
     rr, rcols = rlev[0].rows, rlev[0].cols
     require(rcols % 32 != 0 and rlev[-1].dense_inv is None,
             f"--rect grid {rr}x{rcols}: needs cols not a multiple of the tile and a "
@@ -2934,6 +2962,289 @@ def lane_sweeps_card_vs_cpu(h, lanes=32, iterations=400):
         require(np.isfinite(a).all() and rel <= 1e-9, f"{label} sweep: card differs from CPU")
 
 
+# ------------------- the ELL and dense modes (phase 22) ---------------------
+
+
+def phase_ell_kernel(mesh, md, reps, flush, rand):
+    """Phase 22a: the ELL kernel against its plain version on the card at
+    the Delaunay plate's level-0 operator, f64 and f32, each call repeated
+    bit for bit, timed against the plain version and a cuSPARSE CSR SpMV of
+    the same matrix in interleaved rounds."""
+    import torch
+    from magnetite_tpu_torch.kernels.ell_kernel import (
+        ell_matvec_t, ell_matvec_t_plain, ell_to_slot_major,
+    )
+
+    ell64, cols_nm = ell_operands(mesh, md, torch.float64)
+    n, k = cols_nm.shape
+    say(f"phase 22: ELL kernel against its plain version on the card, N={n}, K={k}")
+    results = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        data, cols = ell_to_slot_major(ell64.to(dtype), cols_nm)
+        u = rand(2, n, dtype=dtype)
+        scale = ell_matvec_t_plain(data.abs(), cols, u.abs()).max()
+        ref = ell_matvec_t_plain(data, cols, u)
+        tag = f"ell_matvec_t K={k} N={n} {str(dtype)[6:]}"
+        y = ell_matvec_t(data, cols, u)
+        err = compare(tag, y, ref, scale, tol)
+        require(torch.equal(y, ell_matvec_t(data, cols, u)), f"{tag}: a second call differs")
+        a = csr_of_ell(data.permute(3, 0, 1, 2), cols.T)
+        x = u.reshape(-1)
+        compare(f"library CSR SpMV {tag}", torch.mv(a, x).reshape(2, n), ref, scale, tol)
+        es = data.element_size()
+        row = time_kernel(
+            tag, lambda: ell_matvec_t(data, cols, u), lambda: ell_matvec_t_plain(data, cols, u),
+            lambda: torch.mv(a, x), reps, flush, n * k * (4 * es + 4) + 4 * n * es, 8 * n * k,
+            dtype, rounds=ROUNDS,
+        )
+        if dtype == torch.float64:
+            results["ell_matvec_t"] = dict(max_abs_err=err, **row)
+        del a, data, cols
+    del ell64
+    return results
+
+
+def true_residual_ell(problem, u):
+    """The true relative residual with the plain ELL operator; u [N, 2] in
+    the problem's node order (the ELL mode never renumbers)."""
+    from magnetite_tpu_torch.kernels.ell_kernel import ell_matvec_t_plain
+
+    data, cols = problem.system.data.double(), problem.system.cols
+    return true_residual(problem, u, lambda v: ell_matvec_t_plain(data, cols, v))
+
+
+def expected_ell_launches(iters, sweeps, amg, maxiter, vdtype):
+    """The kernel launches of one AMG-preconditioned ELL CG solve: the CG
+    runs whole chunks of CHECK_EVERY steps (vcycles), one V-cycle per step
+    and one up front; the ELL kernel runs the rhs, r0, each step's operator
+    and the force recovery, and in each V-cycle sweeps - 1 pre-smoothing
+    residuals, the residual before restriction, the masked operator of
+    restrict and of prolong and `sweeps` post-smoothing residuals
+    (amg.make_amg_preconditioner); each banded coarse level but the
+    coarsest runs the m = 3 band kernel twice per V-cycle (pre-residual and
+    post-sweep), a coarsest one without a dense inverse COARSE_SWEEPS
+    times (amg.make_coarse_cycle). Returns (counts, m = 3 launches per
+    (3, N, dtype))."""
+    import torch
+    from magnetite_tpu_torch.fem.amg import COARSE_SWEEPS
+
+    v = vcycles([iters], maxiter)
+    cg = (v - 1) + 3
+    per_v = 2 * sweeps + 2
+    last = len(amg.coarse) - 1
+    shapes = {}
+    for l, cb in enumerate(amg.coarse_bands):
+        per = 2 if l < last else (0 if amg.ci is not None else COARSE_SWEEPS)
+        if cb is not None and per:
+            shapes[(3, cb.bands.shape[-1], vdtype)] = per * v
+    counts = {"ell_matvec_t": cg + v * per_v, "prolong0": v, "restrict0": v,
+              "dia_matvec m=2": 0, "dia_matvec m=3": sum(shapes.values()),
+              # the CG's launches are f64 in both precisions, the V-cycle's
+              # in the V-cycle's dtype
+              "ell_matvec_t f64": cg + (v * per_v if vdtype == torch.float64 else 0)}
+    return counts, shapes
+
+
+def ell_cli(name, argv, totals, ell_problem, precision):
+    """One --operator ell CLI run on the Delaunay plate: operator=ell,
+    preconditioner=amg, and exactly the launches its iterations imply, of
+    the ELL kernel, the transfers and the m = 3 band kernel and of no
+    other kernel. Returns (stdout, iterations, stage times)."""
+    import torch
+    from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
+
+    expect = ("ell_matvec_t", "prolong0", "restrict0", "dia_matvec m=3")
+    with main_path(name, totals, expect) as got:
+        out, err = run_cli(argv)
+    op, pre, refine, iters = cli_summary(out)
+    require((op, pre, refine) == ("ell", "amg", str(precision == "mixed")),
+            f"{name}: operator={op} preconditioner={pre} refine={refine}")
+    require("warning" not in err, f"{name}: warned: {err.strip()[:300]}")
+    sweeps = 3 if precision == "mixed" else 1
+    vdtype = torch.float32 if precision == "mixed" else torch.float64
+    want, shapes = expected_ell_launches(iters, sweeps, ell_problem.system.amg,
+                                         ell_problem.maxiter, vdtype)
+    others = {k: c for k, c in got.items() if c and k.split(" ")[0] not in (
+        "ell_matvec_t", "prolong0", "restrict0", "dia_matvec")}
+    got_shapes = {key: c for key, c in dia_matvec.shape_launches.items() if c}
+    say(f"  {name}: {iters} iterations, sweeps {sweeps}; launches expected {want}, "
+        f"m=3 per shape {shapes}")
+    require(all(got[k] == c for k, c in want.items()) and got_shapes == shapes
+            and not others, f"{name}: launches {got} / {got_shapes}, expected {want} / "
+            f"{shapes} and no other kernel")
+    return out, iters, cli_stages(out)
+
+
+def golden_against(name, nodes, elems, ref_nodes, ref_elems, u_tol=1e-6, s_tol=1e-5):
+    """u and stress of one run's CSVs against another's (the golden bars,
+    tests/test_golden.py:48-55, by default)."""
+    import numpy as np
+
+    require(np.array_equal(nodes[:, :2], ref_nodes[:, :2])
+            and np.array_equal(elems[:, :3], ref_elems[:, :3]), f"{name}: mesh differs")
+    for what, got, ref, tol in (("u", nodes[:, 2:], ref_nodes[:, 2:], u_tol),
+                                ("stress", elems[:, 3], ref_elems[:, 3], s_tol)):
+        err, lim = float(np.abs(got - ref).max()), tol * float(np.abs(ref).max())
+        say(f"  {name}: {what} max|diff| {err:.3e} <= {lim:.3e} ({tol:g} x max)")
+        require(err <= lim, f"{name}: {what} outside its bar")
+
+
+def warm_solves(label, problems: dict, rounds=3):
+    """solve_s of already compiled problems, interleaved; prints and
+    returns the lists."""
+    times = {k: [] for k in problems}
+    for _ in range(rounds):
+        for k, p in problems.items():
+            times[k].append(p.solve().timings["solve_s"])
+    say(f"  {label} warm solve_s: " + "; ".join(
+        f"{k} " + " / ".join(f"{t:.4f}" for t in v) for k, v in times.items()))
+    return times
+
+
+# the dense mode's plate (the sweep plate: 3,774 nodes, 2N = 7,548) and
+# the f32 bar of its answer: an f32 LU at this plate's conditioning is
+# ~1.2e-3 of max|u| off the f64 answer (the CPU's LAPACK, measured), so
+# f32 is held to 5e-3 of max|u| and of max stress, against f64 and across
+# devices; f64 keeps the golden bars
+DENSE_H, DENSE_CUTOFF, DENSE_F32_BAR = 0.03, 10_000, 5e-3
+
+
+def phase_dense(reps, flush, totals):
+    """Phase 22e: dense_cutoff on the sweep plate, f64 and f32, against the
+    f64 DIA + AMG answer and against the CPU; the assembly and the LU timed
+    apart."""
+    import numpy as np
+    import torch
+    from magnetite_tpu_torch.config import SolverOptions
+    from magnetite_tpu_torch.fem.assembly import assemble_dense
+    from magnetite_tpu_torch.fem.element import element_stiffness_matrices
+    from magnetite_tpu_torch.fem.solve import compile_problem
+
+    mesh, bca, md = plate_case(DENSE_H)
+    n = mesh.num_nodes
+    say(f"phase 22e: dense mode (dense_cutoff={DENSE_CUTOFF}) on the plate h={DENSE_H}, "
+        f"{n} nodes, 2N = {2 * n}")
+    ref = compile_problem(mesh, bca, md, SolverOptions(preconditioner="amg"),
+                          device=DEV).solve()
+    for dtype in ("float64", "float32"):
+        opts = SolverOptions(dense_cutoff=DENSE_CUTOFF, dtype=dtype)
+        with main_path(f"the dense solve {dtype}", totals, ()) as got:
+            problem = compile_problem(mesh, bca, md, opts, device=DEV)
+            res = problem.solve()
+        require(problem.mode == "dense" and res.iterations == 0 and not any(got.values()),
+                f"dense {dtype}: mode {problem.mode}, {res.iterations} iterations, "
+                f"launches {got}")
+        u_tol, s_tol = (1e-6, 1e-5) if dtype == "float64" else (DENSE_F32_BAR,) * 2
+        for what, a, b, tol in (("u", res.u, ref.u, u_tol),
+                                ("stress", res.stress, ref.stress, s_tol)):
+            err, lim = float(np.abs(a - b).max()), tol * float(np.abs(b).max())
+            say(f"  dense {dtype} against DIA + AMG f64: {what} max|diff| {err:.3e} <= "
+                f"{lim:.3e}")
+            require(err <= lim, f"dense {dtype}: {what} off the DIA answer")
+        cpu = compile_problem(mesh, bca, md, opts, device="cpu").solve()
+        c_tol = (1e-8, 1e-7) if dtype == "float64" else (DENSE_F32_BAR,) * 2
+        for what, a, b, tol in (("u", res.u, cpu.u, c_tol[0]),
+                                ("stress", res.stress, cpu.stress, c_tol[1])):
+            err, lim = float(np.abs(a - b).max()), tol * float(np.abs(b).max())
+            say(f"  dense {dtype} card against CPU: {what} max|diff| {err:.3e} <= {lim:.3e}")
+            require(err <= lim, f"dense {dtype}: card differs from CPU")
+        tdt = torch.float64 if dtype == "float64" else torch.float32
+        coords, tris = problem.coords, problem.tris
+
+        def assemble():
+            ke = element_stiffness_matrices(coords, tris, md.youngs_modulus,
+                                            md.poisson_ratio, md.part_thickness)
+            return assemble_dense(ke, tris, n)
+
+        kmat = assemble()
+        free = (~problem.u_known).to(tdt).reshape(-1)
+        a = kmat * (free[:, None] * free[None, :]) + torch.diag(1.0 - free)
+        b = torch.ones(2 * n, dtype=tdt, device=DEV)
+        asm_ms = event_ms(assemble, max(3, reps // 4), flush)
+        lu_ms = event_ms(lambda: torch.linalg.solve(a, b), max(3, reps // 4), flush)
+        warm = [problem.solve().timings["solve_s"] for _ in range(2)]
+        say(f"  dense {dtype}: first solve_s {res.timings['solve_s']:.4f}, warm {warm}; "
+            f"assembly {asm_ms:.4f} ms, LU solve (torch.linalg.solve) {lu_ms:.4f} ms; residual "
+            f"{res.residual_rel:.3e}")
+        del kmat, a, problem
+        torch.cuda.empty_cache()
+
+
+def phase_ell(problem, mesh, bca, md, args, dia, totals, reps, flush, rand):
+    """Phase 22: the ELL kernel (22a); the --operator ell CLI on the
+    Delaunay plate in f64 and mixed, resumed from a case holding phase 5's
+    mesh and AMG hierarchy (22b-c), against phases 5-6's DIA runs (`dia`:
+    precision -> (nodes, elements, iterations, stages)); --save-case then
+    --load-case (22d); warm solve_s beside DIA's; the dense mode (22e).
+    Returns the kernel's row."""
+    import torch
+    from magnetite_tpu_torch import persist
+    from magnetite_tpu_torch.config import SolverOptions
+    from magnetite_tpu_torch.fem.solve import compile_problem
+
+    t0 = time.perf_counter()
+    results = phase_ell_kernel(mesh, md, reps, flush, rand)
+    torch.cuda.empty_cache()
+    # the hierarchy phase 5 built: no renumbering on either side, so the
+    # ELL compile's AMG fingerprint accepts it
+    ell64 = compile_problem(mesh, bca, md, SolverOptions(operator="ell"),
+                            amg_setup=problem.amg_setup, device=DEV)
+    require(ell64.amg_setup is problem.amg_setup and problem.perm is None,
+            "phase 5's AMG hierarchy was not reused")
+    with tempfile.TemporaryDirectory() as workdir:
+        say(f"phase 22b-d: --operator ell through the CLI on the Delaunay plate at h={args.h}")
+        paths = write_case_files(workdir, args.h)
+        case = os.path.join(workdir, "case.npz")
+        persist.save_case(case, mesh, bca, metadata=md)
+        persist.save_amg(case + ".amg.npz", problem.amg_setup, values_dtype=None)
+        flags = ["--device", DEV, "--skip", "--operator", "ell"]
+        runs = {}
+        for tag, extra in (("f64", ["--save-case", case]), ("mixed", ["--precision", "mixed"]),
+                           ("resumed", [])):
+            out_dir = os.path.join(workdir, tag)
+            os.makedirs(out_dir)
+            out, iters, stages = ell_cli(
+                f"the --operator ell CLI run ({tag})",
+                [paths[0], "--load-case", case, "--out-dir", out_dir] + flags + extra,
+                totals, ell64, "mixed" if tag == "mixed" else "f64")
+            nodes, elems = read_csvs(out_dir)
+            rel = true_residual_ell(ell64, nodes[:, 2:])
+            say(f"  {tag}: true relative residual {rel:.3e} (<= 1e-09); operator cache "
+                f"{'hit' if 'operator cache hit' in out else 'none'}")
+            require(rel <= 1e-9, f"ELL {tag}: true residual too large")
+            runs[tag] = (nodes, elems, iters, stages, out)
+        for tag, dia_tag in (("f64", "f64"), ("mixed", "mixed")):
+            nodes, elems, iters, stages, _ = runs[tag]
+            d_nodes, d_elems, d_iters, d_stages = dia[dia_tag]
+            say(f"  ELL {tag}: {iters} iterations (DIA {d_iters}); prep {stages['prep']:.3f} s "
+                f"(DIA {d_stages['prep']:.3f} s, meshing and the AMG build included there), "
+                f"CLI solve_s {stages['solve_s']:.4f} (DIA {d_stages['solve_s']:.4f})")
+            require(abs(iters - d_iters) <= 1, f"ELL {tag}: iterations off DIA's")
+            golden_against(f"ELL {tag} against DIA {dia_tag}", nodes, elems, d_nodes, d_elems)
+        print_prep("prep stages, ELL f64 / mixed / resumed",
+                   {k: runs[k][3] for k in ("f64", "mixed", "resumed")})
+        require("info: operator cache hit" not in runs["f64"][4]
+                and all("info: operator cache hit" in runs[k][4] for k in ("mixed", "resumed")),
+                "the ELL runs after --save-case did not hit the operator cache")
+        require(runs["resumed"][2] == runs["f64"][2], "the resumed ELL run's iterations differ")
+        golden_against("ELL resumed against ELL f64", runs["resumed"][0], runs["resumed"][1],
+                       runs["f64"][0], runs["f64"][1], 1e-12, 1e-12)
+    warm_solves("f64, DIA vs ELL", {"DIA": problem, "ELL": ell64})
+    mixed = {
+        "DIA": compile_problem(mesh, bca, md, SolverOptions(dtype="float32", refine="on"),
+                               amg_setup=problem.amg_setup, device=DEV),
+        "ELL": compile_problem(mesh, bca, md, SolverOptions(operator="ell", dtype="float32",
+                                                            refine="on"),
+                               amg_setup=problem.amg_setup, device=DEV),
+    }
+    warm_solves("mixed, DIA vs ELL", mixed)
+    del mixed, ell64
+    torch.cuda.empty_cache()
+    phase_dense(reps, flush, totals)
+    say(f"  (phase 22: {time.perf_counter() - t0:.1f} s)")
+    return results
+
+
 def main() -> int:
     global SWEEP_LANES, PTXAS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2969,14 +3280,15 @@ def main() -> int:
                     "beside this tree's in phases 2, 3, 14 and 17, in the same interleaved "
                     "rounds")
     ap.add_argument("--only", choices=("transfers", "lane-kernels", "multigrid",
-                                       "structured-sweeps", "lane-sweeps", "resume"),
+                                       "structured-sweeps", "lane-sweeps", "resume", "ell"),
                     help="transfers: phases 0 to 3 alone (the Delaunay plate's band and "
                     "transfer kernels); lane-kernels: phases 0, 1 and 10 alone; multigrid: "
                     "phases 0, 1 and 14 alone (the 1M plate's hierarchy built, not solved); "
                     "structured-sweeps: phases 0, 1 and 15-17 alone; lane-sweeps: phases "
                     "0, 1 and 18-20 alone; resume: phases 0, 1 and 21 alone (the "
-                    "Delaunay plate compiled, then saved and resumed); each ends without "
-                    "the ok line")
+                    "Delaunay plate compiled, then saved and resumed); ell: phases 0, 1, "
+                    "5, 6 and 22 (the DIA CLI runs that phase 22 is held against); each "
+                    "ends without the ok line")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -3039,7 +3351,7 @@ def main() -> int:
     if args.only == "multigrid":
         mesh, bca, md = structured_case(*args.plate)
         levels_1m = compile_problem(mesh, bca, md, SolverOptions(dtype="float64", cg_rtol=1e-8),
-                                    device=DEV).mg_levels
+                                    device=DEV).system.mg_levels
         say(f"  1M plate hierarchy (f64, not solved): "
             f"{[(lv.rows, lv.cols) for lv in levels_1m]}")
         flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)
@@ -3052,7 +3364,7 @@ def main() -> int:
     mesh, bca, md = plate_case(args.h)
     problem = compile_problem(mesh, bca, md, SolverOptions(), device=DEV)
     say(f"  Delaunay plate h={args.h}: {mesh.num_nodes} nodes, {mesh.num_elements} "
-        f"elements, {len(problem.offsets)} offsets, AMG levels "
+        f"elements, {len(problem.system.offsets)} offsets, AMG levels "
         f"{problem.timings['amg_levels']}, prepared in {time.perf_counter() - t0:.2f} s")
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)
     if args.only == "resume":
@@ -3060,21 +3372,32 @@ def main() -> int:
         say(f"phases 0, 1 and 21 passed in {time.perf_counter() - t_start:.1f} s "
             "(--only resume: no ok line)")
         return 0
-    results = phase_band_and_transfer(problem, args.reps, flush, rand, base)
-    if args.only == "transfers":
-        say(f"phases 0 to 3 passed in {time.perf_counter() - t_start:.1f} s "
-            "(--only transfers: no ok line)")
-        return 0
-    results.update(phase_df(problem, args.reps, flush, rand))
-    torch.cuda.empty_cache()
+    results = {}
+    if args.only != "ell":
+        results = phase_band_and_transfer(problem, args.reps, flush, rand, base)
+        if args.only == "transfers":
+            say(f"phases 0 to 3 passed in {time.perf_counter() - t_start:.1f} s "
+                "(--only transfers: no ok line)")
+            return 0
+        results.update(phase_df(problem, args.reps, flush, rand))
+        torch.cuda.empty_cache()
 
     totals: dict = {}
+    dia = {}
     with tempfile.TemporaryDirectory() as workdir:
         say(f"phase 5: f64 main path through magnetite_tpu_torch.cli at h={args.h}")
-        cli_path("the f64 CLI run", problem, mesh, args.h, workdir, [], 1e-9, totals)
+        dia["f64"] = cli_path("the f64 CLI run", problem, mesh, args.h, workdir, [], 1e-9,
+                              totals)
         say(f"phase 6: mixed main path through the CLI (--precision mixed) at h={args.h}")
-        cli_path("the mixed CLI run", problem, mesh, args.h, workdir,
-                 ["--precision", "mixed"], 1e-9, totals)
+        dia["mixed"] = cli_path("the mixed CLI run", problem, mesh, args.h, workdir,
+                                ["--precision", "mixed"], 1e-9, totals)
+    results.update(phase_ell(problem, mesh, bca, md, args, dia, totals, args.reps, flush, rand))
+    del dia
+    torch.cuda.empty_cache()
+    if args.only == "ell":
+        say(f"phases 0, 1, 5, 6 and 22 passed in {time.perf_counter() - t_start:.1f} s "
+            "(--only ell: no ok line)")
+        return 0
     phase_mixed_df(problem, mesh, bca, md, totals)
     torch.cuda.empty_cache()
     phase_resume(problem, mesh, bca, md, args, totals)

@@ -75,7 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--operator",
         choices=["auto", "stencil", "dia", "hybrid", "ell"],
         default=None,
-        help="sparse operator format (default: auto; ell is not yet ported)",
+        help="sparse operator format (default: auto-select per mesh)",
     )
     parser.add_argument(
         "--preconditioner",

@@ -25,6 +25,7 @@ adjoint transfers), hence a valid SPD preconditioner for CG.
 
 from __future__ import annotations
 
+import warnings
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -914,14 +915,20 @@ class AMGDeviceArrays:
 
 def _uploaders(dtype, device):
     """(val, idx): one host-to-device copy of a value array (cast to
-    `dtype` on the host first) or of an index array."""
+    `dtype` on the host first) or of an index array. A read-only array (a
+    memory-mapped cache file already in that dtype) is only read."""
     np_dtype = np.dtype(str(dtype).replace("torch.", ""))
 
+    def upload(a, dt):
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(device)
+
     def val(a):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np_dtype)).to(device)
+        return upload(a, np_dtype)
 
     def idx(a, dt=np.int64):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(device)
+        return upload(a, dt)
 
     return val, idx
 

@@ -6,8 +6,8 @@ mesh connectivity and is built once on the host: each coupled node pair is
 one 2x2 block of a padded [N, K, 2, 2] layout (Delaunay meshes have ~7
 neighbours per node, so the padding wastes little). The VALUES are
 assembled on the host by the C++ closed-form assembly (native.amg_assemble)
-into the ELL slots, as the band operators are (the port has no per-element
-[E, 6, 6] stiffness tensor).
+into the ELL slots, as the band operators are. Only the dense mode scatters
+per-element [E, 6, 6] stiffness matrices (`assemble_dense`, on the device).
 """
 
 from __future__ import annotations
@@ -108,3 +108,14 @@ def extract_block_diagonal(ell_data: torch.Tensor, cols: torch.Tensor) -> torch.
     n = ell_data.shape[0]
     own = torch.arange(n, device=cols.device)[:, None] == cols  # [N, K]
     return (own.to(ell_data.dtype)[:, :, None, None] * ell_data).sum(dim=1)
+
+
+def assemble_dense(ke: torch.Tensor, tris: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Dense [2N, 2N] stiffness (node-major DOFs 2 n + c) from the element
+    matrices ke [E, 6, 6]: one scatter-add over every element entry."""
+    e = ke.shape[0]
+    dof = (tris.long()[:, :, None] * 2 + torch.arange(2, device=tris.device)).reshape(e, 6)
+    rows = dof[:, :, None].expand(e, 6, 6).reshape(-1)
+    cols = dof[:, None, :].expand(e, 6, 6).reshape(-1)
+    k = torch.zeros((2 * n_nodes, 2 * n_nodes), dtype=ke.dtype, device=ke.device)
+    return k.index_put_((rows, cols), ke.reshape(-1), accumulate=True)

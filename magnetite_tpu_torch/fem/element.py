@@ -7,8 +7,10 @@ tensors, in the dtype and on the device of the coordinates.
   B [3,6] from beta_i = y_{i+1}-y_{i+2}, gamma_i = x_{i+2}-x_{i+1}, / 2A
   D [3,3] = E/(1-nu^2) * [[1,nu,0],[nu,1,0],[0,0,(1-nu)/2]]
 
-The stiffness itself is assembled on the host in C++ (native.amg_assemble);
-the device needs B, D and the areas for stress recovery.
+The banded and ELL stiffness is assembled on the host in C++
+(native.amg_assemble); the device needs B, D and the areas for stress
+recovery, and the dense mode the element stiffness matrices
+(`element_stiffness_matrices`).
 """
 
 from __future__ import annotations
@@ -70,3 +72,17 @@ def stress_strain_matrix(youngs_modulus, poisson_ratio, dtype, device=None):
     nu_t = torch.tensor(nu, dtype=dtype, device=device)
     return d * (e / (1.0 - nu_t * nu_t))
 
+
+
+def element_stiffness_matrices(coords, tris, youngs_modulus, poisson_ratio, part_thickness):
+    """All element stiffness matrices ke = B^T D B * A * t, [E, 6, 6].
+
+    The JAX package's two contractions as broadcast products and sums, so
+    no TF32 path can reach them."""
+    ecoords = gather_element_coords(coords, tris)
+    areas = element_areas(ecoords)
+    b = strain_displacement_matrices(ecoords, areas)  # [E, 3, 6]
+    d = stress_strain_matrix(youngs_modulus, poisson_ratio, coords.dtype, coords.device)
+    db = (d[None, :, :, None] * b[:, None, :, :]).sum(dim=2)  # [E, 3, 6]
+    ke = (b[:, :, :, None] * db[:, :, None, :]).sum(dim=1)  # [E, 6, 6]
+    return ke * (areas * float(part_thickness))[:, None, None]

@@ -1,36 +1,48 @@
 """End-to-end device solve: host prep -> operator -> PCG -> recovery (port of
-magnetite_tpu/fem/solve.py for the stencil, DIA and hybrid formats).
+magnetite_tpu/fem/solve.py).
 
-Structured-grid meshes (Mesh.grid_shape) take the stencil operator
-(fem/stencil.py): assembled on the device from the mesh, reduced by the
-boundary conditions, preconditioned by geometric multigrid
-(fem/multigrid.py) when the grid coarsens. Unstructured meshes take the
-banded formats: host renumbering, band structure, C++ closed-form assembly
-and the AMG hierarchy build (numpy / native, as in the JAX package), then
-one upload of the flat assembly, relaid out to bands [D, 2, 2, N] on the
-device. The operator, the preconditioner's setup (the multigrid hierarchy
-or the uploaded AMG one) and the f32 / double-float copies that mixed
-precision needs are made once, in `compile_problem`; `solve()` runs CG and
-the recovery. On a CUDA device the stencil matvec, the band matvec, the
-double-float band matvec and the level-0 AMG transfers are hand-written
-kernels; on the CPU their plain PyTorch versions.
+`compile_problem` chooses the operator format as the JAX package does and
+builds that mode's operator state, one object per mode, each with
+`solve(problem, info)`:
 
-Mixed precision (`refine`), as in the JAX package: the AMG path runs ONE
+  * `StencilSystem` -- structured-grid meshes (Mesh.grid_shape): the
+    stencil operator (fem/stencil.py), assembled on the device from the
+    mesh, reduced by the boundary conditions, preconditioned by geometric
+    multigrid (fem/multigrid.py) when the grid coarsens.
+  * `BandedSystem` -- dia / hybrid, the default for unstructured meshes:
+    host renumbering, band structure, C++ closed-form assembly and the AMG
+    hierarchy build (numpy / native, as in the JAX package), then one
+    upload of the flat assembly, relaid out to bands [D, 2, 2, N] on the
+    device.
+  * `EllSystem` -- operator='ell': the block-ELL structure in the mesh's
+    own node order, the same host assembly into its slots, relaid out
+    slot-major [K, 2, 2, N] on the device for the ELL kernel.
+  * `DenseSystem` -- meshes of at most `dense_cutoff` nodes: the [2N, 2N]
+    system assembled and LU-solved inside `solve`, as in the JAX package.
+
+The operator, the preconditioner's setup (the multigrid hierarchy or the
+uploaded AMG one) and the f32 / double-float copies that mixed precision
+needs are made once, in `compile_problem`; `solve()` runs CG and the
+recovery. On a CUDA device the stencil matvec, the band matvec, the
+double-float band matvec, the ELL matvec and the level-0 AMG transfers are
+hand-written kernels; on the CPU their plain PyTorch versions.
+
+Mixed precision (`refine`), as in the JAX package: the AMG paths run ONE
 f64 PCG whose preconditioner is the f32 V-cycle; every other path runs
 classic refinement (fem/refine.py), f64 residuals around f32 inner PCG.
+The dense mode never refines.
 
 Persistence, as in the JAX package: `keep_operator_host` keeps the host
 assembly as an `OperatorCache` (persist.save_operator writes it), and a
-matching `operator_cache` given to `compile_problem` skips the band
-structure, renumbering and the C++ assembly; with the symmetric offsets
-of an assembled stiffness only the d >= 0 half is kept, uploaded, and
+matching `operator_cache` given to `compile_problem` skips the structure,
+renumbering and the C++ assembly; with the symmetric offsets of an
+assembled banded stiffness only the d >= 0 half is kept, uploaded, and
 mirrored into the negative bands on the device. `residual_history` and
 `cg_progress_every` reach the PCG loops the JAX package gives them to.
 
-What the JAX package offers beyond this slice raises a typed error naming
+What the JAX package offers beyond this port raises a typed error naming
 it (the JAX package's rule: an unhonourable combination raises, it is never
-silently substituted): the ELL and dense operators and device-side
-assembly of the banded formats.
+silently substituted): device-side assembly.
 """
 
 from __future__ import annotations
@@ -89,20 +101,16 @@ def default_dtype(options: SolverOptions) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _check_options(options: SolverOptions, mesh: Mesh) -> None:
-    """Typed errors for what this slice of the port does not carry, and
-    for values no slice knows."""
-    def not_ported(what):
-        raise SolverError(f"{what} is not yet ported to the PyTorch package")
-
-    if options.operator == "ell":
-        raise _ell_not_ported("operator='ell'")
-    if options.operator not in ("auto", "stencil", "dia", "hybrid"):
+def _check_options(options: SolverOptions) -> None:
+    """Typed errors for what the port does not carry, and for values no
+    package knows."""
+    if options.operator not in ("auto", "stencil", "dia", "hybrid", "ell"):
         raise InputError(f"unknown operator format '{options.operator}'")
-    if options.dense_cutoff > 0 and mesh.num_nodes <= options.dense_cutoff:
-        not_ported("the dense direct solve (dense_cutoff)")
     if options.assembly == "device":
-        not_ported("device-side assembly (assembly='device')")
+        raise SolverError(
+            "device-side assembly (assembly='device') is not yet ported to "
+            "the PyTorch package"
+        )
     if options.assembly not in ("auto", "host"):
         raise InputError(
             f"unknown assembly mode '{options.assembly}' (auto | host | device)"
@@ -118,13 +126,6 @@ def _check_options(options: SolverOptions, mesh: Mesh) -> None:
             f"unknown df_matvec mode '{options.df_matvec}' "
             "(auto | on | off | interpret)"
         )
-
-
-def _ell_not_ported(what: str) -> SolverError:
-    return SolverError(
-        f"{what} is not yet ported to the PyTorch package (ROADMAP item 4: "
-        "the ELL operator)"
-    )
 
 
 def resolve_device(device) -> torch.device:
@@ -194,6 +195,277 @@ def _masked(matvec, free: torch.Tensor):
     return a_op, op
 
 
+def _fields_t(p) -> tuple:
+    """free, prescribed displacements and applied forces as [2, N] fields
+    in the problem arrays' dtype."""
+    free_t = (~p.u_known).to(p.u_value.dtype).T.contiguous()
+    return free_t, p.u_value.T.contiguous(), p.f_value.T.contiguous()
+
+
+def _rhs(matvec, free, u_fixed, f):
+    """b = free * (f - K u_fixed) + (1 - free) * u_fixed: with it the masked
+    solve returns the prescribed values exactly on fixed DOFs."""
+    return free * (f - matvec(u_fixed)) + (1.0 - free) * u_fixed
+
+
+def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, op_cg=None):
+    """PCG, or under `p.refine` a mixed-precision scheme (the JAX package's
+    `_run_linear_solve`): (x, iterations, residual norm, converged,
+    history).
+
+    With AMG, ONE f64 PCG whose preconditioner is the f32 V-cycle
+    `precond32` (classic refinement stagnates near kappa(A) eps_f32 on
+    large unstructured meshes, because its inner solve targets the cast
+    operator); `op_cg`, when given, is that PCG's per-iteration operator.
+    Otherwise classic refinement around f32 inner PCG on `op32`."""
+    cg_kwargs = dict(x0=x0, rtol=p.rtol, atol=p.atol, maxiter=p.maxiter)
+    if p.refine and p.preconditioner == "amg":
+        def precond64(r):
+            # normalise before the f32 cast (extreme residual magnitudes
+            # would under/overflow the f32 V-cycle); the preconditioner is
+            # linear, so rescaling its output is exact
+            nrm = torch.sqrt(torch.sum(r * r))
+            safe = torch.where(nrm == 0, torch.ones_like(nrm), nrm)
+            return precond32((r / safe).to(torch.float32)).to(r.dtype) * safe
+
+        result = pcg(op if op_cg is None else op_cg, b, preconditioner=precond64,
+                     **cg_kwargs, **p._observe())
+    elif p.refine:
+        from .refine import mixed_precision_solve
+
+        result = mixed_precision_solve(
+            op, op32, b, preconditioner32=precond32, x0=x0,
+            rtol=p.rtol, atol=p.atol,
+            inner_maxiter=p.refine_inner_iters, max_outer=p.refine_max_outer,
+        )
+        info["refine_outer"] = result.outer_steps
+        info["refine_inner"] = result.inner_per_pass
+        # classic refinement reports `history` zeros, as the JAX package
+        # does (its inner solves restart every pass)
+        return (
+            result.x, result.inner_iterations, result.residual_norm,
+            result.converged, empty_history(p.history, b),
+        )
+    else:
+        result = pcg(op, b, preconditioner=precond, **cg_kwargs, **p._observe())
+    return result.x, result.iterations, result.residual_norm, result.converged, result.history
+
+
+@dataclass
+class StencilSystem:
+    """The stencil operator's state: the raw stencil [9, 2, 2, R, C], its
+    BC-reduced copy (and that copy in f32 when refining) and the multigrid
+    hierarchy (when the preconditioner is "multigrid")."""
+
+    grid: StencilParams
+    stencil: torch.Tensor
+    reduced: torch.Tensor
+    reduced32: Optional[torch.Tensor]
+    mg_levels: Optional[list]
+
+    def solve(self, p, info: dict):
+        from .stencil import make_stencil_operator
+
+        rows, cols, wrap, _ = self.grid
+        free_g = _grid((~p.u_known).to(self.stencil.dtype), rows, cols)
+        fixed_g = 1.0 - free_g
+        u_fixed_g = _grid(p.u_value, rows, cols)
+        f_g = _grid(p.f_value, rows, cols)
+        raw_op = make_stencil_operator(self.stencil, wrap)
+        b = free_g * (f_g - raw_op(fixed_g * u_fixed_g)) + fixed_g * u_fixed_g
+        op = make_stencil_operator(self.reduced, wrap)
+        if p.refine:
+            x, iters, resnorm, converged, history = _linear_solve(
+                p, info, b, u_fixed_g, op,
+                op32=make_stencil_operator(self.reduced32, wrap),
+                precond32=_stencil_preconditioner(
+                    p.preconditioner, self.reduced32, self.mg_levels, wrap
+                ),
+            )
+        else:
+            x, iters, resnorm, converged, history = _linear_solve(
+                p, info, b, u_fixed_g, op,
+                _stencil_preconditioner(p.preconditioner, self.reduced, self.mg_levels, wrap),
+            )
+
+        def matvec_t(v):  # [2, N] <-> grid fields
+            return raw_op(v.reshape(2, rows, cols)).reshape(2, -1)
+
+        return matvec_t, x.reshape(2, -1), iters, resnorm, converged, b, history
+
+
+@dataclass
+class BandedSystem:
+    """The dia / hybrid operator's state: bands [D, 2, 2, N] over
+    `offsets`, the hybrid's COO remainder (rem_vals [R, 2, 2], rem_rows,
+    rem_cols; None for dia), the uploaded AMG hierarchy (when the
+    preconditioner is "amg"), and under refinement the f32 copies and, with
+    the double-float matvec (`df64`: "" | "kernel" | "plain"), the hi/lo
+    band pairs [D, 2, 2, 2, N]."""
+
+    offsets: tuple
+    bands: torch.Tensor
+    rem: Optional[tuple]
+    amg: object
+    bands32: Optional[torch.Tensor] = None
+    rem_vals32: Optional[torch.Tensor] = None
+    df64: str = ""
+    bands_hl: Optional[torch.Tensor] = None
+
+    def _matvec(self, bands, rem_vals, dia_op=None):
+        """K u on [2, N] vectors (unreduced) over the given band values."""
+        from .dia import make_dia_operator, make_hybrid_operator
+
+        if self.rem is None:
+            return dia_op if dia_op is not None else make_dia_operator(bands, self.offsets)
+        _, rem_rows, rem_cols = self.rem
+        return make_hybrid_operator(
+            bands, self.offsets, rem_vals, rem_rows, rem_cols, dia_op=dia_op
+        )
+
+    def solve(self, p, info: dict):
+        from .amg import make_amg_preconditioner
+        from .dia import block_jacobi_inverse_t, dia_diag_blocks, make_df_dia_operator
+
+        rem_vals = self.rem[0] if self.rem else None
+        matvec_t = self._matvec(self.bands, rem_vals)
+        free_t, u_fixed_t, f_t = _fields_t(p)
+        a_op, op = _masked(matvec_t, free_t)
+        b = _rhs(matvec_t, free_t, u_fixed_t, f_t)
+        if not p.refine:
+            precond = None
+            if p.preconditioner != "none":
+                precond = block_jacobi_inverse_t(dia_diag_blocks(self.bands, self.offsets), free_t)
+                if p.preconditioner == "amg":
+                    precond = make_amg_preconditioner(
+                        self.amg, op, precond, a_op=a_op, sweeps=p.sweeps
+                    )
+            x, iters, resnorm, converged, history = _linear_solve(
+                p, info, b, u_fixed_t, op, precond
+            )
+            return matvec_t, x, iters, resnorm, converged, b, history
+
+        free32 = free_t.to(torch.float32)
+        a_op32, op32 = _masked(self._matvec(self.bands32, self.rem_vals32), free32)
+        precond32 = block_jacobi_inverse_t(dia_diag_blocks(self.bands32, self.offsets), free32)
+        op_cg = None
+        if p.preconditioner == "amg":
+            precond32 = make_amg_preconditioner(
+                self.amg, op32, precond32, a_op=a_op32, sweeps=p.sweeps
+            )
+            if self.df64:
+                # the CG's per-iteration matvec as compensated f32 pairs;
+                # the rhs and the force recovery keep the true f64 operator
+                df_op = make_df_dia_operator(self.bands_hl, self.offsets)
+                _, op_cg = _masked(self._matvec(self.bands, rem_vals, dia_op=df_op), free_t)
+        x, iters, resnorm, converged, history = _linear_solve(
+            p, info, b, u_fixed_t, op, op32=op32, precond32=precond32, op_cg=op_cg
+        )
+        return matvec_t, x, iters, resnorm, converged, b, history
+
+
+def _diag_preconditioner(kind: str, diag: torch.Tensor, free: torch.Tensor):
+    """The JAX package's `_make_preconditioner` on [2, N] fields from the
+    diagonal blocks [2, 2, N]: block-Jacobi ("block_jacobi", and "amg"'s
+    smoother), scalar Jacobi, or None ("none", the identity)."""
+    from .dia import block_jacobi_inverse_t
+
+    if kind == "none":
+        return None
+    if kind == "jacobi":
+        d = free * torch.stack([diag[0, 0], diag[1, 1]]) + (1.0 - free)
+        return lambda r: r / d
+    return block_jacobi_inverse_t(diag, free)
+
+
+@dataclass
+class EllSystem:
+    """The ELL operator's state: slot-major blocks data [K, 2, 2, N] and
+    cols [K, N] int32 in the mesh's own node order (the ELL kernel on the
+    card), the uploaded AMG hierarchy (when the preconditioner is "amg"),
+    and the f32 copy of data when refining."""
+
+    data: torch.Tensor
+    cols: torch.Tensor
+    amg: object
+    data32: Optional[torch.Tensor] = None
+
+    def solve(self, p, info: dict):
+        from ..kernels.ell_kernel import ell_diag_blocks, ell_matvec_t
+        from .amg import make_amg_preconditioner
+
+        def matvec_t(v):
+            return ell_matvec_t(self.data, self.cols, v)
+
+        free_t, u_fixed_t, f_t = _fields_t(p)
+        a_op, op = _masked(matvec_t, free_t)
+        b = _rhs(matvec_t, free_t, u_fixed_t, f_t)
+        diag = ell_diag_blocks(self.data, self.cols)
+        if not p.refine:
+            precond = _diag_preconditioner(p.preconditioner, diag, free_t)
+            if p.preconditioner == "amg":
+                precond = make_amg_preconditioner(
+                    self.amg, op, precond, a_op=a_op, sweeps=p.sweeps
+                )
+            x, iters, resnorm, converged, history = _linear_solve(
+                p, info, b, u_fixed_t, op, precond
+            )
+            return matvec_t, x, iters, resnorm, converged, b, history
+
+        def matvec32(v):
+            return ell_matvec_t(self.data32, self.cols, v)
+
+        free32 = free_t.to(torch.float32)
+        a_op32, op32 = _masked(matvec32, free32)
+        precond32 = _diag_preconditioner(p.preconditioner, diag.to(torch.float32), free32)
+        if p.preconditioner == "amg":
+            precond32 = make_amg_preconditioner(
+                self.amg, op32, precond32, a_op=a_op32, sweeps=p.sweeps
+            )
+        x, iters, resnorm, converged, history = _linear_solve(
+            p, info, b, u_fixed_t, op, op32=op32, precond32=precond32
+        )
+        return matvec_t, x, iters, resnorm, converged, b, history
+
+
+class DenseSystem:
+    """The dense mode: nothing resident beyond the problem arrays. `solve`
+    assembles the [2N, 2N] stiffness from the element matrices and solves
+    the masked system free (x) free * K + diag(1 - free) by LU
+    (torch.linalg.solve), as the JAX package's `_solve_dense`: no
+    iterations, no preconditioner, never refined."""
+
+    def solve(self, p, info: dict):
+        from .amg import ieee_f32
+        from .assembly import assemble_dense
+        from .element import element_stiffness_matrices
+
+        md = p.metadata
+        n = p.coords.shape[0]
+        ke = element_stiffness_matrices(
+            p.coords, p.tris, md.youngs_modulus, md.poisson_ratio, md.part_thickness
+        )
+        kmat = assemble_dense(ke, p.tris, n)
+        free = (~p.u_known).to(kmat.dtype).reshape(-1)  # node-major DOFs
+        u_value, f_value = p.u_value.reshape(-1), p.f_value.reshape(-1)
+        with ieee_f32():
+            a = kmat * (free[:, None] * free[None, :]) + torch.diag(1.0 - free)
+            b = free * (f_value - kmat @ u_value) + (1.0 - free) * u_value
+            u_flat = torch.linalg.solve(a, b)
+            resnorm = torch.linalg.norm(free * (f_value - kmat @ u_flat))
+
+        def matvec_t(v):  # [2, N] <-> node-major DOFs
+            with ieee_f32():
+                return (kmat @ v.T.reshape(-1)).reshape(n, 2).T
+
+        return (
+            matvec_t, u_flat.reshape(n, 2).T,
+            torch.zeros((), dtype=torch.int64, device=b.device), resnorm,
+            torch.ones((), dtype=torch.bool, device=b.device), b,
+            empty_history(p.history, b),
+        )
+
+
 @dataclass
 class CompiledProblem:
     """A mesh + BC system assembled and resident on one device.
@@ -203,9 +475,11 @@ class CompiledProblem:
     internal renumbering, if any). `dtype` is the working precision the
     options asked for; with `refine` the operator, the CG vectors and the
     problem arrays are f64 and only the inner solves / V-cycle run in it.
+    `system` holds the mode's operator state (StencilSystem, BandedSystem,
+    EllSystem or DenseSystem).
     """
 
-    mode: str  # "stencil" | "dia" | "hybrid"
+    mode: str  # "stencil" | "dia" | "hybrid" | "ell" | "dense"
     preconditioner: str
     timings: dict
     device: torch.device
@@ -221,27 +495,12 @@ class CompiledProblem:
     maxiter: int
     sweeps: int
     stress_sign_threshold: float
+    system: object
     refine: bool = False
     refine_inner_iters: int = 400
     refine_max_outer: int = 8
-    # banded formats
-    offsets: tuple = ()
-    bands: Optional[torch.Tensor] = None  # [D, 2, 2, N]
-    rem: Optional[tuple] = None  # hybrid (rem_vals [R,2,2], rem_rows, rem_cols)
-    bands32: Optional[torch.Tensor] = None  # f32 copies for the refine paths
-    rem_vals32: Optional[torch.Tensor] = None
-    # "" | "kernel" | "plain": the refined AMG CG's double-float band matvec
-    df64: str = ""
-    bands_hl: Optional[torch.Tensor] = None  # [D, 2(hi, lo), 2, 2, N] f32
-    amg: object = None  # AMGDeviceArrays when preconditioner == "amg"
     perm: Optional[np.ndarray] = None
     amg_setup: object = None
-    # stencil format
-    grid: Optional[StencilParams] = None
-    stencil: Optional[torch.Tensor] = None  # raw [9, 2, 2, R, C]
-    reduced: Optional[torch.Tensor] = None  # BC-reduced
-    reduced32: Optional[torch.Tensor] = None  # f32 copy when refining
-    mg_levels: Optional[list] = None  # the multigrid hierarchy
     debug_nans: bool = False
     # observability (SolverOptions.residual_history / cg_progress_every)
     history: int = 0
@@ -254,144 +513,6 @@ class CompiledProblem:
         inner solves, as in the JAX package)."""
         return dict(history=self.history, progress_every=self.progress_every)
 
-    def _band_matvec(self, bands, rem_vals, dia_op=None):
-        """K u on [2, N] vectors (unreduced) over the given band values."""
-        from .dia import make_dia_operator, make_hybrid_operator
-
-        if self.mode == "dia":
-            return dia_op if dia_op is not None else make_dia_operator(bands, self.offsets)
-        _, rem_rows, rem_cols = self.rem
-        return make_hybrid_operator(
-            bands, self.offsets, rem_vals, rem_rows, rem_cols, dia_op=dia_op
-        )
-
-    def _banded_solve(self, info: dict):
-        from .amg import make_amg_preconditioner
-        from .dia import block_jacobi_inverse_t, dia_diag_blocks, make_df_dia_operator
-
-        bands, rem_vals = self.bands, self.rem[0] if self.rem else None
-        matvec_t = self._band_matvec(bands, rem_vals)
-        free_t = (~self.u_known).to(bands.dtype).T.contiguous()  # [2, N]
-        fixed_t = 1.0 - free_t
-        u_fixed_t = self.u_value.T.contiguous()
-        f_t = self.f_value.T.contiguous()
-        a_op, op = _masked(matvec_t, free_t)
-        b = free_t * (f_t - matvec_t(u_fixed_t)) + fixed_t * u_fixed_t
-        cg_kwargs = dict(x0=u_fixed_t, rtol=self.rtol, atol=self.atol, maxiter=self.maxiter)
-
-        if not self.refine:
-            precond = None
-            if self.preconditioner != "none":
-                precond = block_jacobi_inverse_t(dia_diag_blocks(bands, self.offsets), free_t)
-                if self.preconditioner == "amg":
-                    precond = make_amg_preconditioner(
-                        self.amg, op, precond, a_op=a_op, sweeps=self.sweeps
-                    )
-            result = pcg(op, b, preconditioner=precond, **cg_kwargs, **self._observe())
-            return (
-                matvec_t, result.x, result.iterations, result.residual_norm,
-                result.converged, b, result.history,
-            )
-
-        free32 = free_t.to(torch.float32)
-        a_op32, op32 = _masked(self._band_matvec(self.bands32, self.rem_vals32), free32)
-        precond32 = block_jacobi_inverse_t(dia_diag_blocks(self.bands32, self.offsets), free32)
-        if self.preconditioner != "amg":
-            from .refine import mixed_precision_solve
-
-            result = mixed_precision_solve(
-                op, op32, b, preconditioner32=precond32, x0=u_fixed_t,
-                rtol=self.rtol, atol=self.atol,
-                inner_maxiter=self.refine_inner_iters, max_outer=self.refine_max_outer,
-            )
-            info["refine_outer"] = result.outer_steps
-            info["refine_inner"] = result.inner_per_pass
-            return (
-                matvec_t, result.x, result.inner_iterations,
-                # classic refinement reports `history` zeros, as the JAX
-                # package does (its inner solves restart every pass)
-                result.residual_norm, result.converged, b,
-                empty_history(self.history, b),
-            )
-
-        # ONE f64 PCG preconditioned by the f32 V-cycle: classic refinement
-        # stagnates near kappa(A) eps_f32 on large unstructured meshes,
-        # because its inner solve targets the cast operator
-        precond32 = make_amg_preconditioner(
-            self.amg, op32, precond32, a_op=a_op32, sweeps=self.sweeps
-        )
-
-        def precond64(r):
-            # normalise before the f32 cast (extreme residual magnitudes
-            # would under/overflow the f32 V-cycle); the preconditioner is
-            # linear, so rescaling its output is exact
-            nrm = torch.sqrt(torch.sum(r * r))
-            safe = torch.where(nrm == 0, torch.ones_like(nrm), nrm)
-            return precond32((r / safe).to(torch.float32)).to(r.dtype) * safe
-
-        op_cg = op
-        if self.df64:
-            # the CG's per-iteration matvec as compensated f32 pairs; the
-            # rhs and the force recovery keep the true f64 operator
-            df_op = make_df_dia_operator(self.bands_hl, self.offsets)
-            _, op_cg = _masked(self._band_matvec(bands, rem_vals, dia_op=df_op), free_t)
-        result = pcg(op_cg, b, preconditioner=precond64, **cg_kwargs, **self._observe())
-        return (
-            matvec_t, result.x, result.iterations, result.residual_norm,
-            result.converged, b, result.history,
-        )
-
-    def _stencil_solve(self, info: dict):
-        from .stencil import make_stencil_operator
-
-        rows, cols, wrap, _ = self.grid
-        free_g = _grid((~self.u_known).to(self.stencil.dtype), rows, cols)
-        fixed_g = 1.0 - free_g
-        u_fixed_g = _grid(self.u_value, rows, cols)
-        f_g = _grid(self.f_value, rows, cols)
-        raw_op = make_stencil_operator(self.stencil, wrap)
-        b = free_g * (f_g - raw_op(fixed_g * u_fixed_g)) + fixed_g * u_fixed_g
-        op = make_stencil_operator(self.reduced, wrap)
-
-        if self.refine:
-            from .refine import mixed_precision_solve
-
-            result = mixed_precision_solve(
-                op,
-                make_stencil_operator(self.reduced32, wrap),
-                b,
-                preconditioner32=_stencil_preconditioner(
-                    self.preconditioner, self.reduced32, self.mg_levels, wrap
-                ),
-                x0=u_fixed_g,
-                rtol=self.rtol,
-                atol=self.atol,
-                inner_maxiter=self.refine_inner_iters,
-                max_outer=self.refine_max_outer,
-            )
-            info["refine_outer"] = result.outer_steps
-            info["refine_inner"] = result.inner_per_pass
-            # `history` zeros, as on the banded formats' classic refinement
-            iters, history = result.inner_iterations, empty_history(self.history, b)
-        else:
-            result = pcg(
-                op, b,
-                preconditioner=_stencil_preconditioner(
-                    self.preconditioner, self.reduced, self.mg_levels, wrap
-                ),
-                x0=u_fixed_g, rtol=self.rtol, atol=self.atol, maxiter=self.maxiter,
-                **self._observe(),
-            )
-            iters, history = result.iterations, result.history
-
-        def matvec_t(v):  # [2, N] <-> grid fields
-            return raw_op(v.reshape(2, rows, cols)).reshape(2, -1)
-
-        return (
-            matvec_t, result.x.reshape(2, -1), iters,
-            result.residual_norm, result.converged, b, history,
-        )
-
     def solve_device(self, info: Optional[dict] = None):
         """Raw device outputs (renumbered order): u, f, sigma, stress, vm,
         iterations, residual norm, converged, ||b|| and the residual history
@@ -399,8 +520,7 @@ class CompiledProblem:
         receives facts of the run: the refinement passes (an int) and each
         pass's inner iterations (device scalars)."""
         info = {} if info is None else info
-        solve = self._stencil_solve if self.mode == "stencil" else self._banded_solve
-        matvec_t, x, iters, resnorm, converged, b, history = solve(info)
+        matvec_t, x, iters, resnorm, converged, b, history = self.system.solve(self, info)
         u = x.T
         # unknown forces are K u rows; known applied forces pass through
         f = torch.where(self.u_known, matvec_t(x).T, self.f_value)
@@ -545,7 +665,8 @@ def _problem_arrays(mesh, bca, np_dtype, dev) -> dict:
 
 def _compile_stencil(grid, mesh, bca, metadata, np_dtype, dev, refine, preconditioner, timings):
     """Upload the mesh, assemble and reduce the stencil on the device, and
-    build the multigrid hierarchy (in f32 when refining)."""
+    build the multigrid hierarchy (in f32 when refining): (StencilSystem,
+    the problem arrays)."""
     from .multigrid import build_hierarchy
     from .stencil import assemble_stencil_fused, assemble_stencil_structured
 
@@ -577,10 +698,7 @@ def _compile_stencil(grid, mesh, bca, metadata, np_dtype, dev, refine, precondit
         _sync(dev)
         timings["mg_build_s"] = time.perf_counter() - t0
         timings["mg_levels"] = [(lv.rows, lv.cols) for lv in levels]
-    return dict(
-        grid=grid, stencil=raw, reduced=reduced, reduced32=reduced32,
-        mg_levels=levels, **arrays,
-    )
+    return StencilSystem(grid, raw, reduced, reduced32, levels), arrays
 
 
 def _decide_df64(options, refine, preconditioner, mode, dev, rtol) -> str:
@@ -617,14 +735,14 @@ class OperatorCache:
     port of the JAX package's fem/solve.py::OperatorCache, one file format).
 
     Holds the slot-major flat [n_slots, 4] f64 stiffness values the banded
-    formats assemble once at compile time, keyed by the INPUT-ORDER mesh
-    identity (fem/amg.mesh_state_hash) + material. A resumed compile that
-    matches skips the band structure, renumbering and the C++ closed-form
+    and ELL formats assemble once at compile time, keyed by the INPUT-ORDER
+    mesh identity (fem/amg.mesh_state_hash) + material. A resumed compile
+    that matches skips the structure, renumbering and the C++ closed-form
     assembly: prep becomes one upload."""
 
     mesh_hash: str
     material: tuple  # (youngs_modulus, poisson_ratio, part_thickness)
-    mode: str  # "dia" | "hybrid" | "ell" (the last one raises here)
+    mode: str  # "dia" | "hybrid" | "ell"
     offsets: tuple  # band offsets (dia / hybrid); () for ell
     flat: np.ndarray  # [n_slots, 4] f64 slot-major assembled values
     cols: Optional[np.ndarray]  # hybrid remainder index [2, R] / ell cols [n, w]
@@ -645,8 +763,7 @@ class OperatorCache:
 def _operator_cache_hit(cache, mesh_hash, metadata, options, timings):
     """`cache` when this compile resumes from it, else None. A miss is
     warned about and recorded in timings["operator_cache"], as the JAX
-    package does; a cache of the ELL format, which the JAX package would
-    resume, raises."""
+    package does."""
     from ..utils.logging import log
 
     if cache is None:
@@ -667,8 +784,6 @@ def _operator_cache_hit(cache, mesh_hash, metadata, options, timings):
         )
         timings["operator_cache"] = "miss"
         return None
-    if cache.mode == "ell":
-        raise _ell_not_ported("resuming from an ELL operator cache")
     timings["operator_cache"] = "hit"
     return cache
 
@@ -723,6 +838,173 @@ def _upload_flat(mode, offsets, n, flat, np_dtype, dev, flat_is_half=False):
     return bands, rem_vals, int(host.shape[0] * host.shape[1] * np.dtype(np_dtype).itemsize)
 
 
+def _upload_ell(n, flat, cols, np_dtype, dev):
+    """Upload an ELL flat assembly [N * K, 4] and its cols [N, K], and lay
+    them out slot-major on the device: (data [K, 2, 2, N], cols [K, N]
+    int32, bytes of the values uploaded)."""
+    from ..kernels.ell_kernel import ell_to_slot_major
+
+    host = flat.astype(np_dtype, copy=False)
+    k = cols.shape[1]
+    data, cols_d = ell_to_slot_major(
+        _to_device(host, dev).reshape(n, k, 2, 2),
+        _to_device(np.asarray(cols, np.int32), dev),
+    )
+    return data, cols_d, int(host.nbytes)
+
+
+def _assemble_flat(mode, offsets, cols, slot_ids, mesh, metadata, operator_cache, timings):
+    """The slot-major flat [S, 4] f64 assembly: the operator cache's, or the
+    host C++ closed-form assembly through the slot ids (the JAX package's
+    `_assemble_host_flat`). Returns (flat, whether it is a symmetric
+    half)."""
+    from .. import native
+
+    t0 = time.perf_counter()
+    if operator_cache is not None:
+        flat, flat_is_half = operator_cache.flat, bool(operator_cache.sym_half)
+    else:
+        n = mesh.num_nodes
+        if mode == "ell":
+            n_slots = n * cols.shape[1]
+        else:
+            n_slots = len(offsets) * n + (cols.shape[1] if mode == "hybrid" else 0)
+        slots_pm = (
+            np.asarray(slot_ids, np.int64)
+            .reshape(mesh.tris.shape[0], 3, 3)
+            .transpose(1, 2, 0)
+            .reshape(-1)
+        )
+        flat = native.amg_assemble(
+            mesh.coords, mesh.tris, np.ones((n, 2)),
+            metadata.youngs_modulus, metadata.poisson_ratio,
+            metadata.part_thickness, slots_pm, n_slots,
+        )
+        flat_is_half = False
+    timings["assemble_s"] = time.perf_counter() - t0
+    return flat, flat_is_half
+
+
+def _kept_operator(mode, offsets, n, flat, flat_is_half, cols, perm, mesh_hash, metadata):
+    """The host assembly as an OperatorCache (keep_operator_host): the
+    d >= 0 half of a banded operator when symmetry allows (it halves the
+    host copy and the persisted file), the whole ELL flat with its cols."""
+    neg = _sym_half_offsets(mode, offsets)
+    return OperatorCache(
+        mesh_hash=mesh_hash,
+        material=(
+            float(metadata.youngs_modulus),
+            float(metadata.poisson_ratio),
+            float(metadata.part_thickness),
+        ),
+        mode=mode,
+        offsets=offsets,
+        flat=flat if flat_is_half or not neg else flat[len(neg) * n :].copy(),
+        cols=np.asarray(cols) if mode in ("hybrid", "ell") else None,
+        perm=perm,
+        sym_half=flat_is_half or bool(neg),
+    )
+
+
+def _amg_setup(mesh, bca, metadata, options, amg_setup, mesh_hash, perm, timings):
+    """The AMG hierarchy of this problem: `amg_setup` when it matches, else
+    a fresh build (host numpy / native)."""
+    from ..utils.logging import log
+    from .amg import build_amg_setup, setup_matches
+
+    t0 = time.perf_counter()
+    free = (~bca.u_known).astype(np.float64)
+    cell_factor = float(options.amg_cell_factor)
+    # the input-order hash holds for the compiled mesh only when no
+    # renumbering intervened
+    amg_hash = mesh_hash if perm is None else None
+    setup = amg_setup
+    if setup is not None and not setup_matches(
+        setup, mesh.coords, mesh.tris, free, metadata, cell_factor, perm,
+        mesh_hash=amg_hash,
+    ):
+        log(
+            "warning: provided AMG hierarchy does not match this "
+            "problem (mesh ordering, BCs, material, aggregation size, "
+            "or an older cache format); rebuilding"
+        )
+        setup = None
+    if setup is None:
+        setup = build_amg_setup(
+            mesh.coords, mesh.tris,
+            metadata.youngs_modulus, metadata.poisson_ratio,
+            metadata.part_thickness, free, cell_factor=cell_factor,
+            mesh_hash=amg_hash,
+        )
+    timings["amg_build_s"] = time.perf_counter() - t0
+    timings["amg_levels"] = setup.level_sizes
+    return setup
+
+
+def _compile_assembled(mode, offsets, cols, slot_ids, mesh, bca, metadata, options,
+                       operator_cache, amg_setup, mesh_hash, perm, preconditioner,
+                       refine, dtype, np_dtype, dev, rtol, timings):
+    """The host-assembled modes (dia, hybrid, ell): the flat assembly, the
+    kept host copy, the AMG hierarchy, ONE upload of the flat relaid out on
+    the device. Returns (BandedSystem or EllSystem, the problem arrays,
+    the AMG setup, the kept OperatorCache)."""
+    n = mesh.num_nodes
+    flat, flat_is_half = _assemble_flat(
+        mode, offsets, cols, slot_ids, mesh, metadata, operator_cache, timings
+    )
+    operator_host = None
+    if options.keep_operator_host:
+        operator_host = _kept_operator(
+            mode, offsets, n, flat, flat_is_half, cols, perm, mesh_hash, metadata
+        )
+    setup = None
+    if preconditioner == "amg":
+        setup = _amg_setup(mesh, bca, metadata, options, amg_setup, mesh_hash, perm, timings)
+
+    t0 = time.perf_counter()
+    if mode == "ell":
+        data, cols_d, timings["upload_bytes"] = _upload_ell(n, flat, cols, np_dtype, dev)
+    else:
+        bands, rem_vals, timings["upload_bytes"] = _upload_flat(
+            mode, offsets, n, flat, np_dtype, dev, flat_is_half
+        )
+        rem = None
+        if mode == "hybrid":
+            cols_d = torch.from_numpy(cols).to(dev)
+            rem = (rem_vals, cols_d[0], cols_d[1])
+    arrays = _problem_arrays(mesh, bca, np_dtype, dev)
+    _sync(dev)
+    timings["upload_s"] = time.perf_counter() - t0
+
+    amg = None
+    if setup is not None:
+        from .amg import amg_device_arrays
+
+        t0 = time.perf_counter()
+        # refinement runs the V-cycle only in f32
+        amg = amg_device_arrays(setup, torch.float32 if refine else dtype, dev)
+        _sync(dev)
+        timings["amg_upload_s"] = time.perf_counter() - t0
+
+    df64 = _decide_df64(options, refine, preconditioner, mode, dev, rtol)
+    timings["df_matvec"] = df64
+    if mode == "ell":
+        system = EllSystem(
+            data, cols_d, amg, data32=data.to(torch.float32) if refine else None
+        )
+    else:
+        system = BandedSystem(offsets, bands, rem, amg)
+        if refine:
+            from .dia import split_bands
+
+            system.bands32 = bands.to(torch.float32)
+            system.rem_vals32 = rem[0].to(torch.float32) if rem else None
+            # the hi/lo split happens once here, never per matvec
+            system.df64 = df64
+            system.bands_hl = split_bands(bands) if df64 else None
+    return system, arrays, setup, operator_host
+
+
 def compile_problem(
     mesh: Mesh,
     bca: BCArrays,
@@ -738,20 +1020,21 @@ def compile_problem(
 
     `structure`: a block-ELL sparsity (fem/assembly.EllStructure, from a
     case checkpoint) pins the node order: no renumbering, as in the JAX
-    package; the ELL operator itself is not ported.
+    package; under operator='ell' it is the ELL operator's structure, not
+    rebuilt.
     `amg_setup`: a previously built AMGSetup for THIS problem (from either
     package, see interop.py and persist.py); a mismatch is warned about and
     rebuilt.
     `operator_cache`: a persisted assembled operator for THIS mesh +
-    material (persist.load_operator); skips the band structure,
-    renumbering and the C++ assembly; a mismatch is warned about and
-    ignored."""
+    material (persist.load_operator); skips the structure, renumbering and
+    the C++ assembly; a mismatch is warned about and ignored."""
     from .. import native
     from .amg import mesh_state_hash
+    from .assembly import build_ell_structure
     from .dia import build_dia_structure, build_hybrid_structure
 
     dev = resolve_device(device)
-    _check_options(options, mesh)
+    _check_options(options)
     dtype = default_dtype(options)
     timings: dict = {}
     n = mesh.num_nodes
@@ -762,10 +1045,13 @@ def compile_problem(
         )
 
     t0 = time.perf_counter()
-    grid = _stencil_mode(mesh, options)
-    mode = "stencil" if grid is not None else None
+    mode = "dense" if n <= options.dense_cutoff else None
+    grid = _stencil_mode(mesh, options) if mode is None else None
+    if grid is not None:
+        mode = "stencil"
     perm = None
-    cols = None
+    offsets = ()
+    cols = slot_ids = None
     input_mesh_hash = None
     if mode is None:
         native.require()
@@ -791,7 +1077,12 @@ def compile_problem(
             bca = _permuted_bca(bca, perm)
         if mode == "hybrid":
             cols = np.asarray(operator_cache.cols, dtype=np.int64)
-    elif mode is None and options.renumber != "off" and structure is None:
+        elif mode == "ell":
+            cols = np.asarray(operator_cache.cols, dtype=np.int32)
+    elif (
+        mode is None and options.renumber != "off" and structure is None
+        and options.operator in ("auto", "dia", "hybrid")
+    ):
         mesh, bca, perm = _renumber_if_needed(mesh, bca, options)
     if mode is None and options.operator in ("auto", "dia"):
         dia = build_dia_structure(mesh.tris, n, max_diags=options.max_diags)
@@ -800,22 +1091,29 @@ def compile_problem(
         elif options.operator == "dia":
             raise SolverError(
                 f"mesh needs more than {options.max_diags} diagonal bands; "
-                "use operator='hybrid' or renumber the mesh"
+                "use operator='hybrid' or 'ell', or renumber the mesh"
             )
-    if mode is None:
+    if mode is None and options.operator in ("auto", "hybrid"):
         hyb = build_hybrid_structure(mesh.tris, n, max_diags=options.max_diags)
         mode, slot_ids, offsets = "hybrid", hyb.slot_ids, hyb.offsets
         cols = np.stack([hyb.rem_rows, hyb.rem_cols]).astype(np.int64)
         if cols.shape[1] == 0:  # fully banded after all
             cols = np.zeros((2, 1), dtype=np.int64)
+    if mode is None:
+        # operator='ell': the mesh's own node order, the given structure
+        mode = "ell"
+        if structure is None:
+            structure = build_ell_structure(mesh.tris, n)
+        cols, slot_ids = structure.cols, structure.slot_ids
     timings["structure_s"] = time.perf_counter() - t0
     timings["operator"] = mode
 
     # f32 cannot reach f64-grade residuals: refinement (f64 residual, f32
-    # inner solves) reaches them anyway -- "on" anywhere, "auto" on the
-    # stencil operator -- and otherwise the tolerance clamps to ~50 eps
+    # inner solves) reaches them anyway -- "on" anywhere but the dense
+    # mode, "auto" on the stencil operator -- and otherwise the tolerance
+    # clamps to ~50 eps
     rtol = float(options.cg_rtol)
-    refine = options.refine == "on" or (
+    refine = (options.refine == "on" and mode != "dense") or (
         mode == "stencil"
         and options.refine == "auto"
         and dtype == torch.float32
@@ -847,7 +1145,8 @@ def compile_problem(
 
             preconditioner = (
                 "amg"
-                if n >= options.amg_auto_min_nodes or 2 * n <= _DENSE_COARSE_MAX_DOF
+                if mode in ("dia", "hybrid", "ell")
+                and (n >= options.amg_auto_min_nodes or 2 * n <= _DENSE_COARSE_MAX_DOF)
                 else "block_jacobi"
             )
     elif preconditioner == "multigrid" and mode != "stencil":
@@ -855,10 +1154,10 @@ def compile_problem(
             "multigrid preconditioner requires a structured-grid mesh "
             "(stencil operator)"
         )
-    elif preconditioner == "amg" and mode == "stencil":
+    elif preconditioner == "amg" and mode not in ("dia", "hybrid", "ell"):
         raise SolverError(
             "amg preconditioner applies to unstructured operators "
-            "(dia/hybrid); structured grids use preconditioner='multigrid'"
+            "(dia/hybrid/ell); structured grids use preconditioner='multigrid'"
         )
     timings["preconditioner"] = preconditioner
 
@@ -867,7 +1166,23 @@ def compile_problem(
     np_dtype = np.float64 if up_dtype == torch.float64 else np.float32
     from .amg import amg_sweep_schedule
 
-    common = dict(
+    setup = operator_host = None
+    if mode == "stencil":
+        system, arrays = _compile_stencil(
+            grid, mesh, bca, metadata, np_dtype, dev, refine, preconditioner, timings
+        )
+    elif mode == "dense":
+        t0 = time.perf_counter()
+        system, arrays = DenseSystem(), _problem_arrays(mesh, bca, np_dtype, dev)
+        _sync(dev)
+        timings["upload_s"] = time.perf_counter() - t0
+    else:
+        system, arrays, setup, operator_host = _compile_assembled(
+            mode, tuple(int(o) for o in offsets), cols, slot_ids, mesh, bca, metadata,
+            options, operator_cache, amg_setup, input_mesh_hash, perm, preconditioner,
+            refine, dtype, np_dtype, dev, rtol, timings,
+        )
+    return CompiledProblem(
         mode=mode,
         preconditioner=preconditioner,
         timings=timings,
@@ -879,140 +1194,16 @@ def compile_problem(
         maxiter=int(options.max_cg_iters),
         sweeps=amg_sweep_schedule(refine, int(options.amg_sweeps)),
         stress_sign_threshold=float(options.stress_sign_threshold),
+        system=system,
         refine=refine,
         refine_inner_iters=int(options.refine_inner_iters),
         refine_max_outer=int(options.refine_max_outer),
         perm=perm,
+        amg_setup=setup,
         debug_nans=bool(options.debug_nans),
         history=int(options.residual_history),
         progress_every=int(options.cg_progress_every),
-    )
-    if mode == "stencil":
-        return CompiledProblem(
-            **common,
-            **_compile_stencil(
-                grid, mesh, bca, metadata, np_dtype, dev, refine,
-                preconditioner, timings,
-            ),
-        )
-
-    offsets = tuple(int(o) for o in offsets)
-    # host C++ closed-form assembly, slot-major flat [S, 4], unless resumed
-    t0 = time.perf_counter()
-    if operator_cache is not None:
-        flat, flat_is_half = operator_cache.flat, bool(operator_cache.sym_half)
-    else:
-        n_slots = len(offsets) * n + (cols.shape[1] if mode == "hybrid" else 0)
-        slots_pm = (
-            np.asarray(slot_ids, np.int64)
-            .reshape(mesh.tris.shape[0], 3, 3)
-            .transpose(1, 2, 0)
-            .reshape(-1)
-        )
-        flat = native.amg_assemble(
-            mesh.coords, mesh.tris, np.ones((n, 2)),
-            metadata.youngs_modulus, metadata.poisson_ratio,
-            metadata.part_thickness, slots_pm, n_slots,
-        )
-        flat_is_half = False
-    timings["assemble_s"] = time.perf_counter() - t0
-    operator_host = None
-    if options.keep_operator_host:
-        # the d >= 0 half when symmetry allows: halves the host copy and
-        # the persisted file
-        neg = _sym_half_offsets(mode, offsets)
-        operator_host = OperatorCache(
-            mesh_hash=input_mesh_hash,
-            material=(
-                float(metadata.youngs_modulus),
-                float(metadata.poisson_ratio),
-                float(metadata.part_thickness),
-            ),
-            mode=mode,
-            offsets=offsets,
-            flat=flat if flat_is_half or not neg else flat[len(neg) * n :].copy(),
-            cols=cols if mode == "hybrid" else None,
-            perm=perm,
-            sym_half=flat_is_half or bool(neg),
-        )
-
-    setup = None
-    if preconditioner == "amg":
-        from ..utils.logging import log
-        from .amg import build_amg_setup, setup_matches
-
-        t0 = time.perf_counter()
-        free = (~bca.u_known).astype(np.float64)
-        cell_factor = float(options.amg_cell_factor)
-        # the input-order hash holds for the compiled mesh only when no
-        # renumbering intervened
-        amg_hash = input_mesh_hash if perm is None else None
-        setup = amg_setup
-        if setup is not None and not setup_matches(
-            setup, mesh.coords, mesh.tris, free, metadata, cell_factor, perm,
-            mesh_hash=amg_hash,
-        ):
-            log(
-                "warning: provided AMG hierarchy does not match this "
-                "problem (mesh ordering, BCs, material, aggregation size, "
-                "or an older cache format); rebuilding"
-            )
-            setup = None
-        if setup is None:
-            setup = build_amg_setup(
-                mesh.coords, mesh.tris,
-                metadata.youngs_modulus, metadata.poisson_ratio,
-                metadata.part_thickness, free, cell_factor=cell_factor,
-                mesh_hash=amg_hash,
-            )
-        timings["amg_build_s"] = time.perf_counter() - t0
-        timings["amg_levels"] = setup.level_sizes
-
-    # ONE upload of the flat assembly (its symmetric half), relaid out to
-    # bands on the device
-    t0 = time.perf_counter()
-    bands, rem_vals, timings["upload_bytes"] = _upload_flat(
-        mode, offsets, n, flat, np_dtype, dev, flat_is_half
-    )
-    rem = None
-    if mode == "hybrid":
-        cols_d = torch.from_numpy(cols).to(dev)
-        rem = (rem_vals, cols_d[0], cols_d[1])
-    arrays = _problem_arrays(mesh, bca, np_dtype, dev)
-    _sync(dev)
-    timings["upload_s"] = time.perf_counter() - t0
-
-    amg = None
-    if setup is not None:
-        from .amg import amg_device_arrays
-
-        t0 = time.perf_counter()
-        # refinement runs the V-cycle only in f32
-        amg = amg_device_arrays(setup, torch.float32 if refine else dtype, dev)
-        _sync(dev)
-        timings["amg_upload_s"] = time.perf_counter() - t0
-
-    df64 = _decide_df64(options, refine, preconditioner, mode, dev, rtol)
-    timings["df_matvec"] = df64
-    extra = {}
-    if refine:
-        from .dia import split_bands
-
-        extra["bands32"] = bands.to(torch.float32)
-        extra["rem_vals32"] = rem[0].to(torch.float32) if rem else None
-        # the hi/lo split happens once here, never per matvec
-        extra["bands_hl"] = split_bands(bands) if df64 else None
-
-    return CompiledProblem(
-        **common,
-        offsets=offsets,
-        bands=bands,
-        rem=rem,
-        df64=df64,
-        amg=amg,
-        amg_setup=setup,
         operator_host=operator_host,
-        **extra,
         **arrays,
     )
 

@@ -180,6 +180,8 @@ def _bind(lib) -> None:
     ]
     lib.mt_lane_ell_matvec.restype = i32
     lib.mt_lane_ell_matvec.argtypes = [i32, i32, i32, vp, vp, vp, vp, i64, i32, i64, vp]
+    lib.mt_ell_matvec.restype = i32
+    lib.mt_ell_matvec.argtypes = [i32, vp, vp, vp, vp, i64, i32, vp]
     lib.mt_error_string.restype = ctypes.c_char_p
     lib.mt_error_string.argtypes = [i32]
 

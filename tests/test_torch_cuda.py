@@ -497,7 +497,7 @@ def test_mixed_amg_with_df_kernel_on_card_matches_cpu(df):
     cpu = compile_problem(mesh, bca, md, opts, device="cpu").solve()
     before = df_dia_matvec.launches
     problem = compile_problem(mesh, bca, md, opts, device="cuda")
-    assert (problem.refine, problem.df64, problem.sweeps) == (True, "kernel", 3)
+    assert (problem.refine, problem.system.df64, problem.sweeps) == (True, "kernel", 3)
     card = problem.solve()
     assert df_dia_matvec.launches > before
     assert abs(card.iterations - cpu.iterations) <= 1
@@ -546,7 +546,7 @@ def test_resume_on_card_matches_cpu(tmp_path, kwargs):
         mesh, bca, md, SolverOptions(**kwargs), amg_setup=amg,
         operator_cache=persist.load_operator(case + ".op.npz"), device="cuda")
     assert problem.timings["operator_cache"] == "hit" and problem.amg_setup is amg
-    assert torch.equal(problem.bands.cpu(), cpu_problem.bands)
+    assert torch.equal(problem.system.bands.cpu(), cpu_problem.system.bands)
     card = problem.solve()
     assert np.abs(card.u - cpu.u).max() <= 1e-6 * np.abs(cpu.u).max()
 
@@ -1188,3 +1188,98 @@ def test_block_jacobi_sweeps_on_card_match_cpu(shuffle):
     u_cpu, u_card = cpu.u.numpy(), card.u.cpu().numpy()
     assert np.isfinite(u_card).all()
     assert np.abs(u_card - u_cpu).max() <= 1e-9 * np.abs(u_cpu).max()
+
+
+@pytest.mark.parametrize("case", ["w12", "w1"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13), (torch.float32, 1e-6)])
+def test_ell_kernel_matches_plain(case, dtype, tol):
+    """The single-vector ELL kernel on random block-ELL operators laid out
+    slot-major, against its plain version; each call repeated bit for
+    bit."""
+    from magnetite_tpu_torch.kernels.ell_kernel import (
+        ell_matvec_t, ell_matvec_t_plain, ell_to_slot_major,
+    )
+
+    dev = require_cuda()
+    n, w = {"w12": (997, 12), "w1": (300, 1)}[case]
+    ell_np, cols_np = random_ell(n, w, 60)
+    data, cols = ell_to_slot_major(torch.as_tensor(ell_np, dtype=dtype, device=dev),
+                                   torch.as_tensor(cols_np, device=dev))
+    u = torch.as_tensor(np.random.default_rng(61).standard_normal((2, n)), dtype=dtype,
+                        device=dev)
+    before = ell_matvec_t.launches
+    y, again = ell_matvec_t(data, cols, u), ell_matvec_t(data, cols, u)
+    torch.cuda.synchronize()
+    assert ell_matvec_t.launches == before + 2 and torch.equal(y, again)
+    ref = ell_matvec_t_plain(data, cols, u)
+    scale = float(ell_matvec_t_plain(data.abs(), cols, u.abs()).max())
+    assert float((y - ref).abs().max()) <= tol * scale
+
+
+def test_ell_kernel_refuses_what_it_does_not_take():
+    from magnetite_tpu_torch.kernels.cuda_lib import KernelError
+    from magnetite_tpu_torch.kernels.ell_kernel import ell_matvec_t
+
+    dev = require_cuda()
+    data = torch.zeros((3, 2, 2, 9), device=dev)
+    cols = torch.zeros((3, 9), dtype=torch.int32, device=dev)
+    u = torch.zeros((2, 9), device=dev)
+    with pytest.raises(KernelError):  # dtype mismatch
+        ell_matvec_t(data, cols, u.double())
+    with pytest.raises(KernelError):  # int64 cols
+        ell_matvec_t(data, cols.long(), u)
+    with pytest.raises(KernelError):  # node-major blocks where slot-major belong
+        ell_matvec_t(data.permute(3, 0, 1, 2).contiguous(), cols, u)
+    with pytest.raises(KernelError):  # a node-major field
+        ell_matvec_t(data, cols, torch.zeros((9, 2), device=dev))
+    with pytest.raises(KernelError):  # operands on two devices
+        ell_matvec_t(data.cpu(), cols, u)
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"dtype": "float32", "refine": "on"},
+                                    {"preconditioner": "block_jacobi"}],
+                         ids=["amg", "mixed", "block_jacobi"])
+def test_ell_solve_on_card_matches_cpu(kwargs):
+    """operator='ell' on the card: the ELL kernel runs the level-0 operator
+    (and with AMG the transfers and the m = 3 band kernel the coarse
+    levels, no m = 2 band launch), the CPU's iterations and answer."""
+    from magnetite_tpu_torch import SolverOptions, compile_problem
+    from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
+    from magnetite_tpu_torch.kernels.ell_kernel import ell_matvec_t
+    from magnetite_tpu_torch.kernels.transfer_kernel import prolong0
+
+    require_cuda()
+    mesh, bca, md = port_plate(0.016)
+    opts = SolverOptions(operator="ell", **kwargs)
+    cpu = compile_problem(mesh, bca, md, opts, device="cpu").solve()
+    before = (ell_matvec_t.launches, prolong0.launches, dict(dia_matvec.shape_launches))
+    problem = compile_problem(mesh, bca, md, opts, device="cuda")
+    assert problem.mode == "ell"
+    card = problem.solve()
+    assert ell_matvec_t.launches > before[0]
+    assert (prolong0.launches > before[1]) == (problem.preconditioner == "amg")
+    new = {k: c - before[2].get(k, 0) for k, c in dia_matvec.shape_launches.items()}
+    assert not any(c for k, c in new.items() if k[0] == 2)
+    assert abs(card.iterations - cpu.iterations) <= 1
+    assert np.abs(card.u - cpu.u).max() <= 1e-8 * np.abs(cpu.u).max()
+    for field in ("f", "stress"):
+        a, b = getattr(card, field), getattr(cpu, field)
+        assert np.abs(a - b).max() <= 1e-6 * np.abs(b).max(), field
+
+
+@pytest.mark.parametrize("dtype,bars", [("float64", (1e-8, 1e-7)), ("float32", (2e-3, 2e-3))])
+def test_dense_solve_on_card_matches_cpu(dtype, bars):
+    from magnetite_tpu_torch import SolverOptions, compile_problem
+
+    require_cuda()
+    mesh, bca, md = port_plate(0.05)
+    opts = SolverOptions(dense_cutoff=10_000, dtype=dtype)
+    cpu = compile_problem(mesh, bca, md, opts, device="cpu").solve()
+    problem = compile_problem(mesh, bca, md, opts, device="cuda")
+    assert problem.mode == "dense"
+    card = problem.solve()
+    assert card.iterations == 0
+    assert np.abs(card.u - cpu.u).max() <= bars[0] * np.abs(cpu.u).max()
+    for field in ("f", "stress"):
+        a, b = getattr(card, field), getattr(cpu, field)
+        assert np.abs(a - b).max() <= bars[1] * np.abs(b).max(), field

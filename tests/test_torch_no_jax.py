@@ -246,6 +246,53 @@ def test_lane_sweeps_run_with_jax_unimportable(tmp_path):
     assert "LEAKED []" in proc.stdout
 
 
+_CHILD_MODES = r"""
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import numpy as np
+import magnetite_tpu_torch as mp
+from magnetite_tpu_torch.bc import apply_boundary_conditions
+from magnetite_tpu_torch.config import BoundaryRegion, BoundaryRule, BoundaryTarget
+from magnetite_tpu_torch.meshing.delaunay_backend import triangulate
+outer = np.array([[0.0, 0.0], [3.0, 0.0], [3.0, 1.0], [0.0, 1.0]])
+hole = np.array([[1.3, 0.35], [1.7, 0.35], [1.7, 0.65], [1.3, 0.65]])
+mesh = triangulate([outer, hole], 0.0, 0.05)
+bca = apply_boundary_conditions(mesh.coords, (
+    BoundaryRule("left", BoundaryRegion(x_max=1e-6), BoundaryTarget(ux=0.0, uy=0.0)),
+    BoundaryRule("right", BoundaryRegion(x_min=3.0 - 1e-6), BoundaryTarget(ux=0.01, fy=0.0))))
+md = mp.ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.05)
+res = {}
+for name, opts in (("dia", mp.SolverOptions()), ("ell", mp.SolverOptions(operator="ell")),
+                   ("mixed ell", mp.SolverOptions(operator="ell", dtype="float32", refine="on")),
+                   ("dense", mp.SolverOptions(dense_cutoff=10_000))):
+    problem = mp.compile_problem(mesh, bca, md, opts, device="cpu")
+    res[name] = (problem.mode, problem.solve())
+modes = [m for m, _ in res.values()]
+ref = res["dia"][1].u
+agree = all(np.abs(r.u - ref).max() <= 1e-6 * np.abs(ref).max() for _, r in res.values())
+leaked = [m for m in sys.modules
+          if m == "jax" and sys.modules[m] is not None
+          or m == "magnetite_tpu" or m.startswith("magnetite_tpu.")]
+print("MODES", modes == ["dia", "ell", "ell", "dense"], agree,
+      "magnetite_tpu_torch.kernels.ell_kernel" in sys.modules)
+print("LEAKED", leaked)
+"""
+
+
+def test_ell_and_dense_modes_run_with_jax_unimportable(tmp_path):
+    """The ELL mode (f64 and refined, with its kernel module) and the dense
+    mode on a small plate, with the DIA answer."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_MODES],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "MODES True True True" in proc.stdout
+    assert "LEAKED []" in proc.stdout
+
+
 def test_no_source_file_imports_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import|from) (jax|magnetite_tpu)\b")
     files = [os.path.join(REPO, "chip_smoke.py")]

@@ -19,7 +19,7 @@ import magnetite_tpu
 import magnetite_tpu.persist as jax_persist
 import magnetite_tpu_torch
 import magnetite_tpu_torch.persist as persist
-from magnetite_tpu_torch.errors import InputError, SolverError
+from magnetite_tpu_torch.errors import InputError
 from magnetite_tpu_torch.fem.solve import OperatorCache
 from tests.torch_cases import jax_plate, shuffled, to_port
 from tests.torch_cases import one_thread  # noqa: F401  (autouse)
@@ -111,7 +111,7 @@ def test_port_round_trips(tmp_path, name):
     )
     assert resumed.timings["operator_cache"] == "hit"
     assert resumed.mode == mode
-    np.testing.assert_array_equal(resumed.bands.numpy(), problem.bands.numpy())
+    np.testing.assert_array_equal(resumed.system.bands.numpy(), problem.system.bands.numpy())
     np.testing.assert_array_equal(resumed.perm, problem.perm)
     _bars(resumed.solve(), problem.solve())
 
@@ -124,10 +124,10 @@ def test_full_flat_operator_round_trips(tmp_path, name):
     _, port_case, kwargs, _ = _case(name)
     problem, _ = _port_save(tmp_path, port_case, kwargs)
     op = problem.operator_host
-    n = problem.bands.shape[-1]
-    flat = problem.bands.permute(0, 3, 1, 2).reshape(-1, 4).numpy()
+    n = problem.system.bands.shape[-1]
+    flat = problem.system.bands.permute(0, 3, 1, 2).reshape(-1, 4).numpy()
     if problem.mode == "hybrid":
-        flat = np.concatenate([flat, problem.rem[0].reshape(-1, 4).numpy()])
+        flat = np.concatenate([flat, problem.system.rem[0].reshape(-1, 4).numpy()])
     assert flat.shape[0] == op.flat.shape[0] + (len(op.offsets) // 2) * n
     full = OperatorCache(
         mesh_hash=op.mesh_hash, material=op.material, mode=op.mode,
@@ -145,9 +145,9 @@ def test_full_flat_operator_round_trips(tmp_path, name):
     )
     assert resumed.timings["operator_cache"] == "hit"
     assert resumed.timings["upload_bytes"] == op.flat.size * 8
-    np.testing.assert_array_equal(resumed.bands.numpy(), problem.bands.numpy())
+    np.testing.assert_array_equal(resumed.system.bands.numpy(), problem.system.bands.numpy())
     if problem.mode == "hybrid":
-        np.testing.assert_array_equal(resumed.rem[0].numpy(), problem.rem[0].numpy())
+        np.testing.assert_array_equal(resumed.system.rem[0].numpy(), problem.system.rem[0].numpy())
 
 
 def _jax_save(tmp_path, jax_case, kwargs):
@@ -279,14 +279,25 @@ def test_operator_cache_misses_warn(tmp_path, capsys):
 
 
 def test_ell_resume_raises_not_ported(tmp_path):
-    """An ELL operator cache (the JAX package resumes it in the ELL format)
-    raises the typed not-ported error on a hit."""
+    """An ELL operator cache written by the JAX package, which the port
+    once refused with the typed not-ported error, resumes in the port: a
+    hit that skips the structure and the assembly, the JAX cache's values
+    and cols on the device, and the answer of the JAX package's own ELL
+    solve within the golden bars."""
     (mesh, bca, md), port_case, _, _ = _case("h0.05_hybrid")
     jax_problem = magnetite_tpu.compile_problem(
         mesh, bca, md, magnetite_tpu.SolverOptions(operator="ell", keep_operator_host=True))
     path = str(tmp_path / "ell.op.npz")
     jax_persist.save_operator(path, jax_problem)
     cache = persist.load_operator(path)
-    assert cache.mode == "ell"
-    with pytest.raises(SolverError, match=r"not yet ported .*ROADMAP item 4"):
-        magnetite_tpu_torch.compile_problem(*port_case, operator_cache=cache, device="cpu")
+    assert cache.mode == "ell" and cache.offsets == () and not cache.sym_half
+    problem = magnetite_tpu_torch.compile_problem(*port_case, operator_cache=cache, device="cpu")
+    assert (problem.mode, problem.timings["operator_cache"]) == ("ell", "hit")
+    n, k = cache.cols.shape
+    np.testing.assert_array_equal(problem.system.cols.T.numpy(), cache.cols)
+    np.testing.assert_array_equal(
+        problem.system.data.permute(3, 0, 1, 2).reshape(n * k, 4).numpy(), cache.flat)
+    ref = jax_problem.solve()
+    res = problem.solve()
+    assert abs(res.iterations - ref.iterations) <= 1
+    _bars(res, ref)

@@ -100,10 +100,10 @@ def test_refined_amg_solve_and_double_float_matvec_match_jax():
             *to_port(mesh, bca, h), magnetite_tpu_torch.SolverOptions(**kwargs),
             device="cpu",
         )
-        assert (problem.mode, problem.refine, problem.sweeps, problem.df64) == (
+        assert (problem.mode, problem.refine, problem.sweeps, problem.system.df64) == (
             "dia", True, 3, expect,
         )
-        assert problem.amg.fast0[1].dtype == torch.float32  # the f32 V-cycle
+        assert problem.system.amg.fast0[1].dtype == torch.float32  # the f32 V-cycle
         res = problem.solve()
         assert res.residual_rel <= 1e-10
         _agree(res, ref)
@@ -125,7 +125,7 @@ def test_double_float_matvec_matches_jax_interpret_and_its_bound():
         magnetite_tpu_torch.SolverOptions(preconditioner="block_jacobi"), device="cpu",
     )
     assert problem.perm is None and build_dia_structure(mesh.tris, mesh.num_nodes)
-    bands, offsets = problem.bands, problem.offsets
+    bands, offsets = problem.system.bands, problem.system.offsets
     x, y = mesh.coords[:, 0], mesh.coords[:, 1]
     u = np.stack([0.01 * np.sin(x) * np.cosh(y), 0.005 * np.cos(x) * y**2])
     u_t = torch.from_numpy(u)
@@ -155,8 +155,8 @@ def test_refine_auto_engages_below_the_f32_floor():
         pmesh, pbca, pmd, opts(dtype="float32", cg_rtol=1e-4), device="cpu"
     )
     assert tight.refine and not loose.refine
-    assert tight.reduced.dtype == torch.float64
-    assert tight.mg_levels[0].stencil.dtype == torch.float32  # f32 hierarchy
+    assert tight.system.reduced.dtype == torch.float64
+    assert tight.system.mg_levels[0].stencil.dtype == torch.float32  # f32 hierarchy
     # "auto" leaves the banded formats alone (they opt in with "on")
     mesh, bca, md = jax_plate(0.05)
     banded = magnetite_tpu_torch.compile_problem(
@@ -171,9 +171,10 @@ def test_refine_auto_engages_below_the_f32_floor():
         (False, {"operator": "stencil"}, "structured-grid"),
         (False, {"preconditioner": "multigrid"}, "structured-grid"),
         (True, {"preconditioner": "amg"}, "multigrid"),
-        (True, {"operator": "ell"}, "not yet ported"),
     ],
-    ids=["stencil_on_delaunay", "multigrid_on_delaunay", "amg_on_grid", "ell_on_grid"],
+    # operator='ell' on a grid, once refused here, runs: the parity case
+    # tests/test_torch_ell_solve.py::test_ell_on_grid_matches_jax
+    ids=["stencil_on_delaunay", "multigrid_on_delaunay", "amg_on_grid"],
 )
 def test_operator_and_preconditioner_mismatches_raise(structured, kwargs, match):
     if structured:

@@ -71,12 +71,14 @@ def test_f32_solve_converges_to_its_floor():
 @pytest.mark.parametrize(
     "kwargs,match",
     [
-        ({"operator": "ell"}, "not yet ported"),
         ({"operator": "stencil"}, "structured-grid"),
         ({"assembly": "device"}, "device-side assembly"),
-        ({"dense_cutoff": 10_000}, "dense direct solve"),
         ({"preconditioner": "multigrid"}, "structured-grid"),
     ],
+    # the ids these cases had beside the ELL and dense refusals (now the
+    # parity cases of test_formerly_refused_options_match_jax)
+    ids=["kwargs1-structured-grid", "kwargs2-device-side assembly",
+         "kwargs4-structured-grid"],
 )
 def test_unported_options_raise_typed_errors(kwargs, match):
     mesh, bca, md = jax_plate(0.05)
@@ -88,29 +90,60 @@ def test_unported_options_raise_typed_errors(kwargs, match):
         )
 
 
+@pytest.mark.parametrize(
+    "kwargs,mode,precond",
+    [({"operator": "ell"}, "ell", "amg"), ({"dense_cutoff": 10_000}, "dense", "block_jacobi")],
+    ids=["operator_ell", "dense_cutoff"],
+)
+def test_formerly_refused_options_match_jax(kwargs, mode, precond):
+    """operator='ell' and dense_cutoff, which the port refused before it
+    had the ELL and dense modes, choose JAX's mode and preconditioner and
+    hold the module's bars against the JAX package on the same inputs."""
+    mesh, bca, md = jax_plate(0.05)
+    ref = magnetite_tpu.solve_system(mesh, bca, md, magnetite_tpu.SolverOptions(**kwargs))
+    problem = magnetite_tpu_torch.compile_problem(
+        *to_port(mesh, bca, 0.05), magnetite_tpu_torch.SolverOptions(**kwargs), device="cpu"
+    )
+    assert (problem.mode, problem.preconditioner) == (mode, precond)
+    assert ref.timings["operator"] == mode and problem.perm is None
+    res = problem.solve()
+    assert abs(res.iterations - ref.iterations) <= 1
+    assert res.residual_rel <= 1e-10
+    assert np.abs(res.u - ref.u).max() <= 1e-8 * np.abs(ref.u).max()
+    for field in ("f", "stress", "von_mises"):
+        a, b = getattr(res, field), getattr(ref, field)
+        assert np.abs(a - b).max() <= 1e-7 * np.abs(b).max(), field
+
+
 @pytest.mark.parametrize("pinned", ["structure_with_operator_ell", "ell_operator_cache"])
 def test_ell_pinned_resume_raises_not_ported(pinned):
-    """A resume that would run the ELL operator (a checkpoint's block-ELL
-    structure under operator='ell', or an operator cache of the ELL format
-    that matches the problem) raises the typed not-ported error."""
-    from magnetite_tpu_torch.fem.amg import mesh_state_hash
+    """A resume that runs the ELL operator -- a checkpoint's block-ELL
+    structure under operator='ell', or a matching operator cache of the
+    ELL format -- once raised the typed not-ported error; it now runs in
+    the mesh's own order and matches the JAX package's ELL solve (the
+    cache's values are the port's own assembly: the resume skips the
+    structure and the assembly)."""
     from magnetite_tpu_torch.fem.assembly import build_ell_structure
-    from magnetite_tpu_torch.fem.solve import OperatorCache
 
     mesh, bca, md = jax_plate(0.05)
+    ref = magnetite_tpu.solve_system(
+        mesh, bca, md, magnetite_tpu.SolverOptions(operator="ell"))
     pmesh, pbca, pmd = to_port(mesh, bca, 0.05)
     structure = build_ell_structure(pmesh.tris, pmesh.num_nodes)
-    kwargs = {"structure": structure, "options": magnetite_tpu_torch.SolverOptions(operator="ell")}
+    opts = magnetite_tpu_torch.SolverOptions(operator="ell", keep_operator_host=True)
+    kwargs = {"structure": structure, "options": opts}
     if pinned == "ell_operator_cache":
-        kwargs = {"operator_cache": OperatorCache(
-            mesh_hash=mesh_state_hash(pmesh.coords, pmesh.tris,
-                                      (~pbca.u_known).astype(np.float64)),
-            material=(pmd.youngs_modulus, pmd.poisson_ratio, pmd.part_thickness),
-            mode="ell", offsets=(), flat=np.zeros((structure.nnz_blocks, 4)),
-            cols=structure.cols, perm=None,
-        )}
-    with pytest.raises(magnetite_tpu_torch.SolverError, match=r"not yet ported .*ROADMAP item 4"):
-        magnetite_tpu_torch.compile_problem(pmesh, pbca, pmd, device="cpu", **kwargs)
+        fresh = magnetite_tpu_torch.compile_problem(pmesh, pbca, pmd, opts, device="cpu")
+        kwargs = {"operator_cache": fresh.operator_host}
+    problem = magnetite_tpu_torch.compile_problem(pmesh, pbca, pmd, device="cpu", **kwargs)
+    assert (problem.mode, problem.perm) == ("ell", None)
+    assert problem.timings.get("operator_cache") == (
+        "hit" if pinned == "ell_operator_cache" else None)
+    np.testing.assert_array_equal(problem.system.cols.T.numpy(), structure.cols)
+    res = problem.solve()
+    assert abs(res.iterations - ref.iterations) <= 1
+    assert np.abs(res.u - ref.u).max() <= 1e-8 * np.abs(ref.u).max()
+    assert np.abs(res.stress - ref.stress).max() <= 1e-7 * np.abs(ref.stress).max()
 
 
 def test_pinned_structure_skips_renumbering_as_jax_does():

@@ -23,6 +23,8 @@
                                        # phases 0, 1 and 21 alone (no "ok" line)
     python3 chip_smoke.py --only ell
                                        # phases 0, 1, 5, 6 and 22 alone (no "ok" line)
+    python3 chip_smoke.py --only shard
+                                       # phases 0, 1, 5, 6 and 23 alone (no "ok" line)
 
 Phases (any failure exits non-zero; no phase is wrapped in a catch):
   0. environment: torch / CUDA versions, the card's name and power limit;
@@ -152,6 +154,21 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      dense_cutoff on the h = 0.03 plate (3,774 nodes) in f64 and f32
      against the f64 DIA + AMG answer and against the CPU, with the
      assembly and the LU (torch.linalg.solve) timed apart.
+ 23. (run after 6) device assembly and the node-sharded pipeline on the
+     Delaunay plate: the fused assembly kernel against its plain version
+     (pair_block_fields + four index_add_) at the plate's DIA slots and
+     its ELL slots, f64, two calls bit for bit, timed against its bound,
+     the plain version and the index_add_ sequence; compile_problem
+     (assembly="device") in f64 against phase 5 (iterations +-1, u and
+     stress on the golden bars, the true residual <= 1e-9) with its
+     assemble_device_s beside phase 5's assemble_s; compile_sharded_problem
+     over DeviceMesh((cuda:0,) * S), S = 1, 2, 4, in f64 and --precision
+     mixed: the same checks against phases 5-6, the halo width and the
+     shard size, exactly the band kernel's launches the iterations imply
+     (m = 2 only at the halo-extended shard shape, S per matvec; the
+     replicated m = 3 levels once per V-cycle, as on one device), warm
+     solve_s beside S = 1; then the CLI with --shard over every visible
+     GPU against phase 5's CSVs.
 Every kernel is timed with CUDA events (median of --reps launches, L2
 flushed before each) beside its plain version, its bound (the larger of
 bytes moved once over 3.35 TB/s and operations over the peak rate of their
@@ -165,7 +182,7 @@ with every launch counter set to 0 just before it and read just after
 card's nvidia-smi line, a JSON line of per-kernel results (the band
 matvec's 2x2 and 3x3 kernels as two rows, the lane stencil kernel's two
 instances as two rows, the fused coarse smoother, the lane ELL kernel, the
-ELL kernel), and
+ELL kernel, the fused assembly kernel), and
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -244,6 +261,11 @@ KERNELS = {
     "ell_matvec_t": ("magnetite_tpu_torch/csrc/ell_matvec.cu",
                      "no pallas_call: XLA-fused in JAX, magnetite_tpu/fem/operator.py:27 "
                      "(ell_matvec), run by magnetite_tpu/fem/solve.py:541 (_solve_ell)"),
+    # device assembly: no pallas_call stands behind it, the JAX package's
+    # four segment_sums over closed-form pair fields are XLA's
+    "assemble_pairs": ("magnetite_tpu_torch/csrc/assemble_pairs.cu",
+                       "no pallas_call: XLA segment_sums in JAX, magnetite_tpu/fem/dia.py:237 "
+                       "(assemble_dia_fused), :254, magnetite_tpu/fem/solve.py:919"),
 }
 # the JAX package's sweep benchmarks (bench.py: bench_unstructured_sweep and
 # bench_unstructured_material_sweep): mesh size, lanes, CG iterations
@@ -322,7 +344,8 @@ def require(cond: bool, msg: str) -> None:
 
 
 def counters():
-    """The fourteen kernel wrappers, each carrying its `.launches` count."""
+    """The fifteen kernel wrappers, each carrying its `.launches` count."""
+    from magnetite_tpu_torch.kernels.assembly_kernel import assemble_pairs
     from magnetite_tpu_torch.kernels.df_kernel import df_dia_matvec
     from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
     from magnetite_tpu_torch.kernels.ell_kernel import ell_matvec_t
@@ -338,7 +361,8 @@ def counters():
 
     return (dia_matvec, prolong0, restrict0, stencil_matvec, mg_presmooth, mg_postsmooth,
             df_dia_matvec, lane_dia_matvec, lane_dia_matvec3, lane_stencil_matvec,
-            lane_stencil_matvec3, lane_coarse_smooth3, lane_ell_matvec, ell_matvec_t)
+            lane_stencil_matvec3, lane_coarse_smooth3, lane_ell_matvec, ell_matvec_t,
+            assemble_pairs)
 
 
 def shape_label(kernel: str, key) -> str:
@@ -3245,6 +3269,231 @@ def phase_ell(problem, mesh, bca, md, args, dia, totals, reps, flush, rand):
     return results
 
 
+# ------------- device assembly and the sharded pipeline (phase 23) ----------
+
+
+# shard counts of phase 23's sharded runs on one card (S = 1 is the yardstick
+# of warm solve_s)
+SHARD_COUNTS = (1, 2, 4)
+
+
+def assembly_bytes_flops(n_nodes, n_elem, n_slots):
+    """(bytes, flops) of one fused assembly: coords [N, 2] f64, tris [E, 3]
+    and pair-major slot ids [9E] int64 read once, [2, 2, S] f64 written
+    once; ~40 flops per pair (its four block scalars)."""
+    return 16 * n_nodes + 24 * n_elem + 72 * n_elem + 32 * n_slots, 40 * 9 * n_elem
+
+
+def phase_assembly_kernel(mesh, md, reps, flush):
+    """Phase 23a: the fused assembly kernel against its plain version at the
+    plate's DIA slots (the f64 compile's structure) and its ELL slots, f64,
+    two calls bit for bit; timed against its bound, the plain version and
+    the four index_add_s of the plain version's scatter."""
+    import numpy as np
+    import torch
+    from magnetite_tpu_torch.fem.assembly import build_ell_structure
+    from magnetite_tpu_torch.fem.dia import _pair_major_slots, build_dia_structure
+    from magnetite_tpu_torch.fem.element import pair_block_fields
+    from magnetite_tpu_torch.kernels.assembly_kernel import (
+        assemble_pairs, assemble_pairs_plain, scatter_fields, slot_runs,
+    )
+
+    n, e = mesh.num_nodes, mesh.num_elements
+    coords = torch.from_numpy(np.asarray(mesh.coords, np.float64)).to(DEV)
+    tris = torch.from_numpy(np.asarray(mesh.tris, np.int64)).to(DEV)
+    mat = (md.youngs_modulus, md.poisson_ratio, md.part_thickness)
+    dia = build_dia_structure(mesh.tris, n, max_diags=48)
+    ell = build_ell_structure(mesh.tris, n)
+    results = {}
+    for label, slot_ids, n_slots in (
+        ("DIA", dia.slot_ids, len(dia.offsets) * n),
+        ("ELL", ell.slot_ids, n * ell.cols.shape[1]),
+    ):
+        slots = _pair_major_slots(torch.from_numpy(np.asarray(slot_ids, np.int64)).to(DEV), e)
+        t0 = time.perf_counter()
+        runs = slot_runs(slots, n_slots)
+        sync()
+        sort_s = time.perf_counter() - t0
+        tag = f"assemble_pairs {label} slots S={n_slots} E={e}"
+        got = assemble_pairs(coords, tris, slots, n_slots, *mat, runs)
+        require(torch.equal(got, assemble_pairs(coords, tris, slots, n_slots, *mat, runs)),
+                f"{tag}: a second call differs")
+        ref = assemble_pairs_plain(coords, tris, slots, n_slots, *mat)
+        err = compare(tag, got, ref, ref.abs().max(), 1e-12)
+        say(f"  {tag}: bit-identical to the plain version: {torch.equal(got, ref)}; the "
+            f"slot sort (torch.sort + bincount + cumsum) {sort_s * 1e3:.2f} ms of host wall")
+        fields = pair_block_fields(coords, tris, *mat)
+        nbytes, flops = assembly_bytes_flops(n, e, n_slots)
+        row = time_kernel(
+            tag, lambda: assemble_pairs(coords, tris, slots, n_slots, *mat, runs),
+            lambda: assemble_pairs_plain(coords, tris, slots, n_slots, *mat),
+            lambda: scatter_fields(fields, slots, n_slots), reps, flush, nbytes, flops,
+            torch.float64,
+        )
+        if label == "DIA":
+            results["assemble_pairs"] = dict(max_abs_err=err, **row)
+        del got, ref, fields, runs, slots
+        torch.cuda.empty_cache()
+    return results
+
+
+def expected_shard_launches(s, iters, sweeps, amg, maxiter, vdtype):
+    """The kernel launches of one node-sharded AMG CG solve over s shards:
+    the CG runs whole chunks of CHECK_EVERY steps, one V-cycle per step and
+    one up front (v in all); each shard's band kernel (m = 2, at the
+    halo-extended shape) runs the rhs, r0, each step's operator and K u
+    (f64), and in each V-cycle the 2 sweeps level-0 residuals of the
+    V(sweeps, sweeps)-cycle (the V-cycle's dtype); restrict0 once per shard
+    and V-cycle; the replicated coarse levels once per V-cycle, as on one
+    device (amg: the AMGDeviceArrays of the one card). Returns (counts, m =
+    3 launches per (3, N, dtype))."""
+    import torch
+    from magnetite_tpu_torch.fem.amg import COARSE_SWEEPS
+
+    v = vcycles([iters], maxiter)
+    cg = (v - 1) + 3
+    level0 = v * 2 * sweeps
+    last = len(amg.coarse) - 1
+    shapes = {}
+    for l, cb in enumerate(amg.coarse_bands):
+        per = 2 if l < last else (0 if amg.ci is not None else COARSE_SWEEPS)
+        if cb is not None and per:
+            shapes[(3, cb.bands.shape[-1], vdtype)] = per * v
+    counts = {"dia_matvec m=2": s * (cg + level0), "restrict0": s * v, "prolong0": 0,
+              "dia_matvec m=3": sum(shapes.values()), "assemble_pairs": 0}
+    m2 = {(2, None, torch.float64): s * (cg + (level0 if vdtype == torch.float64 else 0))}
+    if vdtype != torch.float64:
+        m2[(2, None, vdtype)] = s * level0
+    return counts, shapes, m2
+
+
+def sharded_run(name, mesh, bca, md, opts, s, amg_setup, totals):
+    """compile_sharded_problem over s shards on cuda:0 and one solve, under
+    main_path; the launches checked exactly against the iterations.
+    Returns (compiled problem, result, prep seconds)."""
+    import torch
+    from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
+    from magnetite_tpu_torch.parallel.pipeline import DeviceMesh, compile_sharded_problem
+
+    t0 = time.perf_counter()
+    compiled = compile_sharded_problem(mesh, bca, md, opts,
+                                       device_mesh=DeviceMesh((f"{DEV}:0",) * s),
+                                       amg_setup=amg_setup)
+    prep = time.perf_counter() - t0
+    p = compiled.problem
+    expect = ("dia_matvec m=2", "dia_matvec m=3", "restrict0")
+    with main_path(name, totals, expect) as got:
+        res = compiled.solve()
+    vdtype = torch.float32 if compiled.refine else torch.float64
+    sweeps = 3 if compiled.refine else 1
+    amg = p.amg_in(vdtype).coarse[p.devices[0]]
+    want, shapes, m2 = expected_shard_launches(s, res.iterations, sweeps, amg,
+                                               compiled.maxiter, vdtype)
+    width = p.local_n + 2 * p.halo
+    m2 = {(2, width, dt): c for (_, _, dt), c in m2.items()}
+    got_shapes = {key: c for key, c in dia_matvec.shape_launches.items() if c}
+    others = {k: c for k, c in got.items() if c and k.split(" ")[0] not in (
+        "dia_matvec", "restrict0")}
+    say(f"  {name}: halo {p.halo}, shard size {p.local_n} (+ 2 x halo = {width}), "
+        f"{res.iterations} iterations; launches expected {want}, m=2 per shape {m2}, "
+        f"m=3 per shape {shapes}")
+    require(all(got[k] == c for k, c in want.items()) and got_shapes == {**m2, **shapes}
+            and not others, f"{name}: launches {got} / {got_shapes}, expected {want} / "
+            f"{m2} {shapes} and no other kernel")
+    return compiled, res, prep
+
+
+def phase_shard(problem, mesh, bca, md, args, dia, totals, reps, flush):
+    """Phase 23: the fused assembly kernel (23a); compile_problem(assembly=
+    "device") against phase 5 (23b); the node-sharded pipeline over S
+    shards of cuda:0 in f64 and mixed against phases 5-6 (23c); the CLI's
+    --shard over every visible GPU (23d). `dia`: precision -> (nodes,
+    elements, iterations, stages) of phases 5-6. Returns the assembly
+    kernel's row."""
+    import numpy as np
+    import torch
+    from magnetite_tpu_torch.config import SolverOptions
+    from magnetite_tpu_torch.fem.solve import compile_problem
+
+    t_phase = time.perf_counter()
+    say(f"phase 23a: the fused assembly kernel on the Delaunay plate at h={args.h}")
+    results = phase_assembly_kernel(mesh, md, reps, flush)
+
+    say("phase 23b: compile_problem(assembly='device') in f64 against phase 5")
+    nodes5, elems5, iters5, stages5 = dia["f64"]
+    with main_path("the device-assembled f64 solve", totals,
+                   ("assemble_pairs", "dia_matvec m=2", "dia_matvec m=3", "prolong0",
+                    "restrict0")) as got:
+        t0 = time.perf_counter()
+        dev = compile_problem(mesh, bca, md, SolverOptions(assembly="device"),
+                              amg_setup=problem.amg_setup, device=DEV)
+        prep = time.perf_counter() - t0
+        res = dev.solve()
+    require(got["assemble_pairs"] == 1 and dev.mode == "dia" and dev.perm is None,
+            f"device assembly: {got['assemble_pairs']} launches, mode {dev.mode}")
+    require(torch.equal(dev.system.bands, compile_problem(
+        mesh, bca, md, SolverOptions(assembly="device"), amg_setup=problem.amg_setup,
+        device=DEV).system.bands), "device assembly: a second compile's bands differ")
+    bands_err = float((dev.system.bands - problem.system.bands).abs().max())
+    say(f"  device-assembled bands against phase 5's host-assembled ones: max|diff| "
+        f"{bands_err:.3e} ({bands_err / float(problem.system.bands.abs().max()):.2e} of max)")
+    say(f"  prep {prep:.3f} s: assemble_device_s {dev.timings['assemble_device_s']:.4f} "
+        f"(phase 5 assemble_s {stages5['assemble_s']:.4f}), upload_s "
+        f"{dev.timings['upload_s']:.4f} (phase 5 {stages5['upload_s']:.4f}), upload_bytes "
+        f"{dev.timings['upload_bytes']}; {res.iterations} iterations (phase 5 {iters5}), "
+        f"solve_s {res.timings['solve_s']:.4f}")
+    require(abs(res.iterations - iters5) <= 1, "device assembly: iterations off phase 5's")
+    golden_against("device assembly against phase 5", np.c_[mesh.coords, res.u],
+                   np.c_[mesh.tris, res.stress], nodes5, elems5)
+    rel = true_residual_banded(problem, res.u)
+    say(f"  true relative residual {rel:.3e} (<= 1e-09)")
+    require(rel <= 1e-9, "device assembly: true residual too large")
+    del dev
+    torch.cuda.empty_cache()
+
+    say("phase 23c: compile_sharded_problem over S shards of one card")
+    warm = {}
+    for precision, opts in (("f64", SolverOptions()),
+                            ("mixed", SolverOptions(dtype="float32", refine="on"))):
+        nodes_r, elems_r, iters_r, _ = dia[precision]
+        for s in SHARD_COUNTS:
+            name = f"the sharded {precision} solve, S={s}"
+            compiled, res, prep = sharded_run(name, mesh, bca, md, opts, s,
+                                              problem.amg_setup, totals)
+            stages = {k: v for k, v in compiled.timings.items() if k.endswith("_s")}
+            say(f"  {name}: prep {prep:.3f} s ({json.dumps(stages)}), "
+                f"{res.iterations} iterations (single device {iters_r}), solve_s "
+                f"{res.timings['solve_s']:.4f}, reported residual_rel {res.residual_rel:.3e}")
+            require(abs(res.iterations - iters_r) <= 1, f"{name}: iterations off phase 5-6's")
+            golden_against(f"{name} against the single-device CLI", np.c_[mesh.coords, res.u],
+                           np.c_[mesh.tris, res.stress], nodes_r, elems_r)
+            rel = true_residual_banded(problem, res.u)
+            say(f"  {name}: true relative residual {rel:.3e} (<= 1e-09)")
+            require(rel <= 1e-9, f"{name}: true residual too large")
+            warm[f"{precision} S={s}"] = [compiled.solve().timings["solve_s"] for _ in range(3)]
+            del compiled
+            torch.cuda.empty_cache()
+    say("  warm solve_s (3 each): " + "; ".join(
+        f"{k} " + " / ".join(f"{t:.4f}" for t in v) for k, v in warm.items()))
+
+    n_gpu = torch.cuda.device_count()
+    say(f"phase 23d: the CLI with --shard over every visible GPU ({n_gpu}), f64")
+    with tempfile.TemporaryDirectory() as workdir:
+        paths = write_case_files(workdir, args.h)
+        with main_path("the --shard CLI run", totals, ("dia_matvec m=2", "restrict0")):
+            out, err = run_cli(paths + ["--device", DEV, "--backend", "delaunay", "--skip",
+                                        "--out-dir", workdir, "--shard"])
+        require(f"sharding the solve over {n_gpu} device(s)" in out,
+                "--shard did not shard over every visible GPU")
+        require("warning" not in err, f"--shard: warned: {err.strip()[:300]}")
+        say("  ran --shard over " + (f"{n_gpu} GPUs, one shard on each card" if n_gpu > 1
+                                     else "the one visible GPU (S = 1)"))
+        nodes, elems = read_csvs(workdir)
+        golden_against("--shard CLI against phase 5", nodes, elems, nodes5, elems5)
+    say(f"  (phase 23: {time.perf_counter() - t_phase:.1f} s)")
+    return results
+
+
 def main() -> int:
     global SWEEP_LANES, PTXAS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3280,15 +3529,17 @@ def main() -> int:
                     "beside this tree's in phases 2, 3, 14 and 17, in the same interleaved "
                     "rounds")
     ap.add_argument("--only", choices=("transfers", "lane-kernels", "multigrid",
-                                       "structured-sweeps", "lane-sweeps", "resume", "ell"),
+                                       "structured-sweeps", "lane-sweeps", "resume", "ell",
+                                       "shard"),
                     help="transfers: phases 0 to 3 alone (the Delaunay plate's band and "
                     "transfer kernels); lane-kernels: phases 0, 1 and 10 alone; multigrid: "
                     "phases 0, 1 and 14 alone (the 1M plate's hierarchy built, not solved); "
                     "structured-sweeps: phases 0, 1 and 15-17 alone; lane-sweeps: phases "
                     "0, 1 and 18-20 alone; resume: phases 0, 1 and 21 alone (the "
                     "Delaunay plate compiled, then saved and resumed); ell: phases 0, 1, "
-                    "5, 6 and 22 (the DIA CLI runs that phase 22 is held against); each "
-                    "ends without the ok line")
+                    "5, 6 and 22 (the DIA CLI runs that phase 22 is held against); shard: "
+                    "phases 0, 1, 5, 6 and 23 (device assembly and the sharded pipeline, "
+                    "held against phases 5-6); each ends without the ok line")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -3373,7 +3624,7 @@ def main() -> int:
             "(--only resume: no ok line)")
         return 0
     results = {}
-    if args.only != "ell":
+    if args.only not in ("ell", "shard"):
         results = phase_band_and_transfer(problem, args.reps, flush, rand, base)
         if args.only == "transfers":
             say(f"phases 0 to 3 passed in {time.perf_counter() - t_start:.1f} s "
@@ -3391,12 +3642,17 @@ def main() -> int:
         say(f"phase 6: mixed main path through the CLI (--precision mixed) at h={args.h}")
         dia["mixed"] = cli_path("the mixed CLI run", problem, mesh, args.h, workdir,
                                 ["--precision", "mixed"], 1e-9, totals)
-    results.update(phase_ell(problem, mesh, bca, md, args, dia, totals, args.reps, flush, rand))
+    if args.only in (None, "ell"):
+        results.update(phase_ell(problem, mesh, bca, md, args, dia, totals, args.reps, flush,
+                                 rand))
+    if args.only in (None, "shard"):
+        results.update(phase_shard(problem, mesh, bca, md, args, dia, totals, args.reps,
+                                   flush))
     del dia
     torch.cuda.empty_cache()
-    if args.only == "ell":
-        say(f"phases 0, 1, 5, 6 and 22 passed in {time.perf_counter() - t_start:.1f} s "
-            "(--only ell: no ok line)")
+    if args.only in ("ell", "shard"):
+        say(f"phases 0, 1, 5, 6 and {22 if args.only == 'ell' else 23} passed in "
+            f"{time.perf_counter() - t_start:.1f} s (--only {args.only}: no ok line)")
         return 0
     phase_mixed_df(problem, mesh, bca, md, totals)
     torch.cuda.empty_cache()

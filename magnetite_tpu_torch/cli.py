@@ -13,7 +13,9 @@ meshed case with its AMG hierarchy and assembled operator beside it
 (`<case>.npz.amg.npz`, `<case>.npz.op.npz`; the JAX CLI's files, either
 CLI reads the other's), --cg-progress N logs the CG residual every N
 iterations and --profile DIR writes a torch.profiler Chrome trace there.
-The multi-GPU flags (--shard, --shard-layout) raise a typed "not yet
+--shard runs the solve and the recovery node-sharded over every visible
+GPU (--device cpu: the one CPU device); --shard-layout auto | 1d names
+that layout, and RxC, the structured 2-D layout, raises a typed "not yet
 ported" error.
 """
 
@@ -106,16 +108,19 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         help="resume from an npz checkpoint instead of meshing",
     )
-    # accepted for flag parity with the JAX CLI; each raises "not yet ported"
-    parser.add_argument("--shard", action="store_true", help=argparse.SUPPRESS)
-    parser.add_argument("--shard-layout", default=None, help=argparse.SUPPRESS)
+    parser.add_argument(
+        "--shard",
+        action="store_true",
+        help="run the solve + recovery sharded over every visible device "
+        "(node-sharded DIA + AMG)",
+    )
+    parser.add_argument(
+        "--shard-layout",
+        default=None,
+        help="device-mesh layout for --shard (implies it): 'auto' or '1d' is "
+        "the 1D mesh over every visible device ('RxC' is not yet ported)",
+    )
     return parser
-
-
-_NOT_PORTED = (
-    ("shard", "--shard"),
-    ("shard_layout", "--shard-layout"),
-)
 
 
 def _start_profile(args):
@@ -145,12 +150,8 @@ def _stop_profile(prof, trace_dir: str) -> None:
 
 def entry(argv=None) -> None:
     args = build_parser().parse_args(argv)
-
-    from .errors import InputError
-
-    for attr, flag in _NOT_PORTED:
-        if getattr(args, attr):
-            raise InputError(f"{flag} is not yet ported to the PyTorch package")
+    if args.shard_layout is not None:
+        args.shard = True
     import torch
 
     from .config import SolverOptions, load_simulation_input
@@ -203,10 +204,11 @@ def entry(argv=None) -> None:
             _stop_profile(prof, args.profile)
 
 
-def _load_caches(case: str):
-    """The AMG hierarchy and the assembled operator saved beside a case,
-    each None when absent or unreadable (a cache is an optimisation: an
-    unreadable one is a warning and a rebuild, never a failed run)."""
+def _load_caches(case: str, operator: bool = True):
+    """The AMG hierarchy and (unless `operator` is false) the assembled
+    operator saved beside a case, each None when absent or unreadable (a
+    cache is an optimisation: an unreadable one is a warning and a
+    rebuild, never a failed run)."""
     from .errors import InputError
     from .persist import load_amg, load_operator
     from .utils.logging import log, stage
@@ -219,7 +221,7 @@ def _load_caches(case: str):
             log("info: loaded AMG hierarchy cache")
         except InputError as err:
             log(f"warning: ignoring unreadable AMG cache ({err})")
-    if os.path.exists(case + ".op.npz"):
+    if operator and os.path.exists(case + ".op.npz"):
         try:
             with stage("load-operator"):
                 operator_cache = load_operator(case + ".op.npz")
@@ -291,12 +293,27 @@ def _run(args, sim, options):
         log(f"info: checkpointed case to {args.save_case}")
     amg_setup = operator_cache = None
     if args.load_case:
-        amg_setup, operator_cache = _load_caches(args.load_case)
+        # the sharded pipeline assembles its own shard-local operator: the
+        # single-device assembly cache would be loaded only to be ignored
+        amg_setup, operator_cache = _load_caches(args.load_case, operator=not args.shard)
     with stage("solve"):
-        problem = compile_problem(
-            mesh, bca, sim.metadata, options, structure=structure,
-            amg_setup=amg_setup, operator_cache=operator_cache, device=args.device,
-        )
+        if args.shard:
+            from .parallel.pipeline import compile_sharded_problem, parse_device_mesh
+
+            device_mesh = parse_device_mesh(args.shard_layout or "auto", device=args.device)
+            log(
+                f"info: sharding the solve over {device_mesh.size} device(s) "
+                f"({device_mesh.size})"
+            )
+            problem = compile_sharded_problem(
+                mesh, bca, sim.metadata, options, device_mesh=device_mesh,
+                amg_setup=amg_setup,
+            )
+        else:
+            problem = compile_problem(
+                mesh, bca, sim.metadata, options, structure=structure,
+                amg_setup=amg_setup, operator_cache=operator_cache, device=args.device,
+            )
         result = problem.solve()
     if args.save_case:
         _save_caches(args, problem, amg_setup)
@@ -305,6 +322,9 @@ def _run(args, sim, options):
         f"device={args.device} dtype={str(problem.dtype).replace('torch.', '')} "
         f"refine={problem.refine}"
     )
+    if "shards" in problem.timings:
+        t = problem.timings
+        log(f"info: shards={t['shards']} halo={t['halo']} shard_size={t['shard_size']}")
     if "operator_cache" in problem.timings:
         log(f"info: operator cache {problem.timings['operator_cache']}")
     log(

@@ -938,16 +938,19 @@ def amg_device_arrays(
     dtype,
     device,
     coarse_max_diags: int = _COARSE_MAX_DIAGS,
+    level0: bool = True,
 ) -> AMGDeviceArrays:
     """Upload the hierarchy: one host-to-device copy per array (values cast
     to `dtype` on the host first). Coarse levels with at most
     `coarse_max_diags` distinct offsets are stored as bands only; the rest
     keep their block-ELL form. Lane-batched consumers (design sweeps, fields
     [2, N, B]) pass 0: every coarse level stays block-ELL and the lane axis
-    rides through the gather."""
+    rides through the gather. `level0=False` leaves out the level-0
+    transfer (`fast0` None): the sharded V-cycle holds its own per shard
+    (parallel/dia_shard.py) and uploads only the levels below."""
     val, idx = _uploaders(dtype, device)
     n_levels = len(setup.transfers) + 1
-    if n_levels > 1 and setup.fast0 is None:
+    if level0 and n_levels > 1 and setup.fast0 is None:
         raise SolverError(
             "AMG hierarchy lacks the factored level-0 transfers (a cache "
             "saved before they existed); the ELL level-0 transfer pair is "
@@ -968,7 +971,7 @@ def amg_device_arrays(
             coarse_bands.append(BandedOp(val(spec[1]), spec[0]))
     ci = None if setup.coarsest_inv is None else val(setup.coarsest_inv)
     fast0 = None
-    if setup.fast0 is not None and n_levels > 1:
+    if level0 and setup.fast0 is not None and n_levels > 1:
         agg, p0, ptc, ptv, dw = setup.fast0
         fast0 = (
             idx(agg, np.int32),

@@ -75,21 +75,26 @@ def pcg(
     history: int = 0,
     progress_every: int = 0,
     progress_callback: Optional[Callable] = None,
+    dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = _dot,
 ) -> CGResult:
     """Solve A x = b for SPD A.
 
     `history` > 0 records ||r|| after each of the first `history`
     iterations. `progress_every` > 0 calls `progress_callback(k, ||r||,
     ||b||)` (default: a log-line printer) after every iteration k that is
-    a multiple of it, up to the converged one: one host read each."""
+    a multiple of it, up to the converged one: one host read each.
+
+    `dot(a, b)` is the inner product (the JAX package's hook): the sharded
+    solve passes the sum over shards and a node-sharded vector type
+    (parallel/dia_shard.py::ShardVec) as b; the scalars stay on b.device."""
     m = preconditioner if preconditioner is not None else (lambda r: r)
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     z = m(r)
     p = z
-    rz = _dot(r, z)
-    rnorm2 = _dot(r, r)
-    bnorm = torch.sqrt(_dot(b, b))
+    rz = dot(r, z)
+    rnorm2 = dot(r, r)
+    bnorm = torch.sqrt(dot(b, b))
     threshold = torch.clamp(rtol * bnorm, min=atol)
     thresh2 = threshold * threshold
     k = torch.zeros((), dtype=torch.int64, device=b.device)
@@ -105,18 +110,18 @@ def pcg(
         for _ in range(min(CHECK_EVERY, maxiter - steps)):
             active = rnorm2 > thresh2
             ap = matvec(p)
-            pap = _dot(p, ap)
+            pap = dot(p, ap)
             alpha = torch.where(
                 (pap > 0) & active, rz / torch.where(pap == 0, one, pap), zero
             )
             x = x + alpha * p
             r = r - alpha * ap
             z = m(r)
-            rz_new = _dot(r, z)
+            rz_new = dot(r, z)
             beta = rz_new / torch.where(rz == 0, one, rz)
             p = torch.where(active, z + beta * p, p)
             rz = torch.where(active, rz_new, rz)
-            rnorm2 = torch.where(active, _dot(r, r), rnorm2)
+            rnorm2 = torch.where(active, dot(r, r), rnorm2)
             if history:
                 # entry k is the residual after iteration k + 1
                 hist = torch.where((slots == k) & active, torch.sqrt(rnorm2), hist)

@@ -3,8 +3,10 @@ PyTorch operators over them (port of magnetite_tpu/fem/dia.py).
 
 The host builders are copies of the JAX package's, with the native C++
 builder required (no numpy fallback). On the card the band matvec is the
-hand-written CUDA kernel (kernels/dia_kernel.py); on the CPU its plain
-PyTorch version.
+hand-written CUDA kernel (kernels/dia_kernel.py), and the fused device
+assembly (`assemble_dia_fused`, `assemble_hybrid_fused`) the assembly
+kernel (kernels/assembly_kernel.py); on the CPU their plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -20,6 +22,10 @@ from ..kernels.df_kernel import (  # noqa: F401
     df_dia_matvec_plain,
     df_split,
     split_bands,
+)
+from ..kernels.assembly_kernel import (  # noqa: F401
+    assemble_pairs,
+    scatter_fields as _scatter_fields,
 )
 from ..kernels.dia_kernel import dia_matvec, dia_matvec_blocks  # noqa: F401
 from .blocks import apply_blocks, guarded_inv2, reduce_diag_blocks
@@ -128,6 +134,38 @@ def build_hybrid_structure(
         n_nodes=int(n_nodes),
         n_diags=int(d),
     )
+
+
+def _pair_major_slots(slot_ids, n_elements: int) -> torch.Tensor:
+    """Reorder [E*9] a-major slot ids to the [3, 3, E] pair-major layout of
+    element.pair_block_fields (int64, on the slot ids' device)."""
+    return (
+        torch.as_tensor(slot_ids).to(torch.int64).reshape(n_elements, 3, 3)
+        .permute(1, 2, 0).reshape(-1)
+    )
+
+
+def assemble_dia_fused(coords, tris, e_mod, nu, t, slot_ids, n_nodes: int,
+                       n_diags: int) -> torch.Tensor:
+    """Device assembly of the band operator from the resident mesh: f64
+    coords [N, 2], int64 tris [E, 3], the structure's slot ids [E*9] ->
+    bands [D, 2, 2, N] f64. Four scalar scatters of closed-form pair fields
+    (the JAX package's `assemble_dia_fused`), fused into one kernel on the
+    card."""
+    slots = _pair_major_slots(slot_ids, tris.shape[0])
+    flat = assemble_pairs(coords, tris, slots, n_diags * n_nodes, e_mod, nu, t)
+    return flat.reshape(2, 2, n_diags, n_nodes).permute(2, 0, 1, 3).contiguous()
+
+
+def assemble_hybrid_fused(coords, tris, e_mod, nu, t, slot_ids, n_nodes: int, n_diags: int,
+                          n_rem: int):
+    """The hybrid format's device assembly -> (bands [D, 2, 2, N], rem
+    [R, 2, 2]), f64."""
+    slots = _pair_major_slots(slot_ids, tris.shape[0])
+    flat = assemble_pairs(coords, tris, slots, n_diags * n_nodes + n_rem, e_mod, nu, t)
+    bands = flat[:, :, : n_diags * n_nodes].reshape(2, 2, n_diags, n_nodes)
+    rem = flat[:, :, n_diags * n_nodes:]  # [2, 2, R]
+    return bands.permute(2, 0, 1, 3).contiguous(), rem.permute(2, 0, 1).contiguous()
 
 
 def dia_diag_blocks(bands: torch.Tensor, offsets) -> torch.Tensor:

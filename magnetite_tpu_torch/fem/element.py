@@ -8,9 +8,10 @@ tensors, in the dtype and on the device of the coordinates.
   D [3,3] = E/(1-nu^2) * [[1,nu,0],[nu,1,0],[0,0,(1-nu)/2]]
 
 The banded and ELL stiffness is assembled on the host in C++
-(native.amg_assemble); the device needs B, D and the areas for stress
-recovery, and the dense mode the element stiffness matrices
-(`element_stiffness_matrices`).
+(native.amg_assemble) unless assembly="device" asks for the fused device
+assembly, whose plain version reads `pair_block_fields`; the device needs
+B, D and the areas for stress recovery, and the dense mode the element
+stiffness matrices (`element_stiffness_matrices`).
 """
 
 from __future__ import annotations
@@ -86,3 +87,33 @@ def element_stiffness_matrices(coords, tris, youngs_modulus, poisson_ratio, part
     db = (d[None, :, :, None] * b[:, None, :, :]).sum(dim=2)  # [E, 3, 6]
     ke = (b[:, :, :, None] * db[:, :, None, :]).sum(dim=1)  # [E, 6, 6]
     return ke * (areas * float(part_thickness))[:, None, None]
+
+
+def material_constants(youngs_modulus, poisson_ratio) -> tuple:
+    """(d0, d1, d2): the plane-stress D matrix's distinct entries E / (1 -
+    nu^2), nu d0 and (1 - nu) d0 / 2, as Python floats."""
+    nu = float(poisson_ratio)
+    d0 = float(youngs_modulus) / (1.0 - nu * nu)
+    return d0, nu * d0, 0.5 * (1.0 - nu) * d0
+
+
+def pair_block_fields(coords, tris, youngs_modulus, poisson_ratio, part_thickness):
+    """Closed-form per-node-pair stiffness blocks as four scalar fields
+    (k00, k01, k10, k11), each [3, 3, E] (a-major, E minormost): the 2x2
+    block coupling local nodes (a, b) of every element, without the
+    [E, 6, 6] tensor. k_ab = t / (4A) * B_a^T D B_b expanded, in the JAX
+    package's order of operations (magnetite_tpu/fem/element.py:81)."""
+    p = coords[tris.T]  # [3, E, 2]
+    x, y = p[..., 0], p[..., 1]
+    beta = torch.stack([y[1] - y[2], y[2] - y[0], y[0] - y[1]])  # [3, E]
+    gamma = torch.stack([x[2] - x[1], x[0] - x[2], x[1] - x[0]])
+    area2 = x[0] * (y[1] - y[2]) + x[1] * (y[2] - y[0]) + x[2] * (y[0] - y[1])
+    coef = float(part_thickness) / (2.0 * area2)  # t / (4A)
+    d0, d1, d2 = material_constants(youngs_modulus, poisson_ratio)
+    ba, bb = beta[:, None, :], beta[None, :, :]  # [3, 3, E]
+    ga, gb = gamma[:, None, :], gamma[None, :, :]
+    k00 = coef * (d0 * ba * bb + d2 * ga * gb)
+    k01 = coef * (d1 * ba * gb + d2 * ga * bb)
+    k10 = coef * (d1 * ga * bb + d2 * ba * gb)
+    k11 = coef * (d0 * ga * gb + d2 * ba * bb)
+    return k00, k01, k10, k11

@@ -40,9 +40,14 @@ assembled banded stiffness only the d >= 0 half is kept, uploaded, and
 mirrored into the negative bands on the device. `residual_history` and
 `cg_progress_every` reach the PCG loops the JAX package gives them to.
 
-What the JAX package offers beyond this port raises a typed error naming
-it (the JAX package's rule: an unhonourable combination raises, it is never
-silently substituted): device-side assembly.
+Device assembly, as in the JAX package: `assembly="device"` assembles the
+dia / hybrid / ell operator on the device from the uploaded mesh and the
+structure's slot ids (the fused assembly kernel, kernels/assembly_kernel.py),
+with no host flat: no operator cache is kept or used on that route.
+`assembly="auto"` is the host C++ assembly (the port requires the native
+library, so JAX's fallback to the device when it is missing has no
+counterpart). `solve_system(device_mesh=)` runs the node-sharded pipeline
+(parallel/pipeline.py).
 """
 
 from __future__ import annotations
@@ -106,12 +111,7 @@ def _check_options(options: SolverOptions) -> None:
     package knows."""
     if options.operator not in ("auto", "stencil", "dia", "hybrid", "ell"):
         raise InputError(f"unknown operator format '{options.operator}'")
-    if options.assembly == "device":
-        raise SolverError(
-            "device-side assembly (assembly='device') is not yet ported to "
-            "the PyTorch package"
-        )
-    if options.assembly not in ("auto", "host"):
+    if options.assembly not in ("auto", "host", "device"):
         raise InputError(
             f"unknown assembly mode '{options.assembly}' (auto | host | device)"
         )
@@ -941,40 +941,103 @@ def _amg_setup(mesh, bca, metadata, options, amg_setup, mesh_hash, perm, timings
     return setup
 
 
+def assemble_ell_arrays_fused(coords, tris, e, nu, t, slot_ids, n_nodes: int,
+                              width: int) -> torch.Tensor:
+    """ELL device assembly from the closed-form pair fields (the JAX
+    package's `assemble_ell_arrays_fused`): f64 coords [N, 2], int64 tris
+    [E, 3], slot ids [E*9] -> [N, K, 2, 2] f64."""
+    return _assemble_ell_slot_major(
+        coords, tris, e, nu, t, slot_ids, n_nodes, width
+    ).permute(3, 0, 1, 2).contiguous()
+
+
+def _assemble_ell_slot_major(coords, tris, e, nu, t, slot_ids, n_nodes, width):
+    """The ELL device assembly laid out slot-major, [K, 2, 2, N] f64, as
+    the ELL kernel reads it."""
+    from .dia import _pair_major_slots, assemble_pairs
+
+    slots = _pair_major_slots(slot_ids, tris.shape[0])
+    flat = assemble_pairs(coords, tris, slots, n_nodes * width, e, nu, t)
+    return flat.reshape(2, 2, n_nodes, width).permute(3, 0, 1, 2).contiguous()
+
+
+def _assemble_on_device(mode, offsets, cols, slots, arrays, metadata, n, dtype):
+    """assembly="device": the operator assembled on the slot ids' device
+    from the resident mesh, in f64, then cast to `dtype`: (data, cols) for
+    ell, (bands, rem) for dia / hybrid."""
+    from .dia import assemble_dia_fused, assemble_hybrid_fused
+
+    dev = slots.device
+    coords = arrays["coords"].to(torch.float64)
+    md = metadata
+    mat = (md.youngs_modulus, md.poisson_ratio, md.part_thickness)
+    if mode == "ell":
+        data = _assemble_ell_slot_major(coords, arrays["tris"], *mat, slots, n, cols.shape[1])
+        return data.to(dtype), torch.from_numpy(np.asarray(cols, np.int32).T.copy()).to(dev)
+    if mode == "dia":
+        bands = assemble_dia_fused(coords, arrays["tris"], *mat, slots, n, len(offsets))
+        return bands.to(dtype), None
+    bands, rem_vals = assemble_hybrid_fused(
+        coords, arrays["tris"], *mat, slots, n, len(offsets), cols.shape[1]
+    )
+    cols_d = torch.from_numpy(cols).to(dev)
+    return bands.to(dtype), (rem_vals.to(dtype), cols_d[0], cols_d[1])
+
+
 def _compile_assembled(mode, offsets, cols, slot_ids, mesh, bca, metadata, options,
                        operator_cache, amg_setup, mesh_hash, perm, preconditioner,
                        refine, dtype, np_dtype, dev, rtol, timings):
-    """The host-assembled modes (dia, hybrid, ell): the flat assembly, the
-    kept host copy, the AMG hierarchy, ONE upload of the flat relaid out on
-    the device. Returns (BandedSystem or EllSystem, the problem arrays,
-    the AMG setup, the kept OperatorCache)."""
+    """The assembled modes (dia, hybrid, ell): the host flat assembly and
+    its kept copy, the AMG hierarchy, ONE upload of the flat relaid out on
+    the device; or, under assembly="device", the upload of the mesh and
+    the slot ids and the assembly on the device. Returns (BandedSystem or
+    EllSystem, the problem arrays, the AMG setup, the kept
+    OperatorCache)."""
     n = mesh.num_nodes
-    flat, flat_is_half = _assemble_flat(
-        mode, offsets, cols, slot_ids, mesh, metadata, operator_cache, timings
-    )
+    on_device = options.assembly == "device"
     operator_host = None
-    if options.keep_operator_host:
-        operator_host = _kept_operator(
-            mode, offsets, n, flat, flat_is_half, cols, perm, mesh_hash, metadata
+    if not on_device:
+        flat, flat_is_half = _assemble_flat(
+            mode, offsets, cols, slot_ids, mesh, metadata, operator_cache, timings
         )
+        if options.keep_operator_host:
+            operator_host = _kept_operator(
+                mode, offsets, n, flat, flat_is_half, cols, perm, mesh_hash, metadata
+            )
     setup = None
     if preconditioner == "amg":
         setup = _amg_setup(mesh, bca, metadata, options, amg_setup, mesh_hash, perm, timings)
 
     t0 = time.perf_counter()
-    if mode == "ell":
-        data, cols_d, timings["upload_bytes"] = _upload_ell(n, flat, cols, np_dtype, dev)
+    if on_device:
+        arrays = _problem_arrays(mesh, bca, np_dtype, dev)
+        slots = torch.from_numpy(np.asarray(slot_ids, np.int64)).to(dev)
+        timings["upload_bytes"] = slots.numel() * slots.element_size()
+        _sync(dev)
+        timings["upload_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        op_dtype = torch.float64 if np_dtype == np.float64 else torch.float32
+        operator = _assemble_on_device(mode, offsets, cols, slots, arrays, metadata, n, op_dtype)
+        if mode == "ell":
+            data, cols_d = operator
+        else:
+            bands, rem = operator
+        _sync(dev)
+        timings["assemble_device_s"] = time.perf_counter() - t0
     else:
-        bands, rem_vals, timings["upload_bytes"] = _upload_flat(
-            mode, offsets, n, flat, np_dtype, dev, flat_is_half
-        )
-        rem = None
-        if mode == "hybrid":
-            cols_d = torch.from_numpy(cols).to(dev)
-            rem = (rem_vals, cols_d[0], cols_d[1])
-    arrays = _problem_arrays(mesh, bca, np_dtype, dev)
-    _sync(dev)
-    timings["upload_s"] = time.perf_counter() - t0
+        if mode == "ell":
+            data, cols_d, timings["upload_bytes"] = _upload_ell(n, flat, cols, np_dtype, dev)
+        else:
+            bands, rem_vals, timings["upload_bytes"] = _upload_flat(
+                mode, offsets, n, flat, np_dtype, dev, flat_is_half
+            )
+            rem = None
+            if mode == "hybrid":
+                cols_d = torch.from_numpy(cols).to(dev)
+                rem = (rem_vals, cols_d[0], cols_d[1])
+        arrays = _problem_arrays(mesh, bca, np_dtype, dev)
+        _sync(dev)
+        timings["upload_s"] = time.perf_counter() - t0
 
     amg = None
     if setup is not None:
@@ -1053,6 +1116,9 @@ def compile_problem(
     offsets = ()
     cols = slot_ids = None
     input_mesh_hash = None
+    if options.assembly == "device":
+        # the device assembles from the slot ids: a host flat has no use
+        operator_cache = None
     if mode is None:
         native.require()
         # the input-order identity, shared by the operator cache check, the
@@ -1217,9 +1283,22 @@ def solve_system(
     amg_setup=None,
     operator_cache: Optional[OperatorCache] = None,
     device="cuda",
+    device_mesh=None,
 ) -> SolveResult:
     """Full FEA solve of one mesh + boundary-condition set on `device`
-    (`structure`, `amg_setup`, `operator_cache`: see compile_problem)."""
+    (`structure`, `amg_setup`, `operator_cache`: see compile_problem).
+
+    `device_mesh`: a parallel.pipeline.DeviceMesh routes the whole pipeline
+    -- solve, force recovery, stress recovery -- through the node-sharded
+    path (parallel/pipeline.py) on the mesh's devices (`device`,
+    `structure` and `operator_cache` are then unused, as in the JAX
+    package); results match the single-device path to solver tolerance."""
+    if device_mesh is not None:
+        from ..parallel.pipeline import compile_sharded_problem
+
+        return compile_sharded_problem(
+            mesh, bca, metadata, options, device_mesh=device_mesh, amg_setup=amg_setup,
+        ).solve()
     return compile_problem(
         mesh, bca, metadata, options, structure=structure, amg_setup=amg_setup,
         operator_cache=operator_cache, device=device,

@@ -26,13 +26,20 @@ def element_stress_tensors(
     poisson_ratio,
 ) -> torch.Tensor:
     """sigma [E,3] = D @ B @ u_e  (components [sx, sy, txy])."""
-    ecoords = gather_element_coords(coords, tris)
+    ue = u[tris].reshape(tris.shape[0], 6)  # [E,6] interleaved [x0,y0,x1,...]
+    return element_stress_from(
+        gather_element_coords(coords, tris), ue, youngs_modulus, poisson_ratio
+    )
+
+
+def element_stress_from(ecoords, ue, youngs_modulus, poisson_ratio) -> torch.Tensor:
+    """sigma [E,3] from element corner coordinates ecoords [E,3,2] and
+    nodal displacements ue [E,6] ([x0, y0, x1, y1, x2, y2])."""
     areas = element_areas(ecoords)
     b = strain_displacement_matrices(ecoords, areas)  # [E,3,6]
     d = stress_strain_matrix(
-        youngs_modulus, poisson_ratio, coords.dtype, coords.device
+        youngs_modulus, poisson_ratio, ecoords.dtype, ecoords.device
     )
-    ue = u[tris].reshape(tris.shape[0], 6)  # [E,6] interleaved [x0,y0,x1,...]
     strain = torch.einsum("erj,ej->er", b, ue)  # [E,3]
     return torch.einsum("rs,es->er", d, strain)
 

@@ -9,7 +9,10 @@ import every module without nvcc.
 
 Every C entry returns the `cudaGetLastError()` code of its launch; `check`
 turns a non-zero code into a `KernelError`. There is no fallback: a CUDA
-request that cannot build or launch raises.
+request that cannot build or launch raises. `launch` is the one way a
+wrapper calls an entry: it makes the operands' device current first (the
+runtime launches on the current device, and a sharded solve holds its
+shards on several), and passes PyTorch's current stream of that device.
 """
 
 from __future__ import annotations
@@ -139,7 +142,7 @@ def load() -> ctypes.CDLL:
 
 
 def _bind(lib) -> None:
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    vp, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
     lib.mt_dia_matvec.restype = i32
     lib.mt_dia_matvec.argtypes = [i32, i32, vp, vp, i32, vp, vp, i64, vp]
     lib.mt_prolong0.restype = i32
@@ -182,6 +185,8 @@ def _bind(lib) -> None:
     lib.mt_lane_ell_matvec.argtypes = [i32, i32, i32, vp, vp, vp, vp, i64, i32, i64, vp]
     lib.mt_ell_matvec.restype = i32
     lib.mt_ell_matvec.argtypes = [i32, vp, vp, vp, vp, i64, i32, vp]
+    lib.mt_assemble_pairs.restype = i32
+    lib.mt_assemble_pairs.argtypes = [vp, vp, vp, vp, i64, i64, f64, f64, f64, f64, vp, vp]
     lib.mt_error_string.restype = ctypes.c_char_p
     lib.mt_error_string.argtypes = [i32]
 
@@ -200,6 +205,16 @@ def sm_count(device: torch.device) -> int:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, entry: str, t: torch.Tensor, *args) -> None:
+    """Call the C entry `entry(*args, stream)` with `t`'s device current
+    and PyTorch's current stream there; raise KernelError on a non-zero
+    return."""
+    lib = load()
+    with torch.cuda.device(t.device):
+        rc = getattr(lib, entry)(*args, stream_of(t))
+    check(lib, rc, name)
 
 
 def require_cuda(name: str, dtype, *tensors) -> None:

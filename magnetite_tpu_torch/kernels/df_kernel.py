@@ -107,12 +107,11 @@ def df_dia_matvec(
             f"u {tuple(u64.shape)} {u64.dtype}, {offsets_dev.numel()} offsets"
         )
     y = torch.empty_like(u64)
-    lib = cuda_lib.load()
-    rc = lib.mt_df_dia_matvec(
+    cuda_lib.launch(
+        "df_dia_matvec", "mt_df_dia_matvec", u64,
         bands_hl.data_ptr(), offsets_dev.data_ptr(), d, u64.data_ptr(),
-        y.data_ptr(), n, cuda_lib.stream_of(u64),
+        y.data_ptr(), n,
     )
-    cuda_lib.check(lib, rc, "df_dia_matvec")
     df_dia_matvec.launches += 1
     return y
 

@@ -67,13 +67,11 @@ def dia_matvec(
             f"{tuple(u.shape)} {u.dtype}, {offsets_dev.numel()} offsets"
         )
     y = torch.empty_like(u)
-    lib = cuda_lib.load()
-    rc = lib.mt_dia_matvec(
+    cuda_lib.launch(
+        "dia_matvec", "mt_dia_matvec", u,
         cuda_lib.DTYPE_CODES[u.dtype], m, bands.data_ptr(),
         offsets_dev.data_ptr(), d, u.data_ptr(), y.data_ptr(), n,
-        cuda_lib.stream_of(u),
     )
-    cuda_lib.check(lib, rc, "dia_matvec")
     dia_matvec.launches += 1
     dia_matvec.shape_launches[m, n, u.dtype] += 1
     return y

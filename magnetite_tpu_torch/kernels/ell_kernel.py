@@ -70,12 +70,11 @@ def ell_matvec_t(data: torch.Tensor, cols: torch.Tensor, u: torch.Tensor) -> tor
             f"{tuple(cols.shape)} {cols.dtype}, u {tuple(u.shape)} {u.dtype}"
         )
     y = torch.empty_like(u)
-    lib = cuda_lib.load()
-    rc = lib.mt_ell_matvec(
+    cuda_lib.launch(
+        "ell_matvec_t", "mt_ell_matvec", u,
         cuda_lib.DTYPE_CODES[u.dtype], data.data_ptr(), cols.data_ptr(), u.data_ptr(),
-        y.data_ptr(), n, k, cuda_lib.stream_of(u),
+        y.data_ptr(), n, k,
     )
-    cuda_lib.check(lib, rc, "ell_matvec_t")
     ell_matvec_t.launches += 1
     ell_matvec_t.f64_launches += int(u.dtype == torch.float64)
     return y

@@ -99,13 +99,12 @@ def lane_coarse_smooth3(stencils4, dinv, w3, r, wrap: bool, sweeps: int,
     _check(packed, dinv, w3, r, sweeps)
     nb = r.shape[3]
     e = torch.empty_like(r)
-    lib = cuda_lib.load()
-    rc = lib.mt_lane_coarse_smooth3(
+    cuda_lib.launch(
+        "lane_coarse_smooth3", "mt_lane_coarse_smooth3", r,
         cuda_lib.DTYPE_CODES[r.dtype], int(bool(wrap)), packed.data_ptr(), dinv.data_ptr(),
         *(w.data_ptr() for w in w3), r.data_ptr(), e.data_ptr(), rows, cols, nb, int(sweeps),
-        float(omega), cuda_lib.stream_of(r),
+        float(omega),
     )
-    cuda_lib.check(lib, rc, "lane_coarse_smooth3")
     lane_coarse_smooth3.launches += 1
     lane_coarse_smooth3.shape_launches[rows, cols, r.dtype] += 1
     return e

@@ -219,15 +219,14 @@ def launch_lane_dia(bands, u, offsets_dev, plan: LanePlan) -> torch.Tensor:
     """K7 on checked card operands through `plan`'s kernel."""
     _, n, nb = u.shape
     y = torch.empty_like(u)
-    lib = cuda_lib.load()
     args = (cuda_lib.DTYPE_CODES[u.dtype], bands.data_ptr(), offsets_dev.data_ptr(),
             bands.shape[0], u.data_ptr(), y.data_ptr(), n, nb)
+    name = f"lane_dia_matvec ({plan.route})"
     if plan.route == "ring":
-        rc = lib.mt_lane_dia_ring(*args, plan.min_off, plan.max_off, plan.lanes, plan.rows,
-                                  plan.strip_rows, plan.smem_bytes, cuda_lib.stream_of(u))
+        cuda_lib.launch(name, "mt_lane_dia_ring", u, *args, plan.min_off, plan.max_off,
+                        plan.lanes, plan.rows, plan.strip_rows, plan.smem_bytes)
     else:
-        rc = lib.mt_lane_dia_matvec(*args, cuda_lib.stream_of(u))
-    cuda_lib.check(lib, rc, f"lane_dia_matvec ({plan.route})")
+        cuda_lib.launch(name, "mt_lane_dia_matvec", u, *args)
     lane_dia_matvec.launches += 1
     lane_dia_matvec.f64_launches += int(u.dtype == torch.float64)
     lane_dia_matvec.ring_launches += int(plan.route == "ring")
@@ -261,16 +260,15 @@ def launch_lane_dia3(bands3, w3, u, offsets_dev, plan: LanePlan) -> torch.Tensor
     """K8 on checked card operands through `plan`'s kernel."""
     _, n, nb = u.shape
     y = torch.empty_like(u)
-    lib = cuda_lib.load()
     args = (cuda_lib.DTYPE_CODES[u.dtype], *(b.data_ptr() for b in bands3),
             *(w.data_ptr() for w in w3), offsets_dev.data_ptr(), bands3[0].shape[0],
             u.data_ptr(), y.data_ptr(), n, nb)
+    name = f"lane_dia_matvec3 ({plan.route})"
     if plan.route == "ring":
-        rc = lib.mt_lane_dia_ring3(*args, plan.min_off, plan.max_off, plan.lanes, plan.rows,
-                                   plan.strip_rows, plan.smem_bytes, cuda_lib.stream_of(u))
+        cuda_lib.launch(name, "mt_lane_dia_ring3", u, *args, plan.min_off, plan.max_off,
+                        plan.lanes, plan.rows, plan.strip_rows, plan.smem_bytes)
     else:
-        rc = lib.mt_lane_dia_matvec3(*args, cuda_lib.stream_of(u))
-    cuda_lib.check(lib, rc, f"lane_dia_matvec3 ({plan.route})")
+        cuda_lib.launch(name, "mt_lane_dia_matvec3", u, *args)
     lane_dia_matvec3.launches += 1
     lane_dia_matvec3.f64_launches += int(u.dtype == torch.float64)
     lane_dia_matvec3.ring_launches += int(plan.route == "ring")

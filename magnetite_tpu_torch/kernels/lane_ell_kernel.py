@@ -79,12 +79,11 @@ def lane_ell_matvec(ell: torch.Tensor, cols: torch.Tensor, u: torch.Tensor) -> t
     y = torch.empty_like(u)
     aligned = u.data_ptr() % VEC_BYTES == 0 and y.data_ptr() % VEC_BYTES == 0
     vec, team = lane_ell_plan(nb, u.element_size(), aligned)
-    lib = cuda_lib.load()
-    rc = lib.mt_lane_ell_matvec(
+    cuda_lib.launch(
+        "lane_ell_matvec", "mt_lane_ell_matvec", u,
         cuda_lib.DTYPE_CODES[u.dtype], vec, team, ell.data_ptr(), cols.data_ptr(),
-        u.data_ptr(), y.data_ptr(), n, w, nb, cuda_lib.stream_of(u),
+        u.data_ptr(), y.data_ptr(), n, w, nb,
     )
-    cuda_lib.check(lib, rc, "lane_ell_matvec")
     lane_ell_matvec.launches += 1
     return y
 

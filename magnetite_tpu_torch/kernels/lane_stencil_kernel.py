@@ -197,13 +197,11 @@ def lane_stencil_matvec(stencil, u: torch.Tensor, wrap: bool) -> torch.Tensor:
     rows, cols, nb = _check("lane_stencil_matvec", packed, u)
     y = torch.empty_like(u)
     plan = _plan_of(u, y, (), rows, cols, nb)
-    lib = cuda_lib.load()
-    rc = lib.mt_lane_stencil_matvec(
+    cuda_lib.launch(
+        "lane_stencil_matvec", "mt_lane_stencil_matvec", u,
         cuda_lib.DTYPE_CODES[u.dtype], int(bool(wrap)), int(plan.vec), packed.data_ptr(),
         u.data_ptr(), y.data_ptr(), rows, cols, nb, plan.tile_cols, plan.strip_rows,
-        cuda_lib.stream_of(u),
     )
-    cuda_lib.check(lib, rc, "lane_stencil_matvec")
     lane_stencil_matvec.launches += 1
     lane_stencil_matvec.shape_launches[rows, cols, u.dtype] += 1
     return y
@@ -221,13 +219,12 @@ def lane_stencil_matvec3(stencils4, w3, u: torch.Tensor, wrap: bool) -> torch.Te
     rows, cols, nb = _check("lane_stencil_matvec3", packed, u, w3)
     y = torch.empty_like(u)
     plan = _plan_of(u, y, w3, rows, cols, nb)
-    lib = cuda_lib.load()
-    rc = lib.mt_lane_stencil_matvec3(
+    cuda_lib.launch(
+        "lane_stencil_matvec3", "mt_lane_stencil_matvec3", u,
         cuda_lib.DTYPE_CODES[u.dtype], int(bool(wrap)), int(plan.vec), packed.data_ptr(),
         *(w.data_ptr() for w in w3), u.data_ptr(), y.data_ptr(), rows, cols, nb,
-        plan.tile_cols, plan.strip_rows, cuda_lib.stream_of(u),
+        plan.tile_cols, plan.strip_rows,
     )
-    cuda_lib.check(lib, rc, "lane_stencil_matvec3")
     lane_stencil_matvec3.launches += 1
     lane_stencil_matvec3.shape_launches[rows, cols, u.dtype] += 1
     return y

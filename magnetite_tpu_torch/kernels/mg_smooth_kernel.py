@@ -151,13 +151,11 @@ def mg_presmooth(stencil, diag_inv, r, wrap_cols: bool):
         )
     e = torch.empty_like(r)
     rc = torch.empty((2, *rcc), dtype=r.dtype, device=r.device)
-    lib = cuda_lib.load()
-    code = lib.mt_mg_presmooth(
+    cuda_lib.launch(
+        "mg_presmooth", "mt_mg_presmooth", r,
         cuda_lib.DTYPE_CODES[r.dtype], int(bool(wrap_cols)), stencil.data_ptr(),
         diag_inv.data_ptr(), r.data_ptr(), e.data_ptr(), rc.data_ptr(), rows, cols,
-        cuda_lib.stream_of(r),
     )
-    cuda_lib.check(lib, code, "mg_presmooth")
     mg_presmooth.launches += 1
     mg_presmooth.shape_launches[rows, cols, r.dtype] += 1
     return e, rc
@@ -175,14 +173,12 @@ def mg_postsmooth(stencil, diag_inv, r, e, ec, wrap_cols: bool):
     fields = (r,) if e is None else (r, e)
     rows, cols, _ = _check("mg_postsmooth", stencil, diag_inv, r, fields, wrap_cols, ec)
     out = torch.empty_like(r)
-    lib = cuda_lib.load()
-    code = lib.mt_mg_postsmooth(
+    cuda_lib.launch(
+        "mg_postsmooth", "mt_mg_postsmooth", r,
         cuda_lib.DTYPE_CODES[r.dtype], int(bool(wrap_cols)), stencil.data_ptr(),
         diag_inv.data_ptr(), r.data_ptr(), None if e is None else e.data_ptr(),
         None if ec is None else ec.data_ptr(), out.data_ptr(), rows, cols,
-        cuda_lib.stream_of(r),
     )
-    cuda_lib.check(lib, code, "mg_postsmooth")
     mg_postsmooth.launches += 1
     mg_postsmooth.shape_launches[rows, cols, r.dtype] += 1
     return out

@@ -81,12 +81,11 @@ def stencil_matvec(
             f"u {tuple(u.shape)} {u.dtype}"
         )
     y = torch.empty_like(u)
-    lib = cuda_lib.load()
-    rc = lib.mt_stencil_matvec(
+    cuda_lib.launch(
+        "stencil_matvec", "mt_stencil_matvec", u,
         cuda_lib.DTYPE_CODES[u.dtype], int(bool(wrap_cols)), stencil.data_ptr(),
-        u.data_ptr(), y.data_ptr(), rows, cols, cuda_lib.stream_of(u),
+        u.data_ptr(), y.data_ptr(), rows, cols,
     )
-    cuda_lib.check(lib, rc, "stencil_matvec")
     stencil_matvec.launches += 1
     stencil_matvec.shape_launches[rows, cols, u.dtype] += 1
     return y

@@ -44,12 +44,11 @@ def prolong0(ec, agg, p0):
             f"{tuple(agg.shape)} {agg.dtype}, p0 {tuple(p0.shape)} {p0.dtype}"
         )
     u0 = torch.empty((2, n0), dtype=ec.dtype, device=ec.device)
-    lib = cuda_lib.load()
-    rc = lib.mt_prolong0(
+    cuda_lib.launch(
+        "prolong0", "mt_prolong0", ec,
         cuda_lib.DTYPE_CODES[ec.dtype], ec.data_ptr(), agg.data_ptr(),
-        p0.data_ptr(), u0.data_ptr(), n0, cuda_lib.stream_of(ec),
+        p0.data_ptr(), u0.data_ptr(), n0,
     )
-    cuda_lib.check(lib, rc, "prolong0")
     prolong0.launches += 1
     return u0
 
@@ -71,13 +70,11 @@ def restrict0(tmp, pt0_cols, pt0_vals):
             f"{tuple(pt0_vals.shape)} {pt0_vals.dtype}"
         )
     rc_out = torch.empty((n1, 3), dtype=tmp.dtype, device=tmp.device)
-    lib = cuda_lib.load()
-    rc = lib.mt_restrict0(
+    cuda_lib.launch(
+        "restrict0", "mt_restrict0", tmp,
         cuda_lib.DTYPE_CODES[tmp.dtype], tmp.data_ptr(), pt0_cols.data_ptr(),
         pt0_vals.data_ptr(), rc_out.data_ptr(), tmp.shape[1], n1, w0,
-        cuda_lib.stream_of(tmp),
     )
-    cuda_lib.check(lib, rc, "restrict0")
     restrict0.launches += 1
     return rc_out
 

@@ -244,7 +244,7 @@ def _check_common(device_mesh, lane_kernel, dev):
     "interpret" runs its kernel's own semantics off the TPU); "off" asks for
     the plain versions, which the port runs on the CPU only."""
     if device_mesh is not None:
-        _not_ported("lane sharding over several GPUs (device_mesh=)", "Queue 1 item 10")
+        _not_ported("lane sharding over several GPUs (device_mesh=)", "Queue 1 item 10b")
     if lane_kernel not in _LANE_KERNEL_MODES:
         raise InputError(f"unknown lane_kernel mode '{lane_kernel}' (auto | interpret | off)")
     if lane_kernel == "off" and dev.type == "cuda":
@@ -1314,7 +1314,7 @@ def compile_sweep(
 
     dev = resolve_device(device)
     if device_mesh is not None:
-        _not_ported("lane sharding over several GPUs (device_mesh=)", "Queue 1 item 10")
+        _not_ported("lane sharding over several GPUs (device_mesh=)", "Queue 1 item 10b")
     user_t = _dtypes(dtype, False)[0]
     rows, cols, wrap = _grid_mesh_or_raise(mesh, "compile_sweep")
     if not can_coarsen(rows, cols, wrap):
@@ -1569,7 +1569,7 @@ def compile_material_sweep(
     (interop.material_grid_sweep_setup_from_arrays), used instead."""
     dev = resolve_device(device)
     if device_mesh is not None:
-        _not_ported("lane sharding over several GPUs (device_mesh=)", "Queue 1 item 10")
+        _not_ported("lane sharding over several GPUs (device_mesh=)", "Queue 1 item 10b")
     user_t = _dtypes(dtype, False)[0]
     rows, cols, wrap = _grid_mesh_or_raise(mesh, "compile_material_sweep")
     coords, tris, free_g = _grid_arrays(mesh, base_bca, rows, cols, dev)

@@ -50,12 +50,14 @@ def test_port_cli_matches_jax_cli(tmp_path, von_mises):
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--shard"],
-        ["--shard-layout", "2x4"],
+        ["--shard", "--shard-layout", "1x1"],
+        ["--shard-layout", "1x1"],
     ],
     ids=lambda f: f[0].lstrip("-"),
 )
 def test_unported_flags_raise_not_yet_ported(tmp_path, capsys, flags):
+    """--shard itself is ported; its 2-D layout (RxC, here 1x1 to match
+    the one visible device) is not, with or without --shard."""
     from magnetite_tpu_torch import cli
 
     paths = write_case(str(tmp_path), 0.05)

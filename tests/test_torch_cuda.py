@@ -1283,3 +1283,66 @@ def test_dense_solve_on_card_matches_cpu(dtype, bars):
     for field in ("f", "stress"):
         a, b = getattr(card, field), getattr(cpu, field)
         assert np.abs(a - b).max() <= bars[1] * np.abs(b).max(), field
+
+
+@pytest.mark.parametrize("structure", ["dia", "ell"])
+def test_assembly_kernel_matches_plain_and_repeats(structure):
+    """The fused assembly kernel against its plain version (pair_block_fields
+    + four index_add_) on the card, within 1e-12 of the largest entry, two
+    calls bit for bit (no atomics)."""
+    from magnetite_tpu_torch.fem.assembly import build_ell_structure
+    from magnetite_tpu_torch.fem.dia import _pair_major_slots, build_dia_structure
+    from magnetite_tpu_torch.kernels.assembly_kernel import (
+        assemble_pairs, assemble_pairs_plain,
+    )
+
+    dev = require_cuda()
+    mesh, _, md = port_plate(0.02)
+    n, e = mesh.num_nodes, mesh.num_elements
+    if structure == "dia":
+        dia = build_dia_structure(mesh.tris, n)
+        slot_ids, n_slots = dia.slot_ids, len(dia.offsets) * n
+    else:
+        ell = build_ell_structure(mesh.tris, n)
+        slot_ids, n_slots = ell.slot_ids, n * ell.cols.shape[1]
+    coords = torch.as_tensor(np.asarray(mesh.coords, np.float64), device=dev)
+    tris = torch.as_tensor(np.asarray(mesh.tris, np.int64), device=dev)
+    slots = _pair_major_slots(torch.as_tensor(np.asarray(slot_ids, np.int64), device=dev), e)
+    mat = (md.youngs_modulus, md.poisson_ratio, md.part_thickness)
+    before = assemble_pairs.launches
+    got = assemble_pairs(coords, tris, slots, n_slots, *mat)
+    assert assemble_pairs.launches == before + 1
+    assert torch.equal(got, assemble_pairs(coords, tris, slots, n_slots, *mat))
+    ref = assemble_pairs_plain(coords, tris, slots, n_slots, *mat)
+    assert float((got - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("precision", ["f64", "mixed"])
+def test_two_shard_solve_on_card_matches_cpu(precision):
+    """solve_system(device_mesh=) over two shards of cuda:0 against the same
+    two shards on the CPU: the band kernel launched at the halo-extended
+    shard shape, restrict0 per shard, the same iterations and answer."""
+    from magnetite_tpu_torch import SolverOptions
+    from magnetite_tpu_torch.fem.solve import solve_system
+    from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
+    from magnetite_tpu_torch.kernels.transfer_kernel import restrict0
+    from magnetite_tpu_torch.parallel.pipeline import DeviceMesh, compile_sharded_problem
+
+    require_cuda()
+    mesh, bca, md = port_plate(0.02)
+    kw = {} if precision == "f64" else {"dtype": "float32", "refine": "on"}
+    opts = SolverOptions(**kw)
+    cpu = solve_system(mesh, bca, md, opts, device_mesh=DeviceMesh(("cpu",) * 2))
+    compiled = compile_sharded_problem(mesh, bca, md, opts,
+                                       device_mesh=DeviceMesh(("cuda:0",) * 2))
+    p = compiled.problem
+    before = (dict(dia_matvec.shape_launches), restrict0.launches)
+    card = compiled.solve()
+    new = {k: c - before[0].get(k, 0) for k, c in dia_matvec.shape_launches.items()}
+    assert {k[1] for k, c in new.items() if c and k[0] == 2} == {p.local_n + 2 * p.halo}
+    assert restrict0.launches > before[1]
+    assert abs(card.iterations - cpu.iterations) <= 1
+    assert np.abs(card.u - cpu.u).max() <= 1e-8 * np.abs(cpu.u).max()
+    for field in ("f", "stress"):
+        a, b = getattr(card, field), getattr(cpu, field)
+        assert np.abs(a - b).max() <= 1e-6 * np.abs(b).max(), field

@@ -293,6 +293,75 @@ def test_ell_and_dense_modes_run_with_jax_unimportable(tmp_path):
     assert "LEAKED []" in proc.stdout
 
 
+_CHILD_SHARD = r"""
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import numpy as np
+import magnetite_tpu_torch as mp
+from magnetite_tpu_torch.bc import apply_boundary_conditions
+from magnetite_tpu_torch.config import BoundaryRegion, BoundaryRule, BoundaryTarget
+from magnetite_tpu_torch.fem.solve import solve_system
+from magnetite_tpu_torch.meshing.delaunay_backend import triangulate
+from magnetite_tpu_torch.parallel.pipeline import DeviceMesh, compile_sharded_problem
+outer = np.array([[0.0, 0.0], [3.0, 0.0], [3.0, 1.0], [0.0, 1.0]])
+hole = np.array([[1.3, 0.35], [1.7, 0.35], [1.7, 0.65], [1.3, 0.65]])
+mesh = triangulate([outer, hole], 0.0, 0.04)
+bca = apply_boundary_conditions(mesh.coords, (
+    BoundaryRule("left", BoundaryRegion(x_max=1e-6), BoundaryTarget(ux=0.0, uy=0.0)),
+    BoundaryRule("right", BoundaryRegion(x_min=3.0 - 1e-6), BoundaryTarget(ux=0.01, fy=0.0))))
+md = mp.ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.04)
+opts = mp.SolverOptions(preconditioner="amg")
+ref = mp.compile_problem(mesh, bca, md, opts, device="cpu").solve()
+dev = mp.compile_problem(mesh, bca, md, mp.SolverOptions(preconditioner="amg", assembly="device"),
+                         device="cpu")
+sharded = compile_sharded_problem(mesh, bca, md, mp.SolverOptions(assembly="device"),
+                                  device_mesh=DeviceMesh(("cpu",) * 4))
+runs = {"device": dev.solve(), "sharded": sharded.solve(),
+        "solve_system": solve_system(mesh, bca, md, opts, device_mesh=DeviceMesh(("cpu",) * 2))}
+agree = all(np.abs(r.u - ref.u).max() <= 1e-6 * np.abs(ref.u).max()
+            and abs(r.iterations - ref.iterations) <= 1 for r in runs.values())
+leaked = [m for m in sys.modules
+          if m == "jax" and sys.modules[m] is not None
+          or m == "magnetite_tpu" or m.startswith("magnetite_tpu.")]
+print("SHARD", agree, "assemble_device_s" in dev.timings, sharded.timings["shards"] == 4,
+      sharded.problem.halo <= sharded.problem.local_n,
+      all(m in sys.modules for m in ("magnetite_tpu_torch.kernels.assembly_kernel",
+                                     "magnetite_tpu_torch.parallel.dia_shard")))
+print("LEAKED", leaked)
+"""
+
+
+def test_device_assembly_and_sharding_run_with_jax_unimportable(tmp_path):
+    """assembly="device", compile_sharded_problem over four CPU shards (its
+    operator device-assembled) and solve_system(device_mesh=) over two,
+    each with the single-device answer and iterations."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_SHARD],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "SHARD True True True True True" in proc.stdout
+    assert "LEAKED []" in proc.stdout
+
+
+def test_cli_shard_runs_with_jax_unimportable(tmp_path):
+    paths = write_case(str(tmp_path), 0.05)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD, *paths, "--shard",
+         "--device", "cpu", "--skip", "--out-dir", str(tmp_path)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "LEAKED []" in proc.stdout
+    assert "info: sharding the solve over 1 device(s)" in proc.stdout
+    nodes = np.loadtxt(tmp_path / "nodes.csv", delimiter=",", skiprows=1)
+    assert nodes.shape[1] == 4 and np.isfinite(nodes).all()
+
+
 def test_no_source_file_imports_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import|from) (jax|magnetite_tpu)\b")
     files = [os.path.join(REPO, "chip_smoke.py")]

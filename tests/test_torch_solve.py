@@ -72,13 +72,11 @@ def test_f32_solve_converges_to_its_floor():
     "kwargs,match",
     [
         ({"operator": "stencil"}, "structured-grid"),
-        ({"assembly": "device"}, "device-side assembly"),
         ({"preconditioner": "multigrid"}, "structured-grid"),
     ],
-    # the ids these cases had beside the ELL and dense refusals (now the
-    # parity cases of test_formerly_refused_options_match_jax)
-    ids=["kwargs1-structured-grid", "kwargs2-device-side assembly",
-         "kwargs4-structured-grid"],
+    # the ids these cases had beside the ELL, dense and device-assembly
+    # refusals (now the parity cases of test_formerly_refused_options_match_jax)
+    ids=["kwargs1-structured-grid", "kwargs4-structured-grid"],
 )
 def test_unported_options_raise_typed_errors(kwargs, match):
     mesh, bca, md = jax_plate(0.05)
@@ -92,13 +90,15 @@ def test_unported_options_raise_typed_errors(kwargs, match):
 
 @pytest.mark.parametrize(
     "kwargs,mode,precond",
-    [({"operator": "ell"}, "ell", "amg"), ({"dense_cutoff": 10_000}, "dense", "block_jacobi")],
-    ids=["operator_ell", "dense_cutoff"],
+    [({"operator": "ell"}, "ell", "amg"), ({"dense_cutoff": 10_000}, "dense", "block_jacobi"),
+     ({"assembly": "device"}, "dia", "amg")],
+    ids=["operator_ell", "dense_cutoff", "assembly_device"],
 )
 def test_formerly_refused_options_match_jax(kwargs, mode, precond):
-    """operator='ell' and dense_cutoff, which the port refused before it
-    had the ELL and dense modes, choose JAX's mode and preconditioner and
-    hold the module's bars against the JAX package on the same inputs."""
+    """operator='ell', dense_cutoff and assembly='device', which the port
+    refused before it had the ELL and dense modes and the device assembly,
+    choose JAX's mode and preconditioner and hold the module's bars against
+    the JAX package on the same inputs."""
     mesh, bca, md = jax_plate(0.05)
     ref = magnetite_tpu.solve_system(mesh, bca, md, magnetite_tpu.SolverOptions(**kwargs))
     problem = magnetite_tpu_torch.compile_problem(

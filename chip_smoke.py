@@ -25,6 +25,10 @@
                                        # phases 0, 1, 5, 6 and 22 alone (no "ok" line)
     python3 chip_smoke.py --only shard
                                        # phases 0, 1, 5, 6 and 23 alone (no "ok" line)
+    python3 chip_smoke.py --only grid-shard
+                                       # phases 0, 1, 7 and 24 alone (no "ok" line)
+    python3 chip_smoke.py --only lane-shard
+                                       # phases 0, 1 and 25 alone (no "ok" line)
 
 Phases (any failure exits non-zero; no phase is wrapped in a catch):
   0. environment: torch / CUDA versions, the card's name and power limit;
@@ -169,6 +173,42 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      replicated m = 3 levels once per V-cycle, as on one device), warm
      solve_s beside S = 1; then the CLI with --shard over every visible
      GPU against phase 5's CSVs.
+ 24. (run after 7) the structured multi-GPU path on phase 7's plate:
+     compile_sharded_problem over DeviceMesh((cuda:0,) * S), S = 1, 2, 4
+     (grid rows) and DeviceMesh2D((cuda:0,) * 4, (2, 2)) (tiles), f64 CG and
+     f32 refined to rtol 1e-8 (their distance to phase 7's answers
+     printed), then each at rtol 1e-10 with u, stress and von Mises on the
+     golden bars of the single-device f64 answer at rtol 1e-10; the true
+     relative residual in f64; the iterations beside phase 7's, f64
+     identical across the layouts, the refined inner counts within one
+     across S (1-D and 2-D refine by the JAX package's two schemes);
+     exactly the stencil_matvec launches per halo-extended shape and the
+     fused smoothing launches per coarse shape the iterations imply; warm
+     solve_s; the stencil kernel at every halo-extended block shape of
+     those runs (shard 0's padded stencil, a field after the halo
+     exchange) against its plain version in each dtype the run launched;
+     then the CLI with --shard-layout 1x1 --load-case on a case saved from
+     the plate, against the rtol 1e-10 answer, and the kernel at that
+     layout's block (one wrapped 2-D tile) in f64 and f32.
+ 25. lane sharding: each lane kernel of phases 11, 12, 15 and 16's sweeps
+     at the chunks' lane counts (--lanes / 2 and / 4) against its plain
+     version, and bit for bit against the same lanes of a full-width
+     call; the sweeps' torch operations whose rounding depends on the lane
+     count, printed; then the sweeps (f32) at --lanes lanes over 2 and 4
+     shards of cuda:0: each kernel launched exactly S times the unsharded
+     run's, each chunk bit-identical to the unsharded sweep on its lanes
+     alone, per-lane u against the unsharded run at full width within
+     LANE_SHARD_BARS and every lane's true residual (f64, plain operator)
+     within the phase's bar, first and warm solve_s; sharded_pcg_solve
+     (the all-gather block-ELL path) over 4 shards on the --ell-shard-h
+     plate to rtol 1e-8 with exact ELL launches and the true residual, and
+     the ELL kernel at the shard's shape (N_u > N) against its plain
+     version and cuSPARSE; sharded_batch_pcg_solve of ELL_BATCH_LANES lanes
+     over a 2 x 2 (batch x rows) mesh with exact lane ELL launches, lanes
+     against one-lane solves, and the lane ELL kernel at the chunk's shape
+     against its plain version and cuSPARSE SpMM; dryrun_multichip(4) on
+     cuda:0; with more than one GPU the sweeps and dryrun_multichip over
+     the distinct cards.
 Every kernel is timed with CUDA events (median of --reps launches, L2
 flushed before each) beside its plain version, its bound (the larger of
 bytes moved once over 3.35 TB/s and operations over the peak rate of their
@@ -182,7 +222,8 @@ with every launch counter set to 0 just before it and read just after
 card's nvidia-smi line, a JSON line of per-kernel results (the band
 matvec's 2x2 and 3x3 kernels as two rows, the lane stencil kernel's two
 instances as two rows, the fused coarse smoother, the lane ELL kernel, the
-ELL kernel, the fused assembly kernel), and
+ELL kernel, both ELL kernels again at the all-gather path's shapes, the
+fused assembly kernel), and
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -192,6 +233,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -261,6 +303,16 @@ KERNELS = {
     "ell_matvec_t": ("magnetite_tpu_torch/csrc/ell_matvec.cu",
                      "no pallas_call: XLA-fused in JAX, magnetite_tpu/fem/operator.py:27 "
                      "(ell_matvec), run by magnetite_tpu/fem/solve.py:541 (_solve_ell)"),
+    # the all-gather sharded path's calls of the two ELL kernels (a shard's
+    # rows against the gathered field, N_u > N): rows of their own, at
+    # these shapes, counted over phase 25b's solves
+    "ell_matvec_t gathered": ("magnetite_tpu_torch/csrc/ell_matvec.cu",
+                              "no pallas_call: XLA-fused in JAX, "
+                              "magnetite_tpu/parallel/sharding.py:163 (_local_pcg's matvec)"),
+    "lane_ell_matvec gathered": ("magnetite_tpu_torch/csrc/lane_ell_matvec.cu",
+                                 "no pallas_call: XLA-fused in JAX, "
+                                 "magnetite_tpu/parallel/sharding.py:213 "
+                                 "(sharded_batch_pcg_solve's matvec under jax.vmap)"),
     # device assembly: no pallas_call stands behind it, the JAX package's
     # four segment_sums over closed-form pair fields are XLA's
     "assemble_pairs": ("magnetite_tpu_torch/csrc/assemble_pairs.cu",
@@ -287,6 +339,23 @@ ROUNDS = 5
 SPIN_CYCLES = 200_000
 SWEEP_BARS = {"f32": {"residual": 1e-4, "u": 2e-3}, "refined": {"residual": 1e-10, "u": 1e-6},
               "material refined": {"residual": 1e-5, "u": 2e-3}}
+# phase 25's per-lane bars of a lane-sharded f32 sweep against the same
+# sweep unsharded at all --lanes lanes: max|u - u_unsharded| / max|u|. Each
+# chunk is the unsharded sweep on its lanes alone, bit for bit (checked);
+# the gap to the full-width run is f32 rounding in the torch operations
+# whose summation order follows the lane count (lane_b_dependence on the
+# H100: the per-lane dots' torch.sum, ~2e-7 of the sum, and the AMG load
+# sweep's dense coarsest cuBLAS GEMM, 1.5e-6; the lane kernels and the
+# AMG einsums are bit-identical per lane), which 20-30 fixed f32 CG
+# iterations carry into u. ~4x the largest reading of S = 2 and 4 on the
+# H100 (load 1.572e-4, material 3.690e-6, structured load 3.300e-5,
+# structured material 1.197e-5), and 3-13x under the bars that hold the
+# same sweeps against f64 single solves.
+LANE_SHARD_BARS = {"load": 6e-4, "material": 1.5e-5, "grid load": 1.3e-4,
+                   "grid material": 5e-5}
+# phase 25b's batch solve: lanes and fixed iterations (the JAX package's
+# default budget) over the all-gather ELL plate
+ELL_BATCH_LANES, ELL_BATCH_ITERS = 64, 200
 # the JAX package's structured-grid sweep benchmarks (bench.py: bench_sweep
 # and bench_material_sweep): rect_mesh(64, 32, width=2.0), 33x65 nodes, 20 CG
 # iterations; warm batches timed per dtype
@@ -1268,10 +1337,11 @@ def check_vcycle_launches(key, problem, got, vcycles_run):
     require(not stray, f"structured {key}: stencil_matvec launched at coarse levels {stray}")
 
 
-def phase_structured(nr, nt, totals, profile):
+def phase_structured(nr, nt, totals, profile, refs=None):
     """Phase 7: the structured plate, f32 storage + refinement, and f64.
     Returns the f64 solve's multigrid levels, finest (the reduced operator)
-    first."""
+    first; `refs`, when given, receives each solve's answer (u, stress, von
+    Mises, iterations, passes) for phase 24."""
     import torch
     from magnetite_tpu_torch.config import SolverOptions
     from magnetite_tpu_torch.fem.solve import compile_problem
@@ -1309,6 +1379,11 @@ def phase_structured(nr, nt, totals, profile):
                      f"{inner}")
         else:
             run = vcycles([res.iterations], problem.maxiter)
+        if refs is not None:
+            passes = (f" ({t['refine_outer']} passes, inner {list(map(int, t['refine_inner']))})"
+                      if refine else "")
+            refs[key] = dict(u=res.u, stress=res.stress, vm=res.von_mises,
+                             iterations=res.iterations, passes=passes)
         say(f"  {key}: {res.iterations} iterations{extra}; reported residual_rel "
             f"{res.residual_rel:.3e}; true relative residual {rel:.3e} (<= 1e-08)")
         require(rel <= 1e-8, f"structured {key}: true residual too large")
@@ -3494,6 +3569,765 @@ def phase_shard(problem, mesh, bca, md, args, dia, totals, reps, flush):
     return results
 
 
+# ------------- structured multi-GPU and lane sharding (phases 24-25) ---------
+
+
+GRID_LAYOUTS = (1, 2, 4, (2, 2))
+
+
+def layout_mesh(layout):
+    """A 1-D mesh of `layout` shards of cuda:0, or a (R, C) 2-D mesh of them."""
+    from magnetite_tpu_torch.parallel.pipeline import DeviceMesh, DeviceMesh2D
+
+    if isinstance(layout, tuple):
+        return DeviceMesh2D((f"{DEV}:0",) * (layout[0] * layout[1]), layout)
+    return DeviceMesh((f"{DEV}:0",) * layout)
+
+
+def expected_grid_shard_launches(compiled, res, info):
+    """The kernel launches of one sharded structured solve and its recovery,
+    per (rows, cols, dtype): (stencil_matvec, mg_presmooth, mg_postsmooth).
+
+    Each shard's stencil_matvec runs at its halo-extended block ([rl + 2,
+    C] in 1-D, [rl + 2, cl + 2] in 2-D). The CG runs whole chunks of
+    CHECK_EVERY steps (vcycles), one V-cycle per step and one up front; per
+    shard: r0 and each step's operator, in each V-cycle the fine level's
+    V(2, 2) (the first sweep from zero takes no matvec: 1 + 1 residual + 2),
+    and the raw operator for the rhs, K u and the recovery's ||b||. The 1-D
+    refinement runs those inner counts per pass in f32, its f64 operator
+    once up front and once per pass; the 2-D refined solve is one f64 CG
+    around the f32 V-cycle. The replicated coarse levels run once per
+    distinct device (here one) per V-cycle: mg_presmooth at each level but
+    the coarsest, mg_postsmooth there too, and the coarsest (no dense
+    inverse, as in the JAX package) COARSE_SWEEPS / SWEEPS times."""
+    import torch
+    from magnetite_tpu_torch.fem.multigrid import COARSE_SWEEPS, SWEEPS
+
+    p = compiled.problem
+    s = len(p.reduced)
+    rl, cl = p.reduced[0].shape[-2:]
+    shape = (rl + 2, cl + (2 if compiled.kind == "stencil2d" else 0))
+    f64, f32 = torch.float64, torch.float32
+    if not compiled.refine:
+        v = vcycles([res.iterations], compiled.maxiter)
+        fine, vdtype = {f64: s * (5 * v + 3)}, f64
+    elif compiled.kind == "stencil":
+        v = sum(vcycles([k], compiled.refine_inner_iters) for k in info["refine_inner"])
+        fine, vdtype = {f32: s * 5 * v, f64: s * (info["refine_outer"] + 4)}, f32
+    else:
+        v = vcycles([res.iterations], compiled.maxiter)
+        fine, vdtype = {f64: s * (v + 3), f32: s * 4 * v}, f32
+    levels = p.cache[("coarse", vdtype)][p.devices[0]]
+    pre = {(lv.rows, lv.cols, vdtype): v for lv in levels[:-1]}
+    post = dict(pre)
+    last = levels[-1]
+    post[(last.rows, last.cols, vdtype)] = v * COARSE_SWEEPS // SWEEPS
+    return {(*shape, dt): c for dt, c in fine.items()}, pre, post
+
+
+def shard_stencil_kernel(problem, label, dtypes, rand, checked):
+    """stencil_matvec at a shard's halo-extended block against its plain
+    version on the card, outside any main path: shard 0's padded reduced
+    stencil (the solve's own) and its block of a random field after the
+    layout's halo exchange, at 1e-12 (f64) / 1e-5 (f32) of the |st| |u|
+    scale, as phase 8; each (block shape, wrap, dtype) of `dtypes` once."""
+    import torch
+    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec, stencil_matvec_plain
+    from magnetite_tpu_torch.parallel.stencil_shard import (
+        exchange_halo_2d, exchange_halo_rows, padded_stencils,
+    )
+
+    two_d = problem.col_axis is not None
+    wrap = problem.wrap_cols and not two_d
+    for dtype in dtypes:
+        st = padded_stencils(problem, "reduced", dtype)[0]
+        rr, cc = st.shape[-2:]
+        if (rr, cc, wrap, dtype) in checked:
+            continue
+        checked.add((rr, cc, wrap, dtype))
+        u = [rand(*f.shape, dtype=dtype) for f in problem.free_g.shards]
+        ext = (exchange_halo_2d(u, problem.shape, problem.wrap_cols) if two_d
+               else exchange_halo_rows(u))[0]
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        compare(f"stencil_matvec {label}: shard 0's block {rr}x{cc} wrap={wrap} "
+                f"{str(dtype)[6:]}", stencil_matvec(st, ext, wrap),
+                stencil_matvec_plain(st, ext, wrap),
+                stencil_matvec_plain(st.abs(), ext.abs(), wrap).max(), tol)
+
+
+def grid_shard_run(name, mesh, bca, md, opts, layout, totals, rand, checked):
+    """compile_sharded_problem over `layout` of cuda:0 and one solve under
+    main_path, the launches checked exactly; then the stencil kernel at
+    each of the run's block shapes against its plain version. Returns
+    (compiled, result, prep seconds)."""
+    from magnetite_tpu_torch.kernels.mg_smooth_kernel import mg_postsmooth, mg_presmooth
+    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
+    from magnetite_tpu_torch.parallel.pipeline import compile_sharded_problem
+
+    t0 = time.perf_counter()
+    compiled = compile_sharded_problem(mesh, bca, md, opts, device_mesh=layout_mesh(layout))
+    sync()
+    prep = time.perf_counter() - t0
+    with main_path(name, totals, ("stencil_matvec", "mg_presmooth", "mg_postsmooth")) as got:
+        res = compiled.solve()
+    want = expected_grid_shard_launches(compiled, res, res.timings)
+    seen = tuple({k: c for k, c in k_.shape_launches.items() if c}
+                 for k_ in (stencil_matvec, mg_presmooth, mg_postsmooth))
+    others = {k: c for k, c in got.items() if c and k.split(" ")[0] not in (
+        "stencil_matvec", "mg_presmooth", "mg_postsmooth")}
+    say(f"  {name}: {compiled.kind} {compiled.timings['shard_layout']}, tile "
+        f"{tuple(compiled.problem.reduced[0].shape[-2:])}; launches expected per shape: "
+        f"stencil_matvec {want[0]}, mg_presmooth {want[1]}, mg_postsmooth {want[2]}")
+    require(seen == want and not others,
+            f"{name}: launches per shape {seen}, expected {want}, and no other kernel "
+            f"(got {others})")
+    shard_stencil_kernel(compiled.problem, name, sorted({k[2] for k in want[0]}, key=str), rand,
+                         checked)
+    return compiled, res, prep
+
+
+def phase_grid_shard(nr, nt, refs, totals, rand):
+    """Phase 24: the structured plate of phase 7 over 1-D meshes of S = 1, 2,
+    4 shards of cuda:0 and a 2 x 2 mesh, f64 CG and f32 refined to rtol
+    1e-8 (iterations against phase 7's, `refs`, exact launches, the true
+    residual); then each compiled problem again at rtol 1e-10 on the golden
+    bars of the single-device f64 answer at rtol 1e-10: an answer at rtol
+    1e-8 lies ~1.1-1.2e-6 of max|u| from another one, or from the converged
+    one, on this plate (measured), above the u bar. Then the CLI with
+    --shard-layout 1x1 --load-case on a case saved from the plate."""
+    import numpy as np
+    import torch
+    from magnetite_tpu_torch.config import SolverOptions
+    from magnetite_tpu_torch.fem.solve import compile_problem
+    from magnetite_tpu_torch.parallel.stencil_shard import prepare_sharded_stencil_problem_2d
+    from magnetite_tpu_torch.persist import save_case
+
+    t_phase = time.perf_counter()
+    mesh, bca, md = structured_case(nr, nt)
+    say(f"phase 24: the structured plate {mesh.grid_shape} sharded by rows (S = 1, 2, 4) and "
+        "2 x 2 tiles, on one card")
+    single = compile_problem(mesh, bca, md, SolverOptions(dtype="float64", cg_rtol=1e-10),
+                             device=DEV)
+    exact = single.solve()
+    say(f"  the single-device f64 answer at rtol 1e-10: {exact.iterations} iterations")
+    warm, checked = {}, set()
+    for key, opts in (("f64", SolverOptions(dtype="float64", cg_rtol=1e-8)),
+                      ("f32 refined", SolverOptions(dtype="float32", cg_rtol=1e-8))):
+        ref = refs[key]
+        counts = {}
+        for layout in GRID_LAYOUTS:
+            label = f"{layout[0]}x{layout[1]}" if isinstance(layout, tuple) else f"S={layout}"
+            name = f"the sharded structured {key} solve, {label}"
+            compiled, res, prep = grid_shard_run(name, mesh, bca, md, opts, layout, totals,
+                                                 rand, checked)
+            t = res.timings
+            passes = (f" ({t['refine_outer']} passes, inner {list(map(int, t['refine_inner']))})"
+                      if "refine_outer" in t else "")
+            counts[label] = (res.iterations, passes)
+            rel = true_residual_stencil(single, res)
+            say(f"  {name}: prep {prep:.3f} s, {res.iterations} iterations{passes}, phase 7 "
+                f"{ref['iterations']}{ref['passes']} ({res.iterations - ref['iterations']:+d}), "
+                f"solve_s {t['solve_s']:.4f}, true relative residual (f64) {rel:.3e} (<= 1e-08)")
+            require(rel <= 1e-8 and res.residual_rel <= 1e-8, f"{name}: residual above 1e-8")
+            say(f"  {name}: against phase 7's {key} answer (both at rtol 1e-8): max|diff| u "
+                f"{float(np.abs(res.u - ref['u']).max()):.3e} (max|u| "
+                f"{float(np.abs(ref['u']).max()):.3e}), stress "
+                f"{float(np.abs(res.stress - ref['stress']).max()):.3e}, von Mises "
+                f"{float(np.abs(res.von_mises - ref['vm']).max()):.3e}")
+            # the golden bars hold the same compiled problem at rtol 1e-10
+            tight = dataclasses.replace(compiled, rtol=1e-10).solve()
+            say(f"  {name} at rtol 1e-10: {tight.iterations} iterations (one device "
+                f"{exact.iterations} in f64), reported residual_rel {tight.residual_rel:.3e}")
+            golden_against(f"{name} at rtol 1e-10 against one device's", np.c_[mesh.coords,
+                           tight.u], np.c_[mesh.tris, tight.stress],
+                           np.c_[mesh.coords, exact.u], np.c_[mesh.tris, exact.stress])
+            vm_err = float(np.abs(tight.von_mises - exact.von_mises).max())
+            vm_lim = 1e-5 * float(np.abs(exact.von_mises).max())
+            say(f"  {name} at rtol 1e-10: von Mises max|diff| {vm_err:.3e} <= {vm_lim:.3e}")
+            require(vm_err <= vm_lim, f"{name}: von Mises outside its bar")
+            warm[f"{key} {label}"] = [compiled.solve().timings["solve_s"] for _ in range(3)]
+            del compiled
+            torch.cuda.empty_cache()
+        say(f"  {key} iterations: {counts}")
+        if key == "f64":
+            require(len(set(counts.values())) == 1,
+                    f"{key}: iterations differ across the layouts {counts}")
+        else:
+            # the inner f32 solves sum their dots per shard in f32, so the
+            # shard count rounds them differently: +-1 inner iteration
+            one_d = [v[0] for k, v in counts.items() if k.startswith("S=")]
+            require(max(one_d) - min(one_d) <= 1,
+                    f"{key}: inner iterations more than 1 apart across S {counts}")
+    say("  warm solve_s (3 each): " + "; ".join(
+        f"{k} " + " / ".join(f"{t:.4f}" for t in v) for k, v in warm.items()))
+    del single
+    torch.cuda.empty_cache()
+
+    say("phase 24b: the CLI with --shard-layout 1x1 --load-case on the structured plate's case")
+    with tempfile.TemporaryDirectory() as workdir:
+        case = os.path.join(workdir, "grid.npz")
+        save_case(case, mesh, bca, metadata=md)
+        argv = [write_case_files(workdir, md.characteristic_length_max)[0], "--load-case", case,
+                "--device", DEV, "--skip", "--out-dir", workdir, "--shard-layout", "1x1"]
+        with main_path("the --shard-layout 1x1 CLI run", totals,
+                       ("stencil_matvec", "mg_presmooth", "mg_postsmooth")):
+            out, err = run_cli(argv)
+        op, pre, refine, iters = cli_summary(out)
+        require("sharding the solve over 1 device(s) (1x1)" in out and op == "stencil"
+                and pre == "multigrid", f"1x1 CLI: {op}/{pre}")
+        require("warning" not in err, f"1x1 CLI warned: {err.strip()[:300]}")
+        nodes, elems = read_csvs(workdir)
+        say(f"  1x1 CLI: operator={op} preconditioner={pre} refine={refine}, {iters} iterations")
+        golden_against("--shard-layout 1x1 CLI against the rtol 1e-10 answer", nodes, elems,
+                       np.c_[mesh.coords, exact.u], np.c_[mesh.tris, exact.stress])
+    # the CLI's layout: one 2-D tile, its columns wrapped through the exchange
+    one = prepare_sharded_stencil_problem_2d(mesh, bca, md, layout_mesh((1, 1)),
+                                             dtype=np.float64)
+    shard_stencil_kernel(one, "the 1x1 layout", (torch.float64, torch.float32), rand, checked)
+    del one
+    say(f"  (phase 24: {time.perf_counter() - t_phase:.1f} s)")
+
+
+def lane_shard_cases(args):
+    """Phase 25's sweeps and their set-ups: (cases, sweeps, grid), each case
+    (name, unsharded sweep, make(device_mesh), method, batch(seed), the
+    kernels it launches, its bar against the unsharded run, residual(batch,
+    result)), compiled at phases 11-12's plate and phases 15-16's grid in
+    f32 (with the f64 set-ups the true residuals take); the sharded
+    compiles reuse the hierarchies."""
+    import numpy as np
+    import torch
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import (
+        lane_dia_matvec3_plain, lane_dia_matvec_plain,
+    )
+    from magnetite_tpu_torch.parallel import sweep as ps
+
+    say("  the sweep plate and the bench grid compiled (f32, with f64 set-ups for the "
+        "residuals)")
+    sweeps = compile_sweeps(args.sweep_h)
+    grid = compile_grid_sweeps()
+    mesh, bca, md = sweeps["case"]
+    gmesh, gbca, gmd = gcase = grid["case"]
+    load, material = sweeps["load"], sweeps["material"]
+    gload, gmat = grid["load float32"], grid["material float32"]
+    nb = SWEEP_LANES
+    f64 = torch.float64
+
+    def load_batch(seed):
+        rng = np.random.default_rng(seed)
+        return (rng.uniform(0.5, 2.0, nb).astype(np.float32), np.ones(nb, np.float32),
+                rng.uniform(0.5, 2.0, nb))
+
+    def material_batch(seed):
+        rng = np.random.default_rng(seed)
+        ones = np.ones(nb, dtype=np.float32)
+        return (ones, ones, rng.uniform(40e9, 250e9, nb).astype(np.float32),
+                rng.uniform(0.22, 0.38, nb).astype(np.float32),
+                rng.uniform(0.2, 1.0, nb).astype(np.float32))
+
+    def dense_values(a):  # the factors' [B, N, 2] boundary values, caller's order
+        return (torch.as_tensor(bca.u_value.astype(np.float32)[None] * a[0][:, None, None]),
+                torch.as_tensor(bca.f_value.astype(np.float32)[None] * a[1][:, None, None]))
+
+    def load_residual(a, res):
+        ks = torch.as_tensor(a[2], dtype=f64, device=DEV)
+        return lane_residuals(load, sweeps["load64"].bands, res, *dense_values(a),
+                              lambda b, v: lane_dia_matvec_plain(b, load.offsets, v) * ks)
+
+    def material_residual(a, res):
+        w3 = ps.material_weights(*(torch.as_tensor(x, dtype=f64, device=DEV) for x in a[2:]))
+        return lane_residuals(material, sweeps["material64"].bands3, res, *dense_values(a),
+                              lambda b3, v: lane_dia_matvec3_plain(b3, w3, material.offsets, v))
+
+    f32 = torch.float32
+    cases = [
+        ("phase 11's load sweep", load,
+         lambda dm: ps.compile_unstructured_sweep(mesh, bca, md, iterations=LOAD_ITERS,
+                                                  refined=False, device_mesh=dm,
+                                                  amg_setup=load.amg_setup),
+         "solve_factors", load_batch, ("lane_dia_matvec",),
+         {"u": LANE_SHARD_BARS["load"], "residual": SWEEP_BARS["f32"]["residual"]},
+         load_residual),
+        ("phase 12's material sweep", material,
+         lambda dm: ps.compile_unstructured_material_sweep(
+             mesh, bca, iterations=MATERIAL_ITERS, refined=False, device_mesh=dm,
+             material_setup=material.material_setup),
+         "solve_factors", material_batch, ("lane_dia_matvec3",),
+         {"u": LANE_SHARD_BARS["material"], "residual": SWEEP_BARS["f32"]["residual"]},
+         material_residual),
+        ("phase 15's structured load sweep", gload,
+         lambda dm: ps.compile_sweep(gmesh, gbca, gmd, iterations=GRID_ITERS, dtype="float32",
+                                     device_mesh=dm, setup=gload.setup),
+         "solve", lambda seed: grid_batch(gcase, nb, seed, f32, False),
+         ("lane_stencil_matvec",),
+         {"u": LANE_SHARD_BARS["grid load"], "residual": GRID_BARS["load float32"]["residual"]},
+         lambda a, res: grid_residuals(grid, False, a, res.u)),
+        ("phase 16's structured material sweep", gmat,
+         lambda dm: ps.compile_material_sweep(gmesh, gbca, iterations=GRID_ITERS,
+                                              dtype="float32", device_mesh=dm,
+                                              setup=gmat.setup),
+         "solve", lambda seed: grid_batch(gcase, nb, seed, f32, True),
+         ("lane_stencil_matvec3", "lane_coarse_smooth3"),
+         {"u": LANE_SHARD_BARS["grid material"],
+          "residual": GRID_BARS["material float32"]["residual"]},
+         lambda a, res: grid_residuals(grid, True, a, res.u)),
+    ]
+    return cases, sweeps, grid
+
+
+def lane_kernels_at_chunk(sweeps, grid, c, rand):
+    """Each lane kernel of the sharded sweeps (f32, as they run) at one
+    chunk's lane count c, on the sweeps' own operators, against its plain
+    version (phase 10 and 17's tolerances), outside any main path; and its
+    chunk-width output against the first c lanes of a full-width call on
+    the same fields, bit for bit (does the kernel's arithmetic per lane
+    depend on B?)."""
+    import torch
+    from magnetite_tpu_torch.fem.multigrid import COARSE_SWEEPS
+    from magnetite_tpu_torch.kernels import lane_coarse_kernel as lc
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import (
+        lane_dia_matvec, lane_dia_matvec3, lane_dia_matvec3_plain, lane_dia_matvec_plain,
+    )
+    from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
+        lane_material_matvec_plain, lane_stencil_matvec, lane_stencil_matvec3,
+        lane_stencil_matvec_plain,
+    )
+    from magnetite_tpu_torch.kernels.mg_smooth_kernel import OMEGA
+    from magnetite_tpu_torch.parallel.sweep import _lane_material_center_inv, material_weights
+
+    f32, nb = torch.float32, SWEEP_LANES
+    load, material = sweeps["load"], sweeps["material"]
+    gload, gmat = grid["load float32"], grid["material float32"]
+    gen = torch.Generator(device="cpu").manual_seed(25)
+    w3 = material_weights(*(
+        (lo + (hi - lo) * torch.rand(nb, generator=gen, dtype=torch.float64)).to(DEV, f32)
+        for lo, hi in ((40e9, 250e9), (0.22, 0.38), (0.2, 1.0))))
+    w3c = tuple(w[:c].contiguous() for w in w3)
+
+    def check(tag, kernel, plain, abs_plain, u, tol):
+        """kernel(u, w) at c lanes against plain; then bit for bit against
+        the first c lanes of the kernel at all B lanes."""
+        uc = u[..., :c].contiguous()
+        got = kernel(uc, w3c)
+        compare(f"{tag} B={c}", got, plain(uc, w3c), abs_plain(uc, w3c).max(), tol)
+        same = torch.equal(kernel(u, w3)[..., :c], got)
+        say(f"  {tag}: the first {c} lanes of a B={nb} call bit-identical to the B={c} "
+            f"call: {same}")
+        require(same, f"{tag}: the kernel's lanes depend on B")
+
+    od = load.offsets_dev
+    u = rand(2, load.n_nodes, nb, dtype=f32)
+    check(f"lane_dia_matvec D={len(load.offsets)} N={load.n_nodes}",
+          lambda v, w: lane_dia_matvec(load.bands, load.offsets, v, od),
+          lambda v, w: lane_dia_matvec_plain(load.bands, load.offsets, v),
+          lambda v, w: lane_dia_matvec_plain(load.bands.abs(), load.offsets, v.abs()), u, 1e-6)
+    b3 = material.bands3
+    check(f"lane_dia_matvec3 D={len(material.offsets)} N={material.n_nodes}",
+          lambda v, w: lane_dia_matvec3(b3, w, material.offsets, v, material.offsets_dev),
+          lambda v, w: lane_dia_matvec3_plain(b3, w, material.offsets, v),
+          lambda v, w: lane_dia_matvec3_plain(tuple(b.abs() for b in b3), w, material.offsets,
+                                              v.abs()), u, 1e-5)
+    del u
+    levels = [(gload.setup[1], gload.packed[1])] + [
+        (gload.setup[2][lv].stencil, gload.packed[2][lv].stencil)
+        for lv in range(1, len(gload.setup[2]) - 1)]
+    for st, pst in levels:
+        rows, cols = st.shape[-2:]
+        st = st.contiguous()
+        u = rand(2, rows, cols, nb, dtype=f32)
+        check(f"lane_stencil_matvec {rows}x{cols}", lambda v, w: lane_stencil_matvec(pst, v, False),
+              lambda v, w: lane_stencil_matvec_plain(st, v, False),
+              lambda v, w: lane_stencil_matvec_plain(st.abs(), v.abs(), False), u, 1e-5)
+    mlevels = gmat.setup[1]
+    for level, plevel in zip(mlevels[:-1], gmat.packed[1][:-1]):
+        rows, cols = level[0].shape[-2:]
+        level = tuple(x.contiguous() for x in level)
+        u = rand(2, rows, cols, nb, dtype=f32)
+        check(f"lane_stencil_matvec3 {rows}x{cols}",
+              lambda v, w: lane_stencil_matvec3(plevel, w, v, False),
+              lambda v, w: lane_material_matvec_plain(level, w, v, False),
+              lambda v, w: lane_material_matvec_plain(tuple(x.abs() for x in level), w,
+                                                      v.abs(), False), u, 1e-5)
+    level = type(mlevels[-1])(*(x.contiguous() for x in mlevels[-1]))
+    plevel = gmat.packed[1][-1]
+    rows, cols = level.sa.shape[-2:]
+    r = rand(2, rows, cols, nb, dtype=f32)
+
+    def dinv(w):
+        return _lane_material_center_inv(level, *w)
+
+    # 48 sweeps of rounding in another order: held to max|e|, as phase 17
+    check(f"lane_coarse_smooth3 {rows}x{cols}",
+          lambda v, w: lc.lane_coarse_smooth3(plevel, dinv(w), w, v, False, COARSE_SWEEPS, OMEGA),
+          lambda v, w: lc.lane_coarse_smooth3_plain(level, dinv(w), w, v, False, COARSE_SWEEPS,
+                                                    OMEGA),
+          lambda v, w: lc.lane_coarse_smooth3_plain(level, dinv(w), w, v, False, COARSE_SWEEPS,
+                                                    OMEGA).abs(), r, 1e-5)
+
+
+def lane_b_dependence(sweeps, grid, c, rand):
+    """The sweeps' torch operations whose work per lane could depend on the
+    lane count B (reductions over the nodes, cuBLAS products with B
+    columns), each on random f32 fields of the sweeps' shapes: the first c
+    lanes of a call at B lanes against the call at c lanes. Printed, not
+    required: they explain the sharded-against-unsharded readings."""
+    import torch
+    from magnetite_tpu_torch.fem.amg import _block_ell_matvec, _dense_apply, ieee_f32
+    from magnetite_tpu_torch.parallel.sweep import _lane_dense_coarse
+
+    f32, nb = torch.float32, SWEEP_LANES
+    load, material, gload = sweeps["load"], sweeps["material"], grid["load float32"]
+    rows, cols = gload.rows, gload.cols
+    coarsest = gload.setup[2][-1]
+    probes = [
+        ("the per-lane dot torch.sum(a * b, dim=(0, 1)) on [2, N, B]",
+         lambda x: torch.sum(x * x, dim=(0, 1)), (2, load.n_nodes, nb)),
+        ("the structured per-lane dot on [2, R, C, B]",
+         lambda x: torch.sum(x * x, dim=(0, 1, 2)), (2, rows, cols, nb)),
+    ]
+    if load.amg.fast0 is not None:
+        _, _, pt0_cols, pt0_vals, _ = load.amg.fast0
+        probes.append(("the load AMG's level-0 restriction einsum (cuBLAS bmm)",
+                       lambda x: _block_ell_matvec(pt0_cols, pt0_vals.to(f32), x),
+                       (load.n_nodes, 2, nb)))
+    if material.mamg[1]:
+        a_cols, (av_a, _, _), _ = material.mamg[1][0]
+        probes.append(("the material AMG's level-1 einsum (cuBLAS bmm)",
+                       lambda x: _block_ell_matvec(a_cols, av_a.to(f32), x),
+                       (av_a.shape[0], 3, nb)))
+    if coarsest.dense_inv is not None:
+        probes.append(("the structured load sweep's dense coarse solve (cuBLAS GEMM, B "
+                       "columns)", lambda x: _lane_dense_coarse(coarsest.dense_inv.to(f32), x),
+                       (2, *coarsest.stencil.shape[-2:], nb)))
+    if load.amg.ci is not None and load.amg.fast0 is not None:
+        probes.append(("the load AMG's dense coarsest inverse (cuBLAS GEMM, B columns)",
+                       lambda x: _dense_apply(load.amg.ci.to(f32), x),
+                       (load.amg.ci.shape[0] // 3, 3, nb)))
+    say(f"  B-dependence of the sweeps' torch operations (f32, first {c} lanes of B={nb} "
+        f"against B={c}):")
+    for name, fn, shape in probes:
+        x = rand(*shape, dtype=f32)
+        with ieee_f32():
+            full = fn(x)[..., :c]
+            part = fn(x[..., :c].contiguous())
+        rel = float((full - part).abs().max() / part.abs().max())
+        say(f"    {name} {tuple(shape)}: bit-identical {torch.equal(full, part)}, "
+            f"max|diff| / max|y| {rel:.3e}")
+
+
+def timed_sweep(sweep, method, batch):
+    t0 = time.perf_counter()
+    res = getattr(sweep, method)(*batch)
+    sync()
+    return res, time.perf_counter() - t0
+
+
+def lane_shard_sweeps(cases, shard_counts, totals, device_list=None):
+    """Each sweep unsharded, then lane-sharded over each count of
+    `shard_counts` (shards of cuda:0, or the cards of `device_list`): every
+    kernel's launches S times the unsharded run's (each chunk runs the
+    whole solve); each chunk of lanes bit-identical to the unsharded sweep
+    run on that chunk's lanes alone; per-lane u against the unsharded run
+    at all B lanes within the case's bar and every lane's true relative
+    residual (f64, plain operator) within the phase's; first and warm
+    solve_s. Raises after every case has printed."""
+    import torch
+    from magnetite_tpu_torch.parallel.pipeline import DeviceMesh
+
+    failed = []
+    for name, sweep, make, method, batch, kernels, bar, residual in cases:
+        args = batch(0)
+        nb = len(args[0])
+        with main_path(f"{name}, unsharded", totals, kernels) as got0:
+            res0, first0 = timed_sweep(sweep, method, args)
+        warm0 = [timed_sweep(sweep, method, batch(seed))[1] for seed in (1, 2)]
+        scale = res0.u.abs().amax(dim=(1, 2))
+        for s in shard_counts:
+            devices = (f"{DEV}:0",) * s if device_list is None else tuple(device_list)
+            label = f"S={s}" + ("" if device_list is None else f" over {len(set(devices))} cards")
+            sharded = make(DeviceMesh(devices, "lanes"))
+            with main_path(f"{name}, lane-sharded {label}", totals, kernels) as got:
+                res, first = timed_sweep(sharded, method, args)
+            warm = [timed_sweep(sharded, method, batch(seed))[1] for seed in (1, 2)]
+            u = res.u.to(res0.u.device)
+            diff = float(((u - res0.u).abs().amax(dim=(1, 2)) / scale).max())
+            rel = float(residual(args, res).max())
+            c = nb // s
+            alone = [getattr(sweep, method)(*(a[i * c:(i + 1) * c] for a in args)).u.to(u.device)
+                     for i in range(s)]
+            same = all(torch.equal(u[i * c:(i + 1) * c], v) for i, v in enumerate(alone))
+            b_diff = float(((torch.cat(alone) - res0.u).abs().amax(dim=(1, 2)) / scale).max())
+            say(f"  {name}, {label}: {len(sharded.replicas)} replica(s); first solve_s "
+                f"{first:.4f}, warm {' / '.join(f'{w:.4f}' for w in warm)} (unsharded first "
+                f"{first0:.4f}, warm {' / '.join(f'{w:.4f}' for w in warm0)}); each chunk "
+                f"bit-identical to the unsharded sweep on its {c} lanes alone: {same}; those "
+                f"B={c} runs against the B={nb} run {b_diff:.3e}; per-lane max|u - "
+                f"u_unsharded| / max|u| {diff:.3e} (<= {bar['u']:g}); per-lane true relative "
+                f"residual (f64, plain operator) max {rel:.3e} (<= {bar['residual']:g})")
+            launched = {k: c_ for k, c_ in got.items() if c_}
+            want = {k: s * c_ for k, c_ in got0.items() if c_}
+            if launched != want:
+                failed.append(f"{name} {label}: launches {launched}, expected S x the "
+                              f"unsharded run's {want}")
+            if not same:
+                failed.append(f"{name} {label}: a chunk differs from the unsharded sweep on "
+                              "its lanes")
+            if not (diff <= bar["u"] and rel <= bar["residual"]):
+                failed.append(f"{name} {label}: off the unsharded answer or above its "
+                              "residual bar")
+            del sharded, res, alone
+    require(not failed, "; ".join(failed))
+
+
+def ell_shard_bytes(cols, nl, n_u, es, nb=1):
+    """(bytes moved once, operations) of one shard's all-gather ELL matvec
+    over nb lanes: the blocks and int32 cols once, the entries of u its
+    cols reference once, y written once; 8 flops per slot and lane."""
+    import torch
+
+    k = cols.numel() // nl
+    touched = int(torch.unique(cols).numel())
+    return nl * k * (4 * es + 4) + 2 * (touched + nl) * nb * es, 8 * nl * k * nb
+
+
+def gathered_csr(data, cols, nl, n_u):
+    """The shard's rows of K ([2 nl, 2 n_u] CSR) from slot-major data [K, 2,
+    2, nl] and cols [K, nl]: the library yardstick's operand."""
+    import torch
+
+    node = torch.arange(nl, device=data.device)
+    rows_, cs, vals = [], [], []
+    for kk in range(cols.shape[0]):
+        for i in range(2):
+            for j in range(2):
+                rows_.append(i * nl + node)
+                cs.append(j * n_u + cols[kk].long())
+                vals.append(data[kk, i, j])
+    return csr(rows_, cs, vals, (2 * nl, 2 * n_u))
+
+
+def phase_ell_shard(h, totals, reps, flush, rand):
+    """Phase 25b: the all-gather block-ELL path on the Delaunay plate at h,
+    f64. sharded_pcg_solve over 4 shards of cuda:0 to rtol 1e-8: exactly S
+    x (1 + vcycles) ELL launches at the shard's rows against the gathered
+    field (n_u = Np > n = nl), the true relative residual with the plain
+    version; the kernel at that shape against its plain version and a
+    cuSPARSE CSR SpMV of the shard's rows. Then sharded_batch_pcg_solve of
+    ELL_BATCH_LANES lanes over a 2 x 2 (batch x rows) mesh of cuda:0,
+    ELL_BATCH_ITERS fixed iterations: exactly chunks x rows x (iterations
+    + 3) lane ELL launches, lanes 0 and the last against the same PCG run
+    on that lane alone through the single-vector path (after 3 iterations,
+    and by the true residual after the budget); the lane ELL kernel
+    at the chunk's shape against its plain version and cuSPARSE SpMM.
+    Returns the two kernels' rows at these shapes."""
+    import numpy as np
+    import torch
+    from magnetite_tpu_torch.fem.cg import pcg_fixed_iterations
+    from magnetite_tpu_torch.fem.operator import make_constrained_operator, reduced_rhs
+    from magnetite_tpu_torch.kernels.ell_kernel import ell_matvec_t, ell_matvec_t_plain
+    from magnetite_tpu_torch.kernels.lane_ell_kernel import (
+        lane_ell_matvec, lane_ell_matvec_plain,
+    )
+    from magnetite_tpu_torch.parallel import sharding as psh
+    from magnetite_tpu_torch.parallel.dia_shard import ShardVec, shard_dot
+    from magnetite_tpu_torch.parallel.pipeline import DeviceMesh, DeviceMesh2D
+
+    s = 4
+    mesh, bca, md = plate_case(h)
+    t0 = time.perf_counter()
+    p = psh.prepare_sharded_problem(mesh, bca, md, DeviceMesh((f"{DEV}:0",) * s, "rows"),
+                                    dtype=np.float64)
+    sync()
+    prep = time.perf_counter() - t0
+    nl, n_u = p.free.shards[0].shape[1], p.n_pad
+    k = p.cols[0].shape[0]
+    say(f"phase 25b: sharded_pcg_solve (all-gather ELL) on the plate at h={h}: "
+        f"{mesh.num_nodes} nodes, K={k}, {s} shards of {nl} rows against the gathered "
+        f"{n_u}; prep {prep:.3f} s")
+    maxiter = 100_000
+    with main_path(f"the all-gather ELL solve, S={s}", totals, ("ell_matvec_t",)) as got:
+        t0 = time.perf_counter()
+        res = psh.sharded_pcg_solve(p, rtol=1e-8, maxiter=maxiter)
+        sync()
+        solve_s = time.perf_counter() - t0
+    iters = int(res.iterations)
+    want = s * (1 + vcycles([iters], maxiter))
+    say(f"  {iters} iterations, solve_s {solve_s:.3f}; ell_matvec_t launches "
+        f"{got['ell_matvec_t']} (expected {s} x (1 + {vcycles([iters], maxiter)}) = {want}, "
+        "all f64)")
+    launched = {kk: c for kk, c in got.items() if c}
+    require(bool(res.converged) and launched == {"ell_matvec_t": want, "ell_matvec_t f64": want},
+            f"all-gather ELL: launches {launched}")
+    totals["ell_matvec_t gathered"] = totals.get("ell_matvec_t gathered", 0) + want
+    full = torch.cat(res.x.shards, dim=1)
+
+    def plain_k(v):  # the unreduced K on [2, Np], plain version
+        return torch.cat([ell_matvec_t_plain(d, c, v) for d, c in zip(p.ell_data, p.cols)], dim=1)
+
+    free = torch.cat(p.free.shards, dim=1)
+    uf = torch.cat(p.u_fixed.shards, dim=1)
+    fa = torch.cat(p.f_applied.shards, dim=1)
+    b = free * (fa - plain_k(uf)) + (1 - free) * uf
+    r = b - (free * plain_k(free * full) + (1 - free) * full)
+    rel = float(r.norm() / b.norm())
+    say(f"  true relative residual (f64, plain operator) {rel:.3e} (<= 1e-08)")
+    require(rel <= 1e-8, "all-gather ELL: true residual too large")
+    del res, full, r, b, uf, fa
+
+    rows = {}
+    data, cols = p.ell_data[0], p.cols[0]
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        d = data.to(dtype)
+        u = rand(2, n_u, dtype=dtype)
+        tag = f"ell_matvec_t shard K={k} N={nl} N_u={n_u} {str(dtype)[6:]}"
+        ref = ell_matvec_t_plain(d, cols, u)
+        y = ell_matvec_t(d, cols, u)
+        err = compare(tag, y, ref, ell_matvec_t_plain(d.abs(), cols, u.abs()).max(), tol)
+        require(torch.equal(y, ell_matvec_t(d, cols, u)), f"{tag}: a second call differs")
+        a = gathered_csr(d, cols, nl, n_u)
+        x = u.reshape(-1)
+        r_ = time_kernel(tag, lambda: ell_matvec_t(d, cols, u),
+                         lambda: ell_matvec_t_plain(d, cols, u), lambda: torch.mv(a, x), reps,
+                         flush, *ell_shard_bytes(cols, nl, n_u, d.element_size()), dtype,
+                         rounds=ROUNDS)
+        if dtype == torch.float64:
+            rows["ell_matvec_t gathered"] = dict(max_abs_err=err, **r_)
+        del a
+
+    nb, iters_b = ELL_BATCH_LANES, ELL_BATCH_ITERS
+    dm = DeviceMesh2D((f"{DEV}:0",) * 4, (2, 2), ("batch", "rows"))
+    pb = psh.prepare_sharded_problem(mesh, bca, md, dm, axis="rows", dtype=np.float64)
+    nlb, n_ub = pb.free.shards[0].shape[1], pb.n_pad
+    rng = np.random.default_rng(25)
+    u_fixed = pb.u_fixed.gather().T[None] * rng.uniform(0.5, 2.0, nb)[:, None, None]
+    f_applied = np.zeros_like(u_fixed)
+    with main_path(f"the all-gather ELL batch solve, {nb} lanes over 2 x 2", totals,
+                   ("lane_ell_matvec",)) as got:
+        t0 = time.perf_counter()
+        ub = psh.sharded_batch_pcg_solve(pb, u_fixed, f_applied, iterations=iters_b)
+        sync()
+        solve_b = time.perf_counter() - t0
+    want = 2 * 2 * (iters_b + 3)
+    launched = {kk: c for kk, c in got.items() if c}
+    say(f"  batch solve: {nb} lanes, {iters_b} iterations, 2 chunks x 2 row shards of {nlb} "
+        f"rows against the gathered {n_ub}: solve_s {solve_b:.3f}; lane_ell_matvec launches "
+        f"{got['lane_ell_matvec']} (expected 2 x 2 x ({iters_b} + 3) = {want})")
+    require(launched == {"lane_ell_matvec": want} and bool(torch.isfinite(ub).all()),
+            f"batch solve: launches {launched}")
+    totals["lane_ell_matvec gathered"] = totals.get("lane_ell_matvec gathered", 0) + want
+    # lanes 0 and the last against the same PCG run on that lane alone
+    # through the single-vector ELL path: after 3 iterations only rounding
+    # separates them (1e-12 of max|u|); after the full budget (far from
+    # converged: ~5,900 iterations converge) CG carries the two dots'
+    # summation orders apart, so there the lanes' true relative residuals
+    # (f64, plain operator) are held within 2x of the one-lane solves'
+    short = psh.sharded_batch_pcg_solve(pb, u_fixed, f_applied, iterations=3)
+    devices = psh._mesh_rows(dm, "rows")
+
+    free_b = torch.cat(pb.free.shards, dim=1)
+
+    def plain_kb(v):  # pb's unreduced K on [2, Np], plain version
+        return torch.cat([ell_matvec_t_plain(d, c, v) for d, c in zip(pb.ell_data, pb.cols)],
+                         dim=1)
+
+    def true_rel(u_lane, lane):  # u_lane [Np, 2]
+        uf_l = torch.as_tensor(u_fixed[lane].T, device=DEV)
+        b_l = free_b * (-plain_kb(uf_l)) + (1 - free_b) * uf_l
+        v = u_lane.T.to(DEV)
+        r_l = b_l - (free_b * plain_kb(free_b * v) + (1 - free_b) * v)
+        return float(r_l.norm() / b_l.norm())
+
+    for lane, chunk in ((0, 0), (nb - 1, 1)):
+        ell_data, cols_c, free_c, diag_inv = psh._on(pb, devices[chunk])
+
+        def field(a, devs=devices[chunk]):
+            t = torch.as_tensor(a.T)
+            return ShardVec(t[:, i * nlb:(i + 1) * nlb].to(d_).contiguous()
+                            for i, d_ in enumerate(devs))
+
+        mv = psh._gather_matvec(ell_data, cols_c)
+        uf_l = field(u_fixed[lane])
+        rhs = reduced_rhs(mv, free_c, uf_l, field(f_applied[lane]))
+        one = {}
+        for n_it in (3, iters_b):
+            x_ = pcg_fixed_iterations(make_constrained_operator(mv, free_c), rhs,
+                                      preconditioner=psh._block_jacobi(diag_inv), x0=uf_l,
+                                      iterations=n_it, dot=shard_dot).x
+            one[n_it] = torch.cat([t.to(ub.device) for t in x_.shards], dim=1).T
+        diff = float((short[lane] - one[3]).abs().max() / one[3].abs().max())
+        far = float((ub[lane] - one[iters_b]).abs().max() / one[iters_b].abs().max())
+        rel_b, rel_1 = true_rel(ub[lane], lane), true_rel(one[iters_b], lane)
+        say(f"  batch lane {lane} against the same PCG on that lane alone (single-vector ELL "
+            f"kernel): after 3 iterations max|diff| / max|u| {diff:.3e} (<= 1e-12); after "
+            f"{iters_b} {far:.3e}, true relative residual (f64, plain operator) {rel_b:.3e} "
+            f"against {rel_1:.3e} (within 2x)")
+        require(diff <= 1e-12 and 0.5 * rel_1 <= rel_b <= 2 * rel_1,
+                f"batch lane {lane} off its one-lane solve")
+    del ub, short, one
+    ell_n, cols_n, _, _ = psh._lanes_on(pb, devices[0])
+    ell0, cols0 = ell_n[0], cols_n[0]
+    nbc = nb // 2
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        e = ell0.to(dtype)
+        u = rand(2, n_ub, nbc, dtype=dtype)
+        tag = f"lane_ell_matvec shard N={nlb} N_u={n_ub} W={k} B={nbc} {str(dtype)[6:]}"
+        ref = lane_ell_matvec_plain(e, cols0, u)
+        y = lane_ell_matvec(e, cols0, u)
+        err = compare(tag, y, ref, lane_ell_matvec_plain(e.abs(), cols0, u.abs()).max(), tol)
+        require(torch.equal(y, lane_ell_matvec(e, cols0, u)), f"{tag}: a second call differs")
+        a = gathered_csr(e.permute(1, 2, 3, 0), cols0.T, nlb, n_ub)
+        x = u.reshape(2 * n_ub, nbc)
+        r_ = time_kernel(tag, lambda: lane_ell_matvec(e, cols0, u),
+                         lambda: lane_ell_matvec_plain(e, cols0, u),
+                         lambda: torch.sparse.mm(a, x), reps, flush,
+                         *ell_shard_bytes(cols0, nlb, n_ub, e.element_size(), nbc), dtype)
+        if dtype == torch.float64:
+            rows["lane_ell_matvec gathered"] = dict(max_abs_err=err, **r_)
+        del a, u, ref, y
+    return rows
+
+
+def phase_lane_shard(args, totals, rand):
+    """Phase 25: lane sharding of phases 11, 12, 15 and 16's sweeps over 2
+    and 4 shards of cuda:0, with each lane kernel at the chunks' lane
+    counts (25a); the all-gather ELL path, single-vector and batched (25b);
+    dryrun_multichip(4) on repeated cuda:0 (25c); and on a machine with
+    more than one GPU the sweeps and the dry run over the distinct cards
+    (25d). Returns the kernel rows of 25b."""
+    import torch
+    from magnetite_tpu_torch.dryrun import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    say(f"phase 25a: lane-sharded sweeps, {SWEEP_LANES} lanes over 2 and 4 shards of one card")
+    cases, sweeps, grid = lane_shard_cases(args)
+    for s in (2, 4):
+        lane_kernels_at_chunk(sweeps, grid, SWEEP_LANES // s, rand)
+    lane_b_dependence(sweeps, grid, SWEEP_LANES // 2, rand)
+    lane_shard_sweeps(cases, (2, 4), totals)
+    del sweeps, grid
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)
+    rows = phase_ell_shard(args.ell_shard_h, totals, args.reps, flush, rand)
+    del flush
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = dryrun_multichip(4, device=f"{DEV}:0")
+    say(f"phase 25c: dryrun_multichip(4) on cuda:0 x 4 passed in {time.perf_counter() - t0:.2f} "
+        f"s: {out}")
+    n_gpu = torch.cuda.device_count()
+    if n_gpu > 1:
+        devices = [f"{DEV}:{i}" for i in range(n_gpu)]
+        say(f"phase 25d: the sweeps and the dry run over the {n_gpu} distinct cards")
+        lane_shard_sweeps(cases, (n_gpu,), totals, devices)
+        out = dryrun_multichip(n_gpu, device=devices)
+        say(f"  dryrun_multichip({n_gpu}) over {devices}: {out}")
+    else:
+        say("phase 25d: one visible GPU: the distinct-card run needs more than one")
+    del cases
+    torch.cuda.empty_cache()
+    say(f"  (phase 25: {time.perf_counter() - t_phase:.1f} s)")
+    return rows
+
+
 def main() -> int:
     global SWEEP_LANES, PTXAS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3518,6 +4352,8 @@ def main() -> int:
     ap.add_argument("--sweep-small", type=float, nargs=2, default=(0.04, 128),
                     metavar=("H", "LANES"),
                     help="mesh size and lanes of the sweeps' card-against-CPU phase")
+    ap.add_argument("--ell-shard-h", type=float, default=0.003,
+                    help="mesh size of the all-gather ELL phase's Delaunay plate (25b)")
     ap.add_argument("--reps", type=int, default=20, help="timed launches per kernel")
     ap.add_argument("--profile", action="store_true",
                     help="trace one structured f32-refined solve and one warm solve of "
@@ -3530,7 +4366,7 @@ def main() -> int:
                     "rounds")
     ap.add_argument("--only", choices=("transfers", "lane-kernels", "multigrid",
                                        "structured-sweeps", "lane-sweeps", "resume", "ell",
-                                       "shard"),
+                                       "shard", "grid-shard", "lane-shard"),
                     help="transfers: phases 0 to 3 alone (the Delaunay plate's band and "
                     "transfer kernels); lane-kernels: phases 0, 1 and 10 alone; multigrid: "
                     "phases 0, 1 and 14 alone (the 1M plate's hierarchy built, not solved); "
@@ -3539,7 +4375,9 @@ def main() -> int:
                     "Delaunay plate compiled, then saved and resumed); ell: phases 0, 1, "
                     "5, 6 and 22 (the DIA CLI runs that phase 22 is held against); shard: "
                     "phases 0, 1, 5, 6 and 23 (device assembly and the sharded pipeline, "
-                    "held against phases 5-6); each ends without the ok line")
+                    "held against phases 5-6); grid-shard: phases 0, 1, 7 and 24 (the "
+                    "structured multi-GPU path, held against phase 7); lane-shard: phases "
+                    "0, 1 and 25; each ends without the ok line")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -3582,6 +4420,18 @@ def main() -> int:
         return torch.randn(*shape, generator=gen, device=DEV, dtype=torch.float64).to(dtype)
 
     SWEEP_LANES = args.lanes
+    if args.only == "grid-shard":
+        refs: dict = {}
+        phase_structured(*args.plate, {}, False, refs)
+        phase_grid_shard(*args.plate, refs, {}, rand)
+        say(f"phases 0, 1, 7 and 24 passed in {time.perf_counter() - t_start:.1f} s "
+            "(--only grid-shard: no ok line)")
+        return 0
+    if args.only == "lane-shard":
+        phase_lane_shard(args, {}, rand)
+        say(f"phases 0, 1 and 25 passed in {time.perf_counter() - t_start:.1f} s "
+            "(--only lane-shard: no ok line)")
+        return 0
     if args.only == "lane-kernels":
         say(f"phase 10: the sweep plate at h={args.sweep_h} compiled for both sweeps")
         flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)
@@ -3660,7 +4510,11 @@ def main() -> int:
     del problem
     torch.cuda.empty_cache()
 
-    levels_1m = phase_structured(*args.plate, totals, args.profile)
+    refs = {}
+    levels_1m = phase_structured(*args.plate, totals, args.profile, refs)
+    phase_grid_shard(*args.plate, refs, totals, rand)
+    del refs
+    torch.cuda.empty_cache()
     results.update(phase_stencil_kernel(levels_1m, args.big, args.rect, args.reps, flush, rand,
                                         totals))
     results.update(phase_mg_smooth(levels_1m, args.rect, args.reps, flush, rand, totals, base))
@@ -3683,6 +4537,7 @@ def main() -> int:
     phase_sweeps_card_vs_cpu(args.sweep_small[0], int(args.sweep_small[1]))
     phase_grid_sweeps(args, rand, results, totals, base)
     phase_lane_sweeps(args, rand, results, totals)
+    results.update(phase_lane_shard(args, totals, rand))
 
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     say("launches per shape over the main paths: " + "; ".join(

@@ -13,10 +13,12 @@ meshed case with its AMG hierarchy and assembled operator beside it
 (`<case>.npz.amg.npz`, `<case>.npz.op.npz`; the JAX CLI's files, either
 CLI reads the other's), --cg-progress N logs the CG residual every N
 iterations and --profile DIR writes a torch.profiler Chrome trace there.
---shard runs the solve and the recovery node-sharded over every visible
-GPU (--device cpu: the one CPU device); --shard-layout auto | 1d names
-that layout, and RxC, the structured 2-D layout, raises a typed "not yet
-ported" error.
+--shard runs the solve and the recovery sharded over every visible GPU
+(--device cpu: the one CPU device): a structured grid case (--load-case of
+a case saved from a generated grid) by grid rows, any other mesh by nodes;
+--shard-layout auto | 1d names that layout, and RxC (R * C visible
+devices) the 2-D rows x cols layout of the structured path, which any
+other mesh refuses with a typed error.
 """
 
 from __future__ import annotations
@@ -112,13 +114,14 @@ def build_parser() -> argparse.ArgumentParser:
         "--shard",
         action="store_true",
         help="run the solve + recovery sharded over every visible device "
-        "(node-sharded DIA + AMG)",
+        "(structured grids by rows, other meshes node-sharded DIA + AMG)",
     )
     parser.add_argument(
         "--shard-layout",
         default=None,
         help="device-mesh layout for --shard (implies it): 'auto' or '1d' is "
-        "the 1D mesh over every visible device ('RxC' is not yet ported)",
+        "the 1D mesh over every visible device; 'RxC' (e.g. '2x4') a 2D rows x "
+        "cols mesh for structured grids (R*C must equal the device count)",
     )
     return parser
 
@@ -303,7 +306,7 @@ def _run(args, sim, options):
             device_mesh = parse_device_mesh(args.shard_layout or "auto", device=args.device)
             log(
                 f"info: sharding the solve over {device_mesh.size} device(s) "
-                f"({device_mesh.size})"
+                f"({'x'.join(str(n) for n in device_mesh.shape)})"
             )
             problem = compile_sharded_problem(
                 mesh, bca, sim.metadata, options, device_mesh=device_mesh,

@@ -54,6 +54,8 @@
 
 #include <cstdint>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -157,16 +159,6 @@ int launch(const void* bands, const void* offsets, int n_diags, const void* u,
   return static_cast<int>(cudaGetLastError());
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
 // Warps per block and offsets per batch from (D, N). Where the node groups
 // give every SM at least four blocks (the 1M plate's first coarse level:
 // 1,518 blocks), the offsets spread evenly over at most 8 warps, each
@@ -179,7 +171,7 @@ template <typename T, int M>
 int launch_slices(const void* bands, const void* offsets, int n_diags,
                   const void* u, void* y, int64_t n, cudaStream_t stream) {
   const int64_t blocks = (n + 31) / 32;
-  const bool wide = blocks >= 4 * static_cast<int64_t>(sm_count());
+  const bool wide = blocks >= 4 * static_cast<int64_t>(mt::sm_count());
   const int most = wide ? kWideWarps : kNarrowWarps;
   const int per_warp = (n_diags + most - 1) / most;
   const int warps = (n_diags + per_warp - 1) / per_warp;

@@ -5,8 +5,10 @@
 //
 // data [K, 2, 2, N] slot-major (node minormost; relaid out once at compile
 // time from the assembly's [N, K, 2, 2]), cols [K, N] int32 (padding slots
-// point at the row's own node and hold zero blocks), u / y [2, N] in the
-// port's band layout. f32 and f64 instances.
+// point at the row's own node and hold zero blocks), y [2, N] in the port's
+// band layout and u [2, N_u], N_u >= N: the all-gather sharded path
+// (parallel/sharding.py) runs a shard's N rows against the whole gathered
+// field, its cols global indices. f32 and f64 instances.
 //
 // No TPU kernel stands behind this one: the JAX package computes the same
 // function as magnetite_tpu/fem/operator.py:27 (`ell_matvec`, a gather and
@@ -39,11 +41,11 @@ constexpr int kThreads = 256;
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ell_matvec_kernel(
     const T* __restrict__ data, const int* __restrict__ cols, const T* __restrict__ u,
-    T* __restrict__ y, int64_t n, int width) {
+    T* __restrict__ y, int64_t n, int64_t n_u, int width) {
   const int64_t node = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (node >= n) return;
   const int64_t plane = n;  // one [N] plane of data or cols
-  const T* __restrict__ u1 = u + n;
+  const T* __restrict__ u1 = u + n_u;
   T acc0 = T(0), acc1 = T(0);
 #pragma unroll 4
   for (int k = 0; k < width; ++k) {
@@ -60,25 +62,25 @@ __global__ void __launch_bounds__(kThreads) ell_matvec_kernel(
 }
 
 template <typename T>
-int launch(const void* data, const void* cols, const void* u, void* y, int64_t n, int width,
-           cudaStream_t stream) {
+int launch(const void* data, const void* cols, const void* u, void* y, int64_t n, int64_t n_u,
+           int width, cudaStream_t stream) {
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
   ell_matvec_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(data), static_cast<const int*>(cols), static_cast<const T*>(u),
-      static_cast<T*>(y), n, width);
+      static_cast<T*>(y), n, n_u, width);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64. Returns a cudaError_t code (0 =
-// launched).
+// dtype: 0 = float32, 1 = float64; n_u the length of u's rows (>= n).
+// Returns a cudaError_t code (0 = launched).
 extern "C" int mt_ell_matvec(int dtype, const void* data, const void* cols, const void* u,
-                             void* y, int64_t n, int width, void* stream) {
-  if (n <= 0 || width <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                             void* y, int64_t n, int64_t n_u, int width, void* stream) {
+  if (n <= 0 || n_u < n || width <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(data, cols, u, y, n, width, s);
-  if (dtype == 1) return launch<double>(data, cols, u, y, n, width, s);
+  if (dtype == 0) return launch<float>(data, cols, u, y, n, n_u, width, s);
+  if (dtype == 1) return launch<double>(data, cols, u, y, n, n_u, width, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -68,6 +68,8 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int kSlab = 2;          // lanes per block
@@ -249,16 +251,16 @@ int launch(const void* packed, const void* dinv, const void* wa, const void* wb,
       smem > static_cast<size_t>(kMaxSmem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static bool allowed = false;
-  if (!allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lane_coarse_smooth3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    allowed = true;
-  }
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // once per instance and device; the occupancy query below reads the
+  // allowance of the current device
+  static std::atomic<bool> allowed[mt::kMaxDevices];
+  const cudaError_t err = mt::once_per_device(allowed, [] {
+    return cudaFuncSetAttribute(lane_coarse_smooth3_kernel<T>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int sms = mt::sm_count();
+  int per_sm = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lane_coarse_smooth3_kernel<T>, threads,
                                                 smem);
   const int64_t slabs = (nb + kSlab - 1) / kSlab;

@@ -104,6 +104,8 @@
 #include <atomic>
 #include <cstdint>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int kLanes = 32;  // threadIdx.x: lanes of one node (one warp)
@@ -623,18 +625,20 @@ int launch_ring(const Operands<T, S>& op, const void* offsets, int n_diags, cons
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // above 48 KB a block's dynamic shared memory must be allowed first, once
-  // per instance (the allowance is a cap: it reserves nothing)
-  static std::atomic<bool> allowed{false};
-  if (smem_bytes > 48 * 1024 && !allowed.load()) {
-    cudaError_t err = cudaFuncSetAttribute(
-        lane_dia_ring_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err == cudaSuccess) {  // and the largest shared-memory share of each SM
-      err = cudaFuncSetAttribute(lane_dia_ring_kernel<T, S>,
+  // per instance and device (the allowance is a cap: it reserves nothing)
+  static std::atomic<bool> allowed[mt::kMaxDevices];
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = mt::once_per_device(allowed, [] {
+      cudaError_t e = cudaFuncSetAttribute(
+          lane_dia_ring_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      if (e == cudaSuccess) {  // and the largest shared-memory share of each SM
+        e = cudaFuncSetAttribute(lane_dia_ring_kernel<T, S>,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
-    }
+      }
+      return e;
+    });
     if (err != cudaSuccess) return static_cast<int>(err);
-    allowed.store(true);
   }
   const dim3 grid(static_cast<unsigned>(strips), static_cast<unsigned>(tiles));
   lane_dia_ring_kernel<T, S><<<grid, lt * rows / K, smem_bytes, stream>>>(

@@ -5,8 +5,11 @@
 //
 // ell [N, W, 2, 2] (a node's W blocks of 2x2, row-major), cols [N, W]
 // int32 (padding slots point at the row's own node and hold zero blocks),
-// u / y [2, N, B] lane fields (B minormost). f32 and f64 instances; the
-// per-lane stiffness scale stays outside, as for the lane band kernel.
+// y [2, N, B] and u [2, N_u, B] lane fields (B minormost), N_u >= N: the
+// sweeps run N_u = N; the all-gather sharded batch solve
+// (parallel/sharding.py) runs a shard's N rows against the whole gathered
+// field, its cols global indices. f32 and f64 instances; the per-lane
+// stiffness scale stays outside, as for the lane band kernel.
 //
 // No TPU kernel stands behind this one: the JAX package computes the same
 // function as magnetite_tpu/fem/operator.py:27 (`ell_matvec`, a gather and
@@ -71,14 +74,15 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, const T (&v)[V]) {
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads) lane_ell_kernel(
     const T* __restrict__ ell, const int* __restrict__ cols, const T* __restrict__ u,
-    T* __restrict__ y, int64_t n, int width, int64_t nb, int team, int64_t node_blocks) {
+    T* __restrict__ y, int64_t n, int64_t n_u, int width, int64_t nb, int team,
+    int64_t node_blocks) {
   const int64_t nvec = nb / V;
   const int64_t tile = blockIdx.x / node_blocks;  // the lane tile: slowest index
   const int64_t node = (blockIdx.x % node_blocks) * (kThreads / team) + threadIdx.x / team;
   const int64_t vec = tile * team + threadIdx.x % team;
   if (node >= n || vec >= nvec) return;
   const int64_t lane0 = vec * V;
-  const int64_t comp = n * nb;  // one component field
+  const int64_t comp_u = n_u * nb, comp_y = n * nb;  // one component field
   const int* __restrict__ c = cols + node * width;
   const T* __restrict__ e = ell + node * width * 4;
   T acc0[V], acc1[V];
@@ -94,7 +98,7 @@ __global__ void __launch_bounds__(kThreads) lane_ell_kernel(
     const T e10 = __ldg(e + 4 * s + 2), e11 = __ldg(e + 4 * s + 3);
     T u0[V], u1[V];
     load_vec<T, V>(u + src * nb + lane0, u0);
-    load_vec<T, V>(u + comp + src * nb + lane0, u1);
+    load_vec<T, V>(u + comp_u + src * nb + lane0, u1);
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       acc0[k] = acc0[k] + e00 * u0[k] + e01 * u1[k];
@@ -102,44 +106,47 @@ __global__ void __launch_bounds__(kThreads) lane_ell_kernel(
     }
   }
   store_vec<T, V>(y + node * nb + lane0, acc0);
-  store_vec<T, V>(y + comp + node * nb + lane0, acc1);
+  store_vec<T, V>(y + comp_y + node * nb + lane0, acc1);
 }
 
 template <typename T, int V>
-int launch(const void* ell, const void* cols, const void* u, void* y, int64_t n, int width,
-           int64_t nb, int team, cudaStream_t stream) {
+int launch(const void* ell, const void* cols, const void* u, void* y, int64_t n, int64_t n_u,
+           int width, int64_t nb, int team, cudaStream_t stream) {
   const int64_t node_blocks = (n + kThreads / team - 1) / (kThreads / team);
   const int64_t tiles = (nb / V + team - 1) / team;
   const int64_t blocks = node_blocks * tiles;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
   lane_ell_kernel<T, V><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(ell), static_cast<const int*>(cols), static_cast<const T*>(u),
-      static_cast<T*>(y), n, width, nb, team, node_blocks);
+      static_cast<T*>(y), n, n_u, width, nb, team, node_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(int vec, const void* ell, const void* cols, const void* u, void* y, int64_t n,
-             int width, int64_t nb, int team, cudaStream_t s) {
+             int64_t n_u, int width, int64_t nb, int team, cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(T);
-  if (vec == kVec && nb % kVec == 0) return launch<T, kVec>(ell, cols, u, y, n, width, nb, team, s);
-  if (vec == 1) return launch<T, 1>(ell, cols, u, y, n, width, nb, team, s);
+  if (vec == kVec && nb % kVec == 0) {
+    return launch<T, kVec>(ell, cols, u, y, n, n_u, width, nb, team, s);
+  }
+  if (vec == 1) return launch<T, 1>(ell, cols, u, y, n, n_u, width, nb, team, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64; vec: lanes per thread (16 bytes of
-// lanes, or 1); team: threads per node (a power of two, 1..32). Returns a
-// cudaError_t code (0 = launched).
+// lanes, or 1); team: threads per node (a power of two, 1..32); n_u: the
+// nodes of u (>= n). Returns a cudaError_t code (0 = launched).
 extern "C" int mt_lane_ell_matvec(int dtype, int vec, int team, const void* ell,
                                   const void* cols, const void* u, void* y, int64_t n,
-                                  int width, int64_t nb, void* stream) {
-  if (n <= 0 || width <= 0 || nb <= 0 || team < 1 || team > 32 || (team & (team - 1)) != 0) {
+                                  int64_t n_u, int width, int64_t nb, void* stream) {
+  if (n <= 0 || n_u < n || width <= 0 || nb <= 0 || team < 1 || team > 32 ||
+      (team & (team - 1)) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(vec, ell, cols, u, y, n, width, nb, team, s);
-  if (dtype == 1) return dispatch<double>(vec, ell, cols, u, y, n, width, nb, team, s);
+  if (dtype == 0) return dispatch<float>(vec, ell, cols, u, y, n, n_u, width, nb, team, s);
+  if (dtype == 1) return dispatch<double>(vec, ell, cols, u, y, n, n_u, width, nb, team, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -74,6 +74,8 @@
 #include <atomic>
 #include <cstdint>
 
+#include "per_device.cuh"
+
 namespace {
 
 // Lane geometry per value type: a 16-byte chunk holds kChunk lanes, a
@@ -331,13 +333,13 @@ int launch(const void* packed, const void* wa, const void* wb, const void* wc, c
       strip_rows < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static std::atomic<bool> allowed{false};
-  if (!allowed.load()) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lane_stencil_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    allowed.store(true);
-  }
+  // once per instance and device
+  static std::atomic<bool> allowed[mt::kMaxDevices];
+  const cudaError_t err = mt::once_per_device(allowed, [] {
+    return cudaFuncSetAttribute(lane_stencil_kernel<T, S>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((nb + L::kSlab - 1) / L::kSlab),
                   static_cast<unsigned>((cols + tile_cols - 1) / tile_cols),
                   static_cast<unsigned>((rows + strip_rows - 1) / strip_rows));

@@ -49,16 +49,19 @@ def mixed_precision_solve(
     atol: float = 0.0,
     inner_maxiter: int = 100,
     max_outer: int = 8,
+    dot=_dot,
 ) -> RefineResult:
     """Solve A x = b (SPD) to an f64-grade residual with f32 inner solves.
-    op64 must be op32's operator evaluated in f64 (same BC reduction)."""
+    op64 must be op32's operator evaluated in f64 (same BC reduction).
+    `dot` is every inner product, outer and inner (fem/cg.pcg's hook: the
+    sharded solves pass the sum over shards)."""
     f64 = b.dtype
     x = torch.zeros_like(b) if x0 is None else x0.to(f64)
-    threshold = torch.clamp(rtol * torch.sqrt(_dot(b, b)), min=atol)
+    threshold = torch.clamp(rtol * torch.sqrt(dot(b, b)), min=atol)
     thresh2 = threshold * threshold
 
     r = b - op64(x)
-    rnorm2 = _dot(r, r)
+    rnorm2 = dot(r, r)
     per_pass = []
     k = 0
     while k < max_outer and bool(rnorm2 > thresh2):
@@ -72,10 +75,11 @@ def mixed_precision_solve(
             preconditioner=preconditioner32,
             rtol=INNER_RTOL,
             maxiter=inner_maxiter,
+            dot=dot,
         )
         x = x + inner.x.to(f64) * safe
         r = b - op64(x)
-        rnorm2 = _dot(r, r)
+        rnorm2 = dot(r, r)
         per_pass.append(inner.iterations)
         k += 1
     inner_total = torch.zeros((), dtype=torch.int64, device=b.device)

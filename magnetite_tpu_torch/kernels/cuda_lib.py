@@ -182,9 +182,9 @@ def _bind(lib) -> None:
         i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i64, i32, ctypes.c_double, vp,
     ]
     lib.mt_lane_ell_matvec.restype = i32
-    lib.mt_lane_ell_matvec.argtypes = [i32, i32, i32, vp, vp, vp, vp, i64, i32, i64, vp]
+    lib.mt_lane_ell_matvec.argtypes = [i32, i32, i32, vp, vp, vp, vp, i64, i64, i32, i64, vp]
     lib.mt_ell_matvec.restype = i32
-    lib.mt_ell_matvec.argtypes = [i32, vp, vp, vp, vp, i64, i32, vp]
+    lib.mt_ell_matvec.argtypes = [i32, vp, vp, vp, vp, i64, i64, i32, vp]
     lib.mt_assemble_pairs.restype = i32
     lib.mt_assemble_pairs.argtypes = [vp, vp, vp, vp, i64, i64, f64, f64, f64, f64, vp, vp]
     lib.mt_error_string.restype = ctypes.c_char_p

@@ -3,8 +3,11 @@
 
     y[i, n, b] = sum_k sum_j ell[n, k, i, j] * u[j, cols[n, k], b]
 
-on [2, N, B] lane fields: the operator of the design sweeps' fallback route
-for band-hostile meshes (parallel/sweep.py::_sweep_vmap). ell [N, W, 2, 2],
+for y [2, N, B] and u [2, N_u, B], N_u >= N: the operator of the design
+sweeps' fallback route for band-hostile meshes (parallel/sweep.py::
+_sweep_vmap, N_u = N), and a shard's rows against the whole gathered lane
+fields in the all-gather batch solve (parallel/sharding.py::
+sharded_batch_pcg_solve, N_u the padded node count). ell [N, W, 2, 2],
 cols [N, W] int32; padding slots point at the row's own node and hold zero
 blocks. The JAX package computes this function as fem/operator.py's
 `ell_matvec` under `jax.vmap` over the lanes, fused by XLA; there is no
@@ -29,8 +32,8 @@ VEC_BYTES, MAX_TEAM = 16, 32
 def lane_ell_matvec_plain(ell: torch.Tensor, cols: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Plain version: a loop over the W slots, y += ell[:, k] . u[:, cols[:, k]],
     so no [2, N, W, B] gather is ever held."""
-    y0 = torch.zeros_like(u[0])
-    y1 = torch.zeros_like(u[1])
+    y0 = u.new_zeros((cols.shape[0], u.shape[2]))
+    y1 = u.new_zeros((cols.shape[0], u.shape[2]))
     for k in range(cols.shape[1]):
         g = u[:, cols[:, k].long()]  # [2, N, B]
         b = ell[:, k, :, :, None]  # [N, 2, 2, 1] broadcast over lanes
@@ -59,7 +62,7 @@ def _check(name, ell, cols, u):
     bad = (
         cols.dtype != torch.int32 or ell.dtype != u.dtype or w < 1
         or tuple(ell.shape) != (n, w, 2, 2)
-        or u.dim() != 3 or tuple(u.shape[:2]) != (2, n) or u.shape[2] < 1
+        or u.dim() != 3 or u.shape[0] != 2 or u.shape[1] < n or u.shape[2] < 1
     )
     if bad:
         raise cuda_lib.KernelError(
@@ -70,19 +73,20 @@ def _check(name, ell, cols, u):
 
 
 def lane_ell_matvec(ell: torch.Tensor, cols: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """y = K u for block-ELL ell [N, W, 2, 2] / cols [N, W] int32 and lane
-    fields u [2, N, B], f32 or f64, any B >= 1 and W >= 1."""
+    """y = K u for block-ELL ell [N, W, 2, 2] / cols [N, W] int32 (each in
+    [0, N_u)) and lane fields u [2, N_u, B], N_u >= N, f32 or f64, any
+    B >= 1 and W >= 1; y is [2, N, B]."""
     if u.device.type == "cpu" and ell.device.type == "cpu":
         return lane_ell_matvec_plain(ell, cols, u)
     u = u.contiguous()
     n, w, nb = _check("lane_ell_matvec", ell, cols, u)
-    y = torch.empty_like(u)
+    y = torch.empty((2, n, nb), dtype=u.dtype, device=u.device)
     aligned = u.data_ptr() % VEC_BYTES == 0 and y.data_ptr() % VEC_BYTES == 0
     vec, team = lane_ell_plan(nb, u.element_size(), aligned)
     cuda_lib.launch(
         "lane_ell_matvec", "mt_lane_ell_matvec", u,
         cuda_lib.DTYPE_CODES[u.dtype], vec, team, ell.data_ptr(), cols.data_ptr(),
-        u.data_ptr(), y.data_ptr(), n, w, nb,
+        u.data_ptr(), y.data_ptr(), n, u.shape[1], w, nb,
     )
     lane_ell_matvec.launches += 1
     return y

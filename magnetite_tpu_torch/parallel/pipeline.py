@@ -14,16 +14,25 @@ single-device `solve_system` does:
     and one halo exchange of the solution makes all three nodes of every
     owned element locally addressable (fem/stress.py's math per shard).
 
-The device mesh is one controller's: `DeviceMesh` holds an ordered tuple
-of `torch.device`s, one per shard, and a device may repeat (S shards on
-one card, or on the CPU in the tests). `default_device_mesh()` takes
-every visible CUDA device, as the JAX package takes every visible device.
+Operator dispatch follows the single-device auto rules: grid-local
+structured meshes take the stencil path (parallel/stencil_shard.py: grid
+rows sharded over a 1-D mesh, or rows x cols tiles over a 2-D one, halo
+matvecs and the sharded multigrid), everything else the node-sharded DIA
++ AMG path (parallel/dia_shard.py). On the structured path stress recovery
+is shard-local too: node ids are row-major on the grid, so a row band's
+elements reach one grid row past it (1-D), and a tile's elements one ring
+of halo, the operator's own exchange (2-D).
 
-Entry points: `compile_sharded_problem` -> `CompiledShardedProblem.solve()`,
-`fem.solve.solve_system(..., device_mesh=...)`, or the CLI's `--shard`.
-Not yet ported, each a typed error and never another solver: the
-structured (stencil) sharded path that grid-local meshes take under
-operator="auto" / "stencil", and the 2-D ("RxC") device-mesh layout.
+The device mesh is one controller's: `DeviceMesh` holds an ordered tuple
+of `torch.device`s, one per shard, and `DeviceMesh2D` an (R, C) array of
+them in row-major shard order; a device may repeat (S shards on one card,
+or on the CPU in the tests). `default_device_mesh()` takes every visible
+CUDA device, as the JAX package takes every visible device, and
+`parse_device_mesh("RxC")` lays them out as a 2-D mesh.
+
+Entry points: `compile_sharded_problem` -> `.solve()`,
+`fem.solve.solve_system(..., device_mesh=...)`, or the CLI's `--shard` /
+`--shard-layout`.
 """
 
 from __future__ import annotations
@@ -72,8 +81,48 @@ class DeviceMesh:
     def axis_names(self) -> tuple:
         return (self.axis,)
 
+    @property
+    def shape(self) -> tuple:
+        return (self.size,)
+
     def halved(self) -> "DeviceMesh":
         return DeviceMesh(self.devices[: max(self.size // 2, 1)], self.axis)
+
+
+@dataclass(frozen=True)
+class DeviceMesh2D:
+    """A 2-D device mesh: `shape` (R, C) and R * C devices in row-major
+    shard order (repeats allowed); `axis_names` names the two axes, ("rows",
+    "cols") for the structured grid, ("batch", "rows") for
+    parallel/sharding.py's batch solve."""
+
+    devices: tuple
+    shape: tuple
+    axis_names: tuple = ("rows", "cols")
+
+    def __post_init__(self):
+        shape = tuple(int(n) for n in self.shape)
+        if len(shape) != 2 or min(shape) < 1:
+            raise InputError(f"a 2-D device mesh needs a shape (R, C) >= 1; got {self.shape}")
+        devs = DeviceMesh(tuple(self.devices)).devices
+        if len(devs) != shape[0] * shape[1]:
+            raise InputError(
+                f"a {shape[0]}x{shape[1]} device mesh needs {shape[0] * shape[1]} devices; "
+                f"got {len(devs)}"
+            )
+        if len(self.axis_names) != 2:
+            raise InputError(f"a 2-D device mesh has two axis names; got {self.axis_names}")
+        object.__setattr__(self, "devices", devs)
+        object.__setattr__(self, "shape", shape)
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def row(self, i: int) -> tuple:
+        """The devices of row i of the mesh."""
+        return self.devices[i * self.shape[1]:(i + 1) * self.shape[1]]
 
 
 def _normalised(device) -> torch.device:
@@ -104,9 +153,9 @@ def default_device_mesh(device="cuda") -> DeviceMesh:
 
 def parse_device_mesh(layout: str, device="cuda") -> DeviceMesh:
     """A device mesh from a CLI layout string: "auto" (or "" / "1d") is the
-    1-D mesh over every visible device. "RxC", the 2-D layout of the
-    structured sharded path, is validated as the JAX package does and then
-    refused: not yet ported."""
+    1-D mesh over every visible device; "RxC" (e.g. "2x4") the 2-D rows x
+    cols mesh of the structured sharded path over them. R * C must equal
+    the visible device count."""
     layout = (layout or "auto").strip().lower()
     if layout in ("auto", "1d"):
         return default_device_mesh(device)
@@ -128,10 +177,7 @@ def parse_device_mesh(layout: str, device="cuda") -> DeviceMesh:
         raise InputError(
             f"--shard layout {layout!r} needs {n_r * n_c} devices but {n_dev} are visible"
         )
-    raise InputError(
-        f"--shard layout {layout!r}: the 2-D (structured, rows x cols) device-mesh "
-        "layout is not yet ported to the PyTorch package; use 'auto' or '1d'"
-    )
+    return DeviceMesh2D(default_device_mesh(device).devices, (n_r, n_c))
 
 
 # ------------------------- sharded stress recovery --------------------------
@@ -211,6 +257,71 @@ def _dia_recover_local(x: ShardVec, ku: ShardVec, free: ShardVec, f_app: ShardVe
     ]
 
 
+def _stencil_rhs_norm(problem) -> torch.Tensor:
+    """||b|| of the sharded structured system."""
+    from .dia_shard import shard_dot
+    from .stencil_shard import _rhs, halo_operator
+
+    b = _rhs(halo_operator(problem, "raw"), problem)
+    return torch.sqrt(shard_dot(b, b))
+
+
+def _stencil_recover_local(problem, x: ShardVec, ku: ShardVec, lidx, ecoords, rec_halo: int,
+                           e, nu, sign_threshold):
+    """Row-sharded recovery: (f, [(sigma, stress, vm)] per shard, ||b||).
+    Each row band flattened row-major is its nodes in order, so dia_shard's
+    exchange of `rec_halo` nodes makes every owned element's nodes local."""
+    bnorm = _stencil_rhs_norm(problem)
+    free = problem.free_g
+    f = free * problem.f_g + (1.0 - free) * ku
+    u_ext = exchange_halo([u.reshape(2, -1) for u in x.shards], rec_halo)
+    return f, [_local_sigma(u, li, ec, e, nu, sign_threshold)
+               for u, li, ec in zip(u_ext, lidx, ecoords)], bnorm
+
+
+def _build_recovery_2d(tris, coords, rows, cols, wrap, n_r, n_c, rl, cl):
+    """Bucket elements by owning (row, col) tile; host arrays for the
+    shard-local sigma = D B u_e gather over the 2-D halo block.
+
+    Grid node ids are row-major (id = r * cols + c) and every element spans
+    at most 2 adjacent grid rows / cols (a wrapped one spans {cols - 1, 0}),
+    so one halo ring -- what exchange_halo_2d provides -- makes all three
+    nodes of every owned element local. Returns (eids [S, Emax], valid,
+    lidx [S, Emax, 3], ecoords [S, Emax, 3, 2]), S = n_r * n_c row-major,
+    lidx indexing the flattened [2, (rl + 2) * (cl + 2)] extended tile."""
+    t64 = tris.astype(np.int64)
+    er = t64 // cols
+    ec = t64 % cols
+    anchor_r = er.min(axis=1)
+    if wrap:
+        spans = ec.max(axis=1) - ec.min(axis=1) > 1  # wrap-crossing elements
+        # anchored at cols - 1: their c = 0 nodes sit one step to the right
+        anchor_c = np.where(spans, cols - 1, ec.min(axis=1))
+        dc = np.where(spans[:, None] & (ec == 0), anchor_c[:, None] + 1, ec) - anchor_c[:, None]
+    else:
+        anchor_c = ec.min(axis=1)
+        dc = ec - anchor_c[:, None]
+    owner_r = anchor_r // rl
+    owner_c = anchor_c // cl
+    owner = owner_r * n_c + owner_c
+    lr = er - (owner_r * rl)[:, None] + 1
+    lc = (anchor_c - owner_c * cl)[:, None] + dc + 1
+    return _bucket_elements(owner, lr * (cl + 2) + lc, tris, coords, n_r * n_c)
+
+
+def _stencil_recover_local_2d(problem, x: ShardVec, ku: ShardVec, lidx, ecoords, e, nu,
+                              sign_threshold):
+    """The 2-D tiles' recovery: (f, [(sigma, stress, vm)] per tile, ||b||)."""
+    from .stencil_shard import exchange_halo_2d
+
+    bnorm = _stencil_rhs_norm(problem)
+    free = problem.free_g
+    f = free * problem.f_g + (1.0 - free) * ku
+    u_ext = exchange_halo_2d(x.shards, problem.shape, problem.wrap_cols)
+    return f, [_local_sigma(u.reshape(2, -1), li, ec, e, nu, sign_threshold)
+               for u, li, ec in zip(u_ext, lidx, ecoords)], bnorm
+
+
 # ------------------------------ compiled problem ----------------------------
 
 
@@ -252,7 +363,6 @@ class CompiledShardedProblem:
     operator_host: None = field(default=None, repr=False)
 
     def solve(self):
-        from ..fem.solve import SolveResult
         from .dia_shard import sharded_dia_pcg_solve
 
         p = self.problem
@@ -272,41 +382,134 @@ class CompiledShardedProblem:
         timings["solve_s"] = time.perf_counter() - t0
 
         n = self.n_nodes
-        u = result.x.gather(n).T
-        f = f_d.gather(n).T
-        sigma = np.zeros((self.n_elements, 3), dtype=u.dtype)
-        stress = np.zeros(self.n_elements, dtype=u.dtype)
-        vm = np.zeros(self.n_elements, dtype=u.dtype)
-        for s, (sg, st, v) in enumerate(per_shard):
-            ok = self.valid[s]
-            ids = self.eids[s][ok]
-            sigma[ids] = sg.cpu().numpy()[ok]
-            stress[ids] = st.cpu().numpy()[ok]
-            vm[ids] = v.cpu().numpy()[ok]
-        if self.perm is not None:
-            u_o, f_o = np.empty_like(u), np.empty_like(f)
-            u_o[self.perm], f_o[self.perm] = u, f
-            u, f = u_o, f_o
-        if self.debug_nans:
-            for name, arr in (("displacements", u), ("forces", f), ("stresses", sigma)):
-                if not np.isfinite(arr).all():
-                    raise SolverError(
-                        f"non-finite values in solved {name} (debug_nans): check "
-                        "material properties, mesh quality, and boundary conditions"
-                    )
-        iters = int(result.iterations)
-        resnorm = float(result.residual_norm)
-        if not bool(result.converged):
-            raise SolverError(
-                f"conjugate gradient failed to converge in {iters} iterations "
-                f"(residual norm {resnorm:.3e})"
-            )
-        return SolveResult(
-            u=u, f=f, sigma=sigma, stress=stress, von_mises=vm,
-            iterations=iters, residual_norm=resnorm,
-            residual_rel=resnorm / max(float(bnorm), 1e-300), converged=True,
-            timings=timings, residual_history=result.history.cpu().numpy()[:iters],
+        return _solve_result(result, result.x.gather(n).T, f_d.gather(n).T, per_shard, bnorm,
+                             self, timings)
+
+
+def _solve_result(result, u, f, per_shard, bnorm, compiled, timings):
+    """The SolveResult of a sharded solve: u, f [N, 2] host arrays in the
+    sharded node order, the per-shard element stresses scattered back by
+    element id, the renumbering undone, the debug_nans and convergence
+    checks."""
+    from ..fem.solve import SolveResult
+
+    n_e = compiled.n_elements
+    sigma = np.zeros((n_e, 3), dtype=u.dtype)
+    stress = np.zeros(n_e, dtype=u.dtype)
+    vm = np.zeros(n_e, dtype=u.dtype)
+    for s, (sg, st, v) in enumerate(per_shard):
+        ok = compiled.valid[s]
+        ids = compiled.eids[s][ok]
+        sigma[ids] = sg.cpu().numpy()[ok]
+        stress[ids] = st.cpu().numpy()[ok]
+        vm[ids] = v.cpu().numpy()[ok]
+    if compiled.perm is not None:
+        u_o, f_o = np.empty_like(u), np.empty_like(f)
+        u_o[compiled.perm], f_o[compiled.perm] = u, f
+        u, f = u_o, f_o
+    if compiled.debug_nans:
+        for name, arr in (("displacements", u), ("forces", f), ("stresses", sigma)):
+            if not np.isfinite(arr).all():
+                raise SolverError(
+                    f"non-finite values in solved {name} (debug_nans): check "
+                    "material properties, mesh quality, and boundary conditions"
+                )
+    iters = int(result.iterations)
+    resnorm = float(result.residual_norm)
+    if not bool(result.converged):
+        raise SolverError(
+            f"conjugate gradient failed to converge in {iters} iterations "
+            f"(residual norm {resnorm:.3e})"
         )
+    # classic refinement reports an empty history (its inner solves restart
+    # every pass), as on one device
+    hist = result.history
+    return SolveResult(
+        u=u, f=f, sigma=sigma, stress=stress, von_mises=vm,
+        iterations=iters, residual_norm=resnorm,
+        residual_rel=resnorm / max(float(bnorm), 1e-300), converged=True,
+        timings=timings,
+        residual_history=np.zeros(0) if hist is None else hist.cpu().numpy()[:iters],
+    )
+
+
+@dataclass
+class CompiledShardedStencilProblem:
+    """A structured grid laid out over a device mesh by rows (`kind`
+    "stencil", a 1-D mesh) or by rows x cols tiles ("stencil2d", a 2-D
+    mesh), solve-ready; `solve()` returns the single-device SolveResult.
+    `mode` is "stencil", `dtype` / `refine` the options' working precision,
+    as on CompiledProblem."""
+
+    kind: str
+    problem: object  # stencil_shard.ShardedStencilProblem
+    preconditioner: str
+    dtype: torch.dtype
+    refine: bool
+    rtol: float
+    maxiter: int
+    refine_inner_iters: int
+    refine_max_outer: int
+    lidx: list
+    ecoords: list
+    rec_halo: int  # 1-D only (the 2-D halo is one ring)
+    eids: np.ndarray
+    valid: np.ndarray
+    n_nodes: int
+    n_elements: int
+    metadata: ModelMetadata
+    stress_sign_threshold: float
+    timings: dict
+    debug_nans: bool = False
+    history: int = 0
+    perm: None = None
+    mode: str = "stencil"
+    amg_setup: None = None
+    operator_host: None = field(default=None, repr=False)
+
+    def solve(self):
+        from .stencil_shard import (
+            sharded_stencil_pcg_solve, sharded_stencil_pcg_solve_2d,
+            sharded_stencil_refined_solve, sharded_stencil_refined_solve_2d,
+        )
+
+        p = self.problem
+        timings = dict(self.timings)
+        t0 = time.perf_counter()
+        two_d = self.kind == "stencil2d"
+        if self.refine and two_d:
+            result, ku = sharded_stencil_refined_solve_2d(
+                p, rtol=self.rtol, maxiter=self.maxiter, preconditioner=self.preconditioner,
+                history=self.history)
+        elif self.refine:
+            result, ku = sharded_stencil_refined_solve(
+                p, rtol=self.rtol, inner_maxiter=self.refine_inner_iters,
+                max_outer=self.refine_max_outer, preconditioner=self.preconditioner,
+                info=timings)
+        else:
+            solve = sharded_stencil_pcg_solve_2d if two_d else sharded_stencil_pcg_solve
+            result, ku = solve(p, rtol=self.rtol, maxiter=self.maxiter,
+                               preconditioner=self.preconditioner, history=self.history)
+        md = self.metadata
+        mat = (md.youngs_modulus, md.poisson_ratio, self.stress_sign_threshold)
+        if two_d:
+            f_d, per_shard, bnorm = _stencil_recover_local_2d(
+                p, result.x, ku, self.lidx, self.ecoords, *mat)
+        else:
+            f_d, per_shard, bnorm = _stencil_recover_local(
+                p, result.x, ku, self.lidx, self.ecoords, self.rec_halo, *mat)
+        _sync(p.devices)
+        timings["solve_s"] = time.perf_counter() - t0
+        return _solve_result(result, self._nodal(result.x), self._nodal(f_d), per_shard, bnorm,
+                             self, timings)
+
+    def _nodal(self, v: ShardVec) -> np.ndarray:
+        """A tiled grid field on the host as [N, 2] (padding dropped)."""
+        from .stencil_shard import _gather_grid
+
+        cpu = torch.device("cpu")
+        full = _gather_grid(v.shards, self.problem.shape, [cpu])[cpu]
+        return full[:, :self.problem.rows, :self.problem.cols].reshape(2, -1).T.numpy()
 
 
 def _sync(devices) -> None:
@@ -322,17 +525,42 @@ def _require_constraints(bca: BCArrays) -> None:
         )
 
 
-def _precision_plan(options: SolverOptions):
+def _precision_plan(options: SolverOptions, use_stencil: bool = False):
     """(rtol, refined, prep dtype) of a sharded solve, by the port's
-    single-device rules (fem/solve.py): refine="on" is f64 CG around the
-    f32 V-cycle; otherwise the options' dtype (f64 by default) throughout.
-    The f32 solver clamps a sub-floor rtol itself, with the warning."""
-    from ..fem.solve import default_dtype
+    single-device rules (fem/solve.py): refine="on" refines; "auto" refines
+    only the stencil operator, in f32 with an rtol below the f32 floor;
+    otherwise the options' dtype (f64 by default) throughout. Refined
+    problems are prepared in f64. The f32 solvers clamp a sub-floor rtol
+    themselves, with the warning."""
+    from ..fem.solve import _f32_rtol_floor, default_dtype
 
     dtype = default_dtype(options)
-    refined = options.refine == "on"
+    rtol = float(options.cg_rtol)
+    refined = options.refine == "on" or (
+        options.refine == "auto" and use_stencil and dtype == torch.float32
+        and rtol < _f32_rtol_floor()
+    )
     prep = np.float64 if (refined or dtype == torch.float64) else np.float32
-    return float(options.cg_rtol), refined, prep
+    return rtol, refined, prep
+
+
+def _stencil_precond(options: SolverOptions) -> str:
+    """The preconditioner flag of a sharded stencil solve (1-D and 2-D):
+    'amg' is refused, 'jacobi' becomes block_jacobi with the warning the
+    single-device path logs."""
+    precond = options.preconditioner
+    if precond == "amg":
+        raise SolverError(
+            "amg preconditioner applies to unstructured operators; structured sharded "
+            "solves use 'multigrid'"
+        )
+    if precond == "jacobi":
+        from ..utils.logging import log
+
+        log("warning: sharded stencil solves do not implement preconditioner='jacobi'; "
+            "using block_jacobi")
+        precond = "block_jacobi"
+    return precond
 
 
 def _is_grid_local(mesh: FemMesh) -> bool:
@@ -355,20 +583,27 @@ def compile_sharded_problem(
     amg_setup=None,
 ) -> CompiledShardedProblem:
     """Lay one FEA problem out over a device mesh (default: every visible
-    CUDA device), end to end: node-sharded DIA bands + AMG, renumbering
+    CUDA device), end to end. Operator dispatch follows the single-device
+    auto rules: a grid-local structured mesh under operator "auto" /
+    "stencil" shards by grid rows (the stencil operator and the sharded
+    multigrid), everything else by nodes (DIA bands + AMG, renumbering
     band-hostile meshes first, the block-ELL fallback where the bands do
-    not fit `max_diags`.
+    not fit `max_diags`). A DeviceMesh2D lays a structured grid out in rows
+    x cols tiles; other meshes need a 1-D one.
 
-    Meshes too small for the requested shard count (the band or stress
-    halo must fit inside one shard) retry on half the devices with a
-    warning, down to one."""
+    On a 1-D mesh, meshes too small for the requested shard count (the
+    band or stress halo must fit inside one shard) retry on half the
+    devices with a warning, down to one. (A 2-D mesh does not retry: its
+    stress halo is always one ring, and wrapped cols that do not divide
+    need another layout, not fewer devices.)"""
     if device_mesh is None:
         device_mesh = default_device_mesh()
+    if isinstance(device_mesh, DeviceMesh2D):
+        return _compile_sharded_stencil(mesh, bca, metadata, options, device_mesh)
     if not isinstance(device_mesh, DeviceMesh):
         raise SolverError(
-            "the sharded pipeline takes a 1-D parallel.pipeline.DeviceMesh; a 2-D "
-            "(structured, rows x cols) device mesh is not yet ported to the PyTorch "
-            "package"
+            "the sharded pipeline takes a parallel.pipeline.DeviceMesh (1-D) or "
+            f"DeviceMesh2D (rows x cols); got {type(device_mesh).__name__}"
         )
     while True:
         try:
@@ -407,12 +642,7 @@ def _compile_sharded(mesh, bca, metadata, options, device_mesh, amg_setup):
             "mesh connectivity is not grid-local; stencil operator unavailable"
         )
     if use_stencil:
-        raise SolverError(
-            "the sharded stencil path (a grid-local structured mesh under "
-            f"operator='{options.operator}') is not yet ported to the PyTorch "
-            "package; pass operator='dia' to shard it as an unstructured mesh, "
-            "or drop device_mesh / --shard"
-        )
+        return _compile_sharded_stencil(mesh, bca, metadata, options, device_mesh)
     rtol, refined, prep_dtype = _precision_plan(options)
 
     # the single-device path honours this flag; silently solving with AMG
@@ -482,4 +712,62 @@ def _compile_sharded(mesh, bca, metadata, options, device_mesh, amg_setup):
         timings=timings, debug_nans=bool(options.debug_nans),
         history=int(options.residual_history), progress_every=int(options.cg_progress_every),
         amg_setup=problem.amg_setup,
+    )
+
+
+def _compile_sharded_stencil(mesh, bca, metadata, options, device_mesh):
+    """The structured route: rows over a 1-D mesh, rows x cols tiles over a
+    DeviceMesh2D (the device mesh's first axis shards grid rows, the
+    second grid cols)."""
+    from ..fem.solve import _check_options, default_dtype
+    from .stencil_shard import (
+        _resolve_preconditioner, prepare_sharded_stencil_problem,
+        prepare_sharded_stencil_problem_2d,
+    )
+
+    two_d = isinstance(device_mesh, DeviceMesh2D)
+    _check_options(options)
+    _require_constraints(bca)
+    if two_d and (options.operator not in ("auto", "stencil") or not _is_grid_local(mesh)):
+        raise SolverError(
+            "a 2D device mesh shards the structured stencil operator; this mesh/operator "
+            "combination needs a 1D device mesh (node-sharded DIA/AMG)"
+        )
+    rtol, refined, prep_dtype = _precision_plan(options, use_stencil=True)
+    precond = _stencil_precond(options)
+    timings: dict = {}
+    t0 = time.perf_counter()
+    prepare = prepare_sharded_stencil_problem_2d if two_d else prepare_sharded_stencil_problem
+    problem = prepare(mesh, bca, metadata, device_mesh, dtype=prep_dtype)
+    _sync(problem.devices)
+    timings["prepare_s"] = time.perf_counter() - t0
+    timings["operator"] = "stencil-sharded-2d" if two_d else "stencil-sharded"
+    precond = _resolve_preconditioner(problem, precond)
+    timings["preconditioner"] = precond
+    timings["shards"] = device_mesh.size
+    timings["shard_layout"] = "x".join(str(n) for n in problem.shape)
+    rows, cols = mesh.grid_shape
+    nr, nc = problem.shape
+    rl, cl = problem.reduced[0].shape[-2:]
+    if two_d:
+        eids, valid, lidx, ecoords = _build_recovery_2d(
+            mesh.tris, mesh.coords, rows, cols, mesh.wrap_cols, nr, nc, rl, cl)
+        rec_halo = 1
+    else:
+        eids, valid, lidx, ecoords, rec_halo = _build_recovery(
+            mesh.tris, mesh.coords, nr, rl * cols)
+    timings["halo"] = rec_halo
+    timings["shard_size"] = rl * cl
+    devices = problem.devices
+    return CompiledShardedStencilProblem(
+        kind="stencil2d" if two_d else "stencil", problem=problem, preconditioner=precond,
+        dtype=default_dtype(options), refine=refined, rtol=rtol,
+        maxiter=int(options.max_cg_iters), refine_inner_iters=int(options.refine_inner_iters),
+        refine_max_outer=int(options.refine_max_outer),
+        lidx=[torch.from_numpy(li.astype(np.int64)).to(d) for li, d in zip(lidx, devices)],
+        ecoords=[torch.from_numpy(ec).to(d).to(problem.dtype) for ec, d in zip(ecoords, devices)],
+        rec_halo=rec_halo, eids=eids, valid=valid, n_nodes=mesh.num_nodes,
+        n_elements=mesh.num_elements, metadata=metadata,
+        stress_sign_threshold=float(options.stress_sign_threshold), timings=timings,
+        debug_nans=bool(options.debug_nans), history=int(options.residual_history),
     )

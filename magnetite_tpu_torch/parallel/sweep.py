@@ -40,13 +40,22 @@ its own operator.
 On a CUDA device the lane matvecs are the kernels; on the CPU their plain
 PyTorch versions. The tensors' device alone picks which.
 
-Not yet ported, raising a typed error that names its ROADMAP item: lane
-sharding over several GPUs (`device_mesh=`).
+Lane sharding (`device_mesh=` of the four compiled sweeps): every lane is
+independent (per-lane dots, a shared operator and hierarchy), so the batch
+splits into one contiguous chunk of lanes per device of a
+parallel.pipeline.DeviceMesh (or, row-major, a DeviceMesh2D), with no
+communication during the solve. The sweep compiles on the mesh's first
+device and its setup is replicated once per distinct device; each chunk
+runs the lane kernels on its own device, and the results come back in
+lane order on the first device. The JAX package turns its Pallas lane
+kernels off under a mesh (a limitation of Pallas under `shard_map`); the
+port keeps its kernels on.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -86,12 +95,6 @@ class SweepResult(NamedTuple):
     residual_norm: torch.Tensor  # [B] absolute ||b - K u|| per lane
     von_mises: torch.Tensor  # [B, E]
     rhs_norm: torch.Tensor = None  # [B] ||b|| per lane (relative-residual scale)
-
-
-def _not_ported(what: str, item: str):
-    raise SolverError(
-        f"{what} is not yet ported to the PyTorch package (ROADMAP {item})"
-    )
 
 
 # ----------------------------- lane helpers ---------------------------------
@@ -238,13 +241,11 @@ def _dtypes(dtype, refined):
     return user, torch.float64 if refined else user
 
 
-def _check_common(device_mesh, lane_kernel, dev):
+def _check_common(lane_kernel, dev):
     """`lane_kernel` is the JAX package's switch, kept for its API: "auto"
     and "interpret" launch the lane kernels on a CUDA device (JAX's
     "interpret" runs its kernel's own semantics off the TPU); "off" asks for
     the plain versions, which the port runs on the CPU only."""
-    if device_mesh is not None:
-        _not_ported("lane sharding over several GPUs (device_mesh=)", "Queue 1 item 10b")
     if lane_kernel not in _LANE_KERNEL_MODES:
         raise InputError(f"unknown lane_kernel mode '{lane_kernel}' (auto | interpret | off)")
     if lane_kernel == "off" and dev.type == "cuda":
@@ -256,6 +257,73 @@ def _check_common(device_mesh, lane_kernel, dev):
 
 def _batch_on(arr, dtype, dev) -> torch.Tensor:
     return torch.as_tensor(arr).to(dev, dtype)
+
+
+# ------------------------------ lane sharding --------------------------------
+
+
+def _compile_device(device_mesh, device) -> torch.device:
+    """The device a sweep compiles on: the first device of `device_mesh`
+    when one is given (`device` is then unused), else `device`."""
+    if device_mesh is None:
+        return resolve_device(device)
+    from .pipeline import DeviceMesh, DeviceMesh2D
+
+    if not isinstance(device_mesh, (DeviceMesh, DeviceMesh2D)):
+        raise InputError(
+            "device_mesh must be a parallel.pipeline.DeviceMesh or DeviceMesh2D (the "
+            f"lanes split over its devices, row-major); got {type(device_mesh).__name__}"
+        )
+    return resolve_device(device_mesh.devices[0])
+
+
+def _to_device(obj, dev):
+    """`obj` with every tensor it holds copied to `dev`, through tuples,
+    named tuples and dataclasses (the compiled sweeps' containers);
+    anything else is shared."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, tuple):
+        items = [_to_device(v, dev) for v in obj]
+        return type(obj)(*items) if hasattr(obj, "_fields") else tuple(items)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: _to_device(getattr(obj, f.name), dev)
+            for f in dataclasses.fields(obj) if f.init
+        })
+    return obj
+
+
+def _replica(sweep, dev: torch.device):
+    """The sweep on `dev`, without a mesh: made once per distinct device
+    (the setup replicated), the compiled tensors shared on the first."""
+    if dev not in sweep.replicas:
+        base = dataclasses.replace(sweep, device_mesh=None, replicas={})
+        sweep.replicas[dev] = base if dev == sweep.device else dataclasses.replace(
+            _to_device(base, dev), device=dev)
+    return sweep.replicas[dev]
+
+
+def _over_lanes(sweep, method: str, *lane_args) -> SweepResult:
+    """`sweep.method(*lane_args)` split over the lanes: one contiguous chunk
+    of the [B, ...] batch arguments per device of sweep.device_mesh
+    (row-major), each solved by the sweep's replica there; the results
+    concatenated in lane order on the mesh's first device."""
+    devices = sweep.device_mesh.devices
+    n = len(devices)
+    args = [a if isinstance(a, torch.Tensor) else np.asarray(a) for a in lane_args]
+    b = args[0].shape[0]
+    if b % n:
+        raise InputError(
+            f"sweep batch of {b} lanes does not divide over {n} devices; pad the batch "
+            "to a multiple (repeating a variant is free)"
+        )
+    c = b // n
+    parts = [getattr(_replica(sweep, dev), method)(*(a[i * c:(i + 1) * c] for a in args))
+             for i, dev in enumerate(devices)]
+    first = devices[0]
+    return SweepResult(*(torch.cat([getattr(p, name).to(first) for p in parts])
+                         for name in SweepResult._fields))
 
 
 # --------------------- unstructured load sweeps (K7) ------------------------
@@ -361,6 +429,9 @@ class CompiledUnstructuredSweep:
     # compile-time base BC values in the RENUMBERED node order
     u_base: Optional[torch.Tensor] = None
     f_base: Optional[torch.Tensor] = None
+    # lane sharding: the mesh, and the replicas per device (_replica)
+    device_mesh: object = None
+    replicas: dict = field(default_factory=dict, repr=False)
 
     def _batch(self, arr) -> torch.Tensor:
         return _batch_on(arr, self.dtype, self.device)
@@ -379,6 +450,8 @@ class CompiledUnstructuredSweep:
         (u_factors[b], f_factors[b]) -- u_fixed = u_factors[b] * u_base,
         f_applied = f_factors[b] * f_base, built on the device; identical
         to the equivalent dense solve()."""
+        if self.device_mesh is not None:
+            return _over_lanes(self, "solve_factors", u_factors, f_factors, k_scales)
         u_fixed, f_applied = _factor_fields(
             self.u_base, self.f_base, self._batch(u_factors), self._batch(f_factors)
         )
@@ -387,6 +460,8 @@ class CompiledUnstructuredSweep:
     def solve(self, u_values, f_values, k_scales) -> SweepResult:
         """Dense sweep: u_values / f_values [B, N, 2] per-lane prescribed
         displacements and applied forces, k_scales [B] stiffness scales."""
+        if self.device_mesh is not None:
+            return _over_lanes(self, "solve", u_values, f_values, k_scales)
         up, fp = self._batch(u_values), self._batch(f_values)
         if self.perm_dev is not None:
             up, fp = _perm_nodes(up, self.perm_dev), _perm_nodes(fp, self.perm_dev)
@@ -442,13 +517,16 @@ def compile_unstructured_sweep(
     ~1e-7. `amg_sweeps` pins the V-cycle schedule (0 = auto V(1, 1)).
     `lane_kernel` ("auto" | "interpret" | "off"): the JAX package's switch;
     the lane kernel runs on a CUDA device and its plain version on the CPU
-    whatever it says, and "off" with a CUDA device raises InputError."""
+    whatever it says, and "off" with a CUDA device raises InputError.
+    `device_mesh` (a parallel.pipeline.DeviceMesh or DeviceMesh2D) shards
+    the lanes over its devices: the sweep compiles on its first device
+    (`device` is then unused), B must divide by the device count."""
     from .. import native
     from ..fem.amg import amg_device_arrays, build_amg_setup, setup_matches
     from ..fem.element import stress_strain_matrix
 
-    dev = resolve_device(device)
-    _check_common(device_mesh, lane_kernel, dev)
+    dev = _compile_device(device_mesh, device)
+    _check_common(lane_kernel, dev)
     native.require()
     user_t, cg_t = _dtypes(dtype, refined)
     sm_t = user_t
@@ -502,6 +580,7 @@ def compile_unstructured_sweep(
         iperm_dev=iperm_dev,
         u_base=torch.from_numpy(np.asarray(bca.u_value, np.float64)).to(dev, user_t),
         f_base=torch.from_numpy(np.asarray(bca.f_value, np.float64)).to(dev, user_t),
+        device_mesh=device_mesh,
     )
 
 
@@ -930,6 +1009,9 @@ class CompiledUnstructuredMaterialSweep:
     iperm_dev: Optional[torch.Tensor] = None
     u_base: Optional[torch.Tensor] = None
     f_base: Optional[torch.Tensor] = None
+    # lane sharding: the mesh, and the replicas per device (_replica)
+    device_mesh: object = None
+    replicas: dict = field(default_factory=dict, repr=False)
 
     def _batch(self, arr) -> torch.Tensor:
         return _batch_on(arr, self.dtype, self.device)
@@ -949,6 +1031,9 @@ class CompiledUnstructuredMaterialSweep:
     ) -> SweepResult:
         """Load-factor material sweep: per-lane (E, nu, t) plus per-lane
         scalings of the compile-time BC values, built on the device."""
+        if self.device_mesh is not None:
+            return _over_lanes(self, "solve_factors", u_factors, f_factors, e_moduli,
+                               poisson_ratios, thicknesses)
         u_fixed, f_applied = _factor_fields(
             self.u_base, self.f_base, self._batch(u_factors), self._batch(f_factors)
         )
@@ -957,6 +1042,9 @@ class CompiledUnstructuredMaterialSweep:
     def solve(
         self, u_values, f_values, e_moduli, poisson_ratios, thicknesses
     ) -> SweepResult:
+        if self.device_mesh is not None:
+            return _over_lanes(self, "solve", u_values, f_values, e_moduli, poisson_ratios,
+                               thicknesses)
         up, fp = self._batch(u_values), self._batch(f_values)
         if self.perm_dev is not None:
             up, fp = _perm_nodes(up, self.perm_dev), _perm_nodes(fp, self.perm_dev)
@@ -984,8 +1072,8 @@ def compile_unstructured_material_sweep(
     (fem/amg.build_amg_material_setup) give every lane the exact V-cycle
     of its own (E, nu, t) operator; transfers are built once at `nu_ref`.
     Band-hostile meshes renumber first; raises SolverError when the mesh
-    stays band-hostile. `refined`, `amg_sweeps` and `lane_kernel` as in
-    compile_unstructured_sweep. `material_setup`: a basis hierarchy built
+    stays band-hostile. `refined`, `amg_sweeps`, `lane_kernel` and
+    `device_mesh` as in compile_unstructured_sweep. `material_setup`: a basis hierarchy built
     before for THIS mesh (either package's, interop.
     material_setup_from_arrays); one whose fingerprint does not match is
     rebuilt."""
@@ -997,8 +1085,8 @@ def compile_unstructured_material_sweep(
         setup_fingerprint,
     )
 
-    dev = resolve_device(device)
-    _check_common(device_mesh, lane_kernel, dev)
+    dev = _compile_device(device_mesh, device)
+    _check_common(lane_kernel, dev)
     native.require()
     user_t, cg_t = _dtypes(dtype, refined)
     sm_t = user_t
@@ -1041,6 +1129,7 @@ def compile_unstructured_material_sweep(
         iperm_dev=iperm_dev,
         u_base=torch.from_numpy(np.asarray(bca.u_value, np.float64)).to(dev, user_t),
         f_base=torch.from_numpy(np.asarray(bca.f_value, np.float64)).to(dev, user_t),
+        device_mesh=device_mesh,
     )
 
 
@@ -1278,6 +1367,9 @@ class CompiledSweep:
     iterations: int
     dtype: torch.dtype
     device: torch.device
+    # lane sharding: the mesh, and the replicas per device (_replica)
+    device_mesh: object = None
+    replicas: dict = field(default_factory=dict, repr=False)
 
     def _batch(self, arr) -> torch.Tensor:
         return _batch_on(arr, self.dtype, self.device)
@@ -1285,6 +1377,8 @@ class CompiledSweep:
     def solve(self, u_values, f_values, k_scales) -> SweepResult:
         """u_values / f_values [B, N, 2] per-lane prescribed displacements and
         applied forces, k_scales [B] stiffness scales."""
+        if self.device_mesh is not None:
+            return _over_lanes(self, "solve", u_values, f_values, k_scales)
         u, res, vm, rhs_norm = _stencil_lanes(
             self.setup, self.packed, self.tris, self.free_g, self._batch(u_values),
             self._batch(f_values), self._batch(k_scales), self.rows, self.cols, self.wrap,
@@ -1309,12 +1403,11 @@ def compile_sweep(
     The setup is computed in `dtype`, the precision of the whole batched
     solve, from the coordinates rounded to it (as the JAX package does).
     `setup`: one built before for THIS mesh (either package's,
-    interop.stencil_sweep_setup_from_arrays), used instead."""
+    interop.stencil_sweep_setup_from_arrays), used instead. `device_mesh`
+    shards the lanes, as in compile_unstructured_sweep."""
     from ..fem.multigrid import can_coarsen
 
-    dev = resolve_device(device)
-    if device_mesh is not None:
-        _not_ported("lane sharding over several GPUs (device_mesh=)", "Queue 1 item 10b")
+    dev = _compile_device(device_mesh, device)
     user_t = _dtypes(dtype, False)[0]
     rows, cols, wrap = _grid_mesh_or_raise(mesh, "compile_sweep")
     if not can_coarsen(rows, cols, wrap):
@@ -1338,6 +1431,7 @@ def compile_sweep(
         iterations=int(iterations),
         dtype=user_t,
         device=dev,
+        device_mesh=device_mesh,
     )
 
 
@@ -1536,11 +1630,17 @@ class CompiledMaterialSweep:
     iterations: int
     dtype: torch.dtype
     device: torch.device
+    # lane sharding: the mesh, and the replicas per device (_replica)
+    device_mesh: object = None
+    replicas: dict = field(default_factory=dict, repr=False)
 
     def _batch(self, arr) -> torch.Tensor:
         return _batch_on(arr, self.dtype, self.device)
 
     def solve(self, u_values, f_values, e_moduli, poisson_ratios, thicknesses) -> SweepResult:
+        if self.device_mesh is not None:
+            return _over_lanes(self, "solve", u_values, f_values, e_moduli, poisson_ratios,
+                               thicknesses)
         u, res, vm, rhs_norm = _material_lanes(
             self.setup, self.packed, self.tris, self.free_g, self._batch(u_values),
             self._batch(f_values), self._batch(e_moduli), self._batch(poisson_ratios),
@@ -1566,10 +1666,9 @@ def compile_material_sweep(
     in `dtype`, as compile_sweep's. Memory: the per-level per-lane center
     inverses are [2, 2, R, C, B] -- at 4096 lanes on a 33x65 grid ~140 MB in
     f32, shrinking 4x per level. `setup`: one built before for THIS mesh
-    (interop.material_grid_sweep_setup_from_arrays), used instead."""
-    dev = resolve_device(device)
-    if device_mesh is not None:
-        _not_ported("lane sharding over several GPUs (device_mesh=)", "Queue 1 item 10b")
+    (interop.material_grid_sweep_setup_from_arrays), used instead.
+    `device_mesh` shards the lanes, as in compile_unstructured_sweep."""
+    dev = _compile_device(device_mesh, device)
     user_t = _dtypes(dtype, False)[0]
     rows, cols, wrap = _grid_mesh_or_raise(mesh, "compile_material_sweep")
     coords, tris, free_g = _grid_arrays(mesh, base_bca, rows, cols, dev)
@@ -1588,6 +1687,7 @@ def compile_material_sweep(
         iterations=int(iterations),
         dtype=user_t,
         device=dev,
+        device_mesh=device_mesh,
     )
 
 

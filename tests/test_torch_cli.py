@@ -1,5 +1,6 @@
 """Both CLIs on the same input.json + CSV geometry, the port CLI's mixed
-precision, and its typed errors for what it does not carry yet.
+precision, and its 2-D shard layout (a structured case, and the typed
+error on a Delaunay one).
 
 The CSVs must agree within the bars of tests/test_golden.py:48-55:
 displacements within 1e-6 of max|u|, stress within 1e-5 of max|stress|;
@@ -56,16 +57,44 @@ def test_port_cli_matches_jax_cli(tmp_path, von_mises):
     ids=lambda f: f[0].lstrip("-"),
 )
 def test_unported_flags_raise_not_yet_ported(tmp_path, capsys, flags):
-    """--shard itself is ported; its 2-D layout (RxC, here 1x1 to match
-    the one visible device) is not, with or without --shard."""
+    """The 2-D layout (RxC, here 1x1 to match the one visible device), with
+    or without --shard. "shard": a structured case (saved from a generated
+    grid) resumed with --load-case runs the sharded stencil path and
+    matches the unsharded CLI on the golden bars. "shard-layout": the SVG
+    case, Delaunay and not grid-local, exits with the JAX package's typed
+    2-D error and writes nothing."""
     from magnetite_tpu_torch import cli
+    from magnetite_tpu_torch.config import ModelMetadata
+    from magnetite_tpu_torch.meshing.generators import plate_with_hole_mesh, tensile_bcs_for_rect
+    from magnetite_tpu_torch.persist import save_case
 
     paths = write_case(str(tmp_path), 0.05)
-    rc = cli.main(paths + ["--device", "cpu", "--skip", "--out-dir", str(tmp_path)] + flags)
-    assert rc == 1
-    err = capsys.readouterr().err
-    assert err.startswith("Received error: Input error:") and "not yet ported" in err
-    assert not (tmp_path / "nodes.csv").exists()
+    if flags[0] == "--shard-layout":
+        rc = cli.main(paths + ["--device", "cpu", "--skip", "--out-dir", str(tmp_path)] + flags)
+        assert rc == 1
+        err = capsys.readouterr().err
+        assert err.startswith("Received error: Solver error: a 2D device mesh shards the "
+                              "structured stencil operator")
+        assert not (tmp_path / "nodes.csv").exists()
+        return
+    mesh = plate_with_hole_mesh(16, 32)
+    case = str(tmp_path / "grid.npz")
+    save_case(case, mesh, tensile_bcs_for_rect(mesh.coords),
+              metadata=ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.05))
+    outs = {}
+    for name, extra in (("single", []), ("sharded", flags)):
+        out = tmp_path / name
+        out.mkdir()
+        argv = [paths[0], "--load-case", case, "--device", "cpu", "--skip", "--out-dir", str(out)]
+        assert cli.main(argv + extra) == 0
+        outs[name] = (capsys.readouterr().out,) + _read(out)
+    log, nodes, elems = outs["sharded"]
+    assert "sharding the solve over 1 device(s) (1x1)" in log
+    assert "info: operator=stencil preconditioner=multigrid" in log
+    _, nodes1, elems1 = outs["single"]
+    np.testing.assert_array_equal(nodes[:, :2], nodes1[:, :2])
+    assert np.abs(nodes[:, 2:] - nodes1[:, 2:]).max() <= 1e-6 * np.abs(nodes1[:, 2:]).max()
+    assert np.abs(elems[:, 3] - elems1[:, 3]).max() <= 1e-5 * np.abs(elems1[:, 3]).max()
 
 
 def test_port_cli_mixed_precision_matches_its_f64_run(tmp_path):

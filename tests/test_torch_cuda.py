@@ -1136,7 +1136,7 @@ def test_lane_ell_kernel_refuses_what_it_does_not_take():
         lane_ell_matvec(ell, cols[:, :2].contiguous(), u)
     with pytest.raises(KernelError):  # a node-major field where a lane field belongs
         lane_ell_matvec(ell, cols, torch.zeros((9, 2), device=dev))
-    with pytest.raises(KernelError):  # another node count
+    with pytest.raises(KernelError):  # fewer nodes than the rows
         lane_ell_matvec(ell, cols, torch.zeros((2, 8, 8), device=dev))
     with pytest.raises(KernelError):  # operands on two devices
         lane_ell_matvec(ell.cpu(), cols, u)
@@ -1346,3 +1346,144 @@ def test_two_shard_solve_on_card_matches_cpu(precision):
     for field in ("f", "stress"):
         a, b = getattr(card, field), getattr(cpu, field)
         assert np.abs(a - b).max() <= 1e-6 * np.abs(b).max(), field
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_ell_kernel_takes_a_longer_field_on_card(dtype, tol):
+    """The all-gather path's call: a shard's N rows against the gathered
+    field u [2, N_u], N_u > N, cols global; N_u < N is refused."""
+    from magnetite_tpu_torch.kernels.cuda_lib import KernelError
+    from magnetite_tpu_torch.kernels.ell_kernel import ell_matvec_t, ell_matvec_t_plain
+
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    k, n, n_u = 8, 5000, 20003
+    data = torch.randn(k, 2, 2, n, generator=g, device=dev, dtype=torch.float64).to(dtype)
+    cols = torch.randint(0, n_u, (k, n), generator=g, device=dev, dtype=torch.int32)
+    u = torch.randn(2, n_u, generator=g, device=dev, dtype=torch.float64).to(dtype)
+    before = ell_matvec_t.launches
+    y = ell_matvec_t(data, cols, u)
+    assert ell_matvec_t.launches == before + 1 and tuple(y.shape) == (2, n)
+    ref = ell_matvec_t_plain(data, cols, u)
+    scale = float(ell_matvec_t_plain(data.abs(), cols, u.abs()).max())
+    assert float((y - ref).abs().max()) <= tol * scale
+    with pytest.raises(KernelError):
+        ell_matvec_t(data, cols, u[:, : n - 1].contiguous())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_lane_ell_kernel_takes_a_longer_field_on_card(dtype, tol):
+    """The all-gather batch solve's call: a shard's N rows against the
+    gathered lane fields u [2, N_u, B], N_u > N, cols global, B a multiple
+    of the lane vector and not; N_u < N is refused."""
+    from magnetite_tpu_torch.kernels.cuda_lib import KernelError
+    from magnetite_tpu_torch.kernels.lane_ell_kernel import lane_ell_matvec, lane_ell_matvec_plain
+
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(4)
+    n, w, n_u = 3000, 8, 12007
+    ell = torch.randn(n, w, 2, 2, generator=g, device=dev, dtype=torch.float64).to(dtype)
+    cols = torch.randint(0, n_u, (n, w), generator=g, device=dev, dtype=torch.int32)
+    for nb in (16, 7):
+        u = torch.randn(2, n_u, nb, generator=g, device=dev, dtype=torch.float64).to(dtype)
+        before = lane_ell_matvec.launches
+        y = lane_ell_matvec(ell, cols, u)
+        assert lane_ell_matvec.launches == before + 1 and tuple(y.shape) == (2, n, nb)
+        ref = lane_ell_matvec_plain(ell, cols, u)
+        scale = float(lane_ell_matvec_plain(ell.abs(), cols, u.abs()).max())
+        assert float((y - ref).abs().max()) <= tol * scale
+    with pytest.raises(KernelError):
+        lane_ell_matvec(ell, cols, u[:, : n - 1].contiguous())
+
+
+@pytest.mark.parametrize("layout", [2, (2, 2)], ids=["S=2", "2x2"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_sharded_structured_solve_on_card_matches_cpu(layout, dtype):
+    """compile_sharded_problem on a structured grid over shards of cuda:0
+    (rows, or 2 x 2 tiles) against the same layout on the CPU: the stencil
+    kernel at the halo-extended tile shape, the fused smoothing kernels on
+    the replicated coarse levels, the CPU's answer (f32: refined)."""
+    from magnetite_tpu_torch import SolverOptions
+    from magnetite_tpu_torch.config import ModelMetadata
+    from magnetite_tpu_torch.kernels.mg_smooth_kernel import mg_postsmooth
+    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
+    from magnetite_tpu_torch.meshing.generators import plate_with_hole_mesh, tensile_bcs_for_rect
+    from magnetite_tpu_torch.parallel.pipeline import (
+        DeviceMesh, DeviceMesh2D, compile_sharded_problem,
+    )
+
+    require_cuda()
+    mesh = plate_with_hole_mesh(32, 64)
+    bca, md = tensile_bcs_for_rect(mesh.coords), ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.01)
+    opts = SolverOptions(dtype=dtype, cg_rtol=1e-8)
+
+    def mesh_on(dev):
+        if isinstance(layout, tuple):
+            return DeviceMesh2D((dev,) * 4, layout)
+        return DeviceMesh((dev,) * layout)
+
+    cpu = compile_sharded_problem(mesh, bca, md, opts, device_mesh=mesh_on("cpu")).solve()
+    compiled = compile_sharded_problem(mesh, bca, md, opts, device_mesh=mesh_on("cuda:0"))
+    before = (dict(stencil_matvec.shape_launches), mg_postsmooth.launches)
+    card = compiled.solve()
+    rl, cl = compiled.problem.reduced[0].shape[-2:]
+    tile = (rl + 2, cl + 2 if isinstance(layout, tuple) else cl)
+    new = {key[:2] for key, c in stencil_matvec.shape_launches.items()
+           if c > before[0].get(key, 0)}
+    assert new == {tile} and mg_postsmooth.launches > before[1]
+    assert abs(card.iterations - cpu.iterations) <= 1
+    assert np.abs(card.u - cpu.u).max() <= 1e-6 * np.abs(cpu.u).max()
+    assert np.abs(card.stress - cpu.stress).max() <= 1e-5 * np.abs(cpu.stress).max()
+
+
+def test_lane_sharded_sweeps_on_card_match_unsharded():
+    """compile_sweep / compile_unstructured_sweep with device_mesh= over two
+    shards of cuda:0: the lane kernels launched twice as often, each lane
+    within 1e-12 of the unsharded sweep's (f64)."""
+    from magnetite_tpu_torch.config import ModelMetadata
+    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec
+    from magnetite_tpu_torch.kernels.lane_stencil_kernel import lane_stencil_matvec
+    from magnetite_tpu_torch.meshing.generators import rect_mesh, tensile_bcs_for_rect
+    from magnetite_tpu_torch.parallel import sweep as ps
+    from magnetite_tpu_torch.parallel.pipeline import DeviceMesh
+
+    require_cuda()
+    two = DeviceMesh(("cuda:0",) * 2)
+    rng = np.random.default_rng(0)
+    b = 64
+    grid = rect_mesh(32, 16, width=2.0)
+    gb, md = tensile_bcs_for_rect(grid.coords), ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.05)
+    u = np.asarray(gb.u_value)[None] * rng.uniform(0.5, 2.0, b)[:, None, None]
+    args = (u, np.zeros_like(u), rng.uniform(0.5, 2.0, b))
+    mesh, bca, pmd = port_plate(0.04)
+    factors = (rng.uniform(0.5, 2.0, b), np.ones(b), rng.uniform(0.5, 2.0, b))
+    for kernel, one, sharded, method, a in (
+        (lane_stencil_matvec,
+         ps.compile_sweep(grid, gb, md, iterations=10, dtype=np.float64, device="cuda"),
+         ps.compile_sweep(grid, gb, md, iterations=10, dtype=np.float64, device_mesh=two),
+         "solve", args),
+        (lane_dia_matvec,
+         ps.compile_unstructured_sweep(mesh, bca, pmd, iterations=10, dtype=np.float64,
+                                       device="cuda"),
+         None, "solve_factors", factors),
+    ):
+        if sharded is None:
+            sharded = ps.compile_unstructured_sweep(mesh, bca, pmd, iterations=10,
+                                                    dtype=np.float64, device_mesh=two,
+                                                    amg_setup=one.amg_setup)
+        k0 = kernel.launches
+        want = getattr(one, method)(*a)
+        k1 = kernel.launches
+        got = getattr(sharded, method)(*a)
+        assert kernel.launches - k1 == 2 * (k1 - k0) > 0
+        scale = want.u.abs().amax(dim=(1, 2))
+        assert float(((got.u - want.u).abs().amax(dim=(1, 2)) / scale).max()) <= 1e-12
+
+
+def test_dryrun_multichip_on_card():
+    """Every sharded path at tiny shapes over two shards of cuda:0."""
+    from magnetite_tpu_torch.dryrun import dryrun_multichip
+
+    require_cuda()
+    out = dryrun_multichip(2, device="cuda:0")
+    assert out["sweep residual"] < 1e-4

@@ -30,7 +30,7 @@ from magnetite_tpu.meshing import generators as jgen
 from magnetite_tpu.parallel import sweep as js
 from magnetite_tpu_torch import interop
 from magnetite_tpu_torch.config import ModelMetadata
-from magnetite_tpu_torch.errors import SolverError
+from magnetite_tpu_torch.errors import InputError, SolverError
 from magnetite_tpu_torch.fem.stencil import assemble_stencil_structured
 from magnetite_tpu_torch.kernels import lane_stencil_kernel as lk
 from magnetite_tpu_torch.parallel import sweep as ps
@@ -263,7 +263,8 @@ def test_compile_sweep_refuses_what_it_cannot_run():
     case = make_case("rect_17x33")
     mesh, bca = port_mesh(case["mesh"]), port_bca(case["bca"])
     md = ModelMetadata(E_MOD, NU, THICK, 0.0, 0.05)
-    with pytest.raises(SolverError, match="not yet ported"):
+    # a device_mesh that is not a parallel.pipeline mesh: a typed error
+    with pytest.raises(InputError, match="device_mesh must be"):
         ps.compile_sweep(mesh, bca, md, device="cpu", device_mesh=object())
     small = port_mesh(jgen.rect_mesh(8, 4))  # 5x9: cannot coarsen
     with pytest.raises(SolverError, match="cannot coarsen"):

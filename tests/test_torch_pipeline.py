@@ -29,6 +29,7 @@ from magnetite_tpu_torch.errors import InputError, SolverError
 from magnetite_tpu_torch.fem.solve import compile_problem, solve_system
 from magnetite_tpu_torch.parallel.pipeline import (
     DeviceMesh,
+    DeviceMesh2D,
     compile_sharded_problem,
     parse_device_mesh,
 )
@@ -171,16 +172,36 @@ def test_residual_history_is_the_global_norm():
 
 
 def test_grid_local_mesh_raises_not_yet_ported():
+    """A grid-local mesh under operator auto / stencil takes the row-sharded
+    stencil path, on the golden bars against the JAX package's kind
+    "stencil" over as many virtual devices; operator="dia" still shards it
+    as an unstructured mesh."""
+    from magnetite_tpu.meshing import generators as jgen
     from magnetite_tpu_torch.config import ModelMetadata
     from magnetite_tpu_torch.meshing.generators import rect_mesh, tensile_bcs_for_rect
 
-    mesh = rect_mesh(24, 12, width=2.0, height=1.0)
+    mesh = rect_mesh(24, 12, width=2.0, height=1.0)  # 13 x 25: block-Jacobi
     bca = tensile_bcs_for_rect(mesh.coords)
     md = ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.05)
+    jmesh = jgen.rect_mesh(24, 12, width=2.0, height=1.0)
+    jbca = jgen.tensile_bcs_for_rect(jmesh.coords)
+    jmd = magnetite_tpu.config.ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.05)
+    jopts = magnetite_tpu.SolverOptions(cg_rtol=1e-10, dtype="float64")
+    jc = jax_compile_sharded(jmesh, jbca, jmd, jopts,
+                             device_mesh=jax.make_mesh((2,), ("shard",),
+                                                       devices=jax.devices()[:2]))
+    assert jc.kind == "stencil"
+    want = jc.solve()
     for operator in ("auto", "stencil"):
-        with pytest.raises(SolverError, match="sharded stencil path .* not yet ported"):
-            compile_sharded_problem(mesh, bca, md, SolverOptions(operator=operator),
-                                    device_mesh=_cpu_mesh(2))
+        compiled = compile_sharded_problem(
+            mesh, bca, md, SolverOptions(operator=operator, cg_rtol=1e-10),
+            device_mesh=_cpu_mesh(2))
+        assert (compiled.kind, compiled.mode, compiled.preconditioner) == (
+            "stencil", "stencil", "block_jacobi")
+        assert compiled.timings["operator"] == "stencil-sharded"
+        got = compiled.solve()
+        assert got.iterations == want.iterations
+        _golden(got, want)
     # operator="dia" shards the same grid as an unstructured mesh
     got = compile_sharded_problem(mesh, bca, md, SolverOptions(operator="dia", cg_rtol=1e-10),
                                   device_mesh=_cpu_mesh(2)).solve()
@@ -194,16 +215,24 @@ def test_device_mesh_layouts():
     assert parse_device_mesh("1d", device="cpu").size == 1
     for layout, msg in (("2x", "R and C must be integers"), ("0x1", "must be >= 1"),
                         ("2-4", "expected 'auto' or 'RxC'"),
-                        ("2x4", "needs 8 devices but 1 are visible"),
-                        ("1x1", "2-D .* not yet ported")):
+                        ("2x4", "needs 8 devices but 1 are visible")):
         with pytest.raises(InputError, match=msg):
             parse_device_mesh(layout, device="cpu")
+    grid = parse_device_mesh("1x1", device="cpu")
+    assert isinstance(grid, DeviceMesh2D) and grid.shape == (1, 1)
+    assert grid.axis_names == ("rows", "cols") and grid.devices == DeviceMesh(("cpu",)).devices
+    assert DeviceMesh2D(("cpu",) * 6, (2, 3)).row(1) == DeviceMesh(("cpu",) * 3).devices
+    with pytest.raises(InputError, match="needs 4 devices"):
+        DeviceMesh2D(("cpu",) * 3, (2, 2))
     with pytest.raises(InputError, match="one type"):
         DeviceMesh(("cpu", "cuda:0"))
     _, (pmesh, pbca, pmd) = _plate(0.1)
-    with pytest.raises(SolverError, match="2-D .* not yet ported"):
+    with pytest.raises(SolverError, match="DeviceMesh2D"):
         compile_sharded_problem(pmesh, pbca, pmd,
                                 device_mesh=jax.make_mesh((2, 2), ("rows", "cols")))
+    # the JAX package's typed error: a 2-D mesh shards only the stencil operator
+    with pytest.raises(SolverError, match="a 2D device mesh shards the structured stencil"):
+        compile_sharded_problem(pmesh, pbca, pmd, device_mesh=DeviceMesh2D(("cpu",) * 4, (2, 2)))
     assert DeviceMesh(("cpu",) * 5).halved().size == 2
 
 
@@ -243,4 +272,5 @@ def test_cli_rxc_layout_exits_typed(tmp_path, capsys):
     rc = cli.main(paths + ["--device", "cpu", "--skip", "--shard-layout", "1x1",
                            "--out-dir", str(tmp_path)])
     assert rc == 1
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "Received error: Solver error: a 2D device mesh shards the structured stencil" in err

@@ -212,7 +212,7 @@ def test_sweep_solve_routes():
     for compile_fn, args in ((ps.compile_unstructured_sweep, (mesh, bca, md)),
                              (ps.compile_sweep, (grid, gbca, md)),
                              (ps.compile_material_sweep, (grid, gbca))):
-        with pytest.raises(SolverError, match="not yet ported"):
+        with pytest.raises(InputError, match="device_mesh must be"):
             compile_fn(*args, device="cpu", device_mesh=object())
 
 

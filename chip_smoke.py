@@ -110,8 +110,9 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      --baseline both instances against the parent tree's kernel, in
      interleaved rounds; then the fused coarse smoother at the material
      sweep's 9x17 and wrapped 9x16 coarsest levels against its plain
-     version, timed against the unfused sequence it replaced (47 S = 3
-     launches and the torch passes) in interleaved rounds.
+     version, through the geometry the level takes (rows a thread x lanes
+     a block), timed with the unfused sequence it replaced (47 S = 3 launches and the torch passes) and
+     with --baseline the parent tree's fused kernel in interleaved rounds.
  18. the DIA block-Jacobi lanes: sweep_solve(impl="auto") on the sweep plate
      (--sweep-h) as meshed, --lanes lanes (pulls U(0.005, 0.02), k U(0.5,
      2)), 200 iterations, f32 and f64: first and warm solve_s, solves/s
@@ -145,7 +146,10 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
  22. (run after 6) the ELL and dense modes: the ELL kernel against its plain
      version at the Delaunay plate's level-0 operator (slot-major [K, 2, 2,
      N]), f64 and f32, each call repeated bit for bit, timed against the
-     plain version and a cuSPARSE CSR SpMV in interleaved rounds; the
+     plain version and a cuSPARSE CSR SpMV in interleaved rounds, then in
+     rounds with the launch floor (a kernel that reads one value and
+     writes one; with --baseline also the parent tree's kernel, held bit
+     for bit to it); the
      --operator ell CLI on the plate in f64 and --precision mixed, from a
      case holding the mesh and phase 5's AMG hierarchy (f64 values): AMG by
      auto, iterations within +-1 and u / stress on the golden bars of
@@ -201,9 +205,11 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      LANE_SHARD_BARS and every lane's true residual (f64, plain operator)
      within the phase's bar, first and warm solve_s; sharded_pcg_solve
      (the all-gather block-ELL path) over 4 shards on the --ell-shard-h
-     plate to rtol 1e-8 with exact ELL launches and the true residual, and
-     the ELL kernel at the shard's shape (N_u > N) against its plain
-     version and cuSPARSE; sharded_batch_pcg_solve of ELL_BATCH_LANES lanes
+     plate to rtol 1e-8 with exact ELL launches (derived from the
+     iterations observed) and the true residual, and the ELL kernel at the
+     shard's shape (N_u > N) against its plain version and cuSPARSE, each
+     launch plan and the launch floor in rounds as in phase 22;
+     sharded_batch_pcg_solve of ELL_BATCH_LANES lanes
      over a 2 x 2 (batch x rows) mesh with exact lane ELL launches, lanes
      against one-lane solves, and the lane ELL kernel at the chunk's shape
      against its plain version and cuSPARSE SpMM; dryrun_multichip(4) on
@@ -684,10 +690,11 @@ def time_kernel(tag, fn, plain, library, reps, flush, nbytes, flops, dtype, roun
                 library_ms=library_ms)
 
 
-# the sources of --baseline's kernels (mg_smooth.cu and
-# lane_stencil_matvec.cu where the tree has them), and the only entries
-# called there
-BASELINE_SOURCES = ("dia_matvec.cu", "transfer.cu", "mg_smooth.cu", "lane_stencil_matvec.cu")
+# the sources of --baseline's kernels (mg_smooth.cu, lane_stencil_matvec.cu,
+# ell_matvec.cu and lane_coarse_smooth.cu where the tree has them), and the
+# only entries called there
+BASELINE_SOURCES = ("dia_matvec.cu", "transfer.cu", "mg_smooth.cu", "lane_stencil_matvec.cu",
+                    "ell_matvec.cu", "lane_coarse_smooth.cu")
 
 
 def load_baseline(tree: str):
@@ -742,6 +749,17 @@ def load_baseline(tree: str):
         lib.mt_lane_stencil_matvec3.argtypes = [
             i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i64, i32, vp]
     lib.has_lane_stencil = "lane_stencil_matvec.cu" in sources
+    # the parent tree's ELL kernel and coarse smoother, by their C
+    # signatures there
+    if "ell_matvec.cu" in sources:
+        lib.mt_ell_matvec.restype = i32
+        lib.mt_ell_matvec.argtypes = [i32, vp, vp, vp, vp, i64, i64, i32, vp]
+    lib.has_ell = "ell_matvec.cu" in sources
+    if "lane_coarse_smooth.cu" in sources:
+        lib.mt_lane_coarse_smooth3.restype = i32
+        lib.mt_lane_coarse_smooth3.argtypes = [
+            i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i64, i32, ctypes.c_double, vp]
+    lib.has_lane_coarse = "lane_coarse_smooth.cu" in sources
     lib.mt_error_string.restype = ctypes.c_char_p
     lib.mt_error_string.argtypes = [i32]
     return time.perf_counter() - t0, lib
@@ -774,6 +792,48 @@ def baseline_launchers(base):
         return u0
 
     return dia, prolong
+
+
+def baseline_ell_launcher(base):
+    """A call of an older tree's ELL kernel on the wrapper's operands, or
+    None where --baseline is absent or its tree has none."""
+    if base is None or not base.has_ell:
+        return None
+    import torch
+    from magnetite_tpu_torch.kernels import cuda_lib
+
+    def ell(data, cols, u):
+        k, n = cols.shape
+        y = torch.empty((2, n), dtype=u.dtype, device=u.device)
+        rc = base.mt_ell_matvec(cuda_lib.DTYPE_CODES[u.dtype], data.data_ptr(), cols.data_ptr(),
+                                u.data_ptr(), y.data_ptr(), n, u.shape[1], k,
+                                cuda_lib.stream_of(u))
+        cuda_lib.check(base, rc, "baseline ell_matvec")
+        return y
+
+    return ell
+
+
+def baseline_coarse_launcher(base):
+    """A call of an older tree's fused coarse smoother (the same C
+    signature) on the wrapper's operands, or None where --baseline is
+    absent or its tree has none."""
+    if base is None or not base.has_lane_coarse:
+        return None
+    import torch
+    from magnetite_tpu_torch.kernels import cuda_lib
+
+    def coarse(packed, dinv, w3, r, wrap, sweeps, omega):
+        rows, cols, nb = r.shape[1], r.shape[2], r.shape[3]
+        e = torch.empty_like(r)
+        rc = base.mt_lane_coarse_smooth3(
+            cuda_lib.DTYPE_CODES[r.dtype], int(wrap), packed.data_ptr(), dinv.data_ptr(),
+            *(w.data_ptr() for w in w3), r.data_ptr(), e.data_ptr(), rows, cols, nb, sweeps,
+            omega, cuda_lib.stream_of(r))
+        cuda_lib.check(base, rc, "baseline lane_coarse_smooth3")
+        return e
+
+    return coarse
 
 
 def baseline_mg_launchers(base):
@@ -2600,6 +2660,7 @@ def phase_lane_stencil_kernel(grid, reps, flush, rand, totals, base=None):
         for line in ptxas_of(kernel):
             say(f"  ptxas: {line}")
     parent1, parent3 = baseline_lane_launchers(base)
+    parent_coarse = baseline_coarse_launcher(base)
     plate = plate_with_hole_mesh(32, 64)
     pbca = tensile_bcs_for_rect(plate.coords, pull=0.01)
     nb = SWEEP_LANES
@@ -2682,10 +2743,13 @@ def phase_lane_stencil_kernel(grid, reps, flush, rand, totals, base=None):
             rows, cols = level.sa.shape[-2:]
             route = lc.lane_coarse_route(rows, cols, es)
             require(route == "fused", f"{label} {rows}x{cols} {name}: route {route}, not fused")
+            plan = lc.lane_coarse_plan(rows, cols, es)
             level = type(level)(*(s.contiguous() for s in level))
             dinv = _lane_material_center_inv(level, *w3)
             r = rand(2, rows, cols, nb, dtype=dtype)
             tag = f"lane_coarse_smooth3 {label} {rows}x{cols} B={nb} {name}"
+            say(f"  {tag}: geometry (m, lanes) = ({plan.m}, {plan.lanes}), {plan.threads} "
+                f"threads, {plan.smem} bytes of shared memory")
 
             def fused():
                 return lc.lane_coarse_smooth3(plevel, dinv, w3, r, wrap, COARSE_SWEEPS, OMEGA)
@@ -2704,7 +2768,13 @@ def phase_lane_stencil_kernel(grid, reps, flush, rand, totals, base=None):
             err = compare(tag, got, ref, ref.abs().max(), tol)
             require(torch.equal(fused(), got), f"{tag}: a second launch differs")
             compare(f"unfused {tag}", unfused(), ref, ref.abs().max(), tol)
-            fns = {"kernel": fused, "unfused": unfused}
+            fns = {"kernel": fused}
+            if parent_coarse is not None:
+                def parent():
+                    return parent_coarse(plevel.data, dinv, w3, r, wrap, COARSE_SWEEPS, OMEGA)
+                compare(f"parent {tag}", parent(), ref, ref.abs().max(), tol)
+                fns["parent"] = parent
+            fns["unfused"] = unfused
             if parent3 is not None:
                 fns["unfused parent"] = lambda: lc._smooth(
                     lambda e: parent3(level, w3, e, wrap), dinv, r, COARSE_SWEEPS, OMEGA)
@@ -2715,6 +2785,10 @@ def phase_lane_stencil_kernel(grid, reps, flush, rand, totals, base=None):
             ms = med["kernel"]
             par = (f", unfused through the parent's S = 3 {med['unfused parent']:.4f} ms"
                    if "unfused parent" in med else "")
+            for k, t in med.items():
+                if k == "parent":
+                    say(f"    {tag}: {k} {t:.4f} ms ({b_ms / t:.1%} of bound); the kernel "
+                        f"{'below' if ms < t else 'NOT below'} it ({ms / t:.3f}x)")
             say(f"  {tag}: kernel {ms:.4f} ms ({b_ms / ms:.1%} of bound {b_ms:.4f} ms by "
                 f"{b_by}), unfused {med['unfused']:.4f} ms ({med['unfused'] / ms:.2f}x the "
                 f"kernel's){par}, plain {plain_ms:.4f} ms; launches over the main paths: "
@@ -3064,11 +3138,47 @@ def lane_sweeps_card_vs_cpu(h, lanes=32, iterations=400):
 # ------------------- the ELL and dense modes (phase 22) ---------------------
 
 
-def phase_ell_kernel(mesh, md, reps, flush, rand):
+def ell_floor_rounds(tag, data, cols, u, reps, flush, nbytes, flops, dtype, base=None):
+    """The ELL kernel at one shape timed in interleaved rounds with the
+    launch floor (a kernel that reads one value and writes one, launched
+    and timed the same way) and with --baseline the parent tree's kernel,
+    held to the kernel's bits; prints each one's share of the bound and of
+    bound + floor. Returns the floor's median ms (None on the CPU)."""
+    import torch
+    from magnetite_tpu_torch.kernels import cuda_lib
+    from magnetite_tpu_torch.kernels.ell_kernel import ell_matvec_t
+
+    fns = {"kernel": lambda: ell_matvec_t(data, cols, u)}
+    parent = baseline_ell_launcher(base)
+    if parent is not None:
+        same = torch.equal(parent(data, cols, u), ell_matvec_t(data, cols, u))
+        say(f"  {tag}: the parent's kernel bit-identical to the kernel: {same}")
+        require(same, f"{tag}: the kernel sums otherwise than the parent's")
+        fns["parent"] = lambda: parent(data, cols, u)
+    if u.is_cuda:
+        x = torch.zeros(1, dtype=torch.float32, device=u.device)
+        fns["launch floor"] = lambda: cuda_lib.launch_floor(x)
+    med = interleaved(f"{tag} floor", fns, reps, flush, ROUNDS)
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    floor = med.get("launch floor")
+    for key, t in med.items():
+        if key != "launch floor":
+            plus = f", {(b_ms + floor) / t:.1%} of bound + floor" if floor is not None else ""
+            say(f"    {tag} {key}: {t:.4f} ms, {b_ms / t:.1%} of bound {b_ms:.4f} ms by {b_by}"
+                f"{plus}")
+    if floor is not None:
+        say(f"  {tag}: launch floor {floor:.4f} ms (one value read, one written, the same "
+            f"timer)")
+    return floor
+
+
+def phase_ell_kernel(mesh, md, reps, flush, rand, base=None):
     """Phase 22a: the ELL kernel against its plain version on the card at
     the Delaunay plate's level-0 operator, f64 and f32, each call repeated
     bit for bit, timed against the plain version and a cuSPARSE CSR SpMV of
-    the same matrix in interleaved rounds."""
+    the same matrix (and with --baseline the parent tree's kernel) in
+    interleaved rounds; then the kernel and the launch floor in rounds
+    (ell_floor_rounds)."""
     import torch
     from magnetite_tpu_torch.kernels.ell_kernel import (
         ell_matvec_t, ell_matvec_t_plain, ell_to_slot_major,
@@ -3077,6 +3187,9 @@ def phase_ell_kernel(mesh, md, reps, flush, rand):
     ell64, cols_nm = ell_operands(mesh, md, torch.float64)
     n, k = cols_nm.shape
     say(f"phase 22: ELL kernel against its plain version on the card, N={n}, K={k}")
+    for kernel in ("ell_matvec_kernel", "launch_floor_kernel"):
+        for line in ptxas_of(kernel):
+            say(f"  ptxas: {line}")
     results = {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         data, cols = ell_to_slot_major(ell64.to(dtype), cols_nm)
@@ -3091,11 +3204,14 @@ def phase_ell_kernel(mesh, md, reps, flush, rand):
         x = u.reshape(-1)
         compare(f"library CSR SpMV {tag}", torch.mv(a, x).reshape(2, n), ref, scale, tol)
         es = data.element_size()
+        nbytes, flops = n * k * (4 * es + 4) + 4 * n * es, 8 * n * k
+        parent = baseline_ell_launcher(base)
         row = time_kernel(
             tag, lambda: ell_matvec_t(data, cols, u), lambda: ell_matvec_t_plain(data, cols, u),
-            lambda: torch.mv(a, x), reps, flush, n * k * (4 * es + 4) + 4 * n * es, 8 * n * k,
-            dtype, rounds=ROUNDS,
+            lambda: torch.mv(a, x), reps, flush, nbytes, flops, dtype, rounds=ROUNDS,
+            parent=parent and (lambda: parent(data, cols, u)),
         )
+        ell_floor_rounds(tag, data, cols, u, reps, flush, nbytes, flops, dtype, base)
         if dtype == torch.float64:
             results["ell_matvec_t"] = dict(max_abs_err=err, **row)
         del a, data, cols
@@ -3269,7 +3385,7 @@ def phase_dense(reps, flush, totals):
         torch.cuda.empty_cache()
 
 
-def phase_ell(problem, mesh, bca, md, args, dia, totals, reps, flush, rand):
+def phase_ell(problem, mesh, bca, md, args, dia, totals, reps, flush, rand, base=None):
     """Phase 22: the ELL kernel (22a); the --operator ell CLI on the
     Delaunay plate in f64 and mixed, resumed from a case holding phase 5's
     mesh and AMG hierarchy (22b-c), against phases 5-6's DIA runs (`dia`:
@@ -3282,7 +3398,7 @@ def phase_ell(problem, mesh, bca, md, args, dia, totals, reps, flush, rand):
     from magnetite_tpu_torch.fem.solve import compile_problem
 
     t0 = time.perf_counter()
-    results = phase_ell_kernel(mesh, md, reps, flush, rand)
+    results = phase_ell_kernel(mesh, md, reps, flush, rand, base)
     torch.cuda.empty_cache()
     # the hierarchy phase 5 built: no renumbering on either side, so the
     # ELL compile's AMG fingerprint accepts it
@@ -3957,7 +4073,8 @@ def lane_kernels_at_chunk(sweeps, grid, c, rand):
         return _lane_material_center_inv(level, *w)
 
     # 48 sweeps of rounding in another order: held to max|e|, as phase 17
-    check(f"lane_coarse_smooth3 {rows}x{cols}",
+    plan = lc.lane_coarse_plan(rows, cols, r.element_size())
+    check(f"lane_coarse_smooth3 {rows}x{cols} geometry ({plan.m}, {plan.lanes})",
           lambda v, w: lc.lane_coarse_smooth3(plevel, dinv(w), w, v, False, COARSE_SWEEPS, OMEGA),
           lambda v, w: lc.lane_coarse_smooth3_plain(level, dinv(w), w, v, False, COARSE_SWEEPS,
                                                     OMEGA),
@@ -4106,7 +4223,7 @@ def gathered_csr(data, cols, nl, n_u):
     return csr(rows_, cs, vals, (2 * nl, 2 * n_u))
 
 
-def phase_ell_shard(h, totals, reps, flush, rand):
+def phase_ell_shard(h, totals, reps, flush, rand, base=None):
     """Phase 25b: the all-gather block-ELL path on the Delaunay plate at h,
     f64. sharded_pcg_solve over 4 shards of cuda:0 to rtol 1e-8: exactly S
     x (1 + vcycles) ELL launches at the shard's rows against the gathered
@@ -4151,10 +4268,11 @@ def phase_ell_shard(h, totals, reps, flush, rand):
         sync()
         solve_s = time.perf_counter() - t0
     iters = int(res.iterations)
+    # derived from the iterations this run took
     want = s * (1 + vcycles([iters], maxiter))
     say(f"  {iters} iterations, solve_s {solve_s:.3f}; ell_matvec_t launches "
         f"{got['ell_matvec_t']} (expected {s} x (1 + {vcycles([iters], maxiter)}) = {want}, "
-        "all f64)")
+        f"all f64, from the {iters} iterations observed)")
     launched = {kk: c for kk, c in got.items() if c}
     require(bool(res.converged) and launched == {"ell_matvec_t": want, "ell_matvec_t f64": want},
             f"all-gather ELL: launches {launched}")
@@ -4182,14 +4300,18 @@ def phase_ell_shard(h, totals, reps, flush, rand):
         tag = f"ell_matvec_t shard K={k} N={nl} N_u={n_u} {str(dtype)[6:]}"
         ref = ell_matvec_t_plain(d, cols, u)
         y = ell_matvec_t(d, cols, u)
-        err = compare(tag, y, ref, ell_matvec_t_plain(d.abs(), cols, u.abs()).max(), tol)
+        scale = ell_matvec_t_plain(d.abs(), cols, u.abs()).max()
+        err = compare(tag, y, ref, scale, tol)
         require(torch.equal(y, ell_matvec_t(d, cols, u)), f"{tag}: a second call differs")
         a = gathered_csr(d, cols, nl, n_u)
         x = u.reshape(-1)
+        nbytes, flops = ell_shard_bytes(cols, nl, n_u, d.element_size())
+        parent = baseline_ell_launcher(base)
         r_ = time_kernel(tag, lambda: ell_matvec_t(d, cols, u),
                          lambda: ell_matvec_t_plain(d, cols, u), lambda: torch.mv(a, x), reps,
-                         flush, *ell_shard_bytes(cols, nl, n_u, d.element_size()), dtype,
-                         rounds=ROUNDS)
+                         flush, nbytes, flops, dtype, rounds=ROUNDS,
+                         parent=parent and (lambda: parent(d, cols, u)))
+        ell_floor_rounds(tag, d, cols, u, reps, flush, nbytes, flops, dtype, base)
         if dtype == torch.float64:
             rows["ell_matvec_t gathered"] = dict(max_abs_err=err, **r_)
         del a
@@ -4287,7 +4409,7 @@ def phase_ell_shard(h, totals, reps, flush, rand):
     return rows
 
 
-def phase_lane_shard(args, totals, rand):
+def phase_lane_shard(args, totals, rand, base=None):
     """Phase 25: lane sharding of phases 11, 12, 15 and 16's sweeps over 2
     and 4 shards of cuda:0, with each lane kernel at the chunks' lane
     counts (25a); the all-gather ELL path, single-vector and batched (25b);
@@ -4306,7 +4428,7 @@ def phase_lane_shard(args, totals, rand):
     lane_shard_sweeps(cases, (2, 4), totals)
     del sweeps, grid
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)
-    rows = phase_ell_shard(args.ell_shard_h, totals, args.reps, flush, rand)
+    rows = phase_ell_shard(args.ell_shard_h, totals, args.reps, flush, rand, base)
     del flush
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4360,10 +4482,10 @@ def main() -> int:
                     "each sweep with torch.profiler")
     ap.add_argument("--baseline", metavar="DIR",
                     help="another checkout (e.g. the parent commit unpacked by git archive): "
-                    "its dia_matvec and prolong0 kernels (and mg_presmooth / mg_postsmooth "
-                    "and the lane stencil kernel where it has them) are built apart and timed "
-                    "beside this tree's in phases 2, 3, 14 and 17, in the same interleaved "
-                    "rounds")
+                    "its dia_matvec and prolong0 kernels (and mg_presmooth / mg_postsmooth, "
+                    "the lane stencil kernel, the ELL kernel and the coarse smoother where it "
+                    "has them) are built apart and timed beside this tree's in phases 2, 3, "
+                    "14, 17, 22 and 25b, in the same interleaved rounds")
     ap.add_argument("--only", choices=("transfers", "lane-kernels", "multigrid",
                                        "structured-sweeps", "lane-sweeps", "resume", "ell",
                                        "shard", "grid-shard", "lane-shard"),
@@ -4428,7 +4550,7 @@ def main() -> int:
             "(--only grid-shard: no ok line)")
         return 0
     if args.only == "lane-shard":
-        phase_lane_shard(args, {}, rand)
+        phase_lane_shard(args, {}, rand, base)
         say(f"phases 0, 1 and 25 passed in {time.perf_counter() - t_start:.1f} s "
             "(--only lane-shard: no ok line)")
         return 0
@@ -4494,7 +4616,7 @@ def main() -> int:
                                 ["--precision", "mixed"], 1e-9, totals)
     if args.only in (None, "ell"):
         results.update(phase_ell(problem, mesh, bca, md, args, dia, totals, args.reps, flush,
-                                 rand))
+                                 rand, base))
     if args.only in (None, "shard"):
         results.update(phase_shard(problem, mesh, bca, md, args, dia, totals, args.reps,
                                    flush))
@@ -4537,7 +4659,7 @@ def main() -> int:
     phase_sweeps_card_vs_cpu(args.sweep_small[0], int(args.sweep_small[1]))
     phase_grid_sweeps(args, rand, results, totals, base)
     phase_lane_sweeps(args, rand, results, totals)
-    results.update(phase_lane_shard(args, totals, rand))
+    results.update(phase_lane_shard(args, totals, rand, base))
 
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     say("launches per shape over the main paths: " + "; ".join(

@@ -185,6 +185,8 @@ def _bind(lib) -> None:
     lib.mt_lane_ell_matvec.argtypes = [i32, i32, i32, vp, vp, vp, vp, i64, i64, i32, i64, vp]
     lib.mt_ell_matvec.restype = i32
     lib.mt_ell_matvec.argtypes = [i32, vp, vp, vp, vp, i64, i64, i32, vp]
+    lib.mt_launch_floor.restype = i32
+    lib.mt_launch_floor.argtypes = [vp, vp, vp]
     lib.mt_assemble_pairs.restype = i32
     lib.mt_assemble_pairs.argtypes = [vp, vp, vp, vp, i64, i64, f64, f64, f64, f64, vp, vp]
     lib.mt_error_string.restype = ctypes.c_char_p
@@ -215,6 +217,14 @@ def launch(name: str, entry: str, t: torch.Tensor, *args) -> None:
     with torch.cuda.device(t.device):
         rc = getattr(lib, entry)(*args, stream_of(t))
     check(lib, rc, name)
+
+
+def launch_floor(x: torch.Tensor) -> torch.Tensor:
+    """The card's floor for one call: a kernel that copies x[0] (f32, CUDA)
+    into a new one-value tensor, launched as every kernel here is."""
+    y = torch.empty(1, dtype=torch.float32, device=x.device)
+    launch("launch_floor", "mt_launch_floor", x, x.data_ptr(), y.data_ptr())
+    return y
 
 
 def require_cuda(name: str, dtype, *tensors) -> None:

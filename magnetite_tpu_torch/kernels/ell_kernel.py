@@ -16,6 +16,12 @@ is no `pallas_call` behind it.
 `ell_matvec_t` is the entry point: CPU operands take the plain version,
 CUDA operands launch the kernel or raise. It counts its launches in
 `.launches` (of them in f64: `.f64_launches`).
+
+One launch plan at every shape: one thread a row in 704-thread blocks, the
+sum over the slots in the plain version's order, so a call repeats bit for
+bit. Splitting a row over 2 or 4 threads was slower at the 1M plate's ELL
+mode and at the all-gather shard on the H100 (scripts/ell_coarse_variants.py;
+PERF.md §6).
 """
 
 from __future__ import annotations

@@ -13,12 +13,13 @@ magnetite_tpu/parallel/sweep.py::_lane_material_vcycle (48 sweeps, omega
 
 `lane_coarse_smooth3` is the entry point. CPU operands take the plain
 version. CUDA operands take one of two routes, by shape
-(`lane_coarse_route`): "fused", the kernel, where the level's lane slab
-fits one block (`lane_coarse_plan`: the 9x17 and wrapped 9x16 coarsest
-levels); "per-sweep" otherwise, the plain loop with its matvecs through the
-S = 3 lane stencil kernel. The wrapper counts the kernel's launches in
-`.launches` and, per (rows, cols, dtype), `.shape_launches`, and the calls
-that took the per-sweep route in `.per_sweep`.
+(`lane_coarse_route`): "fused", the kernel, where one of its geometries
+fits the level's lane slab in one block (`lane_coarse_plan`: the 9x17 and
+wrapped 9x16 coarsest levels); "per-sweep" otherwise, the plain loop with
+its matvecs through the S = 3 lane stencil kernel. The wrapper counts the
+kernel's launches in `.launches` and, per (rows, cols, dtype),
+`.shape_launches`, and the calls that took the per-sweep route in
+`.per_sweep`.
 """
 
 from __future__ import annotations
@@ -34,29 +35,43 @@ from .lane_stencil_kernel import (
     VEC_BYTES, _on_cpu, _require_packed, lane_material_matvec_plain, lane_stencil_matvec3,
 )
 
-# csrc geometry: lanes per block (one thread per (node, lane)), the
-# block's thread limit and its shared memory (the level's four stencils, a
-# node's 144 values padded by 16 bytes; e, double-buffered and padded; six
-# values a thread of the next slab's dinv and r)
-SLAB, MAX_THREADS, MAX_SMEM = 2, 320, 227 * 1024
+# csrc geometries (MT_COARSE_F32 / MT_COARSE_F64), per value size, in the
+# order a level takes them (the first that fits): M rows a thread, L lanes
+# a slab, the instance's block bound. A block's shared memory: the level's
+# four stencils (a node's 144 values padded by 16 bytes), e double-buffered
+# with a zero border and M - 1 spare zero rows, 6 M values a thread of the
+# next slab's dinv and r.
+GEOMETRIES = {4: ((3, 7, 384), (1, 2, 320)), 8: ((2, 3, 256), (1, 2, 320))}
+MAX_SMEM = 227 * 1024
 ROUTES = ("fused", "per-sweep")
 
 
 class LaneCoarsePlan(NamedTuple):
-    threads: int  # per block: rows * cols * SLAB, rounded up to a warp
+    m: int  # vertically adjacent nodes of one lane a thread
+    lanes: int  # a slab (a block's lanes)
+    threads: int  # a block: ceil(rows / m) * cols * lanes, rounded up to a warp
     smem: int  # bytes
 
 
-def lane_coarse_plan(rows: int, cols: int, es: int) -> Optional[LaneCoarsePlan]:
-    """The fused launch's block for a rows x cols level in `es`-byte values,
-    or None where the level's slab does not fit one block (more than
-    MAX_THREADS threads or MAX_SMEM bytes of shared memory)."""
-    threads = -(-rows * cols * SLAB // 32) * 32
-    smem = (rows * cols * (144 + 16 // es) + 2 * (rows + 2) * (cols + 2) * SLAB * 2
-            + 6 * threads) * es
-    if rows < 1 or cols < 2 or threads > MAX_THREADS or smem > MAX_SMEM:
+def _fit(rows, cols, es, m, lanes, cap) -> Optional[LaneCoarsePlan]:
+    threads = -(-(-(-rows // m) * cols * lanes) // 32) * 32
+    smem = (rows * cols * (144 + 16 // es) + 2 * (rows + m + 1) * (cols + 2) * lanes * 2
+            + 6 * m * threads) * es
+    if rows < 1 or cols < 2 or threads > cap or smem > MAX_SMEM:
         return None
-    return LaneCoarsePlan(threads, smem)
+    return LaneCoarsePlan(m, lanes, threads, smem)
+
+
+def lane_coarse_plan(rows: int, cols: int, es: int) -> Optional[LaneCoarsePlan]:
+    """The fused launch's block for a rows x cols level in `es`-byte values:
+    the first of the value size's GEOMETRIES that fits, or None where none
+    does (too many threads for the instance, or past MAX_SMEM bytes of
+    shared memory)."""
+    for m, lanes, cap in GEOMETRIES[es]:
+        plan = _fit(rows, cols, es, m, lanes, cap)
+        if plan is not None:
+            return plan
+    return None
 
 
 def lane_coarse_route(rows: int, cols: int, es: int) -> str:

@@ -573,7 +573,7 @@ def test_history_and_progress_on_card_match_cpu(structured):
     opts = SolverOptions(dtype="float64", residual_history=64, cg_progress_every=4)
     lines = {}
 
-    def run(device, options):
+    def run(device, options, key=None):
         seen = []
         import magnetite_tpu_torch.fem.cg as cg
 
@@ -584,12 +584,13 @@ def test_history_and_progress_on_card_match_cpu(structured):
             res = compile_problem(*case, options, device=device).solve()
         finally:
             cg.default_progress_printer = printer
-        lines[device] = seen
+        lines[key or device] = seen
         return res, kernel.launches - before
 
     cpu, _ = run("cpu", opts)
     card, launches = run("cuda", opts)
-    _, plain_launches = run("cuda", SolverOptions(dtype="float64"))
+    # its own key: this run has no progress lines, and must not replace the card's
+    _, plain_launches = run("cuda", SolverOptions(dtype="float64"), "cuda-plain")
     assert launches == plain_launches > 0
     # f64 on both, summed in other orders: the crossing may move by one
     assert abs(card.iterations - cpu.iterations) <= 1
@@ -924,20 +925,33 @@ def material_coarsest(grid: str, dtype, dev):
 
 @pytest.mark.parametrize("nb", [4096, 1000, 37, 1])
 @pytest.mark.parametrize("grid", ["rect-33x65", "plate-33x64-wrapped"])
-@pytest.mark.parametrize("dtype,tol", DTYPES)
-def test_lane_coarse_smoother_matches_plain(grid, nb, dtype, tol):
+@pytest.mark.parametrize("dtype,tol,cut", [
+    (torch.float64, 1e-12, None), (torch.float64, 1e-12, (5, 32)),
+    (torch.float32, 1e-5, None), (torch.float32, 1e-5, (10, 16)),
+], ids=["f64", "f64-5x32", "f32", "f32-10x16"])
+def test_lane_coarse_smoother_matches_plain(grid, nb, dtype, tol, cut):
     """The fused coarse smoother (48 sweeps in one launch) against its plain
     version at the material sweep's own coarsest levels (9x17, wrapped
-    9x16), real per-lane materials; f32 at 1e-5 and f64 at 1e-12 of max|e|
-    (48 sweeps of sums in another order); each call repeated bit for bit."""
+    9x16: the first geometry, f32 3 rows x 7 lanes, f64 2 x 3), and at a
+    cut of the level above (f32 10x16, f64 5x32: past the first geometry,
+    so (1, 2)); real per-lane materials, lane counts no multiple of the
+    slab; f32 at 1e-5 and f64 at 1e-12 of max|e| (48 sweeps of sums in
+    another order); each call repeated bit for bit."""
     from magnetite_tpu_torch.kernels import lane_coarse_kernel as lc
+    from magnetite_tpu_torch.kernels.lane_stencil_kernel import pack_lane_stencils
     from magnetite_tpu_torch.parallel.sweep import _lane_material_center_inv, material_weights
 
     dev = require_cuda()
     levels, packed, wrap = material_coarsest(grid, dtype, dev)
     level, plevel = levels[-1], packed[-1]
+    if cut is not None:
+        level = type(level)(*(s[..., : cut[0], : cut[1]].contiguous() for s in levels[-2]))
+        plevel = pack_lane_stencils(level)
     rows, cols = level.sa.shape[-2:]
-    assert lc.lane_coarse_route(rows, cols, level.sa.element_size()) == "fused"
+    es = level.sa.element_size()
+    assert lc.lane_coarse_route(rows, cols, es) == "fused"
+    plan = lc.lane_coarse_plan(rows, cols, es)
+    assert (plan.m, plan.lanes) == (lc.GEOMETRIES[es][0][:2] if cut is None else (1, 2))
     rng = np.random.default_rng(42)
     w3 = material_weights(*(torch.as_tensor(rng.uniform(lo, hi, nb), dtype=dtype, device=dev)
                             for lo, hi in ((40e9, 250e9), (0.22, 0.38), (0.2, 1.0))))
@@ -1348,22 +1362,29 @@ def test_two_shard_solve_on_card_matches_cpu(precision):
         assert np.abs(a - b).max() <= 1e-6 * np.abs(b).max(), field
 
 
+@pytest.mark.parametrize("shape", [(8, 5000, 20003), (8, 5001, 20004), (7, 5001, 20004),
+                                   (8, 92707, 370828), (8, 500393, 500393)],
+                         ids=["k8", "k8-odd-n", "k7-odd-n", "shard", "main"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-def test_ell_kernel_takes_a_longer_field_on_card(dtype, tol):
+def test_ell_kernel_takes_a_longer_field_on_card(dtype, tol, shape):
     """The all-gather path's call: a shard's N rows against the gathered
-    field u [2, N_u], N_u > N, cols global; N_u < N is refused."""
+    field u [2, N_u], N_u > N (4 N, N odd: no multiple of a block; K = 8
+    and 7; the h = 0.003 plate's shard), cols global;
+    and the 1M plate's ELL mode (N_u = N); each call repeated bit for bit;
+    N_u < N is refused."""
     from magnetite_tpu_torch.kernels.cuda_lib import KernelError
     from magnetite_tpu_torch.kernels.ell_kernel import ell_matvec_t, ell_matvec_t_plain
 
     dev = require_cuda()
     g = torch.Generator(device=dev).manual_seed(3)
-    k, n, n_u = 8, 5000, 20003
+    k, n, n_u = shape
     data = torch.randn(k, 2, 2, n, generator=g, device=dev, dtype=torch.float64).to(dtype)
     cols = torch.randint(0, n_u, (k, n), generator=g, device=dev, dtype=torch.int32)
     u = torch.randn(2, n_u, generator=g, device=dev, dtype=torch.float64).to(dtype)
     before = ell_matvec_t.launches
     y = ell_matvec_t(data, cols, u)
     assert ell_matvec_t.launches == before + 1 and tuple(y.shape) == (2, n)
+    assert torch.equal(y, ell_matvec_t(data, cols, u))
     ref = ell_matvec_t_plain(data, cols, u)
     scale = float(ell_matvec_t_plain(data.abs(), cols, u.abs()).max())
     assert float((y - ref).abs().max()) <= tol * scale

@@ -147,6 +147,33 @@ def test_ell_matvec_plain_matches_jax_ell_matvec():
     np.testing.assert_array_equal(wrapped.T.numpy(), got)
 
 
+@pytest.mark.parametrize("k,n,n_u,dtype", [
+    (8, 37, 148, torch.float64),  # an all-gather shard's call: N_u = 4 N
+    (8, 37, 150, torch.float32),
+    (7, 41, 41, torch.float64),  # the ELL mode's: N_u = N, an odd K
+    (1, 5, 9, torch.float32),
+], ids=["shard-f64", "shard-f32", "k7-square", "k1"])
+def test_ell_wrapper_launches_nothing_on_cpu(k, n, n_u, dtype):
+    """CPU operands take the plain version: no launch, the plain version's
+    bits, and the sum over the slots an independent numpy product gives."""
+    from magnetite_tpu_torch.kernels import ell_kernel as ek
+
+    rng = np.random.default_rng(12)
+    data_np = rng.standard_normal((k, 2, 2, n))
+    cols_np = rng.integers(0, n_u, (k, n)).astype(np.int32)
+    u_np = rng.standard_normal((2, n_u))
+    data, cols, u = (torch.from_numpy(x) for x in (data_np, cols_np, u_np))
+    data, u = data.to(dtype), u.to(dtype)
+    before = (ek.ell_matvec_t.launches, ek.ell_matvec_t.f64_launches)
+    y = ek.ell_matvec_t(data, cols, u)
+    assert (ek.ell_matvec_t.launches, ek.ell_matvec_t.f64_launches) == before
+    assert y.dtype == dtype and tuple(y.shape) == (2, n)
+    assert torch.equal(y, ek.ell_matvec_t_plain(data, cols, u))
+    ref = np.einsum("kijn,jkn->in", data.double().numpy(), u.double().numpy()[:, cols_np])
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    assert np.abs(y.double().numpy() - ref).max() <= tol * np.abs(ref).max()
+
+
 def test_ell_diag_blocks_match_jax_extract_block_diagonal():
     import jax.numpy as jnp
     from magnetite_tpu.fem.assembly import extract_block_diagonal

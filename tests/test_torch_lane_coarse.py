@@ -115,10 +115,10 @@ def test_packed_stencils_match_jax(sets, wrap):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("shape,routes", [
-    ((9, 17), ("fused", "fused")),  # the bench grid's coarsest level: 306 threads
+    ((9, 17), ("fused", "fused")),  # the bench grid's coarsest level
     ((9, 16), ("fused", "fused")),  # the wrapped plate's
-    ((10, 16), ("fused", "fused")),  # 320 threads, the most one block takes
-    ((8, 21), ("per-sweep", "per-sweep")),  # 336 threads
+    ((10, 16), ("fused", "fused")),  # (1, 2)'s 320 threads, past (3, 7) / (2, 3)
+    ((8, 21), ("per-sweep", "per-sweep")),  # 336 threads a slab of (1, 2)
     ((17, 33), ("per-sweep", "per-sweep")),  # the 17x33 level
     ((1, 160), ("fused", "per-sweep")),  # f64's stencils and e pass 227 KB
 ], ids=["9x17", "9x16", "10x16", "8x21", "17x33", "1x160"])
@@ -129,8 +129,33 @@ def test_coarse_route_by_shape(shape, routes, dtype):
     plan = lc.lane_coarse_plan(*shape, es)
     assert (plan is None) == (want == "per-sweep")
     if plan is not None:
-        assert plan.threads % 32 == 0 and plan.threads >= shape[0] * shape[1] * lc.SLAB
-        assert plan.threads <= lc.MAX_THREADS and plan.smem <= lc.MAX_SMEM
+        cap = {(m, lanes): c for m, lanes, c in lc.GEOMETRIES[es]}[plan.m, plan.lanes]
+        assert plan.threads % 32 == 0
+        assert plan.threads >= -(-shape[0] // plan.m) * shape[1] * plan.lanes
+        assert plan.threads <= cap and plan.smem <= lc.MAX_SMEM
+
+
+@pytest.mark.parametrize("shape,es,want", [
+    ((9, 17), 4, (3, 7, 384)),  # 3 row groups x 17 columns x 7 lanes = 357 threads
+    ((9, 16), 4, (3, 7, 352)),
+    ((9, 17), 8, (2, 3, 256)),  # 5 row groups (the last one row) x 17 x 3 = 255
+    ((9, 16), 8, (2, 3, 256)),
+    ((10, 16), 4, (1, 2, 320)),  # (3, 7): 4 x 16 x 7 = 448 threads, past its 384
+    ((12, 12), 4, (3, 7, 352)),
+    ((12, 12), 8, (2, 3, 224)),  # 6 x 12 x 3 = 216 threads
+    ((5, 32), 8, (1, 2, 320)),  # (2, 3): 3 x 32 x 3 = 288 threads, past its 256
+], ids=["9x17-f32", "9x16-f32", "9x17-f64", "9x16-f64", "10x16-f32", "12x12-f32", "12x12-f64",
+        "5x32-f64"])
+def test_coarse_plan_sizes_the_new_block(shape, es, want):
+    """The first geometry the level fits; the block's threads and shared
+    memory as the CUDA source counts them (e with M - 1 spare rows)."""
+    plan = lc.lane_coarse_plan(*shape, es)
+    assert (plan.m, plan.lanes, plan.threads) == want
+    rows, cols = shape
+    smem = (rows * cols * (144 + 16 // es)
+            + 2 * (rows + plan.m + 1) * (cols + 2) * plan.lanes * 2
+            + 6 * plan.m * plan.threads) * es
+    assert plan.smem == smem <= lc.MAX_SMEM
 
 
 def test_nothing_launches_on_cpu_tensors():

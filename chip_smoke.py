@@ -23,6 +23,9 @@
                                        # phases 0, 1 and 21 alone (no "ok" line)
     python3 chip_smoke.py --only ell
                                        # phases 0, 1, 5, 6 and 22 alone (no "ok" line)
+    python3 chip_smoke.py --only assembly --baseline _archive/parent
+                                       # phases 0, 1, 5 and 23a-b alone (no "ok" line),
+                                       # the parent tree's assembly timed in the same rounds
     python3 chip_smoke.py --only shard
                                        # phases 0, 1, 5, 6 and 23 alone (no "ok" line)
     python3 chip_smoke.py --only grid-shard
@@ -163,11 +166,18 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      against the f64 DIA + AMG answer and against the CPU, with the
      assembly and the LU (torch.linalg.solve) timed apart.
  23. (run after 6) device assembly and the node-sharded pipeline on the
-     Delaunay plate: the fused assembly kernel against its plain version
-     (pair_block_fields + four index_add_) at the plate's DIA slots and
-     its ELL slots, f64, two calls bit for bit, timed against its bound,
-     the plain version and the index_add_ sequence; compile_problem
-     (assembly="device") in f64 against phase 5 (iterations +-1, u and
+     Delaunay plate: (23a) the device assembly's three kernels (count,
+     fill, assembly) at the plate's DIA slots and its ELL slots, f64: the
+     output in the operator's layout bit for bit the sequential
+     pair-major sum, two calls bit for bit, within 1e-12 of the plain
+     version (pair_block_fields + four index_add_ + the layout), f32 the
+     f64 sums rounded once, the count and fill kernels against their plain
+     versions; each stage timed, and in interleaved rounds the assembly
+     kernel, the whole function and the plain version (with --baseline
+     also the parent tree's kernel and its whole function, stage by stage,
+     and the output held bit for bit to it); (23b) compile_problem
+     (assembly="device") in f64 against phase 5 (one launch of each
+     assembly kernel, iterations +-1, u and
      stress on the golden bars, the true residual <= 1e-9) with its
      assemble_device_s beside phase 5's assemble_s; compile_sharded_problem
      over DeviceMesh((cuda:0,) * S), S = 1, 2, 4, in f64 and --precision
@@ -229,7 +239,7 @@ card's nvidia-smi line, a JSON line of per-kernel results (the band
 matvec's 2x2 and 3x3 kernels as two rows, the lane stencil kernel's two
 instances as two rows, the fused coarse smoother, the lane ELL kernel, the
 ELL kernel, both ELL kernels again at the all-gather path's shapes, the
-fused assembly kernel), and
+device assembly's count, fill and assembly kernels), and
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -320,10 +330,18 @@ KERNELS = {
                                  "magnetite_tpu/parallel/sharding.py:213 "
                                  "(sharded_batch_pcg_solve's matvec under jax.vmap)"),
     # device assembly: no pallas_call stands behind it, the JAX package's
-    # four segment_sums over closed-form pair fields are XLA's
+    # four segment_sums over closed-form pair fields are XLA's; the
+    # assembly kernel sums the slots' runs that the count and fill kernels
+    # build (one launch of each a device-assembled compile)
     "assemble_pairs": ("magnetite_tpu_torch/csrc/assemble_pairs.cu",
                        "no pallas_call: XLA segment_sums in JAX, magnetite_tpu/fem/dia.py:237 "
                        "(assemble_dia_fused), :254, magnetite_tpu/fem/solve.py:919"),
+    "assemble_count": ("magnetite_tpu_torch/csrc/assemble_pairs.cu",
+                       "no pallas_call: XLA segment_sums in JAX, magnetite_tpu/fem/dia.py:237 "
+                       "(assemble_dia_fused), :254, magnetite_tpu/fem/solve.py:919"),
+    "assemble_fill": ("magnetite_tpu_torch/csrc/assemble_pairs.cu",
+                      "no pallas_call: XLA segment_sums in JAX, magnetite_tpu/fem/dia.py:237 "
+                      "(assemble_dia_fused), :254, magnetite_tpu/fem/solve.py:919"),
 }
 # the JAX package's sweep benchmarks (bench.py: bench_unstructured_sweep and
 # bench_unstructured_material_sweep): mesh size, lanes, CG iterations
@@ -419,8 +437,10 @@ def require(cond: bool, msg: str) -> None:
 
 
 def counters():
-    """The fifteen kernel wrappers, each carrying its `.launches` count."""
-    from magnetite_tpu_torch.kernels.assembly_kernel import assemble_pairs
+    """The seventeen kernel wrappers, each carrying its `.launches` count."""
+    from magnetite_tpu_torch.kernels.assembly_kernel import (
+        assemble_count, assemble_fill, assemble_pairs,
+    )
     from magnetite_tpu_torch.kernels.df_kernel import df_dia_matvec
     from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
     from magnetite_tpu_torch.kernels.ell_kernel import ell_matvec_t
@@ -437,7 +457,7 @@ def counters():
     return (dia_matvec, prolong0, restrict0, stencil_matvec, mg_presmooth, mg_postsmooth,
             df_dia_matvec, lane_dia_matvec, lane_dia_matvec3, lane_stencil_matvec,
             lane_stencil_matvec3, lane_coarse_smooth3, lane_ell_matvec, ell_matvec_t,
-            assemble_pairs)
+            assemble_pairs, assemble_count, assemble_fill)
 
 
 def shape_label(kernel: str, key) -> str:
@@ -553,18 +573,24 @@ def write_case_files(dirname: str, h: float) -> list:
     return paths
 
 
-def event_ms(fn, reps: int, flush) -> float:
+def event_ms(fn, reps: int, flush, setup=None) -> float:
     """Median of `reps` CUDA-event timings of one call each, L2 flushed
     before every call (the solver finds these operands cold). The device
     spins after the flush while the host enqueues the call, so the events
     time the device's work and not the host's pace (a transfer kernel takes
-    less device time than its wrapper takes to launch it)."""
+    less device time than its wrapper takes to launch it). `setup`, where
+    given, runs before each call's flush, outside the timed span (it
+    restores an operand the call updates in place)."""
     import torch
 
     for _ in range(3):
+        if setup is not None:
+            setup()
         fn()
     times = []
     for _ in range(reps):
+        if setup is not None:
+            setup()
         flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
@@ -691,10 +717,10 @@ def time_kernel(tag, fn, plain, library, reps, flush, nbytes, flops, dtype, roun
 
 
 # the sources of --baseline's kernels (mg_smooth.cu, lane_stencil_matvec.cu,
-# ell_matvec.cu and lane_coarse_smooth.cu where the tree has them), and the
-# only entries called there
+# ell_matvec.cu, lane_coarse_smooth.cu and assemble_pairs.cu where the tree
+# has them), and the only entries called there
 BASELINE_SOURCES = ("dia_matvec.cu", "transfer.cu", "mg_smooth.cu", "lane_stencil_matvec.cu",
-                    "ell_matvec.cu", "lane_coarse_smooth.cu")
+                    "ell_matvec.cu", "lane_coarse_smooth.cu", "assemble_pairs.cu")
 
 
 def load_baseline(tree: str):
@@ -760,6 +786,14 @@ def load_baseline(tree: str):
         lib.mt_lane_coarse_smooth3.argtypes = [
             i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i64, i32, ctypes.c_double, vp]
     lib.has_lane_coarse = "lane_coarse_smooth.cu" in sources
+    # PR 14's assembly kernel, one thread a slot over int64 runs; later
+    # trees name their entries otherwise
+    lib.has_assemble = "assemble_pairs.cu" in sources and hasattr(lib, "mt_assemble_pairs")
+    if lib.has_assemble:
+        lib.mt_assemble_pairs.restype = i32
+        lib.mt_assemble_pairs.argtypes = [vp, vp, vp, vp, i64, i64, ctypes.c_double,
+                                          ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                                          vp, vp]
     lib.mt_error_string.restype = ctypes.c_char_p
     lib.mt_error_string.argtypes = [i32]
     return time.perf_counter() - t0, lib
@@ -3470,23 +3504,122 @@ SHARD_COUNTS = (1, 2, 4)
 
 def assembly_bytes_flops(n_nodes, n_elem, n_slots):
     """(bytes, flops) of one fused assembly: coords [N, 2] f64, tris [E, 3]
-    and pair-major slot ids [9E] int64 read once, [2, 2, S] f64 written
-    once; ~40 flops per pair (its four block scalars)."""
+    and a-major slot ids [9E] int64 read once, the [2, 2, S] f64 sums
+    written once; ~40 flops per pair (its four block scalars)."""
     return 16 * n_nodes + 24 * n_elem + 72 * n_elem + 32 * n_slots, 40 * 9 * n_elem
 
 
-def phase_assembly_kernel(mesh, md, reps, flush):
-    """Phase 23a: the fused assembly kernel against its plain version at the
-    plate's DIA slots (the f64 compile's structure) and its ELL slots, f64,
-    two calls bit for bit; timed against its bound, the plain version and
-    the four index_add_s of the plain version's scatter."""
+def count_bytes_flops(n_nodes, n_elem, n_slots):
+    """(bytes, flops) of the count kernel: coords, tris and the slot ids
+    read once, the counts [S + 1] int32 and the geometry [E, 8] f64
+    written once; ~15 flops an element."""
+    return 16 * n_nodes + 24 * n_elem + 72 * n_elem + 4 * (n_slots + 1) + 64 * n_elem, \
+        15 * n_elem
+
+
+def fill_bytes_flops(n_elem, n_slots):
+    """(bytes, flops) of the fill kernel: the slot ids read once, the bounds
+    [S + 1] int32 read and written once, order [9E] int32 written once."""
+    return 72 * n_elem + 8 * (n_slots + 1) + 36 * n_elem, 0
+
+
+def sequential_sum(coords, tris, slot_ids, n_slots, mat):
+    """[2, 2, S] f64 on the slot ids' device: each slot's pairs
+    (pair_block_fields) added one at a time onto 0 in pair-major order, one
+    elementwise add a round over the slots that have a pair left (the
+    parent kernel's order of summation)."""
+    import torch
+    from magnetite_tpu_torch.fem.element import pair_block_fields
+    from magnetite_tpu_torch.kernels.assembly_kernel import pair_major_slots
+
+    vals = torch.stack([f.reshape(-1) for f in pair_block_fields(coords, tris, *mat)])
+    pm = pair_major_slots(slot_ids, tris.shape[0])
+    order = torch.sort(pm, stable=True).indices
+    lens = torch.bincount(pm, minlength=n_slots)
+    starts = torch.cumsum(lens, 0) - lens
+    acc = torch.zeros((4, n_slots), dtype=torch.float64, device=vals.device)
+    for r in range(int(lens.max())):
+        live = torch.nonzero(lens > r).squeeze(1)
+        acc[:, live] += vals[:, order[starts[live] + r]]
+    return acc.reshape(2, 2, n_slots)
+
+
+def relayout(flat, n_nodes, n_bands, ell):
+    """[2, 2, S] -> the operator's [D, 2, 2, N] (DIA slots d N + n) or [K,
+    2, 2, N] (ELL slots n K + k): the parent tree's relayout after its
+    kernel, and the plain version's."""
+    if ell:
+        return flat.reshape(2, 2, n_nodes, n_bands).permute(3, 0, 1, 2).contiguous()
+    return flat.reshape(2, 2, n_bands, n_nodes).permute(2, 0, 1, 3).contiguous()
+
+
+def parent_assembly(base, coords, tris, slot_ids, n_nodes, n_bands, ell, mat):
+    """The parent tree's device assembly (PR 14), stage by stage, through
+    --baseline's kernel `mt_assemble_pairs` (one thread a slot over int64
+    runs): the pair-major copy of the slot ids, its slot_runs (a stable
+    torch.sort, a bincount and a cumsum), the kernel, the relayout.
+    Returns ({stage: call on the earlier stages' results}, the whole
+    function), or None where the baseline tree has no such kernel."""
+    if base is None or not base.has_assemble:
+        return None
+    import torch
+    from magnetite_tpu_torch.fem.element import material_constants
+    from magnetite_tpu_torch.kernels import cuda_lib
+
+    e = tris.shape[0]
+    n_slots = n_bands * n_nodes
+    d0, d1, d2 = material_constants(mat[0], mat[1])
+
+    def pair_major():
+        return slot_ids.reshape(e, 3, 3).permute(1, 2, 0).reshape(-1)
+
+    def runs(slots):
+        order = torch.sort(slots, stable=True).indices
+        counts = torch.bincount(slots, minlength=n_slots)
+        starts = torch.zeros(n_slots + 1, dtype=torch.int64, device=slots.device)
+        torch.cumsum(counts, 0, out=starts[1:])
+        return order, starts
+
+    def kernel(order_starts):
+        order, starts = order_starts
+        out = torch.empty((2, 2, n_slots), dtype=torch.float64, device=coords.device)
+        rc = base.mt_assemble_pairs(coords.data_ptr(), tris.data_ptr(), order.data_ptr(),
+                                    starts.data_ptr(), e, n_slots, d0, d1, d2, float(mat[2]),
+                                    out.data_ptr(), cuda_lib.stream_of(coords))
+        cuda_lib.check(base, rc, "baseline assemble_pairs")
+        return out
+
+    def whole():
+        return relayout(kernel(runs(pair_major())), n_nodes, n_bands, ell)
+
+    slots = pair_major()
+    order_starts = runs(slots)
+    flat = kernel(order_starts)
+    stages = {"pair-major copy": pair_major, "slot_runs": lambda: runs(slots),
+              "kernel": lambda: kernel(order_starts),
+              "relayout": lambda: relayout(flat, n_nodes, n_bands, ell)}
+    return stages, whole
+
+
+def phase_assembly_kernel(mesh, md, reps, flush, base=None):
+    """Phase 23a: the device assembly (count, cumsum, fill, assembly
+    kernel) at the plate's DIA slots (the f64 compile's structure) and its
+    ELL slots, f64: bit for bit the sequential pair-major sum, two calls
+    bit for bit, within 1e-12 of the plain version, f32 the f64 sums
+    rounded once, and with --baseline bit for bit the parent tree's kernel
+    plus its relayout; the count and fill kernels against their plain
+    versions; then each stage timed, and in interleaved rounds the
+    assembly kernel, the parent's kernel, the whole function, the parent's
+    whole function (pair-major copy, slot_runs, kernel, relayout) and the
+    plain version (pair_block_fields, four index_add_, the layout)."""
     import numpy as np
     import torch
     from magnetite_tpu_torch.fem.assembly import build_ell_structure
-    from magnetite_tpu_torch.fem.dia import _pair_major_slots, build_dia_structure
+    from magnetite_tpu_torch.fem.dia import build_dia_structure
     from magnetite_tpu_torch.fem.element import pair_block_fields
     from magnetite_tpu_torch.kernels.assembly_kernel import (
-        assemble_pairs, assemble_pairs_plain, scatter_fields, slot_runs,
+        assemble_count, assemble_count_plain, assemble_fill, assemble_fill_plain,
+        assemble_pairs, assemble_pairs_plain, build_runs, pair_major_slots, scatter_fields,
     )
 
     n, e = mesh.num_nodes, mesh.num_elements
@@ -3496,34 +3629,123 @@ def phase_assembly_kernel(mesh, md, reps, flush):
     dia = build_dia_structure(mesh.tris, n, max_diags=48)
     ell = build_ell_structure(mesh.tris, n)
     results = {}
-    for label, slot_ids, n_slots in (
-        ("DIA", dia.slot_ids, len(dia.offsets) * n),
-        ("ELL", ell.slot_ids, n * ell.cols.shape[1]),
+    for label, slot_ids, n_bands, is_ell in (
+        ("DIA", dia.slot_ids, len(dia.offsets), False),
+        ("ELL", ell.slot_ids, ell.cols.shape[1], True),
     ):
-        slots = _pair_major_slots(torch.from_numpy(np.asarray(slot_ids, np.int64)).to(DEV), e)
-        t0 = time.perf_counter()
-        runs = slot_runs(slots, n_slots)
-        sync()
-        sort_s = time.perf_counter() - t0
-        tag = f"assemble_pairs {label} slots S={n_slots} E={e}"
-        got = assemble_pairs(coords, tris, slots, n_slots, *mat, runs)
-        require(torch.equal(got, assemble_pairs(coords, tris, slots, n_slots, *mat, runs)),
-                f"{tag}: a second call differs")
-        ref = assemble_pairs_plain(coords, tris, slots, n_slots, *mat)
+        n_slots = n_bands * n
+        ids = torch.from_numpy(np.asarray(slot_ids, np.int64)).to(DEV)
+        tag = f"assembly {label} slots S={n_slots} E={e}"
+
+        def whole(dtype=torch.float64):
+            return assemble_pairs(coords, tris, ids, n, n_bands, *mat, ell=is_ell,
+                                  dtype=dtype)[0]
+
+        def plain():
+            return assemble_pairs_plain(coords, tris, ids, n, n_bands, *mat, ell=is_ell)[0]
+
+        got = whole()
+        require(torch.equal(got, whole()), f"{tag}: a second call differs")
+        seq = relayout(sequential_sum(coords, tris, ids, n_slots, mat), n, n_bands, is_ell)
+        require(torch.equal(got, seq), f"{tag}: not the sequential pair-major sum")
+        del seq
+        require(torch.equal(whole(torch.float32), got.to(torch.float32)),
+                f"{tag}: f32 is not the f64 sums rounded once")
+        ref = plain()
         err = compare(tag, got, ref, ref.abs().max(), 1e-12)
-        say(f"  {tag}: bit-identical to the plain version: {torch.equal(got, ref)}; the "
-            f"slot sort (torch.sort + bincount + cumsum) {sort_s * 1e3:.2f} ms of host wall")
+        del ref
+        parent = parent_assembly(base, coords, tris, ids, n, n_bands, is_ell, mat)
+        say(f"  {tag}: [{n_bands}, 2, 2, {n}] bit for bit the sequential pair-major sum, "
+            "two calls alike, f32 the f64 sums rounded once" + (
+                "" if parent is None else
+                f"; bit for bit the parent tree's: {torch.equal(got, parent[1]())}"))
+        if parent is not None:
+            require(torch.equal(got, parent[1]()), f"{tag}: differs from the parent tree's")
+        del got
+
+        # the count and fill kernels against their plain versions
+        counts, geom = assemble_count(coords, tris, ids, n_slots, mat[2])
+        counts_p, geom_p = assemble_count_plain(coords, tris, ids, n_slots, mat[2])
+        require(torch.equal(counts, counts_p) and torch.equal(geom, geom_p),
+                f"{tag}: the count kernel differs from its plain version")
+        ends = counts.cumsum(0, dtype=torch.int32)
+        bounds, bounds_p = ends.clone(), ends.clone()
+        order = assemble_fill(ids, bounds)
+        order_p = assemble_fill_plain(ids, bounds_p)
+        run = torch.repeat_interleave(torch.arange(n_slots, device=DEV),
+                                      (bounds_p[1:] - bounds_p[:-1]).to(torch.int64))
+        require(torch.equal(bounds, bounds_p) and torch.equal(
+            torch.sort(run * (9 * e) + order.to(torch.int64)).values,
+            run * (9 * e) + order_p.to(torch.int64)),
+            f"{tag}: the fill kernel's runs differ from its plain version's")
+        say(f"  {tag}: count kernel = plain (counts, geometry), fill kernel's runs = "
+            "slot_runs' (as sets; the sum orders them)")
+        runs = build_runs(coords, tris, ids, n_slots, mat[2])
+        del run, order, order_p, bounds_p
+
+        # stages of the whole function, each alone
+        fill_b, fill_f = fill_bytes_flops(e, n_slots)
+        count_b, count_f = count_bytes_flops(n, e, n_slots)
+        stage = {
+            "count (+ memset)": event_ms(lambda: assemble_count(coords, tris, ids, n_slots,
+                                                                mat[2]), reps, flush),
+            "cumsum": event_ms(lambda: counts.cumsum(0, dtype=torch.int32), reps, flush),
+            "fill": event_ms(lambda: assemble_fill(ids, bounds), reps, flush,
+                             setup=lambda: bounds.copy_(ends)),
+        }
+        say(f"  {tag} stages: " + "; ".join(f"{k} {v:.4f} ms" for k, v in stage.items())
+            + f"; count bound {bound(count_b, count_f, torch.float64)[0]:.4f} ms, fill bound "
+            f"{bound(fill_b, fill_f, torch.float64)[0]:.4f} ms")
+        if parent is not None:
+            say(f"  {tag} parent stages: " + "; ".join(
+                f"{k} {event_ms(fn, reps, flush):.4f} ms" for k, fn in parent[0].items()))
+
+        fns = {"kernel": lambda: assemble_pairs(coords, tris, ids, n, n_bands, *mat,
+                                                ell=is_ell, runs=runs),
+               "parent kernel": None if parent is None else parent[0]["kernel"],
+               "whole": whole, "parent whole": None if parent is None else parent[1],
+               "plain": plain}
+        med = interleaved(tag, {k: f for k, f in fns.items() if f is not None}, reps, flush,
+                          ROUNDS)
+        pm = pair_major_slots(ids, e)
         fields = pair_block_fields(coords, tris, *mat)
+        index_adds = event_ms(lambda: scatter_fields(fields, pm, n_slots), reps, flush)
         nbytes, flops = assembly_bytes_flops(n, e, n_slots)
-        row = time_kernel(
-            tag, lambda: assemble_pairs(coords, tris, slots, n_slots, *mat, runs),
-            lambda: assemble_pairs_plain(coords, tris, slots, n_slots, *mat),
-            lambda: scatter_fields(fields, slots, n_slots), reps, flush, nbytes, flops,
-            torch.float64,
-        )
-        if label == "DIA":
-            results["assemble_pairs"] = dict(max_abs_err=err, **row)
-        del got, ref, fields, runs, slots
+        b_ms, b_by = bound(nbytes, flops, torch.float64)
+        say(f"  {tag}: bound {b_ms:.4f} ms by {b_by}; kernel {med['kernel']:.4f} ms "
+            f"({b_ms / med['kernel']:.1%}), whole {med['whole']:.4f} ms "
+            f"({b_ms / med['whole']:.1%}), plain {med['plain']:.4f} ms, four index_add_ "
+            f"{index_adds:.4f} ms")
+        for k in ("kernel", "whole"):
+            if f"parent {k}" in med:
+                say(f"  {tag}: {k} {med[k]:.4f} ms against the parent's "
+                    f"{med['parent ' + k]:.4f} ({med[k] / med['parent ' + k]:.3f}x, "
+                    f"{'below' if med[k] < med['parent ' + k] else 'NOT below'})")
+        say(f"  {tag}: whole {'below' if med['whole'] < med['plain'] else 'NOT below'} the "
+            f"plain version ({med['whole'] / med['plain']:.3f}x)")
+        if label == "DIA":  # the main path's (the f64 compile's) slots
+            results["assemble_pairs"] = dict(
+                max_abs_err=err, ms=med["kernel"], plain_ms=med["plain"], bound_ms=b_ms,
+                bound_by=b_by, library_ms=index_adds)
+            b_ms, b_by = bound(count_b, count_f, torch.float64)
+            results["assemble_count"] = dict(
+                max_abs_err=0.0, ms=stage["count (+ memset)"], bound_ms=b_ms, bound_by=b_by,
+                plain_ms=event_ms(lambda: assemble_count_plain(coords, tris, ids, n_slots,
+                                                               mat[2]), reps, flush),
+                library_ms=event_ms(lambda: torch.bincount(ids, minlength=n_slots), reps,
+                                    flush))
+            b_ms, b_by = bound(fill_b, fill_f, torch.float64)
+            results["assemble_fill"] = dict(
+                max_abs_err=0.0, ms=stage["fill"], bound_ms=b_ms, bound_by=b_by,
+                plain_ms=event_ms(lambda: assemble_fill_plain(ids, bounds), reps, flush,
+                                  setup=lambda: bounds.copy_(ends)),
+                library_ms=event_ms(lambda: torch.sort(ids, stable=True), reps, flush))
+            for k in ("assemble_count", "assemble_fill"):
+                r = results[k]
+                say(f"  {tag} {k}: {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of bound "
+                    f"{r['bound_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
+                    f"{r['library_ms']:.4f} ms")
+        del runs, counts, geom, ends, bounds, fields, pm, parent
         torch.cuda.empty_cache()
     return results
 
@@ -3551,7 +3773,8 @@ def expected_shard_launches(s, iters, sweeps, amg, maxiter, vdtype):
         if cb is not None and per:
             shapes[(3, cb.bands.shape[-1], vdtype)] = per * v
     counts = {"dia_matvec m=2": s * (cg + level0), "restrict0": s * v, "prolong0": 0,
-              "dia_matvec m=3": sum(shapes.values()), "assemble_pairs": 0}
+              "dia_matvec m=3": sum(shapes.values()), "assemble_pairs": 0,
+              "assemble_count": 0, "assemble_fill": 0}
     m2 = {(2, None, torch.float64): s * (cg + (level0 if vdtype == torch.float64 else 0))}
     if vdtype != torch.float64:
         m2[(2, None, vdtype)] = s * level0
@@ -3594,34 +3817,33 @@ def sharded_run(name, mesh, bca, md, opts, s, amg_setup, totals):
     return compiled, res, prep
 
 
-def phase_shard(problem, mesh, bca, md, args, dia, totals, reps, flush):
-    """Phase 23: the fused assembly kernel (23a); compile_problem(assembly=
-    "device") against phase 5 (23b); the node-sharded pipeline over S
-    shards of cuda:0 in f64 and mixed against phases 5-6 (23c); the CLI's
-    --shard over every visible GPU (23d). `dia`: precision -> (nodes,
-    elements, iterations, stages) of phases 5-6. Returns the assembly
-    kernel's row."""
+def phase_device_assembly(problem, mesh, bca, md, args, dia, totals, reps, flush, base=None):
+    """Phases 23a-b: the device assembly's kernels (23a);
+    compile_problem(assembly="device") against phase 5 (23b). `dia`:
+    precision -> (nodes, elements, iterations, stages) of phases 5-6.
+    Returns the assembly kernels' rows."""
     import numpy as np
     import torch
     from magnetite_tpu_torch.config import SolverOptions
     from magnetite_tpu_torch.fem.solve import compile_problem
 
     t_phase = time.perf_counter()
-    say(f"phase 23a: the fused assembly kernel on the Delaunay plate at h={args.h}")
-    results = phase_assembly_kernel(mesh, md, reps, flush)
+    say(f"phase 23a: the device assembly's kernels on the Delaunay plate at h={args.h}")
+    results = phase_assembly_kernel(mesh, md, reps, flush, base)
 
     say("phase 23b: compile_problem(assembly='device') in f64 against phase 5")
     nodes5, elems5, iters5, stages5 = dia["f64"]
     with main_path("the device-assembled f64 solve", totals,
-                   ("assemble_pairs", "dia_matvec m=2", "dia_matvec m=3", "prolong0",
-                    "restrict0")) as got:
+                   ("assemble_count", "assemble_fill", "assemble_pairs", "dia_matvec m=2",
+                    "dia_matvec m=3", "prolong0", "restrict0")) as got:
         t0 = time.perf_counter()
         dev = compile_problem(mesh, bca, md, SolverOptions(assembly="device"),
                               amg_setup=problem.amg_setup, device=DEV)
         prep = time.perf_counter() - t0
         res = dev.solve()
-    require(got["assemble_pairs"] == 1 and dev.mode == "dia" and dev.perm is None,
-            f"device assembly: {got['assemble_pairs']} launches, mode {dev.mode}")
+    assembly = {k: got[k] for k in ("assemble_count", "assemble_fill", "assemble_pairs")}
+    require(set(assembly.values()) == {1} and dev.mode == "dia" and dev.perm is None,
+            f"device assembly: launches {assembly}, mode {dev.mode}; expected one of each")
     require(torch.equal(dev.system.bands, compile_problem(
         mesh, bca, md, SolverOptions(assembly="device"), amg_setup=problem.amg_setup,
         device=DEV).system.bands), "device assembly: a second compile's bands differ")
@@ -3641,7 +3863,21 @@ def phase_shard(problem, mesh, bca, md, args, dia, totals, reps, flush):
     require(rel <= 1e-9, "device assembly: true residual too large")
     del dev
     torch.cuda.empty_cache()
+    say(f"  (phases 23a-b: {time.perf_counter() - t_phase:.1f} s)")
+    return results
 
+
+def phase_shard(problem, mesh, bca, md, args, dia, totals):
+    """Phases 23c-d: the node-sharded pipeline over S shards of cuda:0 in
+    f64 and mixed against phases 5-6 (23c); the CLI's --shard over every
+    visible GPU (23d). `dia`: precision -> (nodes, elements, iterations,
+    stages) of phases 5-6."""
+    import numpy as np
+    import torch
+    from magnetite_tpu_torch.config import SolverOptions
+
+    t_phase = time.perf_counter()
+    nodes5, elems5 = dia["f64"][:2]
     say("phase 23c: compile_sharded_problem over S shards of one card")
     warm = {}
     for precision, opts in (("f64", SolverOptions()),
@@ -3681,8 +3917,7 @@ def phase_shard(problem, mesh, bca, md, args, dia, totals, reps, flush):
                                      else "the one visible GPU (S = 1)"))
         nodes, elems = read_csvs(workdir)
         golden_against("--shard CLI against phase 5", nodes, elems, nodes5, elems5)
-    say(f"  (phase 23: {time.perf_counter() - t_phase:.1f} s)")
-    return results
+    say(f"  (phases 23c-d: {time.perf_counter() - t_phase:.1f} s)")
 
 
 # ------------- structured multi-GPU and lane sharding (phases 24-25) ---------
@@ -4484,20 +4719,22 @@ def main() -> int:
                     help="another checkout (e.g. the parent commit unpacked by git archive): "
                     "its dia_matvec and prolong0 kernels (and mg_presmooth / mg_postsmooth, "
                     "the lane stencil kernel, the ELL kernel and the coarse smoother where it "
-                    "has them) are built apart and timed beside this tree's in phases 2, 3, "
-                    "14, 17, 22 and 25b, in the same interleaved rounds")
+                    "has them, and PR 14's assembly kernel) are built apart and timed "
+                    "beside this tree's in phases 2, 3, "
+                    "14, 17, 22, 23a and 25b, in the same interleaved rounds")
     ap.add_argument("--only", choices=("transfers", "lane-kernels", "multigrid",
                                        "structured-sweeps", "lane-sweeps", "resume", "ell",
-                                       "shard", "grid-shard", "lane-shard"),
+                                       "assembly", "shard", "grid-shard", "lane-shard"),
                     help="transfers: phases 0 to 3 alone (the Delaunay plate's band and "
                     "transfer kernels); lane-kernels: phases 0, 1 and 10 alone; multigrid: "
                     "phases 0, 1 and 14 alone (the 1M plate's hierarchy built, not solved); "
                     "structured-sweeps: phases 0, 1 and 15-17 alone; lane-sweeps: phases "
                     "0, 1 and 18-20 alone; resume: phases 0, 1 and 21 alone (the "
                     "Delaunay plate compiled, then saved and resumed); ell: phases 0, 1, "
-                    "5, 6 and 22 (the DIA CLI runs that phase 22 is held against); shard: "
-                    "phases 0, 1, 5, 6 and 23 (device assembly and the sharded pipeline, "
-                    "held against phases 5-6); grid-shard: phases 0, 1, 7 and 24 (the "
+                    "5, 6 and 22 (the DIA CLI runs that phase 22 is held against); assembly: "
+                    "phases 0, 1, 5 and 23a-b (the device assembly, held against phase 5); "
+                    "shard: phases 0, 1, 5, 6 and 23 (device assembly and the sharded "
+                    "pipeline, held against phases 5-6); grid-shard: phases 0, 1, 7 and 24 (the "
                     "structured multi-GPU path, held against phase 7); lane-shard: phases "
                     "0, 1 and 25; each ends without the ok line")
     args = ap.parse_args()
@@ -4596,7 +4833,7 @@ def main() -> int:
             "(--only resume: no ok line)")
         return 0
     results = {}
-    if args.only not in ("ell", "shard"):
+    if args.only not in ("ell", "assembly", "shard"):
         results = phase_band_and_transfer(problem, args.reps, flush, rand, base)
         if args.only == "transfers":
             say(f"phases 0 to 3 passed in {time.perf_counter() - t_start:.1f} s "
@@ -4611,20 +4848,25 @@ def main() -> int:
         say(f"phase 5: f64 main path through magnetite_tpu_torch.cli at h={args.h}")
         dia["f64"] = cli_path("the f64 CLI run", problem, mesh, args.h, workdir, [], 1e-9,
                               totals)
-        say(f"phase 6: mixed main path through the CLI (--precision mixed) at h={args.h}")
-        dia["mixed"] = cli_path("the mixed CLI run", problem, mesh, args.h, workdir,
-                                ["--precision", "mixed"], 1e-9, totals)
+        if args.only != "assembly":
+            say(f"phase 6: mixed main path through the CLI (--precision mixed) at h={args.h}")
+            dia["mixed"] = cli_path("the mixed CLI run", problem, mesh, args.h, workdir,
+                                    ["--precision", "mixed"], 1e-9, totals)
     if args.only in (None, "ell"):
         results.update(phase_ell(problem, mesh, bca, md, args, dia, totals, args.reps, flush,
                                  rand, base))
+    if args.only in (None, "assembly", "shard"):
+        results.update(phase_device_assembly(problem, mesh, bca, md, args, dia, totals,
+                                             args.reps, flush, base))
     if args.only in (None, "shard"):
-        results.update(phase_shard(problem, mesh, bca, md, args, dia, totals, args.reps,
-                                   flush))
+        phase_shard(problem, mesh, bca, md, args, dia, totals)
     del dia
     torch.cuda.empty_cache()
-    if args.only in ("ell", "shard"):
-        say(f"phases 0, 1, 5, 6 and {22 if args.only == 'ell' else 23} passed in "
-            f"{time.perf_counter() - t_start:.1f} s (--only {args.only}: no ok line)")
+    if args.only in ("ell", "assembly", "shard"):
+        done = {"ell": "1, 5, 6 and 22", "assembly": "1, 5 and 23a-b",
+                "shard": "1, 5, 6 and 23"}[args.only]
+        say(f"phases 0, {done} passed in {time.perf_counter() - t_start:.1f} s "
+            f"(--only {args.only}: no ok line)")
         return 0
     phase_mixed_df(problem, mesh, bca, md, totals)
     torch.cuda.empty_cache()

@@ -5,7 +5,7 @@ The host builders are copies of the JAX package's, with the native C++
 builder required (no numpy fallback). On the card the band matvec is the
 hand-written CUDA kernel (kernels/dia_kernel.py), and the fused device
 assembly (`assemble_dia_fused`, `assemble_hybrid_fused`) the assembly
-kernel (kernels/assembly_kernel.py); on the CPU their plain PyTorch
+kernels (kernels/assembly_kernel.py); on the CPU their plain PyTorch
 versions.
 """
 
@@ -23,10 +23,7 @@ from ..kernels.df_kernel import (  # noqa: F401
     df_split,
     split_bands,
 )
-from ..kernels.assembly_kernel import (  # noqa: F401
-    assemble_pairs,
-    scatter_fields as _scatter_fields,
-)
+from ..kernels.assembly_kernel import assemble_pairs
 from ..kernels.dia_kernel import dia_matvec, dia_matvec_blocks  # noqa: F401
 from .blocks import apply_blocks, guarded_inv2, reduce_diag_blocks
 
@@ -136,36 +133,23 @@ def build_hybrid_structure(
     )
 
 
-def _pair_major_slots(slot_ids, n_elements: int) -> torch.Tensor:
-    """Reorder [E*9] a-major slot ids to the [3, 3, E] pair-major layout of
-    element.pair_block_fields (int64, on the slot ids' device)."""
-    return (
-        torch.as_tensor(slot_ids).to(torch.int64).reshape(n_elements, 3, 3)
-        .permute(1, 2, 0).reshape(-1)
-    )
-
-
-def assemble_dia_fused(coords, tris, e_mod, nu, t, slot_ids, n_nodes: int,
-                       n_diags: int) -> torch.Tensor:
+def assemble_dia_fused(coords, tris, e_mod, nu, t, slot_ids, n_nodes: int, n_diags: int,
+                       dtype=torch.float64) -> torch.Tensor:
     """Device assembly of the band operator from the resident mesh: f64
     coords [N, 2], int64 tris [E, 3], the structure's slot ids [E*9] ->
-    bands [D, 2, 2, N] f64. Four scalar scatters of closed-form pair fields
-    (the JAX package's `assemble_dia_fused`), fused into one kernel on the
-    card."""
-    slots = _pair_major_slots(slot_ids, tris.shape[0])
-    flat = assemble_pairs(coords, tris, slots, n_diags * n_nodes, e_mod, nu, t)
-    return flat.reshape(2, 2, n_diags, n_nodes).permute(2, 0, 1, 3).contiguous()
+    bands [D, 2, 2, N] in `dtype` (summed in f64). Four scalar scatters of
+    closed-form pair fields (the JAX package's `assemble_dia_fused`), the
+    assembly kernels on the card."""
+    return assemble_pairs(coords, tris, slot_ids, n_nodes, n_diags, e_mod, nu, t,
+                          dtype=dtype)[0]
 
 
 def assemble_hybrid_fused(coords, tris, e_mod, nu, t, slot_ids, n_nodes: int, n_diags: int,
-                          n_rem: int):
+                          n_rem: int, dtype=torch.float64):
     """The hybrid format's device assembly -> (bands [D, 2, 2, N], rem
-    [R, 2, 2]), f64."""
-    slots = _pair_major_slots(slot_ids, tris.shape[0])
-    flat = assemble_pairs(coords, tris, slots, n_diags * n_nodes + n_rem, e_mod, nu, t)
-    bands = flat[:, :, : n_diags * n_nodes].reshape(2, 2, n_diags, n_nodes)
-    rem = flat[:, :, n_diags * n_nodes:]  # [2, 2, R]
-    return bands.permute(2, 0, 1, 3).contiguous(), rem.permute(2, 0, 1).contiguous()
+    [R, 2, 2]) in `dtype`."""
+    return assemble_pairs(coords, tris, slot_ids, n_nodes, n_diags, e_mod, nu, t, n_rem=n_rem,
+                          dtype=dtype)
 
 
 def dia_diag_blocks(bands: torch.Tensor, offsets) -> torch.Tensor:

@@ -108,7 +108,9 @@ def pair_block_fields(coords, tris, youngs_modulus, poisson_ratio, part_thicknes
     beta = torch.stack([y[1] - y[2], y[2] - y[0], y[0] - y[1]])  # [3, E]
     gamma = torch.stack([x[2] - x[1], x[0] - x[2], x[1] - x[0]])
     area2 = x[0] * (y[1] - y[2]) + x[1] * (y[2] - y[0]) + x[2] * (y[0] - y[1])
-    coef = float(part_thickness) / (2.0 * area2)  # t / (4A)
+    # t / (4A) as one rounded division (a Python float over a tensor is a
+    # reciprocal and a product in torch: two roundings)
+    coef = torch.full_like(area2, float(part_thickness)) / (2.0 * area2)
     d0, d1, d2 = material_constants(youngs_modulus, poisson_ratio)
     ba, bb = beta[:, None, :], beta[None, :, :]  # [3, 3, E]
     ga, gb = gamma[:, None, :], gamma[None, :, :]

@@ -951,20 +951,20 @@ def assemble_ell_arrays_fused(coords, tris, e, nu, t, slot_ids, n_nodes: int,
     ).permute(3, 0, 1, 2).contiguous()
 
 
-def _assemble_ell_slot_major(coords, tris, e, nu, t, slot_ids, n_nodes, width):
-    """The ELL device assembly laid out slot-major, [K, 2, 2, N] f64, as
-    the ELL kernel reads it."""
-    from .dia import _pair_major_slots, assemble_pairs
+def _assemble_ell_slot_major(coords, tris, e, nu, t, slot_ids, n_nodes, width,
+                             dtype=torch.float64):
+    """The ELL device assembly laid out slot-major, [K, 2, 2, N] in `dtype`
+    (summed in f64), as the ELL kernel reads it."""
+    from ..kernels.assembly_kernel import assemble_pairs
 
-    slots = _pair_major_slots(slot_ids, tris.shape[0])
-    flat = assemble_pairs(coords, tris, slots, n_nodes * width, e, nu, t)
-    return flat.reshape(2, 2, n_nodes, width).permute(3, 0, 1, 2).contiguous()
+    return assemble_pairs(coords, tris, slot_ids, n_nodes, width, e, nu, t, ell=True,
+                          dtype=dtype)[0]
 
 
 def _assemble_on_device(mode, offsets, cols, slots, arrays, metadata, n, dtype):
     """assembly="device": the operator assembled on the slot ids' device
-    from the resident mesh, in f64, then cast to `dtype`: (data, cols) for
-    ell, (bands, rem) for dia / hybrid."""
+    from the resident mesh, summed in f64 and written in `dtype`: (data,
+    cols) for ell, (bands, rem) for dia / hybrid."""
     from .dia import assemble_dia_fused, assemble_hybrid_fused
 
     dev = slots.device
@@ -972,16 +972,17 @@ def _assemble_on_device(mode, offsets, cols, slots, arrays, metadata, n, dtype):
     md = metadata
     mat = (md.youngs_modulus, md.poisson_ratio, md.part_thickness)
     if mode == "ell":
-        data = _assemble_ell_slot_major(coords, arrays["tris"], *mat, slots, n, cols.shape[1])
-        return data.to(dtype), torch.from_numpy(np.asarray(cols, np.int32).T.copy()).to(dev)
+        data = _assemble_ell_slot_major(coords, arrays["tris"], *mat, slots, n, cols.shape[1],
+                                        dtype)
+        return data, torch.from_numpy(np.asarray(cols, np.int32).T.copy()).to(dev)
     if mode == "dia":
-        bands = assemble_dia_fused(coords, arrays["tris"], *mat, slots, n, len(offsets))
-        return bands.to(dtype), None
+        return assemble_dia_fused(coords, arrays["tris"], *mat, slots, n, len(offsets),
+                                  dtype), None
     bands, rem_vals = assemble_hybrid_fused(
-        coords, arrays["tris"], *mat, slots, n, len(offsets), cols.shape[1]
+        coords, arrays["tris"], *mat, slots, n, len(offsets), cols.shape[1], dtype
     )
     cols_d = torch.from_numpy(cols).to(dev)
-    return bands.to(dtype), (rem_vals.to(dtype), cols_d[0], cols_d[1])
+    return bands, (rem_vals, cols_d[0], cols_d[1])
 
 
 def _compile_assembled(mode, offsets, cols, slot_ids, mesh, bca, metadata, options,

@@ -187,8 +187,14 @@ def _bind(lib) -> None:
     lib.mt_ell_matvec.argtypes = [i32, vp, vp, vp, vp, i64, i64, i32, vp]
     lib.mt_launch_floor.restype = i32
     lib.mt_launch_floor.argtypes = [vp, vp, vp]
-    lib.mt_assemble_pairs.restype = i32
-    lib.mt_assemble_pairs.argtypes = [vp, vp, vp, vp, i64, i64, f64, f64, f64, f64, vp, vp]
+    lib.mt_assemble_count.restype = i32
+    lib.mt_assemble_count.argtypes = [vp, vp, vp, i64, i64, f64, vp, vp, vp]
+    lib.mt_assemble_fill.restype = i32
+    lib.mt_assemble_fill.argtypes = [vp, i64, i64, vp, vp, vp]
+    lib.mt_assemble_runs.restype = i32
+    lib.mt_assemble_runs.argtypes = [
+        i32, vp, vp, vp, i64, i64, i64, i64, i64, f64, f64, f64, vp, vp, vp,
+    ]
     lib.mt_error_string.restype = ctypes.c_char_p
     lib.mt_error_string.argtypes = [i32]
 

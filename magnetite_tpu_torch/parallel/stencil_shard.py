@@ -344,11 +344,13 @@ def _diag_inv(problem: ShardedStencilProblem, dtype) -> list:
 
 def _gather_grid(tiles, shape: tuple, devices) -> dict:
     """The whole padded grid array [..., Rp, Cp] from its row-major tiles,
-    on each distinct device of `devices`: {device: array}."""
+    on each distinct device of `devices`: {device: array}. Copies to the
+    host block: an asynchronous copy to the CPU returns before its data
+    lands, and the host reads it at once."""
     nr, nc = shape
     out = {}
     for dev in distinct_devices(devices):
-        parts = [t.to(dev, non_blocking=True) for t in tiles]
+        parts = [t.to(dev, non_blocking=dev.type != "cpu") for t in tiles]
         out[dev] = torch.cat(
             [torch.cat(parts[i * nc:(i + 1) * nc], dim=-1) for i in range(nr)], dim=-2)
     return out

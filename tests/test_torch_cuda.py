@@ -1299,36 +1299,120 @@ def test_dense_solve_on_card_matches_cpu(dtype, bars):
         assert np.abs(a - b).max() <= bars[1] * np.abs(b).max(), field
 
 
-@pytest.mark.parametrize("structure", ["dia", "ell"])
-def test_assembly_kernel_matches_plain_and_repeats(structure):
-    """The fused assembly kernel against its plain version (pair_block_fields
-    + four index_add_) on the card, within 1e-12 of the largest entry, two
-    calls bit for bit (no atomics)."""
+def assembly_case(kind, h=0.02):
+    """(coords, tris, slot ids on the card, n_nodes, n_bands, n_rem, ell,
+    material) of the plate's DIA, hybrid (12 bands and a remainder) or ELL
+    structure, 0.37 thick."""
     from magnetite_tpu_torch.fem.assembly import build_ell_structure
-    from magnetite_tpu_torch.fem.dia import _pair_major_slots, build_dia_structure
-    from magnetite_tpu_torch.kernels.assembly_kernel import (
-        assemble_pairs, assemble_pairs_plain,
-    )
+    from magnetite_tpu_torch.fem.dia import build_dia_structure, build_hybrid_structure
 
     dev = require_cuda()
-    mesh, _, md = port_plate(0.02)
-    n, e = mesh.num_nodes, mesh.num_elements
-    if structure == "dia":
+    mesh, _, md = port_plate(h)
+    n = mesh.num_nodes
+    n_rem, ell = 0, kind == "ell"
+    if kind == "dia":
         dia = build_dia_structure(mesh.tris, n)
-        slot_ids, n_slots = dia.slot_ids, len(dia.offsets) * n
+        slot_ids, n_bands = dia.slot_ids, len(dia.offsets)
+    elif kind == "hybrid":
+        hyb = build_hybrid_structure(mesh.tris, n, max_diags=12)
+        slot_ids, n_bands, n_rem = hyb.slot_ids, hyb.n_diags, hyb.n_rem
+        assert n_rem > 0
     else:
-        ell = build_ell_structure(mesh.tris, n)
-        slot_ids, n_slots = ell.slot_ids, n * ell.cols.shape[1]
+        ell_s = build_ell_structure(mesh.tris, n)
+        slot_ids, n_bands = ell_s.slot_ids, ell_s.cols.shape[1]
     coords = torch.as_tensor(np.asarray(mesh.coords, np.float64), device=dev)
     tris = torch.as_tensor(np.asarray(mesh.tris, np.int64), device=dev)
-    slots = _pair_major_slots(torch.as_tensor(np.asarray(slot_ids, np.int64), device=dev), e)
-    mat = (md.youngs_modulus, md.poisson_ratio, md.part_thickness)
-    before = assemble_pairs.launches
-    got = assemble_pairs(coords, tris, slots, n_slots, *mat)
-    assert assemble_pairs.launches == before + 1
-    assert torch.equal(got, assemble_pairs(coords, tris, slots, n_slots, *mat))
-    ref = assemble_pairs_plain(coords, tris, slots, n_slots, *mat)
+    ids = torch.as_tensor(np.asarray(slot_ids, np.int64), device=dev)
+    # a thickness that is no power of two: each coefficient's division
+    # rounds
+    mat = (md.youngs_modulus, md.poisson_ratio, 0.37)
+    return coords, tris, ids, n, n_bands, n_rem, ell, mat
+
+
+def sequential_sum(coords, tris, ids, n_slots, mat) -> np.ndarray:
+    """[2, 2, S] f64 on the CPU: each slot's pairs added one at a time, in
+    pair-major order (p = (3 a + b) E + e), onto 0."""
+    from magnetite_tpu_torch.fem.element import pair_block_fields
+    from magnetite_tpu_torch.kernels.assembly_kernel import pair_major_slots
+
+    fields = pair_block_fields(coords.cpu(), tris.cpu(), *mat)
+    vals = np.stack([f.reshape(-1).numpy() for f in fields])  # [4, 9E] pair-major
+    pm = pair_major_slots(ids.cpu(), tris.shape[0]).numpy()
+    order = np.argsort(pm, kind="stable")
+    lens = np.bincount(pm, minlength=n_slots)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    acc = np.zeros((4, n_slots))
+    for r in range(int(lens.max())):
+        live = np.nonzero(lens > r)[0]
+        acc[:, live] += vals[:, order[starts[live] + r]]
+    return acc.reshape(2, 2, n_slots)
+
+
+@pytest.mark.parametrize("structure", ["dia", "ell"])
+def test_assembly_kernel_matches_plain_and_repeats(structure):
+    """The device assembly (count, fill and assembly kernels) against its
+    plain version (pair_block_fields + four index_add_ + the layout) on the
+    card, within 1e-12 of the largest entry, two calls bit for bit (no
+    floating-point atomics), one launch of each kernel a call."""
+    from magnetite_tpu_torch.kernels.assembly_kernel import (
+        assemble_count, assemble_fill, assemble_pairs, assemble_pairs_plain,
+    )
+
+    coords, tris, ids, n, n_bands, n_rem, ell, mat = assembly_case(structure)
+    counters = (assemble_pairs, assemble_count, assemble_fill)
+    before = [k.launches for k in counters]
+    got, _ = assemble_pairs(coords, tris, ids, n, n_bands, *mat, ell=ell)
+    assert [k.launches for k in counters] == [b + 1 for b in before]
+    assert torch.equal(got, assemble_pairs(coords, tris, ids, n, n_bands, *mat, ell=ell)[0])
+    ref, _ = assemble_pairs_plain(coords, tris, ids, n, n_bands, *mat, ell=ell)
+    assert got.shape == ref.shape == (n_bands, 2, 2, n)
     assert float((got - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("kind", ["dia", "hybrid", "ell"])
+def test_assembly_is_the_sequential_pair_major_sum(kind, dtype):
+    """The card's assembly is bit for bit each slot's pairs summed one at a
+    time in pair-major order on the CPU (the parent kernel's order), rounded
+    once to the output's type, in the operator's layout; two calls agree
+    bit for bit."""
+    from magnetite_tpu_torch.kernels.assembly_kernel import assemble_pairs, operator_layout
+
+    coords, tris, ids, n, n_bands, n_rem, ell, mat = assembly_case(kind)
+    kw = dict(n_rem=n_rem, ell=ell, dtype=dtype)
+    bands, rem = assemble_pairs(coords, tris, ids, n, n_bands, *mat, **kw)
+    again = assemble_pairs(coords, tris, ids, n, n_bands, *mat, **kw)
+    assert torch.equal(bands, again[0]) and torch.equal(rem, again[1])
+    flat = torch.from_numpy(sequential_sum(coords, tris, ids, n_bands * n + n_rem, mat))
+    want_bands, want_rem = operator_layout(flat, n, n_bands, ell, dtype)
+    assert bands.dtype == rem.dtype == dtype
+    assert torch.equal(bands.cpu(), want_bands) and torch.equal(rem.cpu(), want_rem)
+
+
+@pytest.mark.parametrize("kind", ["dia", "ell"])
+def test_assembly_runs_match_the_stable_sort(kind):
+    """count + cumsum + fill on the card: the bounds are slot_runs' starts,
+    each run ordered by pair-major index is slot_runs' run of the
+    pair-major slots (the stable sort the parent summed in), and the
+    elements' geometry is the plain version's bit for bit."""
+    from magnetite_tpu_torch.kernels.assembly_kernel import (
+        build_runs, element_geometry, pair_major_slots, slot_runs,
+    )
+
+    coords, tris, ids, n, n_bands, _, _, mat = assembly_case(kind)
+    n_slots, n_elem = n_bands * n, tris.shape[0]
+    bounds, order, geom = build_runs(coords, tris, ids, n_slots, mat[2])
+    want_order, want_starts = slot_runs(pair_major_slots(ids, n_elem), n_slots)
+    assert torch.equal(bounds.to(torch.int64), want_starts)
+    i = order.to(torch.int64)
+    key = (i % 9) * n_elem + i // 9  # pair-major index
+    # sort each run by key: the runs are contiguous, so sort by (run, key)
+    run = torch.repeat_interleave(torch.arange(n_slots, device=i.device),
+                                  (bounds[1:] - bounds[:-1]).to(torch.int64))
+    ranked = key[torch.argsort(run * (9 * n_elem) + key)]
+    assert torch.equal(ranked, want_order)
+    assert torch.equal(geom, element_geometry(coords, tris, mat[2]))
+    assert torch.equal(geom.cpu(), element_geometry(coords.cpu(), tris.cpu(), mat[2]))
 
 
 @pytest.mark.parametrize("precision", ["f64", "mixed"])
@@ -1415,6 +1499,25 @@ def test_lane_ell_kernel_takes_a_longer_field_on_card(dtype, tol):
         assert float((y - ref).abs().max()) <= tol * scale
     with pytest.raises(KernelError):
         lane_ell_matvec(ell, cols, u[:, : n - 1].contiguous())
+
+
+def test_gathered_grid_on_the_host_is_complete():
+    """The sharded structured path's answer reaches the host through
+    _gather_grid: every tile's copy to the host has landed before the host
+    reads it (an asynchronous copy to the CPU returns first), so the host
+    grid is the card's bit for bit, call after call."""
+    from magnetite_tpu_torch.parallel.stencil_shard import _gather_grid
+
+    dev = require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tiles = [torch.randn((2, 515, 1026), generator=gen, dtype=torch.float64, device=dev)
+             for _ in range(4)]
+    cpu = torch.device("cpu")
+    for _ in range(5):
+        # new values, computed on the card just before the gather reads them
+        tiles = [t + 1.0 for t in tiles]
+        got = _gather_grid(tiles, (2, 2), [cpu])[cpu]
+        assert torch.equal(got, _gather_grid(tiles, (2, 2), [dev])[dev].cpu())
 
 
 @pytest.mark.parametrize("layout", [2, (2, 2)], ids=["S=2", "2x2"])

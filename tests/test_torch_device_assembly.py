@@ -213,16 +213,131 @@ def test_unknown_assembly_raises():
 
 
 def test_assembly_wrapper_takes_the_plain_version_on_the_cpu():
-    from magnetite_tpu_torch.kernels import assembly_kernel
+    from magnetite_tpu_torch.kernels import assembly_kernel as ak
 
     (_, _, md), (pmesh, _, _) = _case()
     coords, tris = _mesh_tensors(pmesh)
     slots = torch.arange(9 * tris.shape[0], dtype=torch.int64) % 97
-    before = assembly_kernel.assemble_pairs.launches
-    got = assembly_kernel.assemble_pairs(coords, tris, slots, 97, *_material(md))
-    want = assembly_kernel.assemble_pairs_plain(coords, tris, slots, 97, *_material(md))
-    assert torch.equal(got, want) and got.shape == (2, 2, 97)
-    assert assembly_kernel.assemble_pairs.launches == before
+    counters = (ak.assemble_pairs, ak.assemble_count, ak.assemble_fill)
+    before = [k.launches for k in counters]
+    got = ak.assemble_pairs(coords, tris, slots, 97, 1, *_material(md))
+    want = ak.assemble_pairs_plain(coords, tris, slots, 97, 1, *_material(md))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[0].shape == (1, 2, 2, 97) and got[1].shape == (0, 2, 2)
+    runs = ak.build_runs(coords, tris, slots, 97, md.part_thickness)
+    assert runs.bounds.dtype == runs.order.dtype == torch.int32
+    assert [k.launches for k in counters] == before
+
+
+def _structure(kind, pmesh):
+    """(slot ids, n_bands, n_rem, ell) of the h = 0.1 plate's structure."""
+    from magnetite_tpu_torch.fem.assembly import build_ell_structure
+    from magnetite_tpu_torch.fem.dia import build_dia_structure, build_hybrid_structure
+
+    n = pmesh.num_nodes
+    if kind == "dia":
+        dia = build_dia_structure(pmesh.tris, n, max_diags=200)
+        return dia.slot_ids, len(dia.offsets), 0, False
+    if kind == "hybrid":
+        hyb = build_hybrid_structure(pmesh.tris, n, max_diags=12)
+        return hyb.slot_ids, hyb.n_diags, hyb.n_rem, False
+    ell = build_ell_structure(pmesh.tris, n)
+    return ell.slot_ids, ell.cols.shape[1], 0, True
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("kind", ["dia", "hybrid", "ell"])
+def test_plain_assembly_writes_the_operator_layout_and_dtype(kind, dtype):
+    """assemble_pairs on the CPU writes the layout the operator keeps
+    ([D, 2, 2, N] and [R, 2, 2]; ELL [K, 2, 2, N]) in the caller's dtype:
+    f64 the JAX package's sums (within 1e-12 of the largest entry), f32
+    the f64 sums rounded once (bit for bit)."""
+    from magnetite_tpu_torch.kernels.assembly_kernel import assemble_pairs
+
+    (mesh, _, md), (pmesh, _, _) = _case()
+    slot_ids, n_bands, n_rem, ell = _structure(kind, pmesh)
+    coords, tris = _mesh_tensors(pmesh)
+    n = pmesh.num_nodes
+    ids = torch.from_numpy(np.asarray(slot_ids))
+    bands, rem = assemble_pairs(coords, tris, ids, n, n_bands, *_material(md), n_rem=n_rem,
+                                ell=ell, dtype=dtype)
+    assert bands.shape == (n_bands, 2, 2, n) and rem.shape == (n_rem, 2, 2)
+    assert bands.dtype == rem.dtype == dtype
+    assert bands.is_contiguous() and rem.is_contiguous()
+    if dtype == torch.float32:
+        b64, r64 = assemble_pairs(coords, tris, ids, n, n_bands, *_material(md), n_rem=n_rem,
+                                  ell=ell)
+        assert torch.equal(bands, b64.to(dtype)) and torch.equal(rem, r64.to(dtype))
+        return
+    if kind == "dia":
+        from magnetite_tpu.fem.dia import assemble_dia_fused as jax_asm
+
+        want = (jax_asm(jnp.asarray(pmesh.coords), jnp.asarray(pmesh.tris), *_material(md),
+                        jnp.asarray(slot_ids), n, n_bands), np.zeros((0, 2, 2)))
+    elif kind == "hybrid":
+        from magnetite_tpu.fem.dia import assemble_hybrid_fused as jax_asm
+
+        want = jax_asm(jnp.asarray(mesh.coords), jnp.asarray(mesh.tris), *_material(md),
+                       jnp.asarray(slot_ids), n, n_bands, n_rem)
+    else:
+        from magnetite_tpu.fem.solve import assemble_ell_arrays_fused as jax_asm
+
+        data = jax_asm(jnp.asarray(mesh.coords), jnp.asarray(mesh.tris), *_material(md),
+                       jnp.asarray(slot_ids), n, n_bands)  # [N, K, 2, 2]
+        want = (np.asarray(data).transpose(1, 2, 3, 0), np.zeros((0, 2, 2)))
+    scale = max(np.abs(np.asarray(w)).max(initial=0.0) for w in want)
+    for got, w in zip((bands, rem), want):
+        assert got.shape == np.asarray(w).shape
+        assert np.abs(got.numpy() - np.asarray(w)).max(initial=0.0) <= 1e-12 * scale
+
+
+def test_plain_runs_group_each_slots_pairs():
+    """build_runs on the CPU (the count and fill kernels' plain versions):
+    each slot's run holds exactly its pairs, the bounds are the runs'
+    starts, and each element's geometry gives pair_block_fields's blocks
+    bit for bit with the kernel's arithmetic."""
+    from magnetite_tpu_torch.fem.element import material_constants, pair_block_fields
+    from magnetite_tpu_torch.kernels.assembly_kernel import build_runs
+
+    (_, _, md), (pmesh, _, _) = _case()
+    slot_ids, n_bands, _, _ = _structure("dia", pmesh)
+    coords, tris = _mesh_tensors(pmesh)
+    ids = torch.from_numpy(np.asarray(slot_ids, np.int64))
+    n_slots = n_bands * pmesh.num_nodes
+    bounds, order, geom = build_runs(coords, tris, ids, n_slots, md.part_thickness)
+    assert bounds[0] == 0 and bounds[-1] == ids.numel()
+    assert torch.equal(bounds.diff(), torch.bincount(ids, minlength=n_slots).to(torch.int32))
+    assert torch.equal(torch.sort(order).values, torch.arange(ids.numel(), dtype=torch.int32))
+    runs_slot = torch.repeat_interleave(torch.arange(n_slots), bounds.diff().to(torch.int64))
+    assert torch.equal(ids[order.to(torch.int64)], runs_slot)
+    e = torch.arange(tris.shape[0])
+    d0, d1, d2 = material_constants(md.youngs_modulus, md.poisson_ratio)
+    want = pair_block_fields(coords, tris, *_material(md))
+    for a in range(3):
+        for b in range(3):
+            ba, bb, ga, gb = geom[e, a], geom[e, b], geom[e, 4 + a], geom[e, 4 + b]
+            coef = geom[:, 3]
+            got = (coef * (d0 * ba * bb + d2 * ga * gb), coef * (d1 * ba * gb + d2 * ga * bb),
+                   coef * (d1 * ga * bb + d2 * ba * gb), coef * (d0 * ga * gb + d2 * ba * bb))
+            for g, w in zip(got, want):
+                assert torch.equal(g, w[a, b])
+
+
+@pytest.mark.parametrize("what", ["pairs", "slots"])
+def test_assembly_raises_past_the_int32_limits(what):
+    """The kernels index pairs and slots in int32: past 2^31 - 1 pairs or
+    slots the wrapper raises before it touches a tensor (meta tensors
+    here: no memory behind them)."""
+    from magnetite_tpu_torch.kernels.assembly_kernel import assemble_pairs
+    from magnetite_tpu_torch.kernels.cuda_lib import KernelError
+
+    n_elem = 2**31 // 9 + 1 if what == "pairs" else 1_000
+    n_nodes = 1_000 if what == "pairs" else 2**26
+    coords = torch.empty((n_nodes, 2), dtype=torch.float64, device="meta")
+    tris = torch.empty((n_elem, 3), dtype=torch.int64, device="meta")
+    slots = torch.empty(9 * n_elem, dtype=torch.int64, device="meta")
+    with pytest.raises(KernelError, match="int32"):
+        assemble_pairs(coords, tris, slots, n_nodes, 32, 1.0, 0.3, 1.0)
 
 
 def test_launch_enters_the_operands_device(monkeypatch):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (magnetite_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py              # full size: 1M-element plates, ~6 minutes on one H100
+    python3 chip_smoke.py              # full size: 1M-element plates, ~9 minutes on one H100
     python3 chip_smoke.py --h 0.01 --small-h 0.02 --plate 64 128 --big 128 256 --reps 3 \
         --sweep-h 0.05 --lanes 512 --sweep-small 0.08 32
                                        # a quick rehearsal
@@ -32,6 +32,10 @@
                                        # phases 0, 1, 7 and 24 alone (no "ok" line)
     python3 chip_smoke.py --only lane-shard
                                        # phases 0, 1 and 25 alone (no "ok" line)
+    python3 chip_smoke.py --only entry
+                                       # phases 0, 1 and 26 alone (no "ok" line)
+    python3 chip_smoke.py --only examples
+                                       # phases 0, 1 and 27 alone (no "ok" line)
 
 Phases (any failure exits non-zero; no phase is wrapped in a catch):
   0. environment: torch / CUDA versions, the card's name and power limit;
@@ -172,7 +176,9 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      pair-major sum, two calls bit for bit, within 1e-12 of the plain
      version (pair_block_fields + four index_add_ + the layout), f32 the
      f64 sums rounded once, the count and fill kernels against their plain
-     versions; each stage timed, and in interleaved rounds the assembly
+     versions, each timed beside its plain version and its library call
+     (bincount, a stable sort) at both slot sets; each stage timed, and in
+     interleaved rounds the assembly
      kernel, the whole function and the plain version (with --baseline
      also the parent tree's kernel and its whole function, stage by stage,
      and the output held bit for bit to it); (23b) compile_problem
@@ -225,6 +231,16 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      against its plain version and cuSPARSE SpMM; dryrun_multichip(4) on
      cuda:0; with more than one GPU the sweeps and dryrun_multichip over
      the distinct cards.
+ 26. entry(): the 48x96 plate of dryrun.entry (f32 to rtol 1e-6, stencil
+     operator, multigrid, refined) compiled on the card; fn(*args) called
+     three times as one main path (stencil_matvec and the fused smoothing
+     pair must launch), the three calls bit for bit alike, the answer
+     against entry(device="cpu") (iterations +-2; u, f and von Mises on
+     ENTRY_BARS), the warm fn(*args) the median of CUDA events.
+ 27. the four port examples (examples/torch_*.py) at their default sizes,
+     each a child process on the card: exit 0, their result lines printed
+     and required, the plates' residuals <= 1e-8, the multichip example's
+     parity lines "ok" (its own 1e-6 assertion).
 Every kernel is timed with CUDA events (median of --reps launches, L2
 flushed before each) beside its plain version, its bound (the larger of
 bytes moved once over 3.35 TB/s and operations over the peak rate of their
@@ -3723,28 +3739,31 @@ def phase_assembly_kernel(mesh, md, reps, flush, base=None):
                     f"{'below' if med[k] < med['parent ' + k] else 'NOT below'})")
         say(f"  {tag}: whole {'below' if med['whole'] < med['plain'] else 'NOT below'} the "
             f"plain version ({med['whole'] / med['plain']:.3f}x)")
+        # the count and fill kernels beside their plain versions and library
+        # calls at both slot sets; the kernels line keeps the DIA slots'
+        timed = {"assemble_pairs": dict(
+            max_abs_err=err, ms=med["kernel"], plain_ms=med["plain"], bound_ms=b_ms,
+            bound_by=b_by, library_ms=index_adds)}
+        b_ms, b_by = bound(count_b, count_f, torch.float64)
+        timed["assemble_count"] = dict(
+            max_abs_err=0.0, ms=stage["count (+ memset)"], bound_ms=b_ms, bound_by=b_by,
+            plain_ms=event_ms(lambda: assemble_count_plain(coords, tris, ids, n_slots,
+                                                           mat[2]), reps, flush),
+            library_ms=event_ms(lambda: torch.bincount(ids, minlength=n_slots), reps,
+                                flush))
+        b_ms, b_by = bound(fill_b, fill_f, torch.float64)
+        timed["assemble_fill"] = dict(
+            max_abs_err=0.0, ms=stage["fill"], bound_ms=b_ms, bound_by=b_by,
+            plain_ms=event_ms(lambda: assemble_fill_plain(ids, bounds), reps, flush,
+                              setup=lambda: bounds.copy_(ends)),
+            library_ms=event_ms(lambda: torch.sort(ids, stable=True), reps, flush))
+        for k in ("assemble_count", "assemble_fill"):
+            r = timed[k]
+            say(f"  {tag} {k}: {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of bound "
+                f"{r['bound_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
+                f"{r['library_ms']:.4f} ms")
         if label == "DIA":  # the main path's (the f64 compile's) slots
-            results["assemble_pairs"] = dict(
-                max_abs_err=err, ms=med["kernel"], plain_ms=med["plain"], bound_ms=b_ms,
-                bound_by=b_by, library_ms=index_adds)
-            b_ms, b_by = bound(count_b, count_f, torch.float64)
-            results["assemble_count"] = dict(
-                max_abs_err=0.0, ms=stage["count (+ memset)"], bound_ms=b_ms, bound_by=b_by,
-                plain_ms=event_ms(lambda: assemble_count_plain(coords, tris, ids, n_slots,
-                                                               mat[2]), reps, flush),
-                library_ms=event_ms(lambda: torch.bincount(ids, minlength=n_slots), reps,
-                                    flush))
-            b_ms, b_by = bound(fill_b, fill_f, torch.float64)
-            results["assemble_fill"] = dict(
-                max_abs_err=0.0, ms=stage["fill"], bound_ms=b_ms, bound_by=b_by,
-                plain_ms=event_ms(lambda: assemble_fill_plain(ids, bounds), reps, flush,
-                                  setup=lambda: bounds.copy_(ends)),
-                library_ms=event_ms(lambda: torch.sort(ids, stable=True), reps, flush))
-            for k in ("assemble_count", "assemble_fill"):
-                r = results[k]
-                say(f"  {tag} {k}: {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of bound "
-                    f"{r['bound_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
-                    f"{r['library_ms']:.4f} ms")
+            results.update(timed)
         del runs, counts, geom, ends, bounds, fields, pm, parent
         torch.cuda.empty_cache()
     return results
@@ -4685,6 +4704,114 @@ def phase_lane_shard(args, totals, rand, base=None):
     return rows
 
 
+# phase 26's bars of entry() on the card against entry(device="cpu"), as
+# fractions of the CPU answer's max: those of tests/test_torch_entry.py,
+# max(2 x the JAX package's f32 run's distance from its f64 answer, 1e-5),
+# taken on the CPU: u and f at the 1e-5 floor (the JAX f32 run's distances,
+# 2.96e-8 and 8.32e-7 of max, lie below it), von Mises at 2 x 7.82e-6
+ENTRY_BARS = {"u": 1e-5, "f": 1e-5, "von_mises": 1.564e-5}
+# the four port examples (examples/torch_*.py) at their default sizes, and
+# the lines of their output that phase 27 requires
+EXAMPLES = (
+    ("torch_plate_benchmark.py", (
+        r"^solve: \S+s \(device \S+s\), \d+ inner iterations, relative residual (\S+)$",)),
+    ("torch_unstructured_plate.py", (
+        r"^warm solve: \S+s \(device \S+s\), \d+ CG iterations, relative residual (\S+)$",)),
+    ("torch_design_sweep.py", (
+        r"^\d+ variants in \S+s -> \d+ solves/s$",
+        r"^material sweep: \d+ \(E, nu, t\) variants in \S+s -> \d+ solves/s",)),
+    ("torch_multichip_pipeline.py", (
+        r"^sharded pipeline: prep \S+ s, solve\+recovery \S+ s, \d+ iterations",
+        r"^ +u: max relative diff \S+  ok$", r"^ +f: max relative diff \S+  ok$",
+        r"^ +sigma: max relative diff \S+  ok$", r"^ +stress: max relative diff \S+  ok$",
+        r"^ +von_mises: max relative diff \S+  ok$")),
+)
+
+
+def phase_entry(totals, reps):
+    """Phase 26: the port's entry() (the 48x96 plate, f32 to rtol 1e-6,
+    stencil operator and multigrid) on the card: three calls of
+    fn(*args) as one main path (the stencil kernel and the fused
+    smoothing pair launched), the calls bit for bit alike, held against
+    entry(device="cpu") (iterations +-2, u, f and von Mises on
+    ENTRY_BARS); the warm time the median of CUDA events around fn(*args)."""
+    import torch
+    from magnetite_tpu_torch.dryrun import entry
+
+    say("phase 26: entry() -- the 48x96 plate, f32, rtol 1e-6, compiled once")
+    t0 = time.perf_counter()
+    fn, args = entry()
+    (problem,) = args
+    say(f"  compiled in {time.perf_counter() - t0:.2f} s: mode {problem.mode}, "
+        f"preconditioner {problem.preconditioner}, refine {problem.refine}, "
+        f"{problem.coords.shape[0]} nodes")
+    with main_path("entry()", totals, ("stencil_matvec", "mg_presmooth", "mg_postsmooth")):
+        outs = [fn(*args) for _ in range(3)]
+        torch.cuda.synchronize()
+    names = ("u", "f", "sigma", "stress", "von_mises", "iterations", "resnorm", "converged",
+             "bnorm", "history")
+    for k, out in enumerate(outs[1:], 2):
+        same = [n for n, a, b in zip(names, outs[0], out) if not torch.equal(a, b)]
+        require(not same, f"entry(): call {k} differs from call 1 in {same}")
+    got = outs[0]
+    require(bool(got[7]), "entry(): the solve did not converge")
+    ref_fn, ref_args = entry(device="cpu")
+    ref = ref_fn(*ref_args)
+    iters, ref_iters = int(got[5]), int(ref[5])
+    require(abs(iters - ref_iters) <= 2,
+            f"entry(): {iters} iterations on the card, {ref_iters} on the CPU")
+    for name, i in (("u", 0), ("f", 1), ("von_mises", 4)):
+        want = ref[i].double()
+        compare(f"entry() {name}, card vs CPU", got[i].cpu().double(), want, want.abs().max(),
+                ENTRY_BARS[name])
+    times = []
+    for _ in range(max(reps, 5)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    say(f"  entry(): three calls bit for bit alike; {iters} iterations (CPU {ref_iters}), "
+        f"relative residual {float(got[6] / got[8]):.3e}; warm fn(*args) median "
+        f"{statistics.median(times):.4f} ms over {len(times)} calls (CUDA events; "
+        f"min {min(times):.4f}, max {max(times):.4f})")
+    del outs, got, fn, args, problem
+    torch.cuda.empty_cache()
+
+
+def phase_examples():
+    """Phase 27: the four port examples at their default sizes, each a child
+    process on the card (exit 0 required); their result lines printed and
+    required, the plates' residuals <= 1e-8, the multichip example's
+    parity lines all "ok" (it asserts 1e-6 itself)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    say("phase 27: the port's examples at their default sizes, each in a child process")
+    t_phase = time.perf_counter()
+    for script, patterns in EXAMPLES:
+        argv = [sys.executable, os.path.join(root, "examples", script)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True, timeout=900, cwd=root)
+        wall = time.perf_counter() - t0
+        say(f"  {' '.join(argv[1:]).replace(root + os.sep, '')}: exit {proc.returncode} "
+            f"in {wall:.1f} s")
+        for line in proc.stdout.splitlines():
+            say(f"    {line}")
+        require(proc.returncode == 0, f"{script} failed:\n{proc.stderr[-3000:]}")
+        lines = proc.stdout.splitlines()
+        for pattern in patterns:
+            hit = [m for m in (re.match(pattern, line) for line in lines) if m]
+            require(hit, f"{script}: no line matches {pattern!r}")
+            if hit[0].groups():
+                rel = float(hit[0].group(1))
+                require(rel <= 1e-8, f"{script}: relative residual {rel:.3e} above 1e-8")
+    say(f"  phase 27 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     global SWEEP_LANES, PTXAS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4724,7 +4851,8 @@ def main() -> int:
                     "14, 17, 22, 23a and 25b, in the same interleaved rounds")
     ap.add_argument("--only", choices=("transfers", "lane-kernels", "multigrid",
                                        "structured-sweeps", "lane-sweeps", "resume", "ell",
-                                       "assembly", "shard", "grid-shard", "lane-shard"),
+                                       "assembly", "shard", "grid-shard", "lane-shard",
+                                       "entry", "examples"),
                     help="transfers: phases 0 to 3 alone (the Delaunay plate's band and "
                     "transfer kernels); lane-kernels: phases 0, 1 and 10 alone; multigrid: "
                     "phases 0, 1 and 14 alone (the 1M plate's hierarchy built, not solved); "
@@ -4736,7 +4864,8 @@ def main() -> int:
                     "shard: phases 0, 1, 5, 6 and 23 (device assembly and the sharded "
                     "pipeline, held against phases 5-6); grid-shard: phases 0, 1, 7 and 24 (the "
                     "structured multi-GPU path, held against phase 7); lane-shard: phases "
-                    "0, 1 and 25; each ends without the ok line")
+                    "0, 1 and 25; entry: phases 0, 1 and 26; examples: phases 0, 1 and 27; "
+                    "each ends without the ok line")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -4779,6 +4908,16 @@ def main() -> int:
         return torch.randn(*shape, generator=gen, device=DEV, dtype=torch.float64).to(dtype)
 
     SWEEP_LANES = args.lanes
+    if args.only == "entry":
+        phase_entry({}, args.reps)
+        say(f"phases 0, 1 and 26 passed in {time.perf_counter() - t_start:.1f} s "
+            "(--only entry: no ok line)")
+        return 0
+    if args.only == "examples":
+        phase_examples()
+        say(f"phases 0, 1 and 27 passed in {time.perf_counter() - t_start:.1f} s "
+            "(--only examples: no ok line)")
+        return 0
     if args.only == "grid-shard":
         refs: dict = {}
         phase_structured(*args.plate, {}, False, refs)
@@ -4902,6 +5041,8 @@ def main() -> int:
     phase_grid_sweeps(args, rand, results, totals, base)
     phase_lane_sweeps(args, rand, results, totals)
     results.update(phase_lane_shard(args, totals, rand, base))
+    phase_entry(totals, args.reps)
+    phase_examples()
 
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     say("launches per shape over the main paths: " + "; ".join(

@@ -1,13 +1,22 @@
-"""Every sharded path of the port, run once at tiny shapes over an n-shard
-mesh, each held to its bar (the port's counterpart of the JAX package's
-`dryrun_multichip`).
+"""The port's two integration points, counterparts of the JAX package's
+`__graft_entry__.entry` and `dryrun_multichip`.
 
-    from magnetite_tpu_torch.dryrun import dryrun_multichip
+`entry()` returns `(fn, example_args)`: the single-device solve of the
+48x96 plate with a hole (structured stencil operator, geometric-multigrid
+PCG in f32, force and stress recovery), compiled once; `fn(*example_args)`
+runs the device solve alone.
+
+`dryrun_multichip(n)` runs every sharded path once at tiny shapes over an
+n-shard mesh, each held to its bar.
+
+    from magnetite_tpu_torch.dryrun import dryrun_multichip, entry
+    fn, args = entry()                      # on the card
+    u, f, sigma, stress, vm, iters, *_ = fn(*args)
     dryrun_multichip(4, device="cpu")       # four shards on the CPU
     dryrun_multichip(4)                     # four shards of cuda:0
 
-`device` is one device, repeated n times (a mesh may repeat a device), or a
-sequence of n devices.
+In `dryrun_multichip`, `device` is one device, repeated n times (a mesh may
+repeat a device), or a sequence of n devices.
 """
 
 from __future__ import annotations
@@ -40,6 +49,36 @@ def _plate_case(n_radial: int, n_tangential: int):
     u_known[right, 0] = True
     u_value[right, 0] = 0.01
     return mesh, BCArrays(u_known=u_known, u_value=u_value, f_value=np.zeros((n, 2)))
+
+
+def entry(device="cuda"):
+    """Returns (fn, example_args): one single-device FEA forward step on the
+    48x96 plate with a hole in tension, the case and options of the JAX
+    package's `__graft_entry__.entry` (f32, cg_rtol 1e-6, at most 2,000 CG
+    iterations; structured assembly, the BC-reduced 9-point block stencil,
+    geometric-multigrid PCG, force and stress recovery).
+
+    The form: `fn` is `CompiledProblem.solve_device` and `example_args` is
+    `(problem,)`, the problem compiled on `device` (meshing, assembly, the
+    hierarchy build and the upload all happen here, once). `fn(*args)`
+    runs the device solve alone and returns the ten device tensors in the
+    JAX core's order: u, f, sigma, stress, von Mises, iterations, residual
+    norm, converged, ||b|| and the residual history. On the card it
+    launches `stencil_matvec` and the fused `mg_presmooth` /
+    `mg_postsmooth` pair; device="cuda" without a card raises (it never
+    falls back to the CPU)."""
+    from .config import ModelMetadata, SolverOptions
+    from .fem.solve import CompiledProblem, compile_problem
+
+    metadata = ModelMetadata(youngs_modulus=69e9, poisson_ratio=0.33, part_thickness=0.5,
+                             characteristic_length_min=0.0, characteristic_length_max=0.1)
+    mesh, bca = _plate_case(48, 96)
+    problem = compile_problem(
+        mesh, bca, metadata,
+        SolverOptions(dtype="float32", cg_rtol=1e-6, max_cg_iters=2000),
+        device=device,
+    )
+    return CompiledProblem.solve_device, (problem,)
 
 
 def _check(cond: bool, what: str) -> None:

@@ -784,8 +784,9 @@ def _ell_to_bands(a_cols, a_vals, max_diags: int = _COARSE_MAX_DIAGS):
 
     Aggregate ids are spatially row-major (_aggregate_cells keys cells by
     iy*nx+ix), so coarse graphs inherit the fine level's bandedness; the
-    gather-bound ELL matvec then has a rolls-only DIA equivalent that runs
-    ~5 GB/s -> HBM-roofline on TPU (fem/dia.py, pallas/dia_kernel.py).
+    gather-bound ELL matvec then has a gather-free DIA equivalent, which
+    the m = 3 band kernel runs (kernels/dia_kernel.py, csrc/dia_matvec.cu;
+    its times beside cuSPARSE's are in PERF.md).
     Zero blocks (ELL padding sits at col 0) are dropped -- they contribute
     nothing and would otherwise smear padding offsets into the band set.
     """

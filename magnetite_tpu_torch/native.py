@@ -2,10 +2,12 @@
 
 The host front end around the device solve (MSH parsing, band-structure
 building, closed-form assembly, the AMG setup products) runs in C++. The
-sources are the JAX package's (`magnetite_tpu/_native/src/*.cpp`), read by
-path -- this module imports nothing from that package -- and compiled with
-g++ into `magnetite_tpu_torch/_build/libmagnetite_native.so` on first use,
-again whenever a source is newer than the library.
+sources are the port's own, `magnetite_tpu_torch/_native/src/*.cpp` (copies
+of the JAX package's `magnetite_tpu/_native/src/`, at the same place in
+the package; `tests/test_torch_native.py` holds every exported function's
+output bit-identical to the original's), compiled with g++ into
+`magnetite_tpu_torch/_build/libmagnetite_native.so` on first use, again
+whenever a source is newer than the library.
 
 Unlike the JAX package there is no numpy fallback behind these wrappers:
 the port's solve path requires the library, and `require()` raises a typed
@@ -29,9 +31,7 @@ import numpy as np
 from .errors import SolverError
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-_SRC_DIR = os.path.join(
-    os.path.dirname(_PKG_DIR), "magnetite_tpu", "_native", "src"
-)
+_SRC_DIR = os.path.join(_PKG_DIR, "_native", "src")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _SO_PATH = os.path.join(_BUILD_DIR, "libmagnetite_native.so")
 _CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]

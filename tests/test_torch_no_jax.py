@@ -363,8 +363,18 @@ def test_cli_shard_runs_with_jax_unimportable(tmp_path):
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():
+    """The port, chip_smoke.py and the port's examples and scripts
+    (examples/torch_*.py, scripts/torch_*.py) import neither JAX nor the
+    JAX package, and build no path into the JAX package's directory."""
     pattern = re.compile(r"^\s*(import|from) (jax|magnetite_tpu)\b")
+    # a path component in a join, or a string literal into its directory
+    # (the `replaces` column's "magnetite_tpu/pallas/...:line" names kernels)
+    into = re.compile(r"""["']magnetite_tpu["']\s*[,)]|["'](\.\./)*magnetite_tpu/_native""")
     files = [os.path.join(REPO, "chip_smoke.py")]
+    for d in ("examples", "scripts"):
+        files += [os.path.join(REPO, d, n) for n in sorted(os.listdir(os.path.join(REPO, d)))
+                  if n.startswith("torch_") and n.endswith(".py")]
+    assert sum("examples" in f for f in files) == 4
     for root, dirs, names in os.walk(os.path.join(REPO, "magnetite_tpu_torch")):
         dirs[:] = [d for d in dirs if d != "_build"]  # build outputs, not sources
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -372,5 +382,5 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     for path in files:
         with open(path) as f:
             offending += [f"{path}:{i}" for i, line in enumerate(f, 1)
-                          if pattern.match(line)]
+                          if pattern.match(line) or into.search(line)]
     assert offending == []

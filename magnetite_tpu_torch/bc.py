@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from .config import BoundaryRule
+from .utils.logging import spanned
 
 
 @dataclass
@@ -33,6 +34,7 @@ class BCArrays:
         return int(self.u_known.sum())
 
 
+@spanned("bc.apply")
 def apply_boundary_conditions(
     coords: np.ndarray, rules: tuple[BoundaryRule, ...]
 ) -> BCArrays:

@@ -35,6 +35,7 @@ import torch
 
 from ..errors import SolverError
 from ..kernels.transfer_kernel import prolong0, restrict0
+from ..utils.logging import span
 from .dia import make_dia_operator
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
@@ -464,37 +465,45 @@ def build_amg_setup(
     coarse_dof: int = _DENSE_COARSE_MAX_DOF,
     mesh_hash: Optional[str] = None,
 ) -> AMGSetup:
-    """Build the SA hierarchy for one mesh + BC set (host, numpy)."""
+    """Build the SA hierarchy for one mesh + BC set (host, numpy).
+
+    Its stages are spans: `amg.level0` (the assembly, the near-nullspace);
+    on each level `amg.aggregate`, `amg.tentative`, `amg.rho`,
+    `amg.smooth_prolongator`, `amg.transpose` (P and P^T in ELL) and
+    `amg.rap`; `amg.coarse_inverse` at the coarsest level; `amg.fingerprint`
+    (the problem's identity, which hashes the mesh unless given
+    `mesh_hash`)."""
     coords = np.asarray(coords, dtype=np.float64)
     free = np.asarray(free, dtype=np.float64)
     n = coords.shape[0]
 
-    rows, cols, vals = _assemble_block_coo(
-        coords, tris, float(e_mod), float(nu), float(t), free
-    )
+    with span("amg.level0"):
+        rows, cols, vals = _assemble_block_coo(
+            coords, tris, float(e_mod), float(nu), float(t), free
+        )
 
-    # rigid-body near-nullspace, zeroed at fixed DOFs; coordinates centered
-    # for conditioning of the per-aggregate QR
-    c0 = coords - coords.mean(axis=0)
-    bmodes = np.zeros((n, 2, 3))
-    bmodes[:, 0, 0] = 1.0
-    bmodes[:, 1, 1] = 1.0
-    bmodes[:, 0, 2] = -c0[:, 1]
-    bmodes[:, 1, 2] = c0[:, 0]
-    bmodes *= free[:, :, None]
+        # rigid-body near-nullspace, zeroed at fixed DOFs; coordinates
+        # centered for conditioning of the per-aggregate QR
+        c0 = coords - coords.mean(axis=0)
+        bmodes = np.zeros((n, 2, 3))
+        bmodes[:, 0, 0] = 1.0
+        bmodes[:, 1, 1] = 1.0
+        bmodes[:, 0, 2] = -c0[:, 1]
+        bmodes[:, 1, 2] = c0[:, 0]
+        bmodes *= free[:, :, None]
 
-    p = coords[tris]
-    h = float(
-        np.median(
-            np.concatenate(
-                [
-                    np.hypot(*(p[:, 0] - p[:, 1]).T),
-                    np.hypot(*(p[:, 1] - p[:, 2]).T),
-                    np.hypot(*(p[:, 2] - p[:, 0]).T),
-                ]
+        p = coords[tris]
+        h = float(
+            np.median(
+                np.concatenate(
+                    [
+                        np.hypot(*(p[:, 0] - p[:, 1]).T),
+                        np.hypot(*(p[:, 1] - p[:, 2]).T),
+                        np.hypot(*(p[:, 2] - p[:, 0]).T),
+                    ]
+                )
             )
         )
-    )
     cell = cell_factor * h
 
     transfers = []
@@ -507,36 +516,42 @@ def build_amg_setup(
 
     while len(level_sizes) < max_levels and level_sizes[-1][0] * m > coarse_dof:
         n_l = level_sizes[-1][0]
-        agg, centroids = _aggregate_cells(cur_coords, cell)
+        with span("amg.aggregate"):
+            agg, centroids = _aggregate_cells(cur_coords, cell)
         n_agg = centroids.shape[0]
         if n_agg * 3 >= n_l * m:  # coarsening stalled; stop here
             break
-        p0_block, b_coarse = _tentative_prolongator(agg, n_agg, bmodes)
-        diag_inv = _guarded_inverse(_diag_blocks(rows, cols, vals, n_l))
-        rho = _estimate_rho_dinv_a(rows, cols, vals, diag_inv, n_l)
+        with span("amg.tentative"):
+            p0_block, b_coarse = _tentative_prolongator(agg, n_agg, bmodes)
+        with span("amg.rho"):
+            diag_inv = _guarded_inverse(_diag_blocks(rows, cols, vals, n_l))
+            rho = _estimate_rho_dinv_a(rows, cols, vals, diag_inv, n_l)
         omega = 4.0 / 3.0 / max(rho, 1e-12)
         info["rhos"].append(rho)
         info["omegas"].append(omega)
-        if len(level_sizes) == 1:
-            fast0 = _fast0_arrays(agg, p0_block, diag_inv, omega, n_agg)
-        prows, pcols, pvals = _smooth_prolongator(
-            rows, cols, vals, diag_inv, agg, p0_block, n_agg, omega
-        )
-        p_cols, p_vals = _coo_to_ell(prows, pcols, pvals, n_l)
-        # P^T in ELL by coarse row: transpose the COO and re-sort
-        tk, tv = _reduce_block_coo(
-            pcols * np.int64(n_l) + prows, pvals.transpose(0, 2, 1)
-        )
-        pt_cols, pt_vals = _coo_to_ell(
-            (tk // n_l).astype(np.int64), (tk % n_l).astype(np.int64), tv, n_agg
-        )
+        with span("amg.smooth_prolongator"):
+            if len(level_sizes) == 1:
+                fast0 = _fast0_arrays(agg, p0_block, diag_inv, omega, n_agg)
+            prows, pcols, pvals = _smooth_prolongator(
+                rows, cols, vals, diag_inv, agg, p0_block, n_agg, omega
+            )
+        with span("amg.transpose"):
+            p_cols, p_vals = _coo_to_ell(prows, pcols, pvals, n_l)
+            # P^T in ELL by coarse row: transpose the COO and re-sort
+            tk, tv = _reduce_block_coo(
+                pcols * np.int64(n_l) + prows, pvals.transpose(0, 2, 1)
+            )
+            pt_cols, pt_vals = _coo_to_ell(
+                (tk // n_l).astype(np.int64), (tk % n_l).astype(np.int64), tv, n_agg
+            )
         transfers.append((p_cols, p_vals, pt_cols, pt_vals))
 
-        rows, cols, vals = _rap(
-            rows, cols, vals, prows, pcols, pvals, n_agg, n_rows=n_l
-        )
-        a_cols, a_vals = _coo_to_ell(rows, cols, vals, n_agg)
-        d_inv = _guarded_inverse(_diag_blocks(rows, cols, vals, n_agg))
+        with span("amg.rap"):
+            rows, cols, vals = _rap(
+                rows, cols, vals, prows, pcols, pvals, n_agg, n_rows=n_l
+            )
+            a_cols, a_vals = _coo_to_ell(rows, cols, vals, n_agg)
+            d_inv = _guarded_inverse(_diag_blocks(rows, cols, vals, n_agg))
         coarse_ops.append((a_cols, a_vals, d_inv))
 
         bmodes = b_coarse
@@ -553,52 +568,55 @@ def build_amg_setup(
     # iterations instead of the O(1/h) block-Jacobi counts
     # (make_amg_preconditioner's single-level ci branch)
     if nl * ml <= coarse_dof:
-        dense = np.zeros((nl, ml, nl, ml))
-        dense[rows, :, cols, :] = vals
-        dense = dense.reshape(nl * ml, nl * ml)
-        # degenerate coarse DOFs (fully-constrained/empty aggregates) have
-        # ~zero rows; invert the ACTIVE submatrix and leave those DOFs at
-        # exactly 0 -- matching _guarded_inverse semantics. (A jittered
-        # full inverse would carry ~1/jitter-scale entries there, which
-        # amplify f32 V-cycle roundoff instead of annihilating it.)
-        diag = np.diagonal(dense)
-        active = diag > 1e-12 * max(float(diag.max()), 1e-300)
-        coarsest_inv = np.zeros_like(dense)
-        try:
-            # SPD block: Cholesky-based inversion (potrf+potri) is ~2x
-            # np.linalg.inv's LU path at the ~1.5k-DOF coarse size
-            from scipy.linalg.lapack import dpotrf, dpotri
-
-            sub = dense[np.ix_(active, active)]
-            chol, rc = dpotrf(sub, lower=1, overwrite_a=0)
-            if rc != 0:
-                raise np.linalg.LinAlgError
-            inv, rc = dpotri(chol, lower=1)
-            if rc != 0:
-                raise np.linalg.LinAlgError
-            # dpotri fills one triangle; mirror it
-            inv = np.tril(inv) + np.tril(inv, -1).T
-            coarsest_inv[np.ix_(active, active)] = inv
-        except (np.linalg.LinAlgError, ImportError):
+        with span("amg.coarse_inverse"):
+            dense = np.zeros((nl, ml, nl, ml))
+            dense[rows, :, cols, :] = vals
+            dense = dense.reshape(nl * ml, nl * ml)
+            # degenerate coarse DOFs (fully-constrained/empty aggregates) have
+            # ~zero rows; invert the ACTIVE submatrix and leave those DOFs at
+            # exactly 0 -- matching _guarded_inverse semantics. (A jittered
+            # full inverse would carry ~1/jitter-scale entries there, which
+            # amplify f32 V-cycle roundoff instead of annihilating it.)
+            diag = np.diagonal(dense)
+            active = diag > 1e-12 * max(float(diag.max()), 1e-300)
+            coarsest_inv = np.zeros_like(dense)
             try:
-                coarsest_inv[np.ix_(active, active)] = np.linalg.inv(
-                    dense[np.ix_(active, active)]
-                )
-            except np.linalg.LinAlgError:
-                # truly singular active block: iterative smoothing instead
-                coarsest_inv = None
+                # SPD block: Cholesky-based inversion (potrf+potri) is ~2x
+                # np.linalg.inv's LU path at the ~1.5k-DOF coarse size
+                from scipy.linalg.lapack import dpotrf, dpotri
+
+                sub = dense[np.ix_(active, active)]
+                chol, rc = dpotrf(sub, lower=1, overwrite_a=0)
+                if rc != 0:
+                    raise np.linalg.LinAlgError
+                inv, rc = dpotri(chol, lower=1)
+                if rc != 0:
+                    raise np.linalg.LinAlgError
+                # dpotri fills one triangle; mirror it
+                inv = np.tril(inv) + np.tril(inv, -1).T
+                coarsest_inv[np.ix_(active, active)] = inv
+            except (np.linalg.LinAlgError, ImportError):
+                try:
+                    coarsest_inv[np.ix_(active, active)] = np.linalg.inv(
+                        dense[np.ix_(active, active)]
+                    )
+                except np.linalg.LinAlgError:
+                    # truly singular active block: iterative smoothing instead
+                    coarsest_inv = None
 
     info["levels"] = level_sizes
+    with span("amg.fingerprint"):
+        fingerprint = setup_fingerprint(
+            coords, tris, free, float(e_mod), float(nu), float(t),
+            float(cell_factor), mesh_hash=mesh_hash,
+        )
     return AMGSetup(
         transfers=transfers,
         coarse_ops=coarse_ops,
         coarsest_inv=coarsest_inv,
         level_sizes=level_sizes,
         setup_info=info,
-        fingerprint=setup_fingerprint(
-            coords, tris, free, float(e_mod), float(nu), float(t),
-            float(cell_factor), mesh_hash=mesh_hash,
-        ),
+        fingerprint=fingerprint,
         fast0=fast0,
     )
 

@@ -6,7 +6,8 @@ loop is Python, and its state -- including a device-side `active` flag --
 stays on the device: an iteration run after the stopping test has been met
 is a no-op (alpha is zeroed, p / rz / the counter are held), so `iterations`
 is exactly what the JAX loop reports. The host reads the flag once every
-CHECK_EVERY iterations, which is the only synchronisation in the loop.
+CHECK_EVERY iterations, which is the only synchronisation in the loop (the
+span `solve.wait`, as is each progress read).
 
 Stopping rule and breakdown guards as in the JAX package:
 ||r|| <= max(rtol * ||b||, atol); alpha = 0 when p.Ap <= 0; rz == 0 is
@@ -24,6 +25,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from ..utils.logging import span
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
 
@@ -130,14 +133,17 @@ def pcg(
             if reporting and steps % progress_every == 0:
                 # one host read: k falls behind `steps` once converged, and
                 # frozen iterations report nothing
-                done, rnorm, bn = (
-                    torch.stack([k.to(b.dtype), torch.sqrt(rnorm2), bnorm]).cpu().tolist()
-                )
+                with span("solve.wait"):
+                    done, rnorm, bn = (
+                        torch.stack([k.to(b.dtype), torch.sqrt(rnorm2), bnorm]).cpu().tolist()
+                    )
                 if int(done) < steps:
                     reporting = False
                 else:
                     callback(steps, rnorm, bn)
-        if not bool(rnorm2 > thresh2):
+        with span("solve.wait"):
+            pending = bool(rnorm2 > thresh2)
+        if not pending:
             break
     return CGResult(
         x=x,

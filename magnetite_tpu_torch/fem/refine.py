@@ -8,7 +8,8 @@ inner solves (port of magnetite_tpu/fem/refine.py).
 Each pass contracts the true f64 residual by about the inner solve's
 accuracy (~1e-4 relative), so two or three passes reach 1e-8..1e-12. The
 JAX package's `lax.while_loop` over passes is a Python loop here, with one
-host read of the f64 residual per pass; the inner solve is fem/cg.pcg.
+host read of the f64 residual per pass (the span `solve.wait`); the inner
+solve is fem/cg.pcg.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.logging import span
 from .cg import MatVec, pcg
 
 # the inner f32 solves' relative tolerance: safely above the f32 CG stall
@@ -64,7 +66,11 @@ def mixed_precision_solve(
     rnorm2 = dot(r, r)
     per_pass = []
     k = 0
-    while k < max_outer and bool(rnorm2 > thresh2):
+    while k < max_outer:
+        with span("solve.wait"):
+            pending = bool(rnorm2 > thresh2)
+        if not pending:
+            break
         # scale the residual toward unit norm so the f32 inner solve works
         # in a healthy dynamic range whatever the outer residual's size
         scale = torch.sqrt(rnorm2)

@@ -52,7 +52,6 @@ counterpart). `solve_system(device_mesh=)` runs the node-sharded pipeline
 
 from __future__ import annotations
 
-import time
 import warnings
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
@@ -64,6 +63,7 @@ from ..bc import BCArrays
 from ..config import ModelMetadata, SolverOptions
 from ..errors import InputError, SolverError
 from ..meshing.core import Mesh
+from ..utils.logging import span, spanned
 from .cg import empty_history, pcg
 from .stress import element_stress_tensors, scalar_stress, von_mises_stress
 
@@ -208,6 +208,10 @@ def _rhs(matvec, free, u_fixed, f):
     return free * (f - matvec(u_fixed)) + (1.0 - free) * u_fixed
 
 
+# the span of one preconditioner application, by preconditioner
+_VCYCLE_SPANS = {"amg": "amg.vcycle", "multigrid": "mg.vcycle"}
+
+
 def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, op_cg=None):
     """PCG, or under `p.refine` a mixed-precision scheme (the JAX package's
     `_run_linear_solve`): (x, iterations, residual norm, converged,
@@ -217,9 +221,14 @@ def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, o
     `precond32` (classic refinement stagnates near kappa(A) eps_f32 on
     large unstructured meshes, because its inner solve targets the cast
     operator); `op_cg`, when given, is that PCG's per-iteration operator.
-    Otherwise classic refinement around f32 inner PCG on `op32`."""
+    Otherwise classic refinement around f32 inner PCG on `op32`.
+
+    The call is the span `cg`; each V-cycle application, `amg.vcycle` or
+    `mg.vcycle`."""
     cg_kwargs = dict(x0=x0, rtol=p.rtol, atol=p.atol, maxiter=p.maxiter)
+    vcycle = _VCYCLE_SPANS.get(p.preconditioner)
     if p.refine and p.preconditioner == "amg":
+        @spanned(vcycle)
         def precond64(r):
             # normalise before the f32 cast (extreme residual magnitudes
             # would under/overflow the f32 V-cycle); the preconditioner is
@@ -228,16 +237,20 @@ def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, o
             safe = torch.where(nrm == 0, torch.ones_like(nrm), nrm)
             return precond32((r / safe).to(torch.float32)).to(r.dtype) * safe
 
-        result = pcg(op if op_cg is None else op_cg, b, preconditioner=precond64,
-                     **cg_kwargs, **p._observe())
+        with span("cg"):
+            result = pcg(op if op_cg is None else op_cg, b, preconditioner=precond64,
+                         **cg_kwargs, **p._observe())
     elif p.refine:
         from .refine import mixed_precision_solve
 
-        result = mixed_precision_solve(
-            op, op32, b, preconditioner32=precond32, x0=x0,
-            rtol=p.rtol, atol=p.atol,
-            inner_maxiter=p.refine_inner_iters, max_outer=p.refine_max_outer,
-        )
+        if vcycle and precond32 is not None:
+            precond32 = spanned(vcycle)(precond32)
+        with span("cg"):
+            result = mixed_precision_solve(
+                op, op32, b, preconditioner32=precond32, x0=x0,
+                rtol=p.rtol, atol=p.atol,
+                inner_maxiter=p.refine_inner_iters, max_outer=p.refine_max_outer,
+            )
         info["refine_outer"] = result.outer_steps
         info["refine_inner"] = result.inner_per_pass
         # classic refinement reports `history` zeros, as the JAX package
@@ -247,7 +260,10 @@ def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, o
             result.converged, empty_history(p.history, b),
         )
     else:
-        result = pcg(op, b, preconditioner=precond, **cg_kwargs, **p._observe())
+        if vcycle and precond is not None:
+            precond = spanned(vcycle)(precond)
+        with span("cg"):
+            result = pcg(op, b, preconditioner=precond, **cg_kwargs, **p._observe())
     return result.x, result.iterations, result.residual_norm, result.converged, result.history
 
 
@@ -267,26 +283,26 @@ class StencilSystem:
         from .stencil import make_stencil_operator
 
         rows, cols, wrap, _ = self.grid
-        free_g = _grid((~p.u_known).to(self.stencil.dtype), rows, cols)
-        fixed_g = 1.0 - free_g
-        u_fixed_g = _grid(p.u_value, rows, cols)
-        f_g = _grid(p.f_value, rows, cols)
-        raw_op = make_stencil_operator(self.stencil, wrap)
-        b = free_g * (f_g - raw_op(fixed_g * u_fixed_g)) + fixed_g * u_fixed_g
-        op = make_stencil_operator(self.reduced, wrap)
-        if p.refine:
-            x, iters, resnorm, converged, history = _linear_solve(
-                p, info, b, u_fixed_g, op,
-                op32=make_stencil_operator(self.reduced32, wrap),
-                precond32=_stencil_preconditioner(
-                    p.preconditioner, self.reduced32, self.mg_levels, wrap
-                ),
-            )
-        else:
-            x, iters, resnorm, converged, history = _linear_solve(
-                p, info, b, u_fixed_g, op,
-                _stencil_preconditioner(p.preconditioner, self.reduced, self.mg_levels, wrap),
-            )
+        with span("solve.setup"):
+            free_g = _grid((~p.u_known).to(self.stencil.dtype), rows, cols)
+            fixed_g = 1.0 - free_g
+            u_fixed_g = _grid(p.u_value, rows, cols)
+            f_g = _grid(p.f_value, rows, cols)
+            raw_op = make_stencil_operator(self.stencil, wrap)
+            b = free_g * (f_g - raw_op(fixed_g * u_fixed_g)) + fixed_g * u_fixed_g
+            op = make_stencil_operator(self.reduced, wrap)
+            if p.refine:
+                ops = dict(
+                    op32=make_stencil_operator(self.reduced32, wrap),
+                    precond32=_stencil_preconditioner(
+                        p.preconditioner, self.reduced32, self.mg_levels, wrap
+                    ),
+                )
+            else:
+                ops = dict(precond=_stencil_preconditioner(
+                    p.preconditioner, self.reduced, self.mg_levels, wrap
+                ))
+        x, iters, resnorm, converged, history = _linear_solve(p, info, b, u_fixed_g, op, **ops)
 
         def matvec_t(v):  # [2, N] <-> grid fields
             return raw_op(v.reshape(2, rows, cols)).reshape(2, -1)
@@ -327,40 +343,44 @@ class BandedSystem:
         from .amg import make_amg_preconditioner
         from .dia import block_jacobi_inverse_t, dia_diag_blocks, make_df_dia_operator
 
-        rem_vals = self.rem[0] if self.rem else None
-        matvec_t = self._matvec(self.bands, rem_vals)
-        free_t, u_fixed_t, f_t = _fields_t(p)
-        a_op, op = _masked(matvec_t, free_t)
-        b = _rhs(matvec_t, free_t, u_fixed_t, f_t)
-        if not p.refine:
-            precond = None
-            if p.preconditioner != "none":
-                precond = block_jacobi_inverse_t(dia_diag_blocks(self.bands, self.offsets), free_t)
-                if p.preconditioner == "amg":
-                    precond = make_amg_preconditioner(
-                        self.amg, op, precond, a_op=a_op, sweeps=p.sweeps
+        with span("solve.setup"):
+            rem_vals = self.rem[0] if self.rem else None
+            matvec_t = self._matvec(self.bands, rem_vals)
+            free_t, u_fixed_t, f_t = _fields_t(p)
+            a_op, op = _masked(matvec_t, free_t)
+            b = _rhs(matvec_t, free_t, u_fixed_t, f_t)
+            if not p.refine:
+                precond = None
+                if p.preconditioner != "none":
+                    precond = block_jacobi_inverse_t(
+                        dia_diag_blocks(self.bands, self.offsets), free_t
                     )
-            x, iters, resnorm, converged, history = _linear_solve(
-                p, info, b, u_fixed_t, op, precond
-            )
-            return matvec_t, x, iters, resnorm, converged, b, history
-
-        free32 = free_t.to(torch.float32)
-        a_op32, op32 = _masked(self._matvec(self.bands32, self.rem_vals32), free32)
-        precond32 = block_jacobi_inverse_t(dia_diag_blocks(self.bands32, self.offsets), free32)
-        op_cg = None
-        if p.preconditioner == "amg":
-            precond32 = make_amg_preconditioner(
-                self.amg, op32, precond32, a_op=a_op32, sweeps=p.sweeps
-            )
-            if self.df64:
-                # the CG's per-iteration matvec as compensated f32 pairs;
-                # the rhs and the force recovery keep the true f64 operator
-                df_op = make_df_dia_operator(self.bands_hl, self.offsets)
-                _, op_cg = _masked(self._matvec(self.bands, rem_vals, dia_op=df_op), free_t)
-        x, iters, resnorm, converged, history = _linear_solve(
-            p, info, b, u_fixed_t, op, op32=op32, precond32=precond32, op_cg=op_cg
-        )
+                    if p.preconditioner == "amg":
+                        precond = make_amg_preconditioner(
+                            self.amg, op, precond, a_op=a_op, sweeps=p.sweeps
+                        )
+                ops = dict(precond=precond)
+            else:
+                free32 = free_t.to(torch.float32)
+                a_op32, op32 = _masked(self._matvec(self.bands32, self.rem_vals32), free32)
+                precond32 = block_jacobi_inverse_t(
+                    dia_diag_blocks(self.bands32, self.offsets), free32
+                )
+                op_cg = None
+                if p.preconditioner == "amg":
+                    precond32 = make_amg_preconditioner(
+                        self.amg, op32, precond32, a_op=a_op32, sweeps=p.sweeps
+                    )
+                    if self.df64:
+                        # the CG's per-iteration matvec as compensated f32
+                        # pairs; the rhs and the force recovery keep the
+                        # true f64 operator
+                        df_op = make_df_dia_operator(self.bands_hl, self.offsets)
+                        _, op_cg = _masked(
+                            self._matvec(self.bands, rem_vals, dia_op=df_op), free_t
+                        )
+                ops = dict(op32=op32, precond32=precond32, op_cg=op_cg)
+        x, iters, resnorm, converged, history = _linear_solve(p, info, b, u_fixed_t, op, **ops)
         return matvec_t, x, iters, resnorm, converged, b, history
 
 
@@ -397,34 +417,31 @@ class EllSystem:
         def matvec_t(v):
             return ell_matvec_t(self.data, self.cols, v)
 
-        free_t, u_fixed_t, f_t = _fields_t(p)
-        a_op, op = _masked(matvec_t, free_t)
-        b = _rhs(matvec_t, free_t, u_fixed_t, f_t)
-        diag = ell_diag_blocks(self.data, self.cols)
-        if not p.refine:
-            precond = _diag_preconditioner(p.preconditioner, diag, free_t)
-            if p.preconditioner == "amg":
-                precond = make_amg_preconditioner(
-                    self.amg, op, precond, a_op=a_op, sweeps=p.sweeps
-                )
-            x, iters, resnorm, converged, history = _linear_solve(
-                p, info, b, u_fixed_t, op, precond
-            )
-            return matvec_t, x, iters, resnorm, converged, b, history
-
         def matvec32(v):
             return ell_matvec_t(self.data32, self.cols, v)
 
-        free32 = free_t.to(torch.float32)
-        a_op32, op32 = _masked(matvec32, free32)
-        precond32 = _diag_preconditioner(p.preconditioner, diag.to(torch.float32), free32)
-        if p.preconditioner == "amg":
-            precond32 = make_amg_preconditioner(
-                self.amg, op32, precond32, a_op=a_op32, sweeps=p.sweeps
-            )
-        x, iters, resnorm, converged, history = _linear_solve(
-            p, info, b, u_fixed_t, op, op32=op32, precond32=precond32
-        )
+        with span("solve.setup"):
+            free_t, u_fixed_t, f_t = _fields_t(p)
+            a_op, op = _masked(matvec_t, free_t)
+            b = _rhs(matvec_t, free_t, u_fixed_t, f_t)
+            diag = ell_diag_blocks(self.data, self.cols)
+            if not p.refine:
+                precond = _diag_preconditioner(p.preconditioner, diag, free_t)
+                if p.preconditioner == "amg":
+                    precond = make_amg_preconditioner(
+                        self.amg, op, precond, a_op=a_op, sweeps=p.sweeps
+                    )
+                ops = dict(precond=precond)
+            else:
+                free32 = free_t.to(torch.float32)
+                a_op32, op32 = _masked(matvec32, free32)
+                precond32 = _diag_preconditioner(p.preconditioner, diag.to(torch.float32), free32)
+                if p.preconditioner == "amg":
+                    precond32 = make_amg_preconditioner(
+                        self.amg, op32, precond32, a_op=a_op32, sweeps=p.sweeps
+                    )
+                ops = dict(op32=op32, precond32=precond32)
+        x, iters, resnorm, converged, history = _linear_solve(p, info, b, u_fixed_t, op, **ops)
         return matvec_t, x, iters, resnorm, converged, b, history
 
 
@@ -521,37 +538,43 @@ class CompiledProblem:
         pass's inner iterations (device scalars)."""
         info = {} if info is None else info
         matvec_t, x, iters, resnorm, converged, b, history = self.system.solve(self, info)
-        u = x.T
-        # unknown forces are K u rows; known applied forces pass through
-        f = torch.where(self.u_known, matvec_t(x).T, self.f_value)
-        md = self.metadata
-        # in the operator's dtype, f64 also when refining: the JAX package
-        # recovers refined stresses in f32, ~1e-5 of max off the f64 values
-        sigma = element_stress_tensors(
-            self.coords, self.tris, u, md.youngs_modulus, md.poisson_ratio
-        )
-        stress = scalar_stress(sigma, sign_threshold=self.stress_sign_threshold)
-        vm = von_mises_stress(sigma)
-        bnorm = torch.sqrt(torch.sum(b * b))
+        with span("solve.recover"):
+            u = x.T
+            # unknown forces are K u rows; known applied forces pass through
+            f = torch.where(self.u_known, matvec_t(x).T, self.f_value)
+            md = self.metadata
+            # in the operator's dtype, f64 also when refining: the JAX
+            # package recovers refined stresses in f32, ~1e-5 of max off
+            # the f64 values
+            sigma = element_stress_tensors(
+                self.coords, self.tris, u, md.youngs_modulus, md.poisson_ratio
+            )
+            stress = scalar_stress(sigma, sign_threshold=self.stress_sign_threshold)
+            vm = von_mises_stress(sigma)
+            bnorm = torch.sqrt(torch.sum(b * b))
         return u, f, sigma, stress, vm, iters, resnorm, converged, bnorm, history
 
+    @spanned("solve")
     def solve(self) -> SolveResult:
         timings = dict(self.timings)
-        t0 = time.perf_counter()
-        out = self.solve_device(timings)
-        _sync(self.device)
-        timings["solve_s"] = time.perf_counter() - t0
+        with span("solve.device", timings, "solve_s"):
+            out = self.solve_device(timings)
+            with span("solve.wait"):
+                _sync(self.device)
         if "refine_inner" in timings:
             timings["refine_inner"] = [int(k) for k in timings["refine_inner"]]
 
-        u, f, sigma, stress, vm, iters, resnorm, converged, bnorm, history = (
-            t.cpu().numpy() for t in out
-        )
+        with span("solve.to_host"):
+            u, f, sigma, stress, vm, iters, resnorm, converged, bnorm, history = (
+                t.cpu().numpy() for t in out
+            )
         if self.perm is not None:
-            # new node i is original node perm[i]; element order is unchanged
-            u_o, f_o = np.empty_like(u), np.empty_like(f)
-            u_o[self.perm], f_o[self.perm] = u, f
-            u, f = u_o, f_o
+            with span("solve.unpermute"):
+                # new node i is original node perm[i]; element order is
+                # unchanged
+                u_o, f_o = np.empty_like(u), np.empty_like(f)
+                u_o[self.perm], f_o[self.perm] = u, f
+                u, f = u_o, f_o
         if self.debug_nans:
             for name, arr in (("displacements", u), ("forces", f), ("stresses", sigma)):
                 if not np.isfinite(arr).all():
@@ -670,33 +693,30 @@ def _compile_stencil(grid, mesh, bca, metadata, np_dtype, dev, refine, precondit
     from .multigrid import build_hierarchy
     from .stencil import assemble_stencil_fused, assemble_stencil_structured
 
-    t0 = time.perf_counter()
-    arrays = _problem_arrays(mesh, bca, np_dtype, dev)
-    _sync(dev)
-    timings["upload_s"] = time.perf_counter() - t0
+    with span("compile.upload", timings, "upload_s"):
+        arrays = _problem_arrays(mesh, bca, np_dtype, dev)
+        _sync(dev)
 
-    t0 = time.perf_counter()
-    rows, cols, wrap, canonical = grid
-    md = metadata
-    e, nu, t = md.youngs_modulus, md.poisson_ratio, md.part_thickness
-    if canonical:
-        raw = assemble_stencil_structured(arrays["coords"], e, nu, t, rows, cols, wrap)
-    else:
-        raw = assemble_stencil_fused(
-            arrays["coords"], arrays["tris"], e, nu, t, rows, cols, wrap
-        )
-    free_g = _grid((~arrays["u_known"]).to(raw.dtype), rows, cols)
-    reduced = _reduce_stencil(raw, free_g, wrap)
-    reduced32 = reduced.to(torch.float32) if refine else None
-    _sync(dev)
-    timings["assemble_s"] = time.perf_counter() - t0
+    with span("compile.assemble", timings, "assemble_s"):
+        rows, cols, wrap, canonical = grid
+        md = metadata
+        e, nu, t = md.youngs_modulus, md.poisson_ratio, md.part_thickness
+        if canonical:
+            raw = assemble_stencil_structured(arrays["coords"], e, nu, t, rows, cols, wrap)
+        else:
+            raw = assemble_stencil_fused(
+                arrays["coords"], arrays["tris"], e, nu, t, rows, cols, wrap
+            )
+        free_g = _grid((~arrays["u_known"]).to(raw.dtype), rows, cols)
+        reduced = _reduce_stencil(raw, free_g, wrap)
+        reduced32 = reduced.to(torch.float32) if refine else None
+        _sync(dev)
 
     levels = None
     if preconditioner == "multigrid":
-        t0 = time.perf_counter()
-        levels = build_hierarchy(reduced32 if refine else reduced, wrap)
-        _sync(dev)
-        timings["mg_build_s"] = time.perf_counter() - t0
+        with span("compile.mg_build", timings, "mg_build_s"):
+            levels = build_hierarchy(reduced32 if refine else reduced, wrap)
+            _sync(dev)
         timings["mg_levels"] = [(lv.rows, lv.cols) for lv in levels]
     return StencilSystem(grid, raw, reduced, reduced32, levels), arrays
 
@@ -860,10 +880,9 @@ def _assemble_flat(mode, offsets, cols, slot_ids, mesh, metadata, operator_cache
     half)."""
     from .. import native
 
-    t0 = time.perf_counter()
-    if operator_cache is not None:
-        flat, flat_is_half = operator_cache.flat, bool(operator_cache.sym_half)
-    else:
+    with span("compile.assemble", timings, "assemble_s"):
+        if operator_cache is not None:
+            return operator_cache.flat, bool(operator_cache.sym_half)
         n = mesh.num_nodes
         if mode == "ell":
             n_slots = n * cols.shape[1]
@@ -880,9 +899,7 @@ def _assemble_flat(mode, offsets, cols, slot_ids, mesh, metadata, operator_cache
             metadata.youngs_modulus, metadata.poisson_ratio,
             metadata.part_thickness, slots_pm, n_slots,
         )
-        flat_is_half = False
-    timings["assemble_s"] = time.perf_counter() - t0
-    return flat, flat_is_half
+    return flat, False
 
 
 def _kept_operator(mode, offsets, n, flat, flat_is_half, cols, perm, mesh_hash, metadata):
@@ -912,31 +929,33 @@ def _amg_setup(mesh, bca, metadata, options, amg_setup, mesh_hash, perm, timings
     from ..utils.logging import log
     from .amg import build_amg_setup, setup_matches
 
-    t0 = time.perf_counter()
-    free = (~bca.u_known).astype(np.float64)
-    cell_factor = float(options.amg_cell_factor)
-    # the input-order hash holds for the compiled mesh only when no
-    # renumbering intervened
-    amg_hash = mesh_hash if perm is None else None
-    setup = amg_setup
-    if setup is not None and not setup_matches(
-        setup, mesh.coords, mesh.tris, free, metadata, cell_factor, perm,
-        mesh_hash=amg_hash,
-    ):
-        log(
-            "warning: provided AMG hierarchy does not match this "
-            "problem (mesh ordering, BCs, material, aggregation size, "
-            "or an older cache format); rebuilding"
-        )
-        setup = None
-    if setup is None:
-        setup = build_amg_setup(
-            mesh.coords, mesh.tris,
-            metadata.youngs_modulus, metadata.poisson_ratio,
-            metadata.part_thickness, free, cell_factor=cell_factor,
-            mesh_hash=amg_hash,
-        )
-    timings["amg_build_s"] = time.perf_counter() - t0
+    with span("compile.amg_build", timings, "amg_build_s"):
+        free = (~bca.u_known).astype(np.float64)
+        cell_factor = float(options.amg_cell_factor)
+        # the input-order hash holds for the compiled mesh only when no
+        # renumbering intervened
+        amg_hash = mesh_hash if perm is None else None
+        setup = amg_setup
+        if setup is not None:
+            with span("compile.amg_match"):
+                matches = setup_matches(
+                    setup, mesh.coords, mesh.tris, free, metadata, cell_factor, perm,
+                    mesh_hash=amg_hash,
+                )
+            if not matches:
+                log(
+                    "warning: provided AMG hierarchy does not match this "
+                    "problem (mesh ordering, BCs, material, aggregation size, "
+                    "or an older cache format); rebuilding"
+                )
+                setup = None
+        if setup is None:
+            setup = build_amg_setup(
+                mesh.coords, mesh.tris,
+                metadata.youngs_modulus, metadata.poisson_ratio,
+                metadata.part_thickness, free, cell_factor=cell_factor,
+                mesh_hash=amg_hash,
+            )
     timings["amg_levels"] = setup.level_sizes
     return setup
 
@@ -1009,46 +1028,47 @@ def _compile_assembled(mode, offsets, cols, slot_ids, mesh, bca, metadata, optio
     if preconditioner == "amg":
         setup = _amg_setup(mesh, bca, metadata, options, amg_setup, mesh_hash, perm, timings)
 
-    t0 = time.perf_counter()
     if on_device:
-        arrays = _problem_arrays(mesh, bca, np_dtype, dev)
-        slots = torch.from_numpy(np.asarray(slot_ids, np.int64)).to(dev)
-        timings["upload_bytes"] = slots.numel() * slots.element_size()
-        _sync(dev)
-        timings["upload_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        op_dtype = torch.float64 if np_dtype == np.float64 else torch.float32
-        operator = _assemble_on_device(mode, offsets, cols, slots, arrays, metadata, n, op_dtype)
-        if mode == "ell":
-            data, cols_d = operator
-        else:
-            bands, rem = operator
-        _sync(dev)
-        timings["assemble_device_s"] = time.perf_counter() - t0
-    else:
-        if mode == "ell":
-            data, cols_d, timings["upload_bytes"] = _upload_ell(n, flat, cols, np_dtype, dev)
-        else:
-            bands, rem_vals, timings["upload_bytes"] = _upload_flat(
-                mode, offsets, n, flat, np_dtype, dev, flat_is_half
+        with span("compile.upload", timings, "upload_s"):
+            arrays = _problem_arrays(mesh, bca, np_dtype, dev)
+            slots = torch.from_numpy(np.asarray(slot_ids, np.int64)).to(dev)
+            timings["upload_bytes"] = slots.numel() * slots.element_size()
+            _sync(dev)
+        with span("compile.assemble_device", timings, "assemble_device_s"):
+            op_dtype = torch.float64 if np_dtype == np.float64 else torch.float32
+            operator = _assemble_on_device(
+                mode, offsets, cols, slots, arrays, metadata, n, op_dtype
             )
-            rem = None
-            if mode == "hybrid":
-                cols_d = torch.from_numpy(cols).to(dev)
-                rem = (rem_vals, cols_d[0], cols_d[1])
-        arrays = _problem_arrays(mesh, bca, np_dtype, dev)
-        _sync(dev)
-        timings["upload_s"] = time.perf_counter() - t0
+            if mode == "ell":
+                data, cols_d = operator
+            else:
+                bands, rem = operator
+            _sync(dev)
+    else:
+        with span("compile.upload", timings, "upload_s"):
+            if mode == "ell":
+                data, cols_d, timings["upload_bytes"] = _upload_ell(
+                    n, flat, cols, np_dtype, dev
+                )
+            else:
+                bands, rem_vals, timings["upload_bytes"] = _upload_flat(
+                    mode, offsets, n, flat, np_dtype, dev, flat_is_half
+                )
+                rem = None
+                if mode == "hybrid":
+                    cols_d = torch.from_numpy(cols).to(dev)
+                    rem = (rem_vals, cols_d[0], cols_d[1])
+            arrays = _problem_arrays(mesh, bca, np_dtype, dev)
+            _sync(dev)
 
     amg = None
     if setup is not None:
         from .amg import amg_device_arrays
 
-        t0 = time.perf_counter()
-        # refinement runs the V-cycle only in f32
-        amg = amg_device_arrays(setup, torch.float32 if refine else dtype, dev)
-        _sync(dev)
-        timings["amg_upload_s"] = time.perf_counter() - t0
+        with span("compile.amg_upload", timings, "amg_upload_s"):
+            # refinement runs the V-cycle only in f32
+            amg = amg_device_arrays(setup, torch.float32 if refine else dtype, dev)
+            _sync(dev)
 
     df64 = _decide_df64(options, refine, preconditioner, mode, dev, rtol)
     timings["df_matvec"] = df64
@@ -1069,6 +1089,7 @@ def _compile_assembled(mode, offsets, cols, slot_ids, mesh, bca, metadata, optio
     return system, arrays, setup, operator_host
 
 
+@spanned("compile_problem")
 def compile_problem(
     mesh: Mesh,
     bca: BCArrays,
@@ -1108,71 +1129,74 @@ def compile_problem(
             "model has no prescribed displacements; stiffness system is singular"
         )
 
-    t0 = time.perf_counter()
-    mode = "dense" if n <= options.dense_cutoff else None
-    grid = _stencil_mode(mesh, options) if mode is None else None
-    if grid is not None:
-        mode = "stencil"
-    perm = None
-    offsets = ()
-    cols = slot_ids = None
-    input_mesh_hash = None
-    if options.assembly == "device":
-        # the device assembles from the slot ids: a host flat has no use
-        operator_cache = None
-    if mode is None:
-        native.require()
-        # the input-order identity, shared by the operator cache check, the
-        # AMG fingerprint (when no renumbering intervenes) and the cache a
-        # later persist.save_operator writes
-        input_mesh_hash = mesh_state_hash(
-            mesh.coords, mesh.tris, (~bca.u_known).astype(np.float64)
-        )
-        operator_cache = _operator_cache_hit(
-            operator_cache, input_mesh_hash, metadata, options, timings
-        )
-    else:
-        operator_cache = None
-    if operator_cache is not None:
-        mode = operator_cache.mode
-        offsets = operator_cache.offsets
-        if operator_cache.perm is not None:
-            from ..meshing.reorder import apply_permutation
+    with span("compile.structure", timings, "structure_s"):
+        mode = "dense" if n <= options.dense_cutoff else None
+        grid = _stencil_mode(mesh, options) if mode is None else None
+        if grid is not None:
+            mode = "stencil"
+        perm = None
+        offsets = ()
+        cols = slot_ids = None
+        input_mesh_hash = None
+        if options.assembly == "device":
+            # the device assembles from the slot ids: a host flat has no use
+            operator_cache = None
+        if mode is None:
+            native.require()
+            # the input-order identity, shared by the operator cache check, the
+            # AMG fingerprint (when no renumbering intervenes) and the cache a
+            # later persist.save_operator writes
+            with span("compile.mesh_hash"):
+                input_mesh_hash = mesh_state_hash(
+                    mesh.coords, mesh.tris, (~bca.u_known).astype(np.float64)
+                )
+            with span("compile.cache_check"):
+                operator_cache = _operator_cache_hit(
+                    operator_cache, input_mesh_hash, metadata, options, timings
+                )
+        else:
+            operator_cache = None
+        if operator_cache is not None:
+            mode = operator_cache.mode
+            offsets = operator_cache.offsets
+            if operator_cache.perm is not None:
+                from ..meshing.reorder import apply_permutation
 
-            perm = np.asarray(operator_cache.perm)
-            mesh = apply_permutation(mesh, perm)
-            bca = _permuted_bca(bca, perm)
-        if mode == "hybrid":
-            cols = np.asarray(operator_cache.cols, dtype=np.int64)
-        elif mode == "ell":
-            cols = np.asarray(operator_cache.cols, dtype=np.int32)
-    elif (
-        mode is None and options.renumber != "off" and structure is None
-        and options.operator in ("auto", "dia", "hybrid")
-    ):
-        mesh, bca, perm = _renumber_if_needed(mesh, bca, options)
-    if mode is None and options.operator in ("auto", "dia"):
-        dia = build_dia_structure(mesh.tris, n, max_diags=options.max_diags)
-        if dia is not None:
-            mode, slot_ids, offsets = "dia", dia.slot_ids, dia.offsets
-        elif options.operator == "dia":
-            raise SolverError(
-                f"mesh needs more than {options.max_diags} diagonal bands; "
-                "use operator='hybrid' or 'ell', or renumber the mesh"
-            )
-    if mode is None and options.operator in ("auto", "hybrid"):
-        hyb = build_hybrid_structure(mesh.tris, n, max_diags=options.max_diags)
-        mode, slot_ids, offsets = "hybrid", hyb.slot_ids, hyb.offsets
-        cols = np.stack([hyb.rem_rows, hyb.rem_cols]).astype(np.int64)
-        if cols.shape[1] == 0:  # fully banded after all
-            cols = np.zeros((2, 1), dtype=np.int64)
-    if mode is None:
-        # operator='ell': the mesh's own node order, the given structure
-        mode = "ell"
-        if structure is None:
-            structure = build_ell_structure(mesh.tris, n)
-        cols, slot_ids = structure.cols, structure.slot_ids
-    timings["structure_s"] = time.perf_counter() - t0
+                perm = np.asarray(operator_cache.perm)
+                with span("compile.renumber"):
+                    mesh = apply_permutation(mesh, perm)
+                    bca = _permuted_bca(bca, perm)
+            if mode == "hybrid":
+                cols = np.asarray(operator_cache.cols, dtype=np.int64)
+            elif mode == "ell":
+                cols = np.asarray(operator_cache.cols, dtype=np.int32)
+        elif (
+            mode is None and options.renumber != "off" and structure is None
+            and options.operator in ("auto", "dia", "hybrid")
+        ):
+            with span("compile.renumber"):
+                mesh, bca, perm = _renumber_if_needed(mesh, bca, options)
+        if mode is None and options.operator in ("auto", "dia"):
+            dia = build_dia_structure(mesh.tris, n, max_diags=options.max_diags)
+            if dia is not None:
+                mode, slot_ids, offsets = "dia", dia.slot_ids, dia.offsets
+            elif options.operator == "dia":
+                raise SolverError(
+                    f"mesh needs more than {options.max_diags} diagonal bands; "
+                    "use operator='hybrid' or 'ell', or renumber the mesh"
+                )
+        if mode is None and options.operator in ("auto", "hybrid"):
+            hyb = build_hybrid_structure(mesh.tris, n, max_diags=options.max_diags)
+            mode, slot_ids, offsets = "hybrid", hyb.slot_ids, hyb.offsets
+            cols = np.stack([hyb.rem_rows, hyb.rem_cols]).astype(np.int64)
+            if cols.shape[1] == 0:  # fully banded after all
+                cols = np.zeros((2, 1), dtype=np.int64)
+        if mode is None:
+            # operator='ell': the mesh's own node order, the given structure
+            mode = "ell"
+            if structure is None:
+                structure = build_ell_structure(mesh.tris, n)
+            cols, slot_ids = structure.cols, structure.slot_ids
     timings["operator"] = mode
 
     # f32 cannot reach f64-grade residuals: refinement (f64 residual, f32
@@ -1239,10 +1263,9 @@ def compile_problem(
             grid, mesh, bca, metadata, np_dtype, dev, refine, preconditioner, timings
         )
     elif mode == "dense":
-        t0 = time.perf_counter()
-        system, arrays = DenseSystem(), _problem_arrays(mesh, bca, np_dtype, dev)
-        _sync(dev)
-        timings["upload_s"] = time.perf_counter() - t0
+        with span("compile.upload", timings, "upload_s"):
+            system, arrays = DenseSystem(), _problem_arrays(mesh, bca, np_dtype, dev)
+            _sync(dev)
     else:
         system, arrays, setup, operator_host = _compile_assembled(
             mode, tuple(int(o) for o in offsets), cols, slot_ids, mesh, bca, metadata,

@@ -24,11 +24,11 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 
 import torch
 
 from ..errors import SolverError
+from ..utils.logging import span
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -91,39 +91,40 @@ def build() -> tuple:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
     nvcc = _nvcc()
-    t0 = time.perf_counter()
-    objs, procs = [], []
-    for src in sources:
-        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
-        objs.append(obj)
-        procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", src, "-o", obj],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        ))
-    report = []
-    try:
-        for src, proc in zip(sources, procs):
-            _, err = proc.communicate(timeout=600)
-            if proc.returncode != 0:
-                raise KernelError(f"nvcc failed on {src}:\n{err[-4000:]}")
-            report.append(err)
-        tmp = f"{SO_PATH}.{tag}"
-        link = subprocess.run(
-            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", *objs, "-o", tmp],
-            capture_output=True, text=True, timeout=600,
-        )
-        if link.returncode != 0:
-            raise KernelError(f"nvcc link failed:\n{link.stderr[-4000:]}")
-        os.replace(tmp, SO_PATH)
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        for obj in objs:
-            if os.path.exists(obj):
-                os.remove(obj)
-    return time.perf_counter() - t0, "".join(report)
+    took: dict = {}
+    with span("cuda.build", took, "s"):
+        objs, procs = [], []
+        for src in sources:
+            obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", src, "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            ))
+        report = []
+        try:
+            for src, proc in zip(sources, procs):
+                _, err = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    raise KernelError(f"nvcc failed on {src}:\n{err[-4000:]}")
+                report.append(err)
+            tmp = f"{SO_PATH}.{tag}"
+            link = subprocess.run(
+                [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", *objs, "-o", tmp],
+                capture_output=True, text=True, timeout=600,
+            )
+            if link.returncode != 0:
+                raise KernelError(f"nvcc link failed:\n{link.stderr[-4000:]}")
+            os.replace(tmp, SO_PATH)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
+    return took["s"], "".join(report)
 
 
 def load() -> ctypes.CDLL:

@@ -25,6 +25,7 @@ import numpy as np
 
 from ..errors import MesherError
 from ..geometry.polygon import points_in_domain
+from ..utils.logging import spanned
 from .core import Mesh, normalize_orientation, signed_areas
 
 
@@ -153,6 +154,7 @@ _DEEP_CLEARANCE = 3.0  # x h: lattice points farther than this are "deep"
 _RING_WIDTH = 3.0  # x h: deep points this close to the band join the qhull
 
 
+@spanned("mesh.triangulate")
 def triangulate(
     loops: list[np.ndarray],
     characteristic_length_min: float,

@@ -57,7 +57,7 @@ def build() -> float:
     """Compile the host library (atomically: concurrent test workers may race
     on the same checkout) and return the seconds it took; raises SolverError
     when the sources or g++ are missing or the compile fails."""
-    import time
+    from .utils.logging import span
 
     sources = _sources()
     if not sources:
@@ -67,17 +67,18 @@ def build() -> float:
         raise SolverError("native host library needs g++, which is not on PATH")
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{_SO_PATH}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [cxx, *_CXXFLAGS, *sources, "-o", tmp],
-        capture_output=True, text=True, timeout=300,
-    )
-    if proc.returncode != 0:
-        raise SolverError(
-            f"native host library failed to build:\n{proc.stderr[-2000:]}"
+    took: dict = {}
+    with span("native.build", took, "s"):
+        proc = subprocess.run(
+            [cxx, *_CXXFLAGS, *sources, "-o", tmp],
+            capture_output=True, text=True, timeout=300,
         )
-    os.replace(tmp, _SO_PATH)
-    return time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SolverError(
+                f"native host library failed to build:\n{proc.stderr[-2000:]}"
+            )
+        os.replace(tmp, _SO_PATH)
+    return took["s"]
 
 
 def load() -> Optional[ctypes.CDLL]:

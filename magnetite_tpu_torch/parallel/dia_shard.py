@@ -55,6 +55,7 @@ from ..config import ModelMetadata
 from ..errors import SolverError
 from ..fem.cg import pcg
 from ..meshing.core import Mesh as FemMesh
+from ..utils.logging import span
 
 # -------------------------- the sharded vector -------------------------------
 
@@ -426,28 +427,25 @@ def _assembled_operator(kind, mesh, dia, ell_struct, metadata, assembly, dev0, t
     """The global operator, f64: host C++ assembly (the default) or the
     fused device assembly on `dev0` (assembly="device"). kind "dia": bands
     [D, 2, 2, N]; kind "ell": [N, K, 2, 2]."""
-    import time
-
     n = mesh.num_nodes
-    t0 = time.perf_counter()
     if assembly == "device":
-        from ..fem.dia import assemble_dia_fused
-        from ..fem.solve import assemble_ell_arrays_fused
+        with span("compile.assemble_device", timings, "assemble_device_s"):
+            from ..fem.dia import assemble_dia_fused
+            from ..fem.solve import assemble_ell_arrays_fused
 
-        coords = torch.from_numpy(np.asarray(mesh.coords, np.float64)).to(dev0)
-        tris = torch.from_numpy(np.asarray(mesh.tris, np.int64)).to(dev0)
-        md = metadata
-        mat = (md.youngs_modulus, md.poisson_ratio, md.part_thickness)
-        if kind == "dia":
-            slots = torch.from_numpy(np.asarray(dia.slot_ids, np.int64)).to(dev0)
-            out = assemble_dia_fused(coords, tris, *mat, slots, n, len(dia.offsets))
-        else:
-            slots = torch.from_numpy(np.asarray(ell_struct.slot_ids, np.int64)).to(dev0)
-            out = assemble_ell_arrays_fused(coords, tris, *mat, slots, n,
-                                            ell_struct.cols.shape[1])
-        if dev0.type == "cuda":
-            torch.cuda.synchronize(dev0)
-        timings["assemble_device_s"] = time.perf_counter() - t0
+            coords = torch.from_numpy(np.asarray(mesh.coords, np.float64)).to(dev0)
+            tris = torch.from_numpy(np.asarray(mesh.tris, np.int64)).to(dev0)
+            md = metadata
+            mat = (md.youngs_modulus, md.poisson_ratio, md.part_thickness)
+            if kind == "dia":
+                slots = torch.from_numpy(np.asarray(dia.slot_ids, np.int64)).to(dev0)
+                out = assemble_dia_fused(coords, tris, *mat, slots, n, len(dia.offsets))
+            else:
+                slots = torch.from_numpy(np.asarray(ell_struct.slot_ids, np.int64)).to(dev0)
+                out = assemble_ell_arrays_fused(coords, tris, *mat, slots, n,
+                                                ell_struct.cols.shape[1])
+            if dev0.type == "cuda":
+                torch.cuda.synchronize(dev0)
         return out
     from ..fem.solve import _assemble_flat
 
@@ -481,8 +479,6 @@ def prepare_sharded_dia_problem(
     preconditioner: "amg" builds (or reuses a matching `amg_setup`) the SA
     hierarchy; "block_jacobi" skips it, and the V-cycle degrades to damped
     block-Jacobi. `timings`, when given, receives the stage times."""
-    import time
-
     from ..fem.amg import build_amg_setup, setup_matches
     from ..fem.dia import build_dia_structure
     from ..utils.logging import log
@@ -493,118 +489,117 @@ def prepare_sharded_dia_problem(
             "sharded unstructured solves support preconditioner='amg' or "
             f"'block_jacobi'; got '{preconditioner}'"
         )
-    t0 = time.perf_counter()
-    mesh, perm = fem_mesh, None
-    dia = build_dia_structure(mesh.tris, mesh.num_nodes, max_diags=max_diags)
-    if dia is None:
-        from ..meshing.reorder import renumber
-
-        mesh, perm, _ = renumber(mesh)
-        bca = BCArrays(u_known=bca.u_known[perm], u_value=bca.u_value[perm],
-                       f_value=bca.f_value[perm])
+    with span("compile.structure", timings, "structure_s"):
+        mesh, perm = fem_mesh, None
         dia = build_dia_structure(mesh.tris, mesh.num_nodes, max_diags=max_diags)
-    n = mesh.num_nodes
-    ell_struct = None
-    if dia is not None:
-        kind = "dia"
-        offsets = tuple(int(o) for o in dia.offsets)
-        halo = max(-min(offsets), max(offsets))
-    else:
-        # bandwidth bounded after renumbering, but more DISTINCT offsets
-        # than max_diags (coarse / graded meshes): the block-ELL fallback
-        # over the same halo exchange
-        from ..fem.assembly import build_ell_structure
+        if dia is None:
+            from ..meshing.reorder import renumber
 
-        kind, offsets = "ell", ()
-        ell_struct = build_ell_structure(mesh.tris, n)
-        halo = max(1, int(np.abs(
-            ell_struct.cols.astype(np.int64) - np.arange(n, dtype=np.int64)[:, None]
-        ).max()))
-        log(
-            "info: mesh has too many distinct band offsets for the DIA "
-            f"operator; sharding with the block-ELL gather (halo {halo})"
-        )
-    devices = tuple(device_mesh.devices)
-    n_shards = len(devices)
-    np_pad = math.ceil(n / n_shards) * n_shards
-    nl = np_pad // n_shards
-    if nl < halo:
-        raise SolverError(
-            f"shard size {nl} smaller than the band halo {halo}; use fewer "
-            "shards for this mesh"
-        )
-    timings["structure_s"] = time.perf_counter() - t0
+            mesh, perm, _ = renumber(mesh)
+            bca = BCArrays(u_known=bca.u_known[perm], u_value=bca.u_value[perm],
+                           f_value=bca.f_value[perm])
+            dia = build_dia_structure(mesh.tris, mesh.num_nodes, max_diags=max_diags)
+        n = mesh.num_nodes
+        ell_struct = None
+        if dia is not None:
+            kind = "dia"
+            offsets = tuple(int(o) for o in dia.offsets)
+            halo = max(-min(offsets), max(offsets))
+        else:
+            # bandwidth bounded after renumbering, but more DISTINCT offsets
+            # than max_diags (coarse / graded meshes): the block-ELL fallback
+            # over the same halo exchange
+            from ..fem.assembly import build_ell_structure
+
+            kind, offsets = "ell", ()
+            ell_struct = build_ell_structure(mesh.tris, n)
+            halo = max(1, int(np.abs(
+                ell_struct.cols.astype(np.int64) - np.arange(n, dtype=np.int64)[:, None]
+            ).max()))
+            log(
+                "info: mesh has too many distinct band offsets for the DIA "
+                f"operator; sharding with the block-ELL gather (halo {halo})"
+            )
+        devices = tuple(device_mesh.devices)
+        n_shards = len(devices)
+        np_pad = math.ceil(n / n_shards) * n_shards
+        nl = np_pad // n_shards
+        if nl < halo:
+            raise SolverError(
+                f"shard size {nl} smaller than the band halo {halo}; use fewer "
+                "shards for this mesh"
+            )
 
     tdtype = torch.float64 if np.dtype(dtype) == np.float64 else torch.float32
     full = _assembled_operator(kind, mesh, dia, ell_struct, metadata, assembly,
                                devices[0], timings)
 
-    t0 = time.perf_counter()
-    width = 2 * halo + nl
-    bands, ell_cols = [], None
-    if kind == "dia":
-        zero = offsets.index(0)
-        for s, dev in enumerate(devices):
-            ext = torch.zeros((len(offsets), 2, 2, width), dtype=tdtype, device=dev)
-            lo, hi = s * nl, min((s + 1) * nl, n)
-            if hi > lo:
-                ext[..., halo:halo + hi - lo] = full[..., lo:hi].to(dev).to(tdtype)
-            pad = torch.arange(halo + max(hi - lo, 0), halo + nl, device=dev)
-            ext[zero, 0, 0, pad] = 1.0  # pad rows: identity diagonal blocks
-            ext[zero, 1, 1, pad] = 1.0
-            bands.append(ext)
-    else:
-        k = ell_struct.cols.shape[1]
-        cols_pad = np.tile(np.arange(np_pad, dtype=np.int64)[:, None], (1, k))
-        cols_pad[:n] = ell_struct.cols
-        owner = np.arange(np_pad, dtype=np.int64) // nl
-        lidx = cols_pad - owner[:, None] * nl + halo  # into the extended vector
-        ell_cols = []
-        for s, dev in enumerate(devices):
-            ext = torch.zeros((k, 2, 2, width), dtype=tdtype, device=dev)
-            lo, hi = s * nl, min((s + 1) * nl, n)
-            if hi > lo:
-                ext[..., halo:halo + hi - lo] = full[lo:hi].to(dev).permute(1, 2, 3, 0).to(tdtype)
-            pad = torch.arange(halo + max(hi - lo, 0), halo + nl, device=dev)
-            ext[0, 0, 0, pad] = 1.0  # pad rows: identity on their self slot
-            ext[0, 1, 1, pad] = 1.0
-            cols = np.tile(np.arange(width, dtype=np.int64), (k, 1))
-            cols[:, halo:halo + nl] = lidx[s * nl:(s + 1) * nl].T
-            bands.append(ext)
-            ell_cols.append(torch.from_numpy(cols.astype(np.int32)).to(dev))
-    del full
+    with span("compile.upload", timings, "upload_s"):
+        width = 2 * halo + nl
+        bands, ell_cols = [], None
+        if kind == "dia":
+            zero = offsets.index(0)
+            for s, dev in enumerate(devices):
+                ext = torch.zeros((len(offsets), 2, 2, width), dtype=tdtype, device=dev)
+                lo, hi = s * nl, min((s + 1) * nl, n)
+                if hi > lo:
+                    ext[..., halo:halo + hi - lo] = full[..., lo:hi].to(dev).to(tdtype)
+                pad = torch.arange(halo + max(hi - lo, 0), halo + nl, device=dev)
+                ext[zero, 0, 0, pad] = 1.0  # pad rows: identity diagonal blocks
+                ext[zero, 1, 1, pad] = 1.0
+                bands.append(ext)
+        else:
+            k = ell_struct.cols.shape[1]
+            cols_pad = np.tile(np.arange(np_pad, dtype=np.int64)[:, None], (1, k))
+            cols_pad[:n] = ell_struct.cols
+            owner = np.arange(np_pad, dtype=np.int64) // nl
+            lidx = cols_pad - owner[:, None] * nl + halo  # into the extended vector
+            ell_cols = []
+            for s, dev in enumerate(devices):
+                ext = torch.zeros((k, 2, 2, width), dtype=tdtype, device=dev)
+                lo, hi = s * nl, min((s + 1) * nl, n)
+                if hi > lo:
+                    ext[..., halo:halo + hi - lo] = (
+                        full[lo:hi].to(dev).permute(1, 2, 3, 0).to(tdtype)
+                    )
+                pad = torch.arange(halo + max(hi - lo, 0), halo + nl, device=dev)
+                ext[0, 0, 0, pad] = 1.0  # pad rows: identity on their self slot
+                ext[0, 1, 1, pad] = 1.0
+                cols = np.tile(np.arange(width, dtype=np.int64), (k, 1))
+                cols[:, halo:halo + nl] = lidx[s * nl:(s + 1) * nl].T
+                bands.append(ext)
+                ell_cols.append(torch.from_numpy(cols.astype(np.int32)).to(dev))
+        del full
 
-    def sharded(a) -> ShardVec:  # [N, 2] host array -> padded [2, nl] shards
-        padded = np.zeros((2, np_pad))
-        padded[:, :n] = np.asarray(a, np.float64).T
-        return ShardVec(
-            torch.from_numpy(padded[:, s * nl:(s + 1) * nl].copy()).to(dev).to(tdtype)
-            for s, dev in enumerate(devices)
-        )
+        def sharded(a) -> ShardVec:  # [N, 2] host array -> padded [2, nl] shards
+            padded = np.zeros((2, np_pad))
+            padded[:, :n] = np.asarray(a, np.float64).T
+            return ShardVec(
+                torch.from_numpy(padded[:, s * nl:(s + 1) * nl].copy()).to(dev).to(tdtype)
+                for s, dev in enumerate(devices)
+            )
 
-    free = sharded((~bca.u_known).astype(np.float64))
-    u_fixed, f = sharded(bca.u_value), sharded(bca.f_value)
-    timings["upload_s"] = time.perf_counter() - t0
+        free = sharded((~bca.u_known).astype(np.float64))
+        u_fixed, f = sharded(bca.u_value), sharded(bca.f_value)
 
-    t0 = time.perf_counter()
-    free_host = (~bca.u_known).astype(np.float64)
-    if preconditioner == "block_jacobi":
-        amg_setup = None
-    if amg_setup is not None and not setup_matches(
-        amg_setup, mesh.coords, mesh.tris, free_host, metadata, float(cell_factor), perm
-    ):
-        log(
-            "warning: provided AMG hierarchy does not match the sharded "
-            "problem (mesh ordering, BCs, material, or an older cache "
-            "format); rebuilding"
-        )
-        amg_setup = None
-    if amg_setup is None and preconditioner == "amg":
-        amg_setup = build_amg_setup(
-            mesh.coords, mesh.tris, metadata.youngs_modulus, metadata.poisson_ratio,
-            metadata.part_thickness, free_host, cell_factor=float(cell_factor),
-        )
-    timings["amg_build_s"] = time.perf_counter() - t0
+    with span("compile.amg_build", timings, "amg_build_s"):
+        free_host = (~bca.u_known).astype(np.float64)
+        if preconditioner == "block_jacobi":
+            amg_setup = None
+        if amg_setup is not None and not setup_matches(
+            amg_setup, mesh.coords, mesh.tris, free_host, metadata, float(cell_factor), perm
+        ):
+            log(
+                "warning: provided AMG hierarchy does not match the sharded "
+                "problem (mesh ordering, BCs, material, or an older cache "
+                "format); rebuilding"
+            )
+            amg_setup = None
+        if amg_setup is None and preconditioner == "amg":
+            amg_setup = build_amg_setup(
+                mesh.coords, mesh.tris, metadata.youngs_modulus, metadata.poisson_ratio,
+                metadata.part_thickness, free_host, cell_factor=float(cell_factor),
+            )
     if amg_setup is not None:
         timings["amg_levels"] = amg_setup.level_sizes
     return ShardedDiaProblem(

@@ -37,7 +37,6 @@ Entry points: `compile_sharded_problem` -> `.solve()`,
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -48,6 +47,7 @@ from ..bc import BCArrays
 from ..config import ModelMetadata, SolverOptions
 from ..errors import InputError, SolverError
 from ..meshing.core import Mesh as FemMesh
+from ..utils.logging import span
 from .dia_shard import ShardVec, exchange_halo
 
 AXIS = "shard"
@@ -367,19 +367,19 @@ class CompiledShardedProblem:
 
         p = self.problem
         timings = dict(self.timings)
-        t0 = time.perf_counter()
-        result, ku, bnorm = sharded_dia_pcg_solve(
-            p, rtol=self.rtol, maxiter=self.maxiter, refined=self.refine,
-            amg_sweeps=self.amg_sweeps, history=self.history, df_matvec=self.df_matvec,
-            progress_every=self.progress_every,
-        )
-        md = self.metadata
-        f_d, per_shard = _dia_recover_local(
-            result.x, ku, p.free, p.f, self.lidx, self.ecoords, self.rec_halo,
-            md.youngs_modulus, md.poisson_ratio, self.stress_sign_threshold,
-        )
-        _sync(p.devices)
-        timings["solve_s"] = time.perf_counter() - t0
+        with span("solve.device", timings, "solve_s"):
+            result, ku, bnorm = sharded_dia_pcg_solve(
+                p, rtol=self.rtol, maxiter=self.maxiter, refined=self.refine,
+                amg_sweeps=self.amg_sweeps, history=self.history, df_matvec=self.df_matvec,
+                progress_every=self.progress_every,
+            )
+            md = self.metadata
+            f_d, per_shard = _dia_recover_local(
+                result.x, ku, p.free, p.f, self.lidx, self.ecoords, self.rec_halo,
+                md.youngs_modulus, md.poisson_ratio, self.stress_sign_threshold,
+            )
+            with span("solve.wait"):
+                _sync(p.devices)
 
         n = self.n_nodes
         return _solve_result(result, result.x.gather(n).T, f_d.gather(n).T, per_shard, bnorm,
@@ -475,31 +475,31 @@ class CompiledShardedStencilProblem:
 
         p = self.problem
         timings = dict(self.timings)
-        t0 = time.perf_counter()
         two_d = self.kind == "stencil2d"
-        if self.refine and two_d:
-            result, ku = sharded_stencil_refined_solve_2d(
-                p, rtol=self.rtol, maxiter=self.maxiter, preconditioner=self.preconditioner,
-                history=self.history)
-        elif self.refine:
-            result, ku = sharded_stencil_refined_solve(
-                p, rtol=self.rtol, inner_maxiter=self.refine_inner_iters,
-                max_outer=self.refine_max_outer, preconditioner=self.preconditioner,
-                info=timings)
-        else:
-            solve = sharded_stencil_pcg_solve_2d if two_d else sharded_stencil_pcg_solve
-            result, ku = solve(p, rtol=self.rtol, maxiter=self.maxiter,
-                               preconditioner=self.preconditioner, history=self.history)
-        md = self.metadata
-        mat = (md.youngs_modulus, md.poisson_ratio, self.stress_sign_threshold)
-        if two_d:
-            f_d, per_shard, bnorm = _stencil_recover_local_2d(
-                p, result.x, ku, self.lidx, self.ecoords, *mat)
-        else:
-            f_d, per_shard, bnorm = _stencil_recover_local(
-                p, result.x, ku, self.lidx, self.ecoords, self.rec_halo, *mat)
-        _sync(p.devices)
-        timings["solve_s"] = time.perf_counter() - t0
+        with span("solve.device", timings, "solve_s"):
+            if self.refine and two_d:
+                result, ku = sharded_stencil_refined_solve_2d(
+                    p, rtol=self.rtol, maxiter=self.maxiter,
+                    preconditioner=self.preconditioner, history=self.history)
+            elif self.refine:
+                result, ku = sharded_stencil_refined_solve(
+                    p, rtol=self.rtol, inner_maxiter=self.refine_inner_iters,
+                    max_outer=self.refine_max_outer, preconditioner=self.preconditioner,
+                    info=timings)
+            else:
+                solve = sharded_stencil_pcg_solve_2d if two_d else sharded_stencil_pcg_solve
+                result, ku = solve(p, rtol=self.rtol, maxiter=self.maxiter,
+                                   preconditioner=self.preconditioner, history=self.history)
+            md = self.metadata
+            mat = (md.youngs_modulus, md.poisson_ratio, self.stress_sign_threshold)
+            if two_d:
+                f_d, per_shard, bnorm = _stencil_recover_local_2d(
+                    p, result.x, ku, self.lidx, self.ecoords, *mat)
+            else:
+                f_d, per_shard, bnorm = _stencil_recover_local(
+                    p, result.x, ku, self.lidx, self.ecoords, self.rec_halo, *mat)
+            with span("solve.wait"):
+                _sync(p.devices)
         return _solve_result(result, self._nodal(result.x), self._nodal(f_d), per_shard, bnorm,
                              self, timings)
 
@@ -669,23 +669,22 @@ def _compile_sharded(mesh, bca, metadata, options, device_mesh, amg_setup):
     if max_diags == SolverOptions.max_diags:
         max_diags = max(max_diags, 64)
 
-    t0 = time.perf_counter()
-    problem = prepare_sharded_dia_problem(
-        mesh, bca, metadata, device_mesh, dtype=prep_dtype, amg_setup=amg_setup,
-        max_diags=max_diags, cell_factor=float(options.amg_cell_factor),
-        preconditioner=precond, assembly=options.assembly, timings=timings,
-    )
-    # the solve's copies (the V-cycle's dtype, the double-float pairs) and
-    # the hierarchy's upload belong to the compile, not to the first solve
-    t1 = time.perf_counter()
-    vdtype = torch.float32 if refined else problem.dtype
-    problem.bands_in(vdtype)
-    problem.amg_in(vdtype)
-    if refined and problem.kind == "dia" and options.df_matvec in ("on", "interpret"):
-        problem.bands_hl()
-    _sync(problem.devices)
-    timings["amg_upload_s"] = time.perf_counter() - t1
-    timings["prepare_s"] = time.perf_counter() - t0
+    with span("compile.prepare", timings, "prepare_s"):
+        problem = prepare_sharded_dia_problem(
+            mesh, bca, metadata, device_mesh, dtype=prep_dtype, amg_setup=amg_setup,
+            max_diags=max_diags, cell_factor=float(options.amg_cell_factor),
+            preconditioner=precond, assembly=options.assembly, timings=timings,
+        )
+        # the solve's copies (the V-cycle's dtype, the double-float pairs)
+        # and the hierarchy's upload belong to the compile, not to the first
+        # solve
+        with span("compile.amg_upload", timings, "amg_upload_s"):
+            vdtype = torch.float32 if refined else problem.dtype
+            problem.bands_in(vdtype)
+            problem.amg_in(vdtype)
+            if refined and problem.kind == "dia" and options.df_matvec in ("on", "interpret"):
+                problem.bands_hl()
+            _sync(problem.devices)
     timings["operator"] = "dia-sharded" if problem.kind == "dia" else "ell-sharded"
     timings["preconditioner"] = precond
     timings["shards"] = n_shards
@@ -736,11 +735,10 @@ def _compile_sharded_stencil(mesh, bca, metadata, options, device_mesh):
     rtol, refined, prep_dtype = _precision_plan(options, use_stencil=True)
     precond = _stencil_precond(options)
     timings: dict = {}
-    t0 = time.perf_counter()
-    prepare = prepare_sharded_stencil_problem_2d if two_d else prepare_sharded_stencil_problem
-    problem = prepare(mesh, bca, metadata, device_mesh, dtype=prep_dtype)
-    _sync(problem.devices)
-    timings["prepare_s"] = time.perf_counter() - t0
+    with span("compile.prepare", timings, "prepare_s"):
+        prepare = prepare_sharded_stencil_problem_2d if two_d else prepare_sharded_stencil_problem
+        problem = prepare(mesh, bca, metadata, device_mesh, dtype=prep_dtype)
+        _sync(problem.devices)
     timings["operator"] = "stencil-sharded-2d" if two_d else "stencil-sharded"
     precond = _resolve_preconditioner(problem, precond)
     timings["preconditioner"] = precond

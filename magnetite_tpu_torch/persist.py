@@ -32,6 +32,7 @@ from .config import ModelMetadata
 from .errors import InputError
 from .fem.assembly import EllStructure
 from .meshing.core import Mesh
+from .utils.logging import spanned
 
 # v2: amg.setup_fingerprint switched its digest to sha1(mesh_state_hash +
 # material) -- fingerprints stored by v1 files can never match the new
@@ -242,6 +243,7 @@ def save_operator(path: str, problem) -> None:
     _write_npz(path, data, compressed=False)
 
 
+@spanned("persist.load_operator")
 def load_operator(path: str):
     """Load an OperatorCache saved by `save_operator`."""
     from .fem.solve import OperatorCache
@@ -263,6 +265,7 @@ def load_operator(path: str):
     )
 
 
+@spanned("persist.load_amg")
 def load_amg(path: str):
     """Load an AMGSetup saved by `save_amg`."""
     from .fem.amg import setup_from_arrays
@@ -275,6 +278,7 @@ def load_amg(path: str):
     return setup_from_arrays(data)
 
 
+@spanned("persist.load_case")
 def load_case(
     path: str,
 ) -> tuple[Mesh, BCArrays, Optional[ModelMetadata], Optional[EllStructure]]:

@@ -211,10 +211,16 @@ def make_df_dia_operator(bands_hl: torch.Tensor, offsets):
     return lambda u: df_dia_matvec(bands_hl, offs, u, offsets_dev)
 
 
+def block_jacobi_blocks(diag_blocks: torch.Tensor, free_mask: torch.Tensor) -> torch.Tensor:
+    """The reduced diagonal's closed-form inverse blocks [2, 2, N] from
+    diag_blocks [2, 2, N] and free_mask [2, N]."""
+    return guarded_inv2(reduce_diag_blocks(diag_blocks, free_mask))
+
+
 def block_jacobi_inverse_t(diag_blocks: torch.Tensor, free_mask: torch.Tensor):
     """Closed-form inverse of the reduced diagonal, transposed layout.
 
     diag_blocks [2,2,N], free_mask [2,N] -> returns apply(r [2,N]) -> [2,N].
     """
-    inv = guarded_inv2(reduce_diag_blocks(diag_blocks, free_mask))
+    inv = block_jacobi_blocks(diag_blocks, free_mask)
     return lambda r: apply_blocks(inv, r)

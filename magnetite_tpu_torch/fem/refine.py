@@ -52,11 +52,14 @@ def mixed_precision_solve(
     inner_maxiter: int = 100,
     max_outer: int = 8,
     dot=_dot,
+    graph=None,
 ) -> RefineResult:
     """Solve A x = b (SPD) to an f64-grade residual with f32 inner solves.
     op64 must be op32's operator evaluated in f64 (same BC reduction).
     `dot` is every inner product, outer and inner (fem/cg.pcg's hook: the
-    sharded solves pass the sum over shards)."""
+    sharded solves pass the sum over shards). `graph` (fem/cg.PCGGraph)
+    replays every pass's inner solve; the outer residual and the update of
+    x stay eager."""
     f64 = b.dtype
     x = torch.zeros_like(b) if x0 is None else x0.to(f64)
     threshold = torch.clamp(rtol * torch.sqrt(dot(b, b)), min=atol)
@@ -82,6 +85,7 @@ def mixed_precision_solve(
             rtol=INNER_RTOL,
             maxiter=inner_maxiter,
             dot=dot,
+            graph=graph,
         )
         x = x + inner.x.to(f64) * safe
         r = b - op64(x)

@@ -64,7 +64,7 @@ from ..config import ModelMetadata, SolverOptions
 from ..errors import InputError, SolverError
 from ..meshing.core import Mesh
 from ..utils.logging import span, spanned
-from .cg import empty_history, pcg
+from .cg import PCGGraph, empty_history, pcg
 from .stress import element_stress_tensors, scalar_stress, von_mises_stress
 
 
@@ -212,7 +212,8 @@ def _rhs(matvec, free, u_fixed, f):
 _VCYCLE_SPANS = {"amg": "amg.vcycle", "multigrid": "mg.vcycle"}
 
 
-def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, op_cg=None):
+def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, op_cg=None,
+                  graph=None):
     """PCG, or under `p.refine` a mixed-precision scheme (the JAX package's
     `_run_linear_solve`): (x, iterations, residual norm, converged,
     history).
@@ -221,11 +222,13 @@ def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, o
     `precond32` (classic refinement stagnates near kappa(A) eps_f32 on
     large unstructured meshes, because its inner solve targets the cast
     operator); `op_cg`, when given, is that PCG's per-iteration operator.
-    Otherwise classic refinement around f32 inner PCG on `op32`.
+    Otherwise classic refinement around f32 inner PCG on `op32`. `graph`
+    (a PCGGraph, or None) replays the PCG: the outer one, or classic
+    refinement's inner one.
 
     The call is the span `cg`; each V-cycle application, `amg.vcycle` or
     `mg.vcycle`."""
-    cg_kwargs = dict(x0=x0, rtol=p.rtol, atol=p.atol, maxiter=p.maxiter)
+    cg_kwargs = dict(x0=x0, rtol=p.rtol, atol=p.atol, maxiter=p.maxiter, graph=graph)
     vcycle = _VCYCLE_SPANS.get(p.preconditioner)
     if p.refine and p.preconditioner == "amg":
         @spanned(vcycle)
@@ -250,6 +253,7 @@ def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, o
                 op, op32, b, preconditioner32=precond32, x0=x0,
                 rtol=p.rtol, atol=p.atol,
                 inner_maxiter=p.refine_inner_iters, max_outer=p.refine_max_outer,
+                graph=graph,
             )
         info["refine_outer"] = result.outer_steps
         info["refine_inner"] = result.inner_per_pass
@@ -267,17 +271,79 @@ def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, o
     return result.x, result.iterations, result.residual_norm, result.converged, result.history
 
 
+class SolveGraphs:
+    """A system's CUDA graphs of its PCG (fem/cg.PCGGraph), kept on the
+    system, which every `dataclasses.replace` of a CompiledProblem shares.
+
+    A solve replays when the system has solved before under the same
+    solver settings, on a CUDA device, with no residual history or
+    progress: the first solve runs eagerly (it is also the warm-up that
+    cuBLAS and the allocator need), the second captures, and later ones
+    replay. One-solve jobs never capture. The captured operators read the
+    entry's static copies of a solve's `fields` (the tensors made from the
+    supports: the free mask, the block-Jacobi inverse), which each solve
+    refreshes with `copy_`; the graphs share one memory pool, freed with
+    the system."""
+
+    def __init__(self):
+        self.solved = set()  # the settings solved under before
+        self.entries = {}  # settings -> (static fields, operators, PCGGraph)
+        self.pool = None
+
+    def bind(self, p, fields: dict, build):
+        """(PCGGraph or None, the operators) of this solve; `build(fields)`
+        makes the operators over the given fields."""
+        key = (p.refine, p.preconditioner, p.sweeps, p.rtol, p.atol)
+        replays = (
+            key in self.solved and p.device.type == "cuda"
+            and not (p.history or p.progress_every)
+        )
+        self.solved.add(key)
+        if not replays:
+            return None, build(fields)
+        entry = self.entries.get(key)
+        if entry is None:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            static = {name: t.clone() for name, t in fields.items()}
+            entry = self.entries[key] = (static, build(static), PCGGraph(self.pool))
+        else:
+            for name, t in fields.items():
+                entry[0][name].copy_(t)
+        return entry[2], entry[1]
+
+
 @dataclass
 class StencilSystem:
     """The stencil operator's state: the raw stencil [9, 2, 2, R, C], its
     BC-reduced copy (and that copy in f32 when refining) and the multigrid
-    hierarchy (when the preconditioner is "multigrid")."""
+    hierarchy (when the preconditioner is "multigrid"). The supports are
+    folded into the reduced stencil, so no operator reads a per-solve
+    tensor."""
 
     grid: StencilParams
     stencil: torch.Tensor
     reduced: torch.Tensor
     reduced32: Optional[torch.Tensor]
     mg_levels: Optional[list]
+    graphs: SolveGraphs = field(default_factory=SolveGraphs, repr=False, compare=False)
+
+    def _operators(self, p) -> dict:
+        from .stencil import make_stencil_operator
+
+        wrap = self.grid.wrap
+        op = make_stencil_operator(self.reduced, wrap)
+        if p.refine:
+            return dict(
+                op=op,
+                op32=make_stencil_operator(self.reduced32, wrap),
+                precond32=_stencil_preconditioner(
+                    p.preconditioner, self.reduced32, self.mg_levels, wrap
+                ),
+            )
+        return dict(op=op, precond=_stencil_preconditioner(
+            p.preconditioner, self.reduced, self.mg_levels, wrap
+        ))
 
     def solve(self, p, info: dict):
         from .stencil import make_stencil_operator
@@ -290,19 +356,10 @@ class StencilSystem:
             f_g = _grid(p.f_value, rows, cols)
             raw_op = make_stencil_operator(self.stencil, wrap)
             b = free_g * (f_g - raw_op(fixed_g * u_fixed_g)) + fixed_g * u_fixed_g
-            op = make_stencil_operator(self.reduced, wrap)
-            if p.refine:
-                ops = dict(
-                    op32=make_stencil_operator(self.reduced32, wrap),
-                    precond32=_stencil_preconditioner(
-                        p.preconditioner, self.reduced32, self.mg_levels, wrap
-                    ),
-                )
-            else:
-                ops = dict(precond=_stencil_preconditioner(
-                    p.preconditioner, self.reduced, self.mg_levels, wrap
-                ))
-        x, iters, resnorm, converged, history = _linear_solve(p, info, b, u_fixed_g, op, **ops)
+            graph, ops = self.graphs.bind(p, {}, lambda _: self._operators(p))
+        x, iters, resnorm, converged, history = _linear_solve(
+            p, info, b, u_fixed_g, graph=graph, **ops
+        )
 
         def matvec_t(v):  # [2, N] <-> grid fields
             return raw_op(v.reshape(2, rows, cols)).reshape(2, -1)
@@ -327,6 +384,7 @@ class BandedSystem:
     rem_vals32: Optional[torch.Tensor] = None
     df64: str = ""
     bands_hl: Optional[torch.Tensor] = None
+    graphs: SolveGraphs = field(default_factory=SolveGraphs, repr=False, compare=False)
 
     def _matvec(self, bands, rem_vals, dia_op=None):
         """K u on [2, N] vectors (unreduced) over the given band values."""
@@ -339,63 +397,91 @@ class BandedSystem:
             bands, self.offsets, rem_vals, rem_rows, rem_cols, dia_op=dia_op
         )
 
-    def solve(self, p, info: dict):
-        from .amg import make_amg_preconditioner
-        from .dia import block_jacobi_inverse_t, dia_diag_blocks, make_df_dia_operator
+    def _fields(self, p, free_t) -> dict:
+        """The tensors of one solve made from its supports: the free mask
+        and the block-Jacobi inverse, in the precisions the solve runs."""
+        from .dia import block_jacobi_blocks, dia_diag_blocks
 
-        with span("solve.setup"):
-            rem_vals = self.rem[0] if self.rem else None
-            matvec_t = self._matvec(self.bands, rem_vals)
-            free_t, u_fixed_t, f_t = _fields_t(p)
-            a_op, op = _masked(matvec_t, free_t)
-            b = _rhs(matvec_t, free_t, u_fixed_t, f_t)
-            if not p.refine:
-                precond = None
-                if p.preconditioner != "none":
-                    precond = block_jacobi_inverse_t(
-                        dia_diag_blocks(self.bands, self.offsets), free_t
-                    )
-                    if p.preconditioner == "amg":
-                        precond = make_amg_preconditioner(
-                            self.amg, op, precond, a_op=a_op, sweeps=p.sweeps
-                        )
-                ops = dict(precond=precond)
-            else:
-                free32 = free_t.to(torch.float32)
-                a_op32, op32 = _masked(self._matvec(self.bands32, self.rem_vals32), free32)
-                precond32 = block_jacobi_inverse_t(
-                    dia_diag_blocks(self.bands32, self.offsets), free32
+        if p.refine:
+            free32 = free_t.to(torch.float32)
+            inv32 = block_jacobi_blocks(dia_diag_blocks(self.bands32, self.offsets), free32)
+            return dict(free=free_t, free32=free32, inv32=inv32)
+        if p.preconditioner == "none":
+            return dict(free=free_t)
+        return dict(free=free_t, inv=block_jacobi_blocks(
+            dia_diag_blocks(self.bands, self.offsets), free_t
+        ))
+
+    def _operators(self, p, matvec_t, fields) -> dict:
+        """The CG's operators and preconditioners over `fields`."""
+        from .amg import make_amg_preconditioner
+        from .dia import make_df_dia_operator
+
+        a_op, op = _masked(matvec_t, fields["free"])
+        if not p.refine:
+            precond = _blocks_apply(fields.get("inv"))
+            if p.preconditioner == "amg":
+                precond = make_amg_preconditioner(
+                    self.amg, op, precond, a_op=a_op, sweeps=p.sweeps
                 )
-                op_cg = None
-                if p.preconditioner == "amg":
-                    precond32 = make_amg_preconditioner(
-                        self.amg, op32, precond32, a_op=a_op32, sweeps=p.sweeps
-                    )
-                    if self.df64:
-                        # the CG's per-iteration matvec as compensated f32
-                        # pairs; the rhs and the force recovery keep the
-                        # true f64 operator
-                        df_op = make_df_dia_operator(self.bands_hl, self.offsets)
-                        _, op_cg = _masked(
-                            self._matvec(self.bands, rem_vals, dia_op=df_op), free_t
-                        )
-                ops = dict(op32=op32, precond32=precond32, op_cg=op_cg)
-        x, iters, resnorm, converged, history = _linear_solve(p, info, b, u_fixed_t, op, **ops)
+            return dict(op=op, precond=precond)
+        a_op32, op32 = _masked(self._matvec(self.bands32, self.rem_vals32), fields["free32"])
+        precond32 = _blocks_apply(fields["inv32"])
+        op_cg = None
+        if p.preconditioner == "amg":
+            precond32 = make_amg_preconditioner(
+                self.amg, op32, precond32, a_op=a_op32, sweeps=p.sweeps
+            )
+            if self.df64:
+                # the CG's per-iteration matvec as compensated f32 pairs;
+                # the rhs and the force recovery keep the true f64 operator
+                df_op = make_df_dia_operator(self.bands_hl, self.offsets)
+                rem_vals = self.rem[0] if self.rem else None
+                _, op_cg = _masked(
+                    self._matvec(self.bands, rem_vals, dia_op=df_op), fields["free"]
+                )
+        return dict(op=op, op32=op32, precond32=precond32, op_cg=op_cg)
+
+    def solve(self, p, info: dict):
+        with span("solve.setup"):
+            matvec_t = self._matvec(self.bands, self.rem[0] if self.rem else None)
+            free_t, u_fixed_t, f_t = _fields_t(p)
+            b = _rhs(matvec_t, free_t, u_fixed_t, f_t)
+            graph, ops = self.graphs.bind(
+                p, self._fields(p, free_t), lambda f: self._operators(p, matvec_t, f)
+            )
+        x, iters, resnorm, converged, history = _linear_solve(
+            p, info, b, u_fixed_t, graph=graph, **ops
+        )
         return matvec_t, x, iters, resnorm, converged, b, history
 
 
-def _diag_preconditioner(kind: str, diag: torch.Tensor, free: torch.Tensor):
-    """The JAX package's `_make_preconditioner` on [2, N] fields from the
-    diagonal blocks [2, 2, N]: block-Jacobi ("block_jacobi", and "amg"'s
-    smoother), scalar Jacobi, or None ("none", the identity)."""
-    from .dia import block_jacobi_inverse_t
+def _blocks_apply(inv: Optional[torch.Tensor]):
+    """r -> inv r for 2x2 blocks inv [2, 2, N] (None: no preconditioner)."""
+    from .blocks import apply_blocks
+
+    return None if inv is None else (lambda r: apply_blocks(inv, r))
+
+
+def _diag_inverse(kind: str, diag: torch.Tensor, free: torch.Tensor):
+    """The tensor of the JAX package's `_make_preconditioner` on [2, N]
+    fields from the diagonal blocks [2, 2, N]: the reduced blocks' inverses
+    ("block_jacobi", and "amg"'s smoother), the reduced diagonal [2, N]
+    (scalar Jacobi) or None ("none", the identity)."""
+    from .dia import block_jacobi_blocks
 
     if kind == "none":
         return None
     if kind == "jacobi":
-        d = free * torch.stack([diag[0, 0], diag[1, 1]]) + (1.0 - free)
-        return lambda r: r / d
-    return block_jacobi_inverse_t(diag, free)
+        return free * torch.stack([diag[0, 0], diag[1, 1]]) + (1.0 - free)
+    return block_jacobi_blocks(diag, free)
+
+
+def _diag_apply(kind: str, t: Optional[torch.Tensor]):
+    """The preconditioner of `_diag_inverse(kind, ...)`'s tensor t."""
+    if kind == "jacobi":
+        return lambda r: r / t
+    return _blocks_apply(t)
 
 
 @dataclass
@@ -409,39 +495,61 @@ class EllSystem:
     cols: torch.Tensor
     amg: object
     data32: Optional[torch.Tensor] = None
+    graphs: SolveGraphs = field(default_factory=SolveGraphs, repr=False, compare=False)
+
+    def _fields(self, p, free_t) -> dict:
+        """The tensors of one solve made from its supports: the free mask
+        and the diagonal preconditioner's tensor, in the precisions the
+        solve runs."""
+        from ..kernels.ell_kernel import ell_diag_blocks
+
+        diag = ell_diag_blocks(self.data, self.cols)
+        fields = dict(free=free_t)
+        if p.refine:
+            fields["free32"] = free32 = free_t.to(torch.float32)
+            inv = _diag_inverse(p.preconditioner, diag.to(torch.float32), free32)
+        else:
+            inv = _diag_inverse(p.preconditioner, diag, free_t)
+        if inv is not None:
+            fields["inv"] = inv
+        return fields
+
+    def _operators(self, p, matvec_t, fields) -> dict:
+        """The CG's operators and preconditioners over `fields`."""
+        from ..kernels.ell_kernel import ell_matvec_t
+        from .amg import make_amg_preconditioner
+
+        a_op, op = _masked(matvec_t, fields["free"])
+        precond = _diag_apply(p.preconditioner, fields.get("inv"))
+        if not p.refine:
+            if p.preconditioner == "amg":
+                precond = make_amg_preconditioner(
+                    self.amg, op, precond, a_op=a_op, sweeps=p.sweeps
+                )
+            return dict(op=op, precond=precond)
+        a_op32, op32 = _masked(lambda v: ell_matvec_t(self.data32, self.cols, v),
+                               fields["free32"])
+        if p.preconditioner == "amg":
+            precond = make_amg_preconditioner(
+                self.amg, op32, precond, a_op=a_op32, sweeps=p.sweeps
+            )
+        return dict(op=op, op32=op32, precond32=precond)
 
     def solve(self, p, info: dict):
-        from ..kernels.ell_kernel import ell_diag_blocks, ell_matvec_t
-        from .amg import make_amg_preconditioner
+        from ..kernels.ell_kernel import ell_matvec_t
 
         def matvec_t(v):
             return ell_matvec_t(self.data, self.cols, v)
 
-        def matvec32(v):
-            return ell_matvec_t(self.data32, self.cols, v)
-
         with span("solve.setup"):
             free_t, u_fixed_t, f_t = _fields_t(p)
-            a_op, op = _masked(matvec_t, free_t)
             b = _rhs(matvec_t, free_t, u_fixed_t, f_t)
-            diag = ell_diag_blocks(self.data, self.cols)
-            if not p.refine:
-                precond = _diag_preconditioner(p.preconditioner, diag, free_t)
-                if p.preconditioner == "amg":
-                    precond = make_amg_preconditioner(
-                        self.amg, op, precond, a_op=a_op, sweeps=p.sweeps
-                    )
-                ops = dict(precond=precond)
-            else:
-                free32 = free_t.to(torch.float32)
-                a_op32, op32 = _masked(matvec32, free32)
-                precond32 = _diag_preconditioner(p.preconditioner, diag.to(torch.float32), free32)
-                if p.preconditioner == "amg":
-                    precond32 = make_amg_preconditioner(
-                        self.amg, op32, precond32, a_op=a_op32, sweeps=p.sweeps
-                    )
-                ops = dict(op32=op32, precond32=precond32)
-        x, iters, resnorm, converged, history = _linear_solve(p, info, b, u_fixed_t, op, **ops)
+            graph, ops = self.graphs.bind(
+                p, self._fields(p, free_t), lambda f: self._operators(p, matvec_t, f)
+            )
+        x, iters, resnorm, converged, history = _linear_solve(
+            p, info, b, u_fixed_t, graph=graph, **ops
+        )
         return matvec_t, x, iters, resnorm, converged, b, history
 
 

@@ -25,6 +25,7 @@ from ..kernels.df_kernel import (  # noqa: F401
 )
 from ..kernels.assembly_kernel import assemble_pairs
 from ..kernels.dia_kernel import dia_matvec, dia_matvec_blocks  # noqa: F401
+from ..utils.logging import span
 from .blocks import apply_blocks, guarded_inv2, reduce_diag_blocks
 
 
@@ -184,15 +185,16 @@ def make_hybrid_operator(
     """op(u [2, N]) -> K u for the band + COO-remainder format: the band
     part through `dia_op` (default make_dia_operator; the double-float
     operator plugs in here), the remainder as a gather, a block product
-    and an `index_add_` into the band result."""
+    and an `index_add_` into the band result: the span `op.remainder`."""
     if dia_op is None:
         dia_op = make_dia_operator(bands, offsets)
 
     def op(u: torch.Tensor) -> torch.Tensor:
         y = dia_op(u)
-        ug = u[:, rem_cols]  # [2, R]
-        contrib = torch.einsum("rij,jr->ir", rem_vals, ug)  # [2, R]
-        return y.index_add_(1, rem_rows, contrib)
+        with span("op.remainder"):
+            ug = u[:, rem_cols]  # [2, R]
+            contrib = torch.einsum("rij,jr->ir", rem_vals, ug)  # [2, R]
+            return y.index_add_(1, rem_rows, contrib)
 
     return op
 

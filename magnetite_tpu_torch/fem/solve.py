@@ -52,6 +52,7 @@ counterpart). `solve_system(device_mesh=)` runs the node-sharded pipeline
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
@@ -180,7 +181,8 @@ def _stencil_preconditioner(kind: str, reduced: torch.Tensor, levels, wrap: bool
         return vcycle_preconditioner(levels, wrap)
     if kind == "none":
         return None
-    inv = _center_inverse(reduced)
+    with _bj_build(kind):
+        inv = _center_inverse(reduced)
     return lambda r: apply_blocks(inv, r)
 
 
@@ -209,7 +211,14 @@ def _rhs(matvec, free, u_fixed, f):
 
 
 # the span of one preconditioner application, by preconditioner
-_VCYCLE_SPANS = {"amg": "amg.vcycle", "multigrid": "mg.vcycle"}
+_PRECOND_SPANS = {"amg": "amg.vcycle", "multigrid": "mg.vcycle", "block_jacobi": "bj.apply"}
+
+
+def _bj_build(preconditioner: str):
+    """The span `bj.build` around the block-Jacobi preconditioner's inverse
+    blocks; nothing where those blocks are AMG's smoother, or there are
+    none."""
+    return span("bj.build") if preconditioner == "block_jacobi" else contextlib.nullcontext()
 
 
 def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, op_cg=None,
@@ -226,12 +235,12 @@ def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, o
     (a PCGGraph, or None) replays the PCG: the outer one, or classic
     refinement's inner one.
 
-    The call is the span `cg`; each V-cycle application, `amg.vcycle` or
-    `mg.vcycle`."""
+    The call is the span `cg`; each preconditioner application,
+    `amg.vcycle`, `mg.vcycle` or `bj.apply` (block-Jacobi)."""
     cg_kwargs = dict(x0=x0, rtol=p.rtol, atol=p.atol, maxiter=p.maxiter, graph=graph)
-    vcycle = _VCYCLE_SPANS.get(p.preconditioner)
+    apply_span = _PRECOND_SPANS.get(p.preconditioner)
     if p.refine and p.preconditioner == "amg":
-        @spanned(vcycle)
+        @spanned(apply_span)
         def precond64(r):
             # normalise before the f32 cast (extreme residual magnitudes
             # would under/overflow the f32 V-cycle); the preconditioner is
@@ -246,8 +255,8 @@ def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, o
     elif p.refine:
         from .refine import mixed_precision_solve
 
-        if vcycle and precond32 is not None:
-            precond32 = spanned(vcycle)(precond32)
+        if apply_span and precond32 is not None:
+            precond32 = spanned(apply_span)(precond32)
         with span("cg"):
             result = mixed_precision_solve(
                 op, op32, b, preconditioner32=precond32, x0=x0,
@@ -264,8 +273,8 @@ def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, o
             result.converged, empty_history(p.history, b),
         )
     else:
-        if vcycle and precond is not None:
-            precond = spanned(vcycle)(precond)
+        if apply_span and precond is not None:
+            precond = spanned(apply_span)(precond)
         with span("cg"):
             result = pcg(op, b, preconditioner=precond, **cg_kwargs, **p._observe())
     return result.x, result.iterations, result.residual_norm, result.converged, result.history
@@ -404,13 +413,14 @@ class BandedSystem:
 
         if p.refine:
             free32 = free_t.to(torch.float32)
-            inv32 = block_jacobi_blocks(dia_diag_blocks(self.bands32, self.offsets), free32)
+            with _bj_build(p.preconditioner):
+                inv32 = block_jacobi_blocks(dia_diag_blocks(self.bands32, self.offsets), free32)
             return dict(free=free_t, free32=free32, inv32=inv32)
         if p.preconditioner == "none":
             return dict(free=free_t)
-        return dict(free=free_t, inv=block_jacobi_blocks(
-            dia_diag_blocks(self.bands, self.offsets), free_t
-        ))
+        with _bj_build(p.preconditioner):
+            inv = block_jacobi_blocks(dia_diag_blocks(self.bands, self.offsets), free_t)
+        return dict(free=free_t, inv=inv)
 
     def _operators(self, p, matvec_t, fields) -> dict:
         """The CG's operators and preconditioners over `fields`."""
@@ -505,11 +515,12 @@ class EllSystem:
 
         diag = ell_diag_blocks(self.data, self.cols)
         fields = dict(free=free_t)
+        free = free_t
         if p.refine:
-            fields["free32"] = free32 = free_t.to(torch.float32)
-            inv = _diag_inverse(p.preconditioner, diag.to(torch.float32), free32)
-        else:
-            inv = _diag_inverse(p.preconditioner, diag, free_t)
+            fields["free32"] = free = free_t.to(torch.float32)
+            diag = diag.to(torch.float32)
+        with _bj_build(p.preconditioner):
+            inv = _diag_inverse(p.preconditioner, diag, free)
         if inv is not None:
             fields["inv"] = inv
         return fields
@@ -1306,6 +1317,8 @@ def compile_problem(
                 structure = build_ell_structure(mesh.tris, n)
             cols, slot_ids = structure.cols, structure.slot_ids
     timings["operator"] = mode
+    if mode == "hybrid":
+        timings["remainder_blocks"] = int(cols.shape[1])
 
     # f32 cannot reach f64-grade residuals: refinement (f64 residual, f32
     # inner solves) reaches them anyway -- "on" anywhere but the dense

@@ -5,12 +5,12 @@
     python3 chip_smoke.py --h 0.01 --small-h 0.02 --plate 64 128 --big 128 256 --reps 3 \
         --sweep-h 0.05 --lanes 512 --sweep-small 0.08 32
                                        # a quick rehearsal
-    python3 chip_smoke.py --profile    # also trace one 1M structured solve and both sweeps
+    python3 chip_smoke.py --profile    # also trace one warm solve of each sweep
     python3 chip_smoke.py --only transfers
                                        # phases 0 to 3 alone (no "ok" line)
     python3 chip_smoke.py --only transfers --baseline _archive/parent
-                                       # the same, the parent tree's band and prolong
-                                       # kernels timed in the same rounds
+                                       # the same, the parent tree's own band and
+                                       # prolong wrappers timed in the same rounds
     python3 chip_smoke.py --only lane-kernels
                                        # phases 0, 1 and 10 alone (no "ok" line)
     python3 chip_smoke.py --only multigrid
@@ -62,8 +62,7 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      compile_problem / solve (stencil operator, geometric multigrid, f32
      storage + f64 refinement to rtol 1e-8), and the same plate in f64;
      each V-cycle level through the two fused smoothing kernels (exact
-     launch counts per V-cycle; no coarse-level stencil_matvec), and one
-     V-cycle's host enqueue against its device time;
+     launch counts per V-cycle; no coarse-level stencil_matvec);
   8. the stencil kernel against its plain version at every multigrid level
      of the 1M plate (level 0: the reduced operator; each with its
      launches over phase 7), the 4M plate's grid, and a non-wrapped grid
@@ -94,7 +93,7 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      the hierarchy of the non-wrapped --rect grid (cols not a multiple of
      the tile; its coarsest level smooths, 48 sweeps, no dense inverse),
      in f64 and f32, each timed against the unfused sequence it replaced
-     (stencil_matvec kernel + torch ops; with --baseline also the older
+     (stencil_matvec kernel + torch ops; with --baseline also the other
      tree's fused kernels) in interleaved rounds; then that hierarchy's
      whole V-cycle on the card against the CPU's.
  15. the structured-grid load sweep (compile_sweep) on the JAX package's
@@ -142,10 +141,8 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      stages, the operator cache holding the symmetric half), then --load-case
      runs with no geometry in f64 and --precision mixed: each an operator-cache
      hit with the AMG hierarchy loaded and no warning, CSVs within the golden
-     bars of the fresh run's, the true residual <= 1e-9, every prep stage
-     printed beside the fresh run's; the fresh run in child processes with
-     and without the glibc malloc tuning (MAGNETITE_NO_MALLOC_TUNE=1),
-     interleaved; residual_history=64 and cg_progress_every=8 on the plate
+     bars of the fresh run's, the true residual <= 1e-9, the assembly and the
+     AMG build skipped; residual_history=64 and cg_progress_every=8 on the plate
      and the structured --plate in f64 (history length and last entry,
      progress lines, the same band / stencil launches as without them, warm
      solve_s with and without); --profile on a --small-h CLI run, whose trace
@@ -242,16 +239,20 @@ Phases (any failure exits non-zero; no phase is wrapped in a catch):
      and required, the plates' residuals <= 1e-8, the multichip example's
      parity lines "ok" (its own 1e-6 assertion).
 Every kernel is timed with CUDA events (median of --reps launches, L2
-flushed before each) beside its plain version, its bound (the larger of
-bytes moved once over 3.35 TB/s and operations over the peak rate of their
+flushed before each) beside its plain version, its bound (the benchmark's
+yardstick, benchmark/harness/yardstick.py: the larger of bytes moved once
+over the card's bandwidth and operations over the peak rate of their
 type) and one PyTorch call computing the same function (a cuSPARSE CSR
 SpMV of the same operator); where the two are close (the transfers, the
 coarse band levels) they are timed in ROUNDS interleaved rounds, every
-reading printed and the medians kept; with --baseline DIR an older
-tree's band and prolong kernels join those rounds. Each main path runs
-with every launch counter set to 0 just before it and read just after
-(dia_matvec, stencil_matvec and the smoothing kernels also per shape). The last lines are the
-card's nvidia-smi line, a JSON line of per-kernel results (the band
+reading printed and the medians kept; with --baseline DIR another tree's
+own package (imported apart, its kernels built into its own _build/)
+joins those rounds through its own wrappers. A main path's launches are
+the rise of kernels.cuda_lib's launch counter over it (the band,
+stencil, smoothing, lane stencil and coarse smoother kernels also per
+shape); --profile reduces its traces with benchmark/harness/trace.py.
+The last lines are the card's nvidia-smi line, a JSON line of
+per-kernel results (the band
 matvec's 2x2 and 3x3 kernels as two rows, the lane stencil kernel's two
 instances as two rows, the fused coarse smoother, the lane ELL kernel, the
 ELL kernel, both ELL kernels again at the all-gather path's shapes, the
@@ -266,6 +267,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import importlib
 import io
 import json
 import math
@@ -277,14 +279,15 @@ import sys
 import tempfile
 import time
 
+from benchmark.harness import spec, trace, yardstick
+
 OUTER = [[0.0, 0.0], [3.0, 0.0], [3.0, 1.0], [0.0, 1.0]]
 HOLE = [[1.3, 0.35], [1.7, 0.35], [1.7, 0.65], [1.3, 0.65]]
 E_MOD, NU, THICK = 69e9, 0.33, 0.5
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth; FP32 and FP64 rates outside
-# the tensor cores
-PEAK_GBS = 3350.0
-PEAK_TFLOPS = {"float32": 67.0, "float64": 34.0}
 DEV = "cuda"
+# the benchmark's reader of the device's idle share of a traced stretch
+IDLE_SHARE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "metrics",
+                          "device.idle_share.py")
 PTXAS = ""  # nvcc's ptxas report of phase 1's build
 KERNELS = {
     # name: (source, replaced TPU kernel)
@@ -452,77 +455,92 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def counters():
-    """The seventeen kernel wrappers, each carrying its `.launches` count."""
-    from magnetite_tpu_torch.kernels.assembly_kernel import (
-        assemble_count, assemble_fill, assemble_pairs,
-    )
-    from magnetite_tpu_torch.kernels.df_kernel import df_dia_matvec
-    from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
-    from magnetite_tpu_torch.kernels.ell_kernel import ell_matvec_t
-    from magnetite_tpu_torch.kernels.lane_coarse_kernel import lane_coarse_smooth3
-    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec, lane_dia_matvec3
-    from magnetite_tpu_torch.kernels.lane_ell_kernel import lane_ell_matvec
-    from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
-        lane_stencil_matvec, lane_stencil_matvec3,
-    )
-    from magnetite_tpu_torch.kernels.mg_smooth_kernel import mg_postsmooth, mg_presmooth
-    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
-    from magnetite_tpu_torch.kernels.transfer_kernel import prolong0, restrict0
-
-    return (dia_matvec, prolong0, restrict0, stencil_matvec, mg_presmooth, mg_postsmooth,
-            df_dia_matvec, lane_dia_matvec, lane_dia_matvec3, lane_stencil_matvec,
-            lane_stencil_matvec3, lane_coarse_smooth3, lane_ell_matvec, ell_matvec_t,
-            assemble_pairs, assemble_count, assemble_fill)
+# the kernel wrappers' names of the C entries they launch (the lane band
+# kernels' ring and direct routes under one name each)
+WRAPPERS = {
+    "mt_dia_matvec": "dia_matvec", "mt_prolong0": "prolong0", "mt_restrict0": "restrict0",
+    "mt_stencil_matvec": "stencil_matvec", "mt_mg_presmooth": "mg_presmooth",
+    "mt_mg_postsmooth": "mg_postsmooth", "mt_df_dia_matvec": "df_dia_matvec",
+    "mt_lane_dia_ring": "lane_dia_matvec", "mt_lane_dia_matvec": "lane_dia_matvec",
+    "mt_lane_dia_ring3": "lane_dia_matvec3", "mt_lane_dia_matvec3": "lane_dia_matvec3",
+    "mt_lane_stencil_matvec": "lane_stencil_matvec",
+    "mt_lane_stencil_matvec3": "lane_stencil_matvec3",
+    "mt_lane_coarse_smooth3": "lane_coarse_smooth3", "mt_lane_ell_matvec": "lane_ell_matvec",
+    "mt_ell_matvec": "ell_matvec_t", "mt_assemble_runs": "assemble_pairs",
+    "mt_assemble_count": "assemble_count", "mt_assemble_fill": "assemble_fill",
+}
+# the entries whose launches main_path also prints and sums per shape
+SHAPED = ("mt_dia_matvec", "mt_stencil_matvec", "mt_mg_presmooth", "mt_mg_postsmooth",
+          "mt_lane_stencil_matvec", "mt_lane_stencil_matvec3", "mt_lane_coarse_smooth3")
 
 
-def shape_label(kernel: str, key) -> str:
-    """A `.shape_launches` key as text: (m, N, dtype) of dia_matvec,
-    (rows, cols, dtype) of the stencil and smoothing kernels."""
+class Launched(dict):
+    """A main path's launches per wrapper name (and the parts main_path
+    names); `raw` is the rise of kernels.cuda_lib's counter over the path,
+    keyed (entry, dtype, shape)."""
+
+    raw: dict
+
+
+def by_shape(got: Launched, entry: str) -> dict:
+    """`entry`'s launches in a main path per (m, N, dtype) of the band
+    kernel's u [m, N], or per (rows, cols, dtype) of the grid kernels'
+    fields [2, rows, cols(, lanes)]."""
+    out: dict = {}
+    for (e, dtype, shape), c in got.raw.items():
+        if e == entry:
+            key = (*(shape if e == "mt_dia_matvec" else shape[1:3]), dtype)
+            out[key] = out.get(key, 0) + c
+    return out
+
+
+def shape_label(entry: str, key) -> str:
+    """A by_shape key as text."""
     a, b, dtype = key
     name = str(dtype).replace("torch.", "")
-    return f"m={a} N={b} {name}" if kernel == "dia_matvec" else f"{a}x{b} {name}"
+    return f"m={a} N={b} {name}" if entry == "mt_dia_matvec" else f"{a}x{b} {name}"
 
 
 @contextlib.contextmanager
 def main_path(name: str, totals: dict, expect: tuple):
-    """Counts set to 0 just before the path, read just after; every kernel
-    in `expect` must have launched. Yields a dict that holds the counts of
-    the run once the block has ended, under "<name> f64" the f64 launches
-    of the lane kernels (which count them apart), under "<name> ring"
-    their ring-route launches, under "lane_coarse_smooth3 per_sweep" the
-    coarse solves that took the per-sweep route, and under "dia_matvec
-    m=2" / "m=3" the band kernel's launches per block size. `totals["per
-    shape"]` sums the launches per shape ("<name> <shape>") over the main
-    paths."""
-    ks = counters()
-    split = [(k, attr) for k in ks for attr in ("f64_launches", "ring_launches", "per_sweep")
-             if hasattr(k, attr)]
-    shaped = [k for k in ks if hasattr(k, "shape_launches")]
-    for k in ks:
-        k.launches = 0
-    for k, attr in split:
-        setattr(k, attr, 0)
-    for k in shaped:
-        k.shape_launches.clear()
-    got: dict = {}
+    """The launches of the path: the rise of kernels.cuda_lib's counter
+    over it; every kernel in `expect` must have launched. Yields a
+    Launched that holds the counts of the run once the block has ended,
+    under "<name> f64" the f64 launches of the lane band kernels and the
+    ELL kernel, under "<name> ring" the lane band kernels' ring-route
+    launches, and under "dia_matvec m=2" / "m=3" the band kernel's
+    launches per block size. `totals["per shape"]` sums the launches per
+    shape ("<name> <shape>") over the main paths."""
+    import torch
+    from magnetite_tpu_torch.kernels import cuda_lib
+
+    before = cuda_lib.launches.copy()
+    got = Launched()
     yield got
-    got.update({k.__name__: k.launches for k in ks})
-    parts = {f"{k.__name__} {attr.removesuffix('_launches')}": getattr(k, attr)
-             for k, attr in split}
-    dia = next(k for k in ks if k.__name__ == "dia_matvec")
+    got.raw = cuda_lib.launches - before
+    got.update(dict.fromkeys(WRAPPERS.values(), 0))
+    for entry, k in WRAPPERS.items():
+        got[k] += cuda_lib.launched(entry, counts=got.raw)
+    parts = {}
+    for k, ring in (("lane_dia_matvec", "mt_lane_dia_ring"),
+                    ("lane_dia_matvec3", "mt_lane_dia_ring3"), ("ell_matvec_t", None)):
+        entries = [e for e, w in WRAPPERS.items() if w == k]
+        parts[f"{k} f64"] = cuda_lib.launched(*entries, dtype=torch.float64, counts=got.raw)
+        if ring is not None:
+            parts[f"{k} ring"] = cuda_lib.launched(ring, counts=got.raw)
+    dia = by_shape(got, "mt_dia_matvec")
     for m in (2, 3):
-        parts[f"dia_matvec m={m}"] = sum(
-            c for key, c in dia.shape_launches.items() if key[0] == m)
-    say(f"  kernel launches in {name}: {got}; of those: {parts}")
-    for k in shaped:
-        if k.shape_launches:
-            say(f"  {k.__name__} launches per shape: " + "; ".join(
-                f"{shape_label(k.__name__, key)}: {c}" for key, c in sorted(
-                    k.shape_launches.items(), key=lambda kv: (str(kv[0][2]), -kv[0][1]))))
-        shapes = totals.setdefault("per shape", {})
-        for key, c in k.shape_launches.items():
-            label = f"{k.__name__} {shape_label(k.__name__, key)}"
+        parts[f"dia_matvec m={m}"] = sum(c for key, c in dia.items() if key[0] == m)
+    say(f"  kernel launches in {name}: {dict(got)}; of those: {parts}")
+    shapes = totals.setdefault("per shape", {})
+    for entry in SHAPED:
+        counts = by_shape(got, entry)
+        if counts:
+            say(f"  {WRAPPERS[entry]} launches per shape: " + "; ".join(
+                f"{shape_label(entry, key)}: {c}" for key, c in sorted(
+                    counts.items(), key=lambda kv: (str(kv[0][2]), -kv[0][1]))))
+        for key, c in counts.items():
+            label = f"{WRAPPERS[entry]} {shape_label(entry, key)}"
             shapes[label] = shapes.get(label, 0) + c
     got.update(parts)
     for k, v in got.items():
@@ -619,11 +637,13 @@ def event_ms(fn, reps: int, flush, setup=None) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float, dtype) -> tuple:
-    """(least ms the card could take, what bounds it)."""
-    t_bytes = nbytes / (PEAK_GBS * 1e9) * 1e3
-    t_ops = flops / (PEAK_TFLOPS[str(dtype).replace("torch.", "")] * 1e12) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def least_ms(nbytes: float, flops: float, dtype) -> tuple:
+    """(least ms the card could take, what bounds it: "bytes" or
+    "operations"), by the benchmark's yardstick."""
+    vt = "double" if str(dtype) == "torch.float64" else "float"
+    by = ("bytes" if yardstick.bound_s(nbytes, 0, vt) >= yardstick.bound_s(0, flops, vt)
+          else "operations")
+    return yardstick.bound_s(nbytes, flops, vt) * 1e3, by
 
 
 def compare(name, got, ref, scale, tol):
@@ -704,8 +724,8 @@ def interleaved(tag, fns: dict, reps, flush, rounds) -> dict:
 def time_kernel(tag, fn, plain, library, reps, flush, nbytes, flops, dtype, rounds=1,
                 parent=None):
     """Kernel, plain and library times beside the bound; returns the row.
-    With rounds > 1, or beside `parent` (the same call through an older
-    tree's kernel, --baseline), kernel, parent and library are the medians
+    With rounds > 1, or beside `parent` (the same call through another
+    tree's wrapper, --baseline), kernel, parent and library are the medians
     of interleaved rounds, and a line says which is faster."""
     parent_ms = None
     if rounds > 1 or parent is not None:
@@ -721,7 +741,7 @@ def time_kernel(tag, fn, plain, library, reps, flush, nbytes, flops, dtype, roun
         ms = event_ms(fn, reps, flush)
         library_ms = event_ms(library, reps, flush) if library is not None else None
     plain_ms = event_ms(plain, reps, flush)
-    b_ms, b_by = bound(nbytes, flops, dtype)
+    b_ms, b_by = least_ms(nbytes, flops, dtype)
     lib = f"{library_ms:.4f}" if library_ms is not None else "none"
     par = (f", parent {parent_ms:.4f} ms ({b_ms / parent_ms:.1%} of bound)"
            if parent_ms is not None else "")
@@ -732,204 +752,53 @@ def time_kernel(tag, fn, plain, library, reps, flush, nbytes, flops, dtype, roun
                 library_ms=library_ms)
 
 
-# the sources of --baseline's kernels (mg_smooth.cu, lane_stencil_matvec.cu,
-# ell_matvec.cu, lane_coarse_smooth.cu and assemble_pairs.cu where the tree
-# has them), and the only entries called there
-BASELINE_SOURCES = ("dia_matvec.cu", "transfer.cu", "mg_smooth.cu", "lane_stencil_matvec.cu",
-                    "ell_matvec.cu", "lane_coarse_smooth.cu", "assemble_pairs.cu")
-
-
 def load_baseline(tree: str):
-    """An older checkout's dia_matvec, prolong0, fused smoothing and lane
-    stencil kernels (`tree`, e.g. the parent commit unpacked by git
-    archive), built apart from this tree's library with their C signatures
-    bound here (the lane stencil kernel's are PR 9's, on stencils in the
-    JAX layout): (seconds, ctypes library)."""
-    import ctypes
-    import shutil
-    from magnetite_tpu_torch.kernels import cuda_lib
+    """Another checkout's own package (`tree`, e.g. the parent commit
+    unpacked by git archive), imported apart from this tree's as
+    `baseline_magnetite_tpu_torch`: its own wrappers and its own cuda_lib,
+    which builds its kernels into `tree/magnetite_tpu_torch/_build/`."""
+    import importlib.util
 
-    csrc = os.path.join(tree, "magnetite_tpu_torch", "csrc")
-    out = os.path.join(cuda_lib.BUILD_DIR, "baseline")
-    os.makedirs(out, exist_ok=True)
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    t0 = time.perf_counter()
-    objs, procs = [], []
-    sources = [src for src in BASELINE_SOURCES if os.path.exists(os.path.join(csrc, src))]
-    for src in sources:
-        objs.append(os.path.join(out, f"{src}.o"))
-        procs.append(subprocess.Popen(
-            [nvcc, *cuda_lib.NVCC_FLAGS, "-c", os.path.join(csrc, src), "-o", objs[-1]],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    for src, proc in zip(sources, procs):
-        _, err = proc.communicate(timeout=600)
-        require(proc.returncode == 0, f"baseline {src} did not build:\n{err[-4000:]}")
-        for line in err.splitlines():
-            if "registers" in line:
-                say(f"    baseline {src}: {line.strip()}")
-    so = os.path.join(out, "libbaseline_kernels.so")
-    link = subprocess.run(
-        [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", *objs, "-o", so],
-        capture_output=True, text=True, timeout=600)
-    require(link.returncode == 0, f"baseline link failed:\n{link.stderr[-4000:]}")
-    lib = ctypes.CDLL(so)
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.mt_dia_matvec.restype = i32
-    lib.mt_dia_matvec.argtypes = [i32, i32, vp, vp, i32, vp, vp, i64, vp]
-    lib.mt_prolong0.restype = i32
-    lib.mt_prolong0.argtypes = [i32, vp, vp, vp, vp, i64, vp]
-    if "mg_smooth.cu" in sources:
-        lib.mt_mg_presmooth.restype = i32
-        lib.mt_mg_presmooth.argtypes = [i32, i32, vp, vp, vp, vp, vp, i32, i32, vp]
-        lib.mt_mg_postsmooth.restype = i32
-        lib.mt_mg_postsmooth.argtypes = [i32, i32, vp, vp, vp, vp, vp, vp, i32, i32, vp]
-    lib.has_mg_smooth = "mg_smooth.cu" in sources
-    if "lane_stencil_matvec.cu" in sources:
-        lib.mt_lane_stencil_matvec.restype = i32
-        lib.mt_lane_stencil_matvec.argtypes = [i32, i32, i32, vp, vp, vp, i32, i32, i64, i32, vp]
-        lib.mt_lane_stencil_matvec3.restype = i32
-        lib.mt_lane_stencil_matvec3.argtypes = [
-            i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i64, i32, vp]
-    lib.has_lane_stencil = "lane_stencil_matvec.cu" in sources
-    # the parent tree's ELL kernel and coarse smoother, by their C
-    # signatures there
-    if "ell_matvec.cu" in sources:
-        lib.mt_ell_matvec.restype = i32
-        lib.mt_ell_matvec.argtypes = [i32, vp, vp, vp, vp, i64, i64, i32, vp]
-    lib.has_ell = "ell_matvec.cu" in sources
-    if "lane_coarse_smooth.cu" in sources:
-        lib.mt_lane_coarse_smooth3.restype = i32
-        lib.mt_lane_coarse_smooth3.argtypes = [
-            i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i64, i32, ctypes.c_double, vp]
-    lib.has_lane_coarse = "lane_coarse_smooth.cu" in sources
-    # PR 14's assembly kernel, one thread a slot over int64 runs; later
-    # trees name their entries otherwise
-    lib.has_assemble = "assemble_pairs.cu" in sources and hasattr(lib, "mt_assemble_pairs")
-    if lib.has_assemble:
-        lib.mt_assemble_pairs.restype = i32
-        lib.mt_assemble_pairs.argtypes = [vp, vp, vp, vp, i64, i64, ctypes.c_double,
-                                          ctypes.c_double, ctypes.c_double, ctypes.c_double,
-                                          vp, vp]
-    lib.mt_error_string.restype = ctypes.c_char_p
-    lib.mt_error_string.argtypes = [i32]
-    return time.perf_counter() - t0, lib
+    name = "baseline_magnetite_tpu_torch"
+    pkg = os.path.join(os.path.abspath(tree), "magnetite_tpu_torch")
+    if name in sys.modules:
+        require(list(sys.modules[name].__path__) == [pkg],
+                f"a baseline is loaded from {sys.modules[name].__path__} already")
+        return sys.modules[name]
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
 
 
-def baseline_launchers(base):
-    """Calls of an older tree's band and prolong kernels (`base`, the
-    library of --baseline) on the same operands as the wrappers', or
-    (None, None) without one."""
+def parent_fn(base, module: str, name: str):
+    """`name` of the --baseline tree's `magnetite_tpu_torch.<module>`, or
+    None without --baseline or where that tree has none (said)."""
     if base is None:
-        return None, None
-    import torch
-    from magnetite_tpu_torch.kernels import cuda_lib
-
-    def dia(bands, u, offsets_dev):
-        d, m, _, n = bands.shape
-        y = torch.empty_like(u)
-        rc = base.mt_dia_matvec(cuda_lib.DTYPE_CODES[u.dtype], m, bands.data_ptr(),
-                                offsets_dev.data_ptr(), d, u.data_ptr(), y.data_ptr(), n,
-                                cuda_lib.stream_of(u))
-        cuda_lib.check(base, rc, "baseline dia_matvec")
-        return y
-
-    def prolong(ec, agg, p0):
-        n0 = agg.shape[0]
-        u0 = torch.empty((2, n0), dtype=ec.dtype, device=ec.device)
-        rc = base.mt_prolong0(cuda_lib.DTYPE_CODES[ec.dtype], ec.data_ptr(), agg.data_ptr(),
-                              p0.data_ptr(), u0.data_ptr(), n0, cuda_lib.stream_of(ec))
-        cuda_lib.check(base, rc, "baseline prolong0")
-        return u0
-
-    return dia, prolong
-
-
-def baseline_ell_launcher(base):
-    """A call of an older tree's ELL kernel on the wrapper's operands, or
-    None where --baseline is absent or its tree has none."""
-    if base is None or not base.has_ell:
         return None
-    import torch
-    from magnetite_tpu_torch.kernels import cuda_lib
-
-    def ell(data, cols, u):
-        k, n = cols.shape
-        y = torch.empty((2, n), dtype=u.dtype, device=u.device)
-        rc = base.mt_ell_matvec(cuda_lib.DTYPE_CODES[u.dtype], data.data_ptr(), cols.data_ptr(),
-                                u.data_ptr(), y.data_ptr(), n, u.shape[1], k,
-                                cuda_lib.stream_of(u))
-        cuda_lib.check(base, rc, "baseline ell_matvec")
-        return y
-
-    return ell
-
-
-def baseline_coarse_launcher(base):
-    """A call of an older tree's fused coarse smoother (the same C
-    signature) on the wrapper's operands, or None where --baseline is
-    absent or its tree has none."""
-    if base is None or not base.has_lane_coarse:
-        return None
-    import torch
-    from magnetite_tpu_torch.kernels import cuda_lib
-
-    def coarse(packed, dinv, w3, r, wrap, sweeps, omega):
-        rows, cols, nb = r.shape[1], r.shape[2], r.shape[3]
-        e = torch.empty_like(r)
-        rc = base.mt_lane_coarse_smooth3(
-            cuda_lib.DTYPE_CODES[r.dtype], int(wrap), packed.data_ptr(), dinv.data_ptr(),
-            *(w.data_ptr() for w in w3), r.data_ptr(), e.data_ptr(), rows, cols, nb, sweeps,
-            omega, cuda_lib.stream_of(r))
-        cuda_lib.check(base, rc, "baseline lane_coarse_smooth3")
-        return e
-
-    return coarse
-
-
-def baseline_mg_launchers(base):
-    """Calls of an older tree's mg_presmooth / mg_postsmooth kernels on the
-    same operands as the wrappers', or (None, None) where --baseline is
-    absent or its tree has none."""
-    if base is None or not base.has_mg_smooth:
-        return None, None
-    import torch
-    from magnetite_tpu_torch.kernels import cuda_lib
-    from magnetite_tpu_torch.kernels.mg_smooth_kernel import coarse_shape
-
-    def pre(st, dinv, r, wrap):
-        rows, cols = r.shape[-2:]
-        e = torch.empty_like(r)
-        rc = torch.empty((2, *coarse_shape(rows, cols, wrap)), dtype=r.dtype, device=r.device)
-        code = base.mt_mg_presmooth(cuda_lib.DTYPE_CODES[r.dtype], int(wrap), st.data_ptr(),
-                                    dinv.data_ptr(), r.data_ptr(), e.data_ptr(), rc.data_ptr(),
-                                    rows, cols, cuda_lib.stream_of(r))
-        cuda_lib.check(base, code, "baseline mg_presmooth")
-        return e, rc
-
-    def post(st, dinv, r, e, ec, wrap):
-        rows, cols = r.shape[-2:]
-        out = torch.empty_like(r)
-        code = base.mt_mg_postsmooth(
-            cuda_lib.DTYPE_CODES[r.dtype], int(wrap), st.data_ptr(), dinv.data_ptr(),
-            r.data_ptr(), None if e is None else e.data_ptr(),
-            None if ec is None else ec.data_ptr(), out.data_ptr(), rows, cols,
-            cuda_lib.stream_of(r))
-        cuda_lib.check(base, code, "baseline mg_postsmooth")
-        return out
-
-    return pre, post
+    try:
+        found = getattr(importlib.import_module(f"{base.__name__}.{module}"), name, None)
+    except ModuleNotFoundError:
+        found = None
+    if found is None:
+        say(f"  (the --baseline tree has no {module}.{name}: its rounds are left out)")
+    return found
 
 
 def phase_band_and_transfer(problem, reps, flush, rand, base=None):
     """Phases 2 and 3: the band and transfer kernels against their plain
-    versions on the card (and against an older tree's, `base`)."""
+    versions on the card (and against another tree's wrappers, `base`, the
+    package load_baseline imported)."""
     import torch
     from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec, dia_matvec_blocks
     from magnetite_tpu_torch.kernels.transfer_kernel import (
         prolong0, prolong0_plain, restrict0, restrict0_plain,
     )
 
-    base_dia, base_prolong = baseline_launchers(base)
+    base_dia = parent_fn(base, "kernels.dia_kernel", "dia_matvec")
+    base_prolong = parent_fn(base, "kernels.transfer_kernel", "prolong0")
     results = {}
     # the banded levels the V-cycle runs its matvec on: all but the
     # coarsest, and the coarsest only where it has no dense inverse
@@ -959,8 +828,9 @@ def phase_band_and_transfer(problem, reps, flush, rand, base=None):
                     f"{tag}: a second call differs")
             parent = None
             if base_dia is not None:
-                compare(f"parent {tag}", base_dia(bands, u, offsets_dev), ref, scale, tol)
-                parent = lambda: base_dia(bands, u, offsets_dev)  # noqa: E731
+                compare(f"parent {tag}", base_dia(bands, offsets, u, offsets_dev), ref, scale,
+                        tol)
+                parent = lambda: base_dia(bands, offsets, u, offsets_dev)  # noqa: E731
             a = csr_of_bands(bands, offsets)
             x = u.reshape(-1)
             compare(f"library CSR SpMV {tag}", torch.mv(a, x).reshape(m, n), ref, scale, tol)
@@ -1258,17 +1128,6 @@ def print_prep(label, runs: dict):
         for k in PREP_STAGES + ("prep", "solve_s")) + f"  [{' / '.join(runs)}]")
 
 
-def child_cli_stages(argv, env_extra) -> dict:
-    """The CLI in a fresh process (its own heap and CUDA context): its stage
-    times."""
-    env = dict(os.environ, **env_extra)
-    proc = subprocess.run([sys.executable, "-m", "magnetite_tpu_torch.cli", *argv],
-                          capture_output=True, text=True, timeout=600, env=env,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
-    require(proc.returncode == 0, f"child CLI failed: {proc.stderr[-2000:]}")
-    return cli_stages(proc.stdout)
-
-
 def observed_solve(name, problem, kernel, totals):
     """Phase 21d on one compiled problem with residual_history=64 and
     cg_progress_every=8: the history's length and last entry, the progress
@@ -1309,9 +1168,8 @@ def observed_solve(name, problem, kernel, totals):
 
 def phase_resume(problem, mesh, bca, md, args, totals):
     """Phase 21: the Delaunay plate saved by one CLI run and resumed by
-    others (f64 and mixed), the malloc tuning's prep A/B in fresh processes,
-    residual history and progress on the plate and the structured plate,
-    and --profile on a small CLI run."""
+    others (f64 and mixed), residual history and progress on the plate and
+    the structured plate, and --profile on a small CLI run."""
     from magnetite_tpu_torch import persist
     from magnetite_tpu_torch.config import SolverOptions
     from magnetite_tpu_torch.fem.solve import compile_problem
@@ -1322,7 +1180,7 @@ def phase_resume(problem, mesh, bca, md, args, totals):
         paths = write_case_files(workdir, h)
         case = os.path.join(workdir, "case.npz")
         flags = ["--device", DEV, "--skip"]
-        dirs = {k: os.path.join(workdir, k) for k in ("fresh", "resumed", "mixed", "child")}
+        dirs = {k: os.path.join(workdir, k) for k in ("fresh", "resumed", "mixed")}
         for d in dirs.values():
             os.makedirs(d)
         expect = ("dia_matvec m=2", "dia_matvec m=3", "prolong0", "restrict0")
@@ -1350,23 +1208,16 @@ def phase_resume(problem, mesh, bca, md, args, totals):
         resumed = resume_cli("the --load-case CLI run", problem, [
             paths[0], "--load-case", case, "--out-dir", dirs["resumed"]] + flags,
             fresh, totals)
-        mixed = resume_cli("the --load-case --precision mixed CLI run", problem, [
+        resume_cli("the --load-case --precision mixed CLI run", problem, [
             paths[0], "--load-case", case, "--precision", "mixed",
             "--out-dir", dirs["mixed"]] + flags, fresh, totals)
-        print_prep("prep stages, fresh / resumed / resumed mixed",
-                   {"fresh": fresh_stages, "resumed": resumed, "mixed": mixed})
+        say(f"  the --load-case run skips its prep: assemble_s {resumed['assemble_s']:.4f} "
+            f"(fresh {fresh_stages['assemble_s']:.4f}), amg_build_s "
+            f"{resumed['amg_build_s']:.4f} (fresh {fresh_stages['amg_build_s']:.4f}), "
+            f"mesh stage {'run' if 'mesh' in resumed else 'none'}")
         require(resumed["assemble_s"] < 0.1 * fresh_stages["assemble_s"]
                 and resumed["amg_build_s"] < 0.1 * fresh_stages["amg_build_s"]
                 and "mesh" not in resumed, "the resumed run did not skip its prep stages")
-
-        say("  malloc tuning: the same fresh CLI run in child processes, tuned and with "
-            "MAGNETITE_NO_MALLOC_TUNE=1, twice each, interleaved")
-        child = {}
-        for rnd in range(2):
-            for tag, env in (("tuned", {}), ("untuned", {"MAGNETITE_NO_MALLOC_TUNE": "1"})):
-                child[f"{tag} {rnd + 1}"] = child_cli_stages(
-                    paths + flags + ["--backend", "delaunay", "--out-dir", dirs["child"]], env)
-        print_prep("prep stages of the children", child)
 
     say("  residual history (64) and progress (every 8) through compile_problem / solve")
     opts = SolverOptions(residual_history=64, cg_progress_every=8)
@@ -1433,7 +1284,6 @@ def check_vcycle_launches(key, problem, got, vcycles_run):
     COARSE_SWEEPS / SWEEPS post-smoothing launches), and no coarse level
     calls stencil_matvec."""
     from magnetite_tpu_torch.fem.multigrid import COARSE_SWEEPS, SWEEPS
-    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
 
     levels = problem.system.mg_levels
     pre = len(levels) - 1
@@ -1445,11 +1295,11 @@ def check_vcycle_launches(key, problem, got, vcycles_run):
             and got["mg_postsmooth"] == post * vcycles_run,
             f"structured {key}: fused smoothing launches per V-cycle")
     coarse = {(lv.rows, lv.cols) for lv in levels[1:]}
-    stray = [k for k in stencil_matvec.shape_launches if k[:2] in coarse]
+    stray = [k for k in by_shape(got, "mt_stencil_matvec") if k[:2] in coarse]
     require(not stray, f"structured {key}: stencil_matvec launched at coarse levels {stray}")
 
 
-def phase_structured(nr, nt, totals, profile, refs=None):
+def phase_structured(nr, nt, totals, refs=None):
     """Phase 7: the structured plate, f32 storage + refinement, and f64.
     Returns the f64 solve's multigrid levels, finest (the reduced operator)
     first; `refs`, when given, receives each solve's answer (u, stress, von
@@ -1479,10 +1329,9 @@ def phase_structured(nr, nt, totals, profile, refs=None):
         )
         t = res.timings
         rel = true_residual_stencil(problem, res)
-        warm = [problem.solve().timings["solve_s"] for _ in range(3)]
         say(f"  {key}: prep {prep:.3f} s (upload {t['upload_s']:.4f}, assemble "
             f"{t['assemble_s']:.4f}, multigrid build {t['mg_build_s']:.4f}; levels "
-            f"{t['mg_levels']}), first solve_s {t['solve_s']:.4f}, warm {warm}")
+            f"{t['mg_levels']}), first solve_s {t['solve_s']:.4f}")
         extra = ""
         if refine:
             inner = t["refine_inner"]
@@ -1500,10 +1349,6 @@ def phase_structured(nr, nt, totals, profile, refs=None):
             f"{res.residual_rel:.3e}; true relative residual {rel:.3e} (<= 1e-08)")
         require(rel <= 1e-8, f"structured {key}: true residual too large")
         check_vcycle_launches(key, problem, got, run)
-        if refine:
-            if profile:
-                profile_call("solve", problem.solve)
-            vcycle_times(problem)
         if not refine:
             keep = problem.system.mg_levels
         del problem
@@ -1512,10 +1357,15 @@ def phase_structured(nr, nt, totals, profile, refs=None):
 
 
 def profile_call(label, fn):
-    """One warm call under torch.profiler (ending in a device sync): kernel
-    time by name and the device's idle share of the call's wall time."""
+    """One warm call under torch.profiler (ending in a device sync),
+    reduced by the benchmark's tracer (benchmark/harness/trace.py) and read
+    by its device.idle_share metric: the device's busy time and idle share
+    of the call's wall time, kernel time by name, and the host activity
+    that the idle time fell in."""
+    import collections
+    import types
+
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1524,48 +1374,17 @@ def profile_call(label, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side events only (kernels and copies): the aten rows would
-    # count the same kernels a second time
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    say(f"  profiled {label}: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms in "
-        f"{len(dev)} device events, idle {1 - busy / (wall * 1e3):.1%}")
-    by_name: dict = {}
-    for e in dev:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        say(f"    {ms:9.3f} ms  {n:6d}x  {name[:90]}")
-
-
-def vcycle_times(problem):
-    """One V-cycle of the f32 hierarchy: host enqueue time against device
-    time (median of 10)."""
-    import torch
-    from magnetite_tpu_torch.fem.multigrid import vcycle_preconditioner
-
-    apply = vcycle_preconditioner(problem.system.mg_levels, problem.system.grid.wrap)
-    r = torch.randn(2, problem.system.grid.rows, problem.system.grid.cols, device=DEV)
-    for _ in range(3):
-        apply(r)
-    torch.cuda.synchronize()
-    host, device = [], []
-    for _ in range(10):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        # the device spins while the host enqueues the whole cycle, so the
-        # events time the device's work and not the host's pace
-        torch.cuda._sleep(200_000_000)
-        start.record()
-        t0 = time.perf_counter()
-        apply(r)
-        host.append((time.perf_counter() - t0) * 1e3)
-        end.record()
-        end.synchronize()
-        device.append(start.elapsed_time(end))
-    say(f"  one V-cycle ({len(problem.system.mg_levels)} levels, f32): host enqueue "
-        f"{statistics.median(host):.3f} ms, device {statistics.median(device):.3f} ms "
-        "(median of 10)")
+    tr = trace.reduce(prof.events(), wall)
+    idle = spec.load_module(IDLE_SHARE, "bench_metric_device_idle_share").read(
+        types.SimpleNamespace(trace=tr))
+    say(f"  profiled {label}: wall {wall * 1e3:.1f} ms, device busy {tr.busy_s * 1e3:.1f} ms in "
+        f"{len(tr.kernels)} device events, idle "
+        + ("not measured" if idle is None else f"{idle:.1f}%"))
+    calls = collections.Counter(trace.short_name(name) for name, _ in tr.kernels)
+    for name, seconds in tr.device_ops:
+        say(f"    {seconds * 1e3:9.3f} ms  {calls[name]:6d}x  {name[:90]}")
+    for what, seconds in tr.idle_gaps[:5]:
+        say(f"    idle {seconds * 1e3:9.3f} ms in {what[:90]}")
 
 
 def phase_stencil_kernel(levels_1m, big, rect_cells, reps, flush, rand, totals):
@@ -1673,12 +1492,13 @@ def phase_mg_smooth(levels_1m, rect_cells, reps, flush, rand, totals, base=None)
     """Phase 14: the fused V-cycle kernels against their plain versions at
     every smoothing level of the 1M plate and of the --rect hierarchy, f64
     and f32, timed against the unfused sequence (and with --baseline the
-    older tree's kernels) in interleaved rounds; then the --rect
+    other tree's wrappers) in interleaved rounds; then the --rect
     hierarchy's V-cycle on the card against the CPU's."""
     import torch
     from magnetite_tpu_torch.fem.multigrid import (
         COARSE_SWEEPS, SWEEPS, MGLevel, _center_inverse, vcycle_preconditioner,
     )
+    from magnetite_tpu_torch.kernels import cuda_lib
     from magnetite_tpu_torch.kernels import mg_smooth_kernel as mgk
 
     def parts(x):  # a kernel's outputs as a tuple
@@ -1699,7 +1519,8 @@ def phase_mg_smooth(levels_1m, rect_cells, reps, flush, rand, totals, base=None)
              if lv.dense_inv is None]
     cases += [(f"rect level {k}", lv, False) for k, lv in enumerate(rlev)]
     results = {}
-    parent_pre, parent_post = baseline_mg_launchers(base)
+    parent_pre = parent_fn(base, "kernels.mg_smooth_kernel", "mg_presmooth")
+    parent_post = parent_fn(base, "kernels.mg_smooth_kernel", "mg_postsmooth")
     for label, lv, wrap in cases:
         rows, cols = lv.rows, lv.cols
         coarsest = lv is rlev[-1]
@@ -1759,7 +1580,7 @@ def phase_mg_smooth(levels_1m, rect_cells, reps, flush, rand, totals, base=None)
                     fns["parent"] = parent
                 med = interleaved(tag, fns, reps, flush, ROUNDS)
                 plain_ms = event_ms(plain, reps, flush)
-                b_ms, b_by = bound(nbytes, flops, dtype)
+                b_ms, b_by = least_ms(nbytes, flops, dtype)
                 ms = med["kernel"]
                 per_shape = totals.get("per shape")
                 launches = ("phase 7 not run" if per_shape is None
@@ -1780,11 +1601,11 @@ def phase_mg_smooth(levels_1m, rect_cells, reps, flush, rand, totals, base=None)
     # the whole V-cycle over the coarsest-smoothing hierarchy, card against
     # CPU (plain versions on the same levels)
     r = rand(2, rr, rcols, dtype=torch.float64)
-    before = {k.__name__: k.launches for k in (mgk.mg_presmooth, mgk.mg_postsmooth)}
+    entries = ("mt_mg_presmooth", "mt_mg_postsmooth")
+    before = [cuda_lib.launched(e) for e in entries]
     card = vcycle_preconditioner(rlev, False)(r)
     torch.cuda.synchronize()
-    pre = mgk.mg_presmooth.launches - before["mg_presmooth"]
-    post = mgk.mg_postsmooth.launches - before["mg_postsmooth"]
+    pre, post = (cuda_lib.launched(e) - b for e, b in zip(entries, before))
     require(pre == len(rlev) - 1 and post == len(rlev) - 1 + COARSE_SWEEPS // SWEEPS,
             f"--rect V-cycle launched {pre} / {post} fused kernels")
     cpu_levels = [MGLevel(stencil=lv.stencil.cpu(), diag_inv=lv.diag_inv.cpu(), rows=lv.rows,
@@ -1927,13 +1748,15 @@ def ptxas_of(kernel: str) -> list:
     return out
 
 
-def took_route(wrapper, fn, route):
-    """Run fn (one call of the lane wrapper `wrapper`, K7's or K8's) and
-    require that it took `route`."""
-    before = wrapper.ring_launches
+def took_route(ring_entry, fn, route):
+    """Run fn (one call of K7's or K8's wrapper, whose ring route launches
+    `ring_entry`) and require that it took `route`."""
+    from magnetite_tpu_torch.kernels import cuda_lib
+
+    before = cuda_lib.launched(ring_entry)
     y = fn()
-    took = "ring" if wrapper.ring_launches > before else "direct"
-    require(took == route, f"{wrapper.__name__} took the {took} route, expected {route}")
+    took = "ring" if cuda_lib.launched(ring_entry) > before else "direct"
+    require(took == route, f"{ring_entry}: the call took the {took} route, expected {route}")
     return y
 
 
@@ -2006,7 +1829,7 @@ def phase_lane_kernels(sweeps, reps, flush, rand):
         tag = f"lane_dia_matvec D={len(offsets)} N={n} B={nb} {name}"
         plan = lane_window_plan(offsets, n, nb, dtype, sms=sms)
         require(plan.route == "ring", f"K7 {name} at the sweep plate left the ring route")
-        err = compare(tag, took_route(lane_dia_matvec,
+        err = compare(tag, took_route("mt_lane_dia_ring",
                                       lambda: lane_dia_matvec(bands, offsets, u, od), "ring"),
                       ref, scale, tol7)
         describe_plan(f"K7 {name}", plan, 1, es)
@@ -2033,7 +1856,7 @@ def phase_lane_kernels(sweeps, reps, flush, rand):
         tag = f"lane_dia_matvec3 D={len(offsets)} N={n} B={nb} {name}"
         plan3 = lane_window_plan(offsets, n, nb, dtype, sms=sms, sets=3)
         require(plan3.route == "ring", f"K8 {name} at the sweep plate left the ring route")
-        err = compare(tag, took_route(lane_dia_matvec3,
+        err = compare(tag, took_route("mt_lane_dia_ring3",
                                       lambda: lane_dia_matvec3(bands3, w3, offsets, u, od),
                                       "ring"), ref, scale, tol8)
         describe_plan(f"K8 {name}", plan3, 3, es)
@@ -2060,11 +1883,12 @@ def phase_lane_kernels(sweeps, reps, flush, rand):
             u = rand(2, b7.shape[-1], 1000, dtype=dtype)
             w3 = weights(1000, dtype)
             compare(f"lane_dia_matvec {label} {name} ({route})",
-                    took_route(lane_dia_matvec, lambda: lane_dia_matvec(b7, offs, u), route),
+                    took_route("mt_lane_dia_ring", lambda: lane_dia_matvec(b7, offs, u), route),
                     lane_dia_matvec_plain(b7, offs, u),
                     lane_dia_matvec_plain(b7.abs(), offs, u.abs()).max(), tol7)
             compare(f"lane_dia_matvec3 {label} {name} ({route})",
-                    took_route(lane_dia_matvec3, lambda: lane_dia_matvec3(b3, w3, offs, u), route),
+                    took_route("mt_lane_dia_ring3", lambda: lane_dia_matvec3(b3, w3, offs, u),
+                               route),
                     lane_dia_matvec3_plain(b3, w3, offs, u),
                     lane_dia_matvec3_plain(tuple(b.abs() for b in b3), w3, offs, u.abs()).max(),
                     tol8)
@@ -2414,13 +2238,10 @@ def grid_launches(shapes, dense, iterations, material, es):
     return out
 
 
-def check_grid_launches(label, sweep, material):
-    """The lane kernels' launches per shape in the run just counted (the
-    wrappers' .shape_launches) against grid_launches."""
-    from magnetite_tpu_torch.kernels.lane_coarse_kernel import lane_coarse_smooth3
-    from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
-        lane_stencil_matvec, lane_stencil_matvec3,
-    )
+def check_grid_launches(label, sweep, material, got):
+    """The lane kernels' launches per shape in the main path `got` against
+    grid_launches."""
+    from magnetite_tpu_torch.fem.multigrid import COARSE_SWEEPS
 
     if material:
         shapes, dense = [tuple(lv.sa.shape[-2:]) for lv in sweep.setup[1]], False
@@ -2430,13 +2251,14 @@ def check_grid_launches(label, sweep, material):
     es = sweep.dtype.itemsize
     want = grid_launches(shapes, dense, sweep.iterations, material, es)
     seen = {}
-    for tag, k in (("S1", lane_stencil_matvec), ("S3", lane_stencil_matvec3),
-                   ("coarse", lane_coarse_smooth3)):
-        for (r, c, _), n in k.shape_launches.items():
+    for tag, entry in (("S1", "mt_lane_stencil_matvec"), ("S3", "mt_lane_stencil_matvec3"),
+                       ("coarse", "mt_lane_coarse_smooth3")):
+        for (r, c, _), n in by_shape(got, entry).items():
             seen[tag, (r, c)] = seen.get((tag, (r, c)), 0) + n
+    # a per-sweep coarse solve is COARSE_SWEEPS - 1 S = 3 launches at the coarsest shape
+    per_sweep = seen.get(("S3", shapes[-1]), 0) // (COARSE_SWEEPS - 1) if material else 0
     say(f"  {label}: lane kernel launches per shape {sorted(seen.items())}, derived from the "
-        f"hierarchy {sorted(want.items())}; per-sweep coarse solves "
-        f"{lane_coarse_smooth3.per_sweep}")
+        f"hierarchy {sorted(want.items())}; per-sweep coarse solves {per_sweep}")
     require(seen == want, f"{label}: lane kernel launches {seen}, expected {want}")
 
 
@@ -2470,12 +2292,12 @@ def run_grid_sweep(name, sweep, case, material, expect, totals, profile=False):
     dtype = sweep.dtype
     args = grid_batch(case, SWEEP_LANES, 0, dtype, material)
     sync()
-    with main_path(name, totals, expect):
+    with main_path(name, totals, expect) as got:
         t0 = time.perf_counter()
         res = sweep.solve(*args)
         sync()
         first = time.perf_counter() - t0
-    check_grid_launches(name, sweep, material)
+    check_grid_launches(name, sweep, material, got)
     warm = []
     for seed in range(1, GRID_WARM + 1):
         batch = grid_batch(case, SWEEP_LANES, seed, dtype, material)
@@ -2635,52 +2457,6 @@ def lane_coarse_bound(rows, cols, nb, es, wrap, sweeps):
     return nbytes, nb * (24 * inside + 8 * n + (sweeps - 1) * (8 * inside + 12 * n))
 
 
-def parent_lane_plan(rows, cols, nb, es, aligned, sms):
-    """The parent tree's lane_stencil_plan (PR 9's register-window kernel):
-    (lanes per thread, rows per strip)."""
-    vec = 16 // es if aligned and nb % (16 // es) == 0 else 1
-    per_strip = -(-nb // vec) * cols
-    strips = min(rows, max(1, -(-(sms * 2048) // per_strip)))
-    return vec, -(-rows // strips)
-
-
-def baseline_lane_launchers(base):
-    """Calls of an older tree's lane stencil kernel, S = 1 and S = 3 (the
-    library of --baseline: PR 9's C signatures, stencils in the JAX layout,
-    contiguous), or (None, None) where --baseline is absent or its tree has
-    none."""
-    if base is None or not base.has_lane_stencil:
-        return None, None
-    import torch
-    from magnetite_tpu_torch.kernels import cuda_lib
-
-    def plan(u, y, ws):
-        aligned = all(t.data_ptr() % 16 == 0 for t in (u, y, *ws))
-        return parent_lane_plan(u.shape[1], u.shape[2], u.shape[3], u.element_size(), aligned,
-                                cuda_lib.sm_count(u.device))
-
-    def s1(st, u, wrap):
-        y = torch.empty_like(u)
-        vec, strip = plan(u, y, ())
-        rc = base.mt_lane_stencil_matvec(cuda_lib.DTYPE_CODES[u.dtype], int(wrap), vec,
-                                         st.data_ptr(), u.data_ptr(), y.data_ptr(), u.shape[1],
-                                         u.shape[2], u.shape[3], strip, cuda_lib.stream_of(u))
-        cuda_lib.check(base, rc, "baseline lane_stencil_matvec")
-        return y
-
-    def s3(st4, w3, u, wrap):
-        y = torch.empty_like(u)
-        vec, strip = plan(u, y, w3)
-        rc = base.mt_lane_stencil_matvec3(
-            cuda_lib.DTYPE_CODES[u.dtype], int(wrap), vec, *(s.data_ptr() for s in st4),
-            *(w.data_ptr() for w in w3), u.data_ptr(), y.data_ptr(), u.shape[1], u.shape[2],
-            u.shape[3], strip, cuda_lib.stream_of(u))
-        cuda_lib.check(base, rc, "baseline lane_stencil_matvec3")
-        return y
-
-    return s1, s3
-
-
 def phase_lane_stencil_kernel(grid, reps, flush, rand, totals, base=None):
     """Phase 17 (run after 15-16): both lane stencil kernel instances on
     packed stencils against their plain versions at the bench grid and its
@@ -2711,8 +2487,11 @@ def phase_lane_stencil_kernel(grid, reps, flush, rand, totals, base=None):
     for kernel in ("lane_stencil_kernel", "lane_coarse_smooth3_kernel"):
         for line in ptxas_of(kernel):
             say(f"  ptxas: {line}")
-    parent1, parent3 = baseline_lane_launchers(base)
-    parent_coarse = baseline_coarse_launcher(base)
+    parent1 = parent_fn(base, "kernels.lane_stencil_kernel", "lane_stencil_matvec")
+    parent3 = parent_fn(base, "kernels.lane_stencil_kernel", "lane_stencil_matvec3")
+    parent_coarse = parent_fn(base, "kernels.lane_coarse_kernel", "lane_coarse_smooth3")
+    # the other tree's wrappers take stencils packed by their own module's class
+    packed_as = parent_fn(base, "kernels.lane_stencil_kernel", "PackedStencils")
     plate = plate_with_hole_mesh(32, 64)
     pbca = tensile_bcs_for_rect(plate.coords, pull=0.01)
     nb = SWEEP_LANES
@@ -2744,6 +2523,7 @@ def phase_lane_stencil_kernel(grid, reps, flush, rand, totals, base=None):
             rows, cols = st.shape[-2:]
             st, level = st.contiguous(), tuple(s.contiguous() for s in level)
             u = rand(2, rows, cols, nb, dtype=dtype)
+            ppst, pplevel = (packed_as(*pst), packed_as(*plevel)) if packed_as else (None, None)
             tag = f"lane_stencil_matvec {label} B={nb} {name}"
             ref = lane_stencil_matvec_plain(st, u, wrap)
             scale = lane_stencil_matvec_plain(st.abs(), u.abs(), wrap).max()
@@ -2752,7 +2532,7 @@ def phase_lane_stencil_kernel(grid, reps, flush, rand, totals, base=None):
             require(torch.equal(lane_stencil_matvec(pst, u, wrap), got),
                     f"{tag}: a second launch differs")
             if parent1 is not None:
-                compare(f"parent {tag}", parent1(st, u, wrap), ref, scale, tol)
+                compare(f"parent {tag}", parent1(ppst, u, wrap), ref, scale, tol)
             a = csr_of_stencil(st, wrap)
             x = u.reshape(2 * rows * cols, nb)
             compare(f"library CSR SpMM {tag}", torch.sparse.mm(a, x).reshape(u.shape), ref, scale,
@@ -2762,7 +2542,7 @@ def phase_lane_stencil_kernel(grid, reps, flush, rand, totals, base=None):
                               lambda: torch.sparse.mm(a, x), reps, flush,
                               *lane_stencil_bound(rows, cols, nb, 1, es, wrap), dtype,
                               rounds=ROUNDS,
-                              parent=parent1 and (lambda: parent1(st, u, wrap)))
+                              parent=parent1 and (lambda: parent1(ppst, u, wrap)))
             say(f"    launches over the main paths: "
                 f"{launches('lane_stencil_matvec', rows, cols, name)}")
             results[f"lane_stencil_matvec {label} {name}"] = dict(max_abs_err=err, **row)
@@ -2776,11 +2556,11 @@ def phase_lane_stencil_kernel(grid, reps, flush, rand, totals, base=None):
             require(torch.equal(lane_stencil_matvec3(plevel, w3, u, wrap), got),
                     f"{tag}: a second launch differs")
             if parent3 is not None:
-                compare(f"parent {tag}", parent3(level, w3, u, wrap), ref, scale, tol)
+                compare(f"parent {tag}", parent3(pplevel, w3, u, wrap), ref, scale, tol)
             row = time_kernel(tag, lambda: lane_stencil_matvec3(plevel, w3, u, wrap),
                               lambda: lane_material_matvec_plain(level, w3, u, wrap), None,
                               reps, flush, *lane_stencil_bound(rows, cols, nb, 3, es, wrap), dtype,
-                              parent=parent3 and (lambda: parent3(level, w3, u, wrap)))
+                              parent=parent3 and (lambda: parent3(pplevel, w3, u, wrap)))
             say(f"    launches over the main paths: "
                 f"{launches('lane_stencil_matvec3', rows, cols, name)}")
             results[f"lane_stencil_matvec3 {label} {name}"] = dict(max_abs_err=err, **row)
@@ -2821,19 +2601,20 @@ def phase_lane_stencil_kernel(grid, reps, flush, rand, totals, base=None):
             require(torch.equal(fused(), got), f"{tag}: a second launch differs")
             compare(f"unfused {tag}", unfused(), ref, ref.abs().max(), tol)
             fns = {"kernel": fused}
+            pplevel = packed_as and packed_as(*plevel)
             if parent_coarse is not None:
                 def parent():
-                    return parent_coarse(plevel.data, dinv, w3, r, wrap, COARSE_SWEEPS, OMEGA)
+                    return parent_coarse(pplevel, dinv, w3, r, wrap, COARSE_SWEEPS, OMEGA)
                 compare(f"parent {tag}", parent(), ref, ref.abs().max(), tol)
                 fns["parent"] = parent
             fns["unfused"] = unfused
             if parent3 is not None:
                 fns["unfused parent"] = lambda: lc._smooth(
-                    lambda e: parent3(level, w3, e, wrap), dinv, r, COARSE_SWEEPS, OMEGA)
+                    lambda e: parent3(pplevel, w3, e, wrap), dinv, r, COARSE_SWEEPS, OMEGA)
             med = interleaved(tag, fns, reps, flush, ROUNDS)
             plain_ms = event_ms(plain, reps, flush)
             nbytes, flops = lane_coarse_bound(rows, cols, nb, es, wrap, COARSE_SWEEPS)
-            b_ms, b_by = bound(nbytes, flops, dtype)
+            b_ms, b_by = least_ms(nbytes, flops, dtype)
             ms = med["kernel"]
             par = (f", unfused through the parent's S = 3 {med['unfused parent']:.4f} ms"
                    if "unfused parent" in med else "")
@@ -2936,6 +2717,7 @@ def phase_lane_ell_kernel(case, shuf, reps, flush, rand):
     beside its bound, its plain version and cuSPARSE SpMM of the same CSR
     matrix on u.reshape(2N, B)."""
     import torch
+    from magnetite_tpu_torch.kernels import cuda_lib
     from magnetite_tpu_torch.kernels.lane_ell_kernel import (
         lane_ell_matvec, lane_ell_matvec_plain,
     )
@@ -2952,9 +2734,10 @@ def phase_lane_ell_kernel(case, shuf, reps, flush, rand):
             for nb in (SWEEP_LANES, 1000, 1):
                 u = rand(2, n, nb, dtype=dtype)
                 tag = f"lane_ell_matvec {label} N={n} W={w} B={nb} {name}"
-                before = lane_ell_matvec.launches
+                before = cuda_lib.launched("mt_lane_ell_matvec")
                 y, again = lane_ell_matvec(ell, cols, u), lane_ell_matvec(ell, cols, u)
-                require(lane_ell_matvec.launches == before + 2, f"{tag}: kernel not launched")
+                require(cuda_lib.launched("mt_lane_ell_matvec") == before + 2,
+                        f"{tag}: kernel not launched")
                 require(torch.equal(y, again), f"{tag}: a repeated call differs")
                 ref = lane_ell_matvec_plain(ell, cols, u)
                 scale = lane_ell_matvec_plain(ell.abs(), cols, u.abs()).max()
@@ -3162,24 +2945,24 @@ def lane_sweeps_card_vs_cpu(h, lanes=32, iterations=400):
     so u within 1e-9 of max|u|."""
     import numpy as np
     import torch
-    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec
-    from magnetite_tpu_torch.kernels.lane_ell_kernel import lane_ell_matvec
+    from magnetite_tpu_torch.kernels import cuda_lib
     from magnetite_tpu_torch.parallel.sweep import sweep_solve
 
     case = plate_case(h)
     shuf, perm, _ = shuffled_case(case)
-    for label, c, order, kernel in (("lanes, as meshed", case, None, lane_dia_matvec),
-                                    ("vmap, shuffled", shuf, perm, lane_ell_matvec)):
+    for label, c, order, kernel in (
+            ("lanes, as meshed", case, None, ("mt_lane_dia_ring", "mt_lane_dia_matvec")),
+            ("vmap, shuffled", shuf, perm, ("mt_lane_ell_matvec",))):
         out = {}
         for dev in (DEV, "cpu"):
             u, f, k = grid_batch(case, lanes, 18, torch.float64, False)
             if order is not None:
                 u, f = u[:, order], f[:, order]
-            before = kernel.launches
+            before = cuda_lib.launched(*kernel)
             out[dev] = sweep_solve(*c, u.to(dev), f.to(dev), k.to(dev), iterations=iterations,
                                    dtype="float64", impl="auto", device=dev).u.cpu().numpy()
-            require((kernel.launches > before) == (dev == DEV),
-                    f"{label}: {kernel.__name__} launches on the {dev}")
+            require((cuda_lib.launched(*kernel) > before) == (dev == DEV),
+                    f"{label}: {kernel} launches on the {dev}")
         a, b = out[DEV], out["cpu"]
         rel = float(np.abs(a - b).max() / np.abs(b).max())
         say(f"  {label} sweep card vs CPU, h={h} ({c[0].num_nodes} nodes), {lanes} lanes, f64, "
@@ -3201,7 +2984,7 @@ def ell_floor_rounds(tag, data, cols, u, reps, flush, nbytes, flops, dtype, base
     from magnetite_tpu_torch.kernels.ell_kernel import ell_matvec_t
 
     fns = {"kernel": lambda: ell_matvec_t(data, cols, u)}
-    parent = baseline_ell_launcher(base)
+    parent = parent_fn(base, "kernels.ell_kernel", "ell_matvec_t")
     if parent is not None:
         same = torch.equal(parent(data, cols, u), ell_matvec_t(data, cols, u))
         say(f"  {tag}: the parent's kernel bit-identical to the kernel: {same}")
@@ -3211,7 +2994,7 @@ def ell_floor_rounds(tag, data, cols, u, reps, flush, nbytes, flops, dtype, base
         x = torch.zeros(1, dtype=torch.float32, device=u.device)
         fns["launch floor"] = lambda: cuda_lib.launch_floor(x)
     med = interleaved(f"{tag} floor", fns, reps, flush, ROUNDS)
-    b_ms, b_by = bound(nbytes, flops, dtype)
+    b_ms, b_by = least_ms(nbytes, flops, dtype)
     floor = med.get("launch floor")
     for key, t in med.items():
         if key != "launch floor":
@@ -3257,7 +3040,7 @@ def phase_ell_kernel(mesh, md, reps, flush, rand, base=None):
         compare(f"library CSR SpMV {tag}", torch.mv(a, x).reshape(2, n), ref, scale, tol)
         es = data.element_size()
         nbytes, flops = n * k * (4 * es + 4) + 4 * n * es, 8 * n * k
-        parent = baseline_ell_launcher(base)
+        parent = parent_fn(base, "kernels.ell_kernel", "ell_matvec_t")
         row = time_kernel(
             tag, lambda: ell_matvec_t(data, cols, u), lambda: ell_matvec_t_plain(data, cols, u),
             lambda: torch.mv(a, x), reps, flush, nbytes, flops, dtype, rounds=ROUNDS,
@@ -3318,7 +3101,6 @@ def ell_cli(name, argv, totals, ell_problem, precision):
     the ELL kernel, the transfers and the m = 3 band kernel and of no
     other kernel. Returns (stdout, iterations, stage times)."""
     import torch
-    from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
 
     expect = ("ell_matvec_t", "prolong0", "restrict0", "dia_matvec m=3")
     with main_path(name, totals, expect) as got:
@@ -3333,7 +3115,7 @@ def ell_cli(name, argv, totals, ell_problem, precision):
                                          ell_problem.maxiter, vdtype)
     others = {k: c for k, c in got.items() if c and k.split(" ")[0] not in (
         "ell_matvec_t", "prolong0", "restrict0", "dia_matvec")}
-    got_shapes = {key: c for key, c in dia_matvec.shape_launches.items() if c}
+    got_shapes = by_shape(got, "mt_dia_matvec")
     say(f"  {name}: {iters} iterations, sweeps {sweeps}; launches expected {want}, "
         f"m=3 per shape {shapes}")
     require(all(got[k] == c for k, c in want.items()) and got_shapes == shapes
@@ -3564,59 +3346,10 @@ def sequential_sum(coords, tris, slot_ids, n_slots, mat):
 
 def relayout(flat, n_nodes, n_bands, ell):
     """[2, 2, S] -> the operator's [D, 2, 2, N] (DIA slots d N + n) or [K,
-    2, 2, N] (ELL slots n K + k): the parent tree's relayout after its
-    kernel, and the plain version's."""
+    2, 2, N] (ELL slots n K + k): the plain version's layout."""
     if ell:
         return flat.reshape(2, 2, n_nodes, n_bands).permute(3, 0, 1, 2).contiguous()
     return flat.reshape(2, 2, n_bands, n_nodes).permute(2, 0, 1, 3).contiguous()
-
-
-def parent_assembly(base, coords, tris, slot_ids, n_nodes, n_bands, ell, mat):
-    """The parent tree's device assembly (PR 14), stage by stage, through
-    --baseline's kernel `mt_assemble_pairs` (one thread a slot over int64
-    runs): the pair-major copy of the slot ids, its slot_runs (a stable
-    torch.sort, a bincount and a cumsum), the kernel, the relayout.
-    Returns ({stage: call on the earlier stages' results}, the whole
-    function), or None where the baseline tree has no such kernel."""
-    if base is None or not base.has_assemble:
-        return None
-    import torch
-    from magnetite_tpu_torch.fem.element import material_constants
-    from magnetite_tpu_torch.kernels import cuda_lib
-
-    e = tris.shape[0]
-    n_slots = n_bands * n_nodes
-    d0, d1, d2 = material_constants(mat[0], mat[1])
-
-    def pair_major():
-        return slot_ids.reshape(e, 3, 3).permute(1, 2, 0).reshape(-1)
-
-    def runs(slots):
-        order = torch.sort(slots, stable=True).indices
-        counts = torch.bincount(slots, minlength=n_slots)
-        starts = torch.zeros(n_slots + 1, dtype=torch.int64, device=slots.device)
-        torch.cumsum(counts, 0, out=starts[1:])
-        return order, starts
-
-    def kernel(order_starts):
-        order, starts = order_starts
-        out = torch.empty((2, 2, n_slots), dtype=torch.float64, device=coords.device)
-        rc = base.mt_assemble_pairs(coords.data_ptr(), tris.data_ptr(), order.data_ptr(),
-                                    starts.data_ptr(), e, n_slots, d0, d1, d2, float(mat[2]),
-                                    out.data_ptr(), cuda_lib.stream_of(coords))
-        cuda_lib.check(base, rc, "baseline assemble_pairs")
-        return out
-
-    def whole():
-        return relayout(kernel(runs(pair_major())), n_nodes, n_bands, ell)
-
-    slots = pair_major()
-    order_starts = runs(slots)
-    flat = kernel(order_starts)
-    stages = {"pair-major copy": pair_major, "slot_runs": lambda: runs(slots),
-              "kernel": lambda: kernel(order_starts),
-              "relayout": lambda: relayout(flat, n_nodes, n_bands, ell)}
-    return stages, whole
 
 
 def phase_assembly_kernel(mesh, md, reps, flush, base=None):
@@ -3624,12 +3357,13 @@ def phase_assembly_kernel(mesh, md, reps, flush, base=None):
     kernel) at the plate's DIA slots (the f64 compile's structure) and its
     ELL slots, f64: bit for bit the sequential pair-major sum, two calls
     bit for bit, within 1e-12 of the plain version, f32 the f64 sums
-    rounded once, and with --baseline bit for bit the parent tree's kernel
-    plus its relayout; the count and fill kernels against their plain
-    versions; then each stage timed, and in interleaved rounds the
-    assembly kernel, the parent's kernel, the whole function, the parent's
-    whole function (pair-major copy, slot_runs, kernel, relayout) and the
-    plain version (pair_block_fields, four index_add_, the layout)."""
+    rounded once, and with --baseline bit for bit the other tree's
+    assemble_pairs; the count and fill kernels against their plain
+    versions; then each stage timed (with --baseline the other tree's
+    assemble_count, assemble_fill and assembly kernel too), and in
+    interleaved rounds the assembly kernel, the other tree's, the whole
+    function, the other tree's assemble_pairs and the plain version
+    (pair_block_fields, four index_add_, the layout)."""
     import numpy as np
     import torch
     from magnetite_tpu_torch.fem.assembly import build_ell_structure
@@ -3646,6 +3380,8 @@ def phase_assembly_kernel(mesh, md, reps, flush, base=None):
     mat = (md.youngs_modulus, md.poisson_ratio, md.part_thickness)
     dia = build_dia_structure(mesh.tris, n, max_diags=48)
     ell = build_ell_structure(mesh.tris, n)
+    pk = {k: parent_fn(base, "kernels.assembly_kernel", k)
+          for k in ("assemble_pairs", "assemble_count", "assemble_fill", "build_runs")}
     results = {}
     for label, slot_ids, n_bands, is_ell in (
         ("DIA", dia.slot_ids, len(dia.offsets), False),
@@ -3672,13 +3408,23 @@ def phase_assembly_kernel(mesh, md, reps, flush, base=None):
         ref = plain()
         err = compare(tag, got, ref, ref.abs().max(), 1e-12)
         del ref
-        parent = parent_assembly(base, coords, tris, ids, n, n_bands, is_ell, mat)
+        parent = None
+        if all(pk.values()):
+            parent = {
+                "whole": lambda: pk["assemble_pairs"](coords, tris, ids, n, n_bands, *mat,
+                                                      ell=is_ell)[0],
+                "kernel": lambda runs=pk["build_runs"](coords, tris, ids, n_slots, mat[2]): (
+                    pk["assemble_pairs"](coords, tris, ids, n, n_bands, *mat, ell=is_ell,
+                                         runs=runs)),
+                "count (+ memset)": lambda: pk["assemble_count"](coords, tris, ids, n_slots,
+                                                                 mat[2]),
+            }
         say(f"  {tag}: [{n_bands}, 2, 2, {n}] bit for bit the sequential pair-major sum, "
             "two calls alike, f32 the f64 sums rounded once" + (
                 "" if parent is None else
-                f"; bit for bit the parent tree's: {torch.equal(got, parent[1]())}"))
+                f"; bit for bit the parent tree's: {torch.equal(got, parent['whole']())}"))
         if parent is not None:
-            require(torch.equal(got, parent[1]()), f"{tag}: differs from the parent tree's")
+            require(torch.equal(got, parent["whole"]()), f"{tag}: differs from the parent tree's")
         del got
 
         # the count and fill kernels against their plain versions
@@ -3712,16 +3458,19 @@ def phase_assembly_kernel(mesh, md, reps, flush, base=None):
                              setup=lambda: bounds.copy_(ends)),
         }
         say(f"  {tag} stages: " + "; ".join(f"{k} {v:.4f} ms" for k, v in stage.items())
-            + f"; count bound {bound(count_b, count_f, torch.float64)[0]:.4f} ms, fill bound "
-            f"{bound(fill_b, fill_f, torch.float64)[0]:.4f} ms")
+            + f"; count bound {least_ms(count_b, count_f, torch.float64)[0]:.4f} ms, fill bound "
+            f"{least_ms(fill_b, fill_f, torch.float64)[0]:.4f} ms")
         if parent is not None:
-            say(f"  {tag} parent stages: " + "; ".join(
-                f"{k} {event_ms(fn, reps, flush):.4f} ms" for k, fn in parent[0].items()))
+            p_fill = event_ms(lambda: pk["assemble_fill"](ids, bounds), reps, flush,
+                              setup=lambda: bounds.copy_(ends))
+            say(f"  {tag} parent stages: count (+ memset) "
+                f"{event_ms(parent['count (+ memset)'], reps, flush):.4f} ms; fill "
+                f"{p_fill:.4f} ms")
 
         fns = {"kernel": lambda: assemble_pairs(coords, tris, ids, n, n_bands, *mat,
                                                 ell=is_ell, runs=runs),
-               "parent kernel": None if parent is None else parent[0]["kernel"],
-               "whole": whole, "parent whole": None if parent is None else parent[1],
+               "parent kernel": None if parent is None else parent["kernel"],
+               "whole": whole, "parent whole": None if parent is None else parent["whole"],
                "plain": plain}
         med = interleaved(tag, {k: f for k, f in fns.items() if f is not None}, reps, flush,
                           ROUNDS)
@@ -3729,7 +3478,7 @@ def phase_assembly_kernel(mesh, md, reps, flush, base=None):
         fields = pair_block_fields(coords, tris, *mat)
         index_adds = event_ms(lambda: scatter_fields(fields, pm, n_slots), reps, flush)
         nbytes, flops = assembly_bytes_flops(n, e, n_slots)
-        b_ms, b_by = bound(nbytes, flops, torch.float64)
+        b_ms, b_by = least_ms(nbytes, flops, torch.float64)
         say(f"  {tag}: bound {b_ms:.4f} ms by {b_by}; kernel {med['kernel']:.4f} ms "
             f"({b_ms / med['kernel']:.1%}), whole {med['whole']:.4f} ms "
             f"({b_ms / med['whole']:.1%}), plain {med['plain']:.4f} ms, four index_add_ "
@@ -3746,14 +3495,14 @@ def phase_assembly_kernel(mesh, md, reps, flush, base=None):
         timed = {"assemble_pairs": dict(
             max_abs_err=err, ms=med["kernel"], plain_ms=med["plain"], bound_ms=b_ms,
             bound_by=b_by, library_ms=index_adds)}
-        b_ms, b_by = bound(count_b, count_f, torch.float64)
+        b_ms, b_by = least_ms(count_b, count_f, torch.float64)
         timed["assemble_count"] = dict(
             max_abs_err=0.0, ms=stage["count (+ memset)"], bound_ms=b_ms, bound_by=b_by,
             plain_ms=event_ms(lambda: assemble_count_plain(coords, tris, ids, n_slots,
                                                            mat[2]), reps, flush),
             library_ms=event_ms(lambda: torch.bincount(ids, minlength=n_slots), reps,
                                 flush))
-        b_ms, b_by = bound(fill_b, fill_f, torch.float64)
+        b_ms, b_by = least_ms(fill_b, fill_f, torch.float64)
         timed["assemble_fill"] = dict(
             max_abs_err=0.0, ms=stage["fill"], bound_ms=b_ms, bound_by=b_by,
             plain_ms=event_ms(lambda: assemble_fill_plain(ids, bounds), reps, flush,
@@ -3807,7 +3556,6 @@ def sharded_run(name, mesh, bca, md, opts, s, amg_setup, totals):
     main_path; the launches checked exactly against the iterations.
     Returns (compiled problem, result, prep seconds)."""
     import torch
-    from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
     from magnetite_tpu_torch.parallel.pipeline import DeviceMesh, compile_sharded_problem
 
     t0 = time.perf_counter()
@@ -3826,7 +3574,7 @@ def sharded_run(name, mesh, bca, md, opts, s, amg_setup, totals):
                                                compiled.maxiter, vdtype)
     width = p.local_n + 2 * p.halo
     m2 = {(2, width, dt): c for (_, _, dt), c in m2.items()}
-    got_shapes = {key: c for key, c in dia_matvec.shape_launches.items() if c}
+    got_shapes = by_shape(got, "mt_dia_matvec")
     others = {k: c for k, c in got.items() if c and k.split(" ")[0] not in (
         "dia_matvec", "restrict0")}
     say(f"  {name}: halo {p.halo}, shard size {p.local_n} (+ 2 x halo = {width}), "
@@ -4032,8 +3780,6 @@ def grid_shard_run(name, mesh, bca, md, opts, layout, totals, rand, checked):
     main_path, the launches checked exactly; then the stencil kernel at
     each of the run's block shapes against its plain version. Returns
     (compiled, result, prep seconds)."""
-    from magnetite_tpu_torch.kernels.mg_smooth_kernel import mg_postsmooth, mg_presmooth
-    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
     from magnetite_tpu_torch.parallel.pipeline import compile_sharded_problem
 
     t0 = time.perf_counter()
@@ -4043,8 +3789,8 @@ def grid_shard_run(name, mesh, bca, md, opts, layout, totals, rand, checked):
     with main_path(name, totals, ("stencil_matvec", "mg_presmooth", "mg_postsmooth")) as got:
         res = compiled.solve()
     want = expected_grid_shard_launches(compiled, res, res.timings)
-    seen = tuple({k: c for k, c in k_.shape_launches.items() if c}
-                 for k_ in (stencil_matvec, mg_presmooth, mg_postsmooth))
+    seen = tuple(by_shape(got, e) for e in ("mt_stencil_matvec", "mt_mg_presmooth",
+                                             "mt_mg_postsmooth"))
     others = {k: c for k, c in got.items() if c and k.split(" ")[0] not in (
         "stencil_matvec", "mg_presmooth", "mg_postsmooth")}
     say(f"  {name}: {compiled.kind} {compiled.timings['shard_layout']}, tile "
@@ -4562,7 +4308,7 @@ def phase_ell_shard(h, totals, reps, flush, rand, base=None):
         a = gathered_csr(d, cols, nl, n_u)
         x = u.reshape(-1)
         nbytes, flops = ell_shard_bytes(cols, nl, n_u, d.element_size())
-        parent = baseline_ell_launcher(base)
+        parent = parent_fn(base, "kernels.ell_kernel", "ell_matvec_t")
         r_ = time_kernel(tag, lambda: ell_matvec_t(d, cols, u),
                          lambda: ell_matvec_t_plain(d, cols, u), lambda: torch.mv(a, x), reps,
                          flush, nbytes, flops, dtype, rounds=ROUNDS,
@@ -4844,15 +4590,14 @@ def main() -> int:
                     help="mesh size of the all-gather ELL phase's Delaunay plate (25b)")
     ap.add_argument("--reps", type=int, default=20, help="timed launches per kernel")
     ap.add_argument("--profile", action="store_true",
-                    help="trace one structured f32-refined solve and one warm solve of "
-                    "each sweep with torch.profiler")
+                    help="trace one warm solve of each sweep with torch.profiler")
     ap.add_argument("--baseline", metavar="DIR",
                     help="another checkout (e.g. the parent commit unpacked by git archive): "
-                    "its dia_matvec and prolong0 kernels (and mg_presmooth / mg_postsmooth, "
-                    "the lane stencil kernel, the ELL kernel and the coarse smoother where it "
-                    "has them, and PR 14's assembly kernel) are built apart and timed "
-                    "beside this tree's in phases 2, 3, "
-                    "14, 17, 22, 23a and 25b, in the same interleaved rounds")
+                    "its own magnetite_tpu_torch package, imported apart and building its "
+                    "kernels into its own _build/; its wrappers (the band, prolong, fused "
+                    "smoothing, lane stencil, coarse smoother and ELL kernels and the "
+                    "assembly functions, where it has them) are timed beside this tree's in "
+                    "phases 2, 3, 14, 17, 22, 23a and 25b, in the same interleaved rounds")
     ap.add_argument("--only", choices=("transfers", "lane-kernels", "multigrid",
                                        "structured-sweeps", "lane-sweeps", "resume", "ell",
                                        "assembly", "shard", "grid-shard", "lane-shard",
@@ -4903,8 +4648,11 @@ def main() -> int:
     say(f"  host library (g++): {native.build():.2f} s")
     base = None
     if args.baseline:
-        seconds, base = load_baseline(args.baseline)
-        say(f"  baseline kernels of {args.baseline}: {seconds:.2f} s")
+        t0 = time.perf_counter()
+        base = load_baseline(args.baseline)
+        parent_fn(base, "kernels.cuda_lib", "load")()
+        say(f"  the package of {args.baseline} imported and its kernels built: "
+            f"{time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator(device=DEV).manual_seed(0)
 
@@ -4924,7 +4672,7 @@ def main() -> int:
         return 0
     if args.only == "grid-shard":
         refs: dict = {}
-        phase_structured(*args.plate, {}, False, refs)
+        phase_structured(*args.plate, {}, refs)
         phase_grid_shard(*args.plate, refs, {}, rand)
         say(f"phases 0, 1, 7 and 24 passed in {time.perf_counter() - t_start:.1f} s "
             "(--only grid-shard: no ok line)")
@@ -5018,7 +4766,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     refs = {}
-    levels_1m = phase_structured(*args.plate, totals, args.profile, refs)
+    levels_1m = phase_structured(*args.plate, totals, refs)
     phase_grid_shard(*args.plate, refs, totals, rand)
     del refs
     torch.cuda.empty_cache()

@@ -273,7 +273,8 @@ __global__ void __launch_bounds__(32 * kWarps) assemble_runs_kernel(
 }
 
 // One launch of an assembly kernel of kWarps warps a block (the shipped
-// one below; scripts/assembly_variants.cu launches others).
+// one below; scripts/assembly_variants.cu as of commit b558abc launched
+// others).
 template <typename T, int kWarps, typename Kernel>
 int launch_tiles(Kernel kernel, const void* geom, const void* order, const void* bounds,
                  int n_elem, int n_slots, int n_band_slots, int n_nodes, int ell_width,
@@ -293,7 +294,7 @@ int launch_tiles(Kernel kernel, const void* geom, const void* order, const void*
 
 // The shipped geometry: 96 staged pairs a warp (3 a slot), 4 warps a
 // block, 2 pairs a lane in flight, node-major tiles
-// (scripts/assembly_variants.py times the others).
+// (scripts/assembly_variants.py as of commit b558abc timed the others).
 constexpr int kRunsCap = 96, kRunsWarps = 4, kRunsUnroll = 2;
 
 template <typename T>

@@ -42,8 +42,8 @@
 // 1M plate (500,393 rows) 0.0644 / 0.0398 ms (was 0.0675 / 0.0427; 74.3% /
 // 66.0%).
 //
-// Tried and not kept (scripts/ell_coarse_variants.py, the same rounds;
-// f64 / f32, shard then 1M plate): the same kernel in 256-thread blocks
+// Tried and not kept (scripts/ell_coarse_variants.py as of commit b558abc,
+// the same rounds; f64 / f32, shard then 1M plate): the same kernel in 256-thread blocks
 // 0.0174 / 0.0129, 0.0656 / 0.0408 and in 128-thread blocks 0.0174 /
 // 0.0129, 0.0670 / 0.0418; the slot loop unrolled 8 times 0.0179 /
 // 0.0128, 0.0650 / 0.0415; an L2 evict-first policy on the streams 0.0174

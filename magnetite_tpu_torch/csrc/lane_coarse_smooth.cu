@@ -73,7 +73,8 @@
 //
 // Measured at 4,096 lanes on NVIDIA H100 80GB HBM3, 700 W, in interleaved
 // rounds against the one-node design it replaced (chip_smoke.py phase 17
-// with --baseline; scripts/ell_coarse_variants.py; PERF.md §6): 9x17 f32
+// with --baseline; scripts/ell_coarse_variants.py as of commit b558abc;
+// PERF.md §6): 9x17 f32
 // 0.1298-0.1312 ms (was 0.1587-0.1607; 27% of the bound), f64
 // 0.2687-0.2694 (was 0.2966-0.2983; 26%); wrapped 9x16 f32 0.1276-0.1284
 // (was 0.1370-0.1378), f64 0.2609-0.2621 (0.2604-0.2617: no gain). Tried

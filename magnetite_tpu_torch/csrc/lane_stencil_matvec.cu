@@ -64,7 +64,8 @@
 // ran 0.090 / 0.190 and 0.190 / 0.444 ms. Without the coefficient staging
 // (coefficients through L1 / L2, 22-column tiles) S = 3 f64 ran 0.35 ms
 // and S = 1 f64 0.18 ms. A tensor-core f64 S = 3 variant
-// (scripts/lane_stencil3_dmma.cu, mma.sync m8n8k4) ran 0.355 ms. What
+// (scripts/lane_stencil3_dmma.cu as of commit b558abc, mma.sync m8n8k4)
+// ran 0.355 ms. What
 // holds S = 3 at a third of its bound is not identified: its FMA pipe runs
 // ~30% busy, and the profilers that read stall reasons do not run on the
 // card's machine.

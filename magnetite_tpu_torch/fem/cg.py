@@ -225,8 +225,8 @@ class PCGGraph:
     and the static copies of its per-solve tensors), never over tensors of
     one solve. Spans: `cg.capture` for each graph captured, `cg.replay`
     for each replay, `cg.chunk` for a last chunk shorter than CHECK_EVERY
-    (run eagerly on the static state). The kernel wrappers' `.launches`
-    counters count their calls: a capture counts its kernels once, a
+    (run eagerly on the static state). `kernels.cuda_lib.launches`
+    counts the wrappers' calls: a capture counts its kernels once, a
     replay nothing."""
 
     def __init__(self, pool):

@@ -20,7 +20,7 @@ raise. On the card the slots' runs are built first (`build_runs`): the
 count kernel (`assemble_count`: each element's geometry, the pairs counted
 per slot), an inclusive cumsum, the fill kernel (`assemble_fill`: the
 pairs grouped by slot); then the assembly kernel sums each run in
-pair-major order. Each wrapper counts its launches in `.launches`.
+pair-major order.
 """
 
 from __future__ import annotations
@@ -178,7 +178,6 @@ def assemble_count(coords, tris, slot_ids, n_slots: int, part_thickness) -> tupl
         slot_ids.data_ptr(), n_elem, n_slots, float(part_thickness), geom.data_ptr(),
         counts.data_ptr(),
     )
-    assemble_count.launches += 1
     return counts, geom
 
 
@@ -203,7 +202,6 @@ def assemble_fill(slot_ids, bounds) -> torch.Tensor:
         "assemble_fill", "mt_assemble_fill", slot_ids, slot_ids.data_ptr(), slot_ids.numel(),
         n_slots, bounds.data_ptr(), order.data_ptr(),
     )
-    assemble_fill.launches += 1
     return order
 
 
@@ -259,10 +257,4 @@ def assemble_pairs(coords, tris, slot_ids, n_nodes: int, n_bands: int, youngs_mo
         n_bands * n_nodes, n_nodes, n_bands if ell else 0, d0, d1, d2, bands.data_ptr(),
         rem.data_ptr(),
     )
-    assemble_pairs.launches += 1
     return bands, rem
-
-
-assemble_pairs.launches = 0
-assemble_count.launches = 0
-assemble_fill.launches = 0

@@ -12,7 +12,8 @@ turns a non-zero code into a `KernelError`. There is no fallback: a CUDA
 request that cannot build or launch raises. `launch` is the one way a
 wrapper calls an entry: it makes the operands' device current first (the
 runtime launches on the current device, and a sharded solve holds its
-shards on several), and passes PyTorch's current stream of that device.
+shards on several), passes PyTorch's current stream of that device, and
+counts the launch in `launches`.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 
 import torch
 
@@ -45,6 +47,14 @@ DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 _lib = None
 _lock = threading.Lock()
+
+# Launches per (entry, dtype, shape) of the tensor a wrapper hands `launch`,
+# e.g. ("mt_dia_matvec", torch.float64, (2, N)): the route is the entry, the
+# shape that tensor's (u or r, the field the kernel works on). Counted on
+# the host once the C call has returned 0, so a CUDA graph's capture, which
+# runs the wrappers, counts its kernels once, and a replay, which runs no
+# wrapper, counts nothing.
+launches: Counter = Counter()
 
 
 class KernelError(SolverError):
@@ -219,11 +229,20 @@ def stream_of(t: torch.Tensor) -> int:
 def launch(name: str, entry: str, t: torch.Tensor, *args) -> None:
     """Call the C entry `entry(*args, stream)` with `t`'s device current
     and PyTorch's current stream there; raise KernelError on a non-zero
-    return."""
+    return, else count it in `launches`."""
     lib = load()
     with torch.cuda.device(t.device):
         rc = getattr(lib, entry)(*args, stream_of(t))
     check(lib, rc, name)
+    launches[entry, t.dtype, tuple(t.shape)] += 1
+
+
+def launched(*entries: str, dtype=None, counts: Counter = None) -> int:
+    """Launches of any of `entries` (of `dtype` where given) in `counts`,
+    by default `launches`."""
+    counts = launches if counts is None else counts
+    return sum(c for (entry, dt, _), c in counts.items()
+               if entry in entries and (dtype is None or dt == dtype))
 
 
 def launch_floor(x: torch.Tensor) -> torch.Tensor:

@@ -112,8 +112,4 @@ def df_dia_matvec(
         bands_hl.data_ptr(), offsets_dev.data_ptr(), d, u64.data_ptr(),
         y.data_ptr(), n,
     )
-    df_dia_matvec.launches += 1
     return y
-
-
-df_dia_matvec.launches = 0

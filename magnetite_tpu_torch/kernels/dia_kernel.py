@@ -7,13 +7,11 @@ csrc/dia_matvec.cu for what bounds it on Hopper and how the design answers
 that: one thread per node for the level-0 2x2 blocks, a block of warps
 splitting the offsets of 32 nodes for the coarse levels' 3x3 blocks).
 `dia_matvec` is the one entry point: a CPU operand takes the plain PyTorch
-version, a CUDA operand launches the kernel or raises. It counts its
-launches in `.launches` and, per (m, N, dtype), in `.shape_launches`.
+version, a CUDA operand launches the kernel or raises.
 """
 
 from __future__ import annotations
 
-from collections import Counter
 from typing import Optional
 
 import torch
@@ -72,10 +70,4 @@ def dia_matvec(
         cuda_lib.DTYPE_CODES[u.dtype], m, bands.data_ptr(),
         offsets_dev.data_ptr(), d, u.data_ptr(), y.data_ptr(), n,
     )
-    dia_matvec.launches += 1
-    dia_matvec.shape_launches[m, n, u.dtype] += 1
     return y
-
-
-dia_matvec.launches = 0
-dia_matvec.shape_launches = Counter()

@@ -14,14 +14,13 @@ fem/operator.py's `ell_matvec` on [N, 2] fields and leaves it to XLA; there
 is no `pallas_call` behind it.
 
 `ell_matvec_t` is the entry point: CPU operands take the plain version,
-CUDA operands launch the kernel or raise. It counts its launches in
-`.launches` (of them in f64: `.f64_launches`).
+CUDA operands launch the kernel or raise.
 
 One launch plan at every shape: one thread a row in 704-thread blocks, the
 sum over the slots in the plain version's order, so a call repeats bit for
 bit. Splitting a row over 2 or 4 threads was slower at the 1M plate's ELL
-mode and at the all-gather shard on the H100 (scripts/ell_coarse_variants.py;
-PERF.md §6).
+mode and at the all-gather shard on the H100 (scripts/ell_coarse_variants.py
+as of commit b558abc; PERF.md §6).
 """
 
 from __future__ import annotations
@@ -85,9 +84,4 @@ def ell_matvec_t(data: torch.Tensor, cols: torch.Tensor, u: torch.Tensor) -> tor
         cuda_lib.DTYPE_CODES[u.dtype], data.data_ptr(), cols.data_ptr(), u.data_ptr(),
         y.data_ptr(), n, n_u, k,
     )
-    ell_matvec_t.launches += 1
-    ell_matvec_t.f64_launches += int(u.dtype == torch.float64)
     return y
-
-
-ell_matvec_t.launches = ell_matvec_t.f64_launches = 0

@@ -16,15 +16,11 @@ version. CUDA operands take one of two routes, by shape
 (`lane_coarse_route`): "fused", the kernel, where one of its geometries
 fits the level's lane slab in one block (`lane_coarse_plan`: the 9x17 and
 wrapped 9x16 coarsest levels); "per-sweep" otherwise, the plain loop with
-its matvecs through the S = 3 lane stencil kernel. The wrapper counts the
-kernel's launches in `.launches` and, per (rows, cols, dtype),
-`.shape_launches`, and the calls that took the per-sweep route in
-`.per_sweep`.
+its matvecs through the S = 3 lane stencil kernel.
 """
 
 from __future__ import annotations
 
-from collections import Counter
 from typing import NamedTuple, Optional
 
 import torch
@@ -105,7 +101,6 @@ def lane_coarse_smooth3(stencils4, dinv, w3, r, wrap: bool, sweeps: int,
     rows, cols = r.shape[-3], r.shape[-2]
     plan = lane_coarse_plan(rows, cols, r.element_size())
     if plan is None:
-        lane_coarse_smooth3.per_sweep += 1
         return _smooth(lambda e: lane_stencil_matvec3(stencils4, w3, e, wrap), dinv, r,
                        sweeps, omega)
     packed = _require_packed("lane_coarse_smooth3", stencils4, 3)
@@ -120,8 +115,6 @@ def lane_coarse_smooth3(stencils4, dinv, w3, r, wrap: bool, sweeps: int,
         *(w.data_ptr() for w in w3), r.data_ptr(), e.data_ptr(), rows, cols, nb, int(sweeps),
         float(omega),
     )
-    lane_coarse_smooth3.launches += 1
-    lane_coarse_smooth3.shape_launches[rows, cols, r.dtype] += 1
     return e
 
 
@@ -144,8 +137,3 @@ def _check(packed, dinv, w3, r, sweeps):
         )
     if packed.data_ptr() % VEC_BYTES:
         raise cuda_lib.KernelError("lane_coarse_smooth3: packed stencils must be 16-byte aligned")
-
-
-lane_coarse_smooth3.launches = 0
-lane_coarse_smooth3.shape_launches = Counter()
-lane_coarse_smooth3.per_sweep = 0

@@ -227,9 +227,6 @@ def launch_lane_dia(bands, u, offsets_dev, plan: LanePlan) -> torch.Tensor:
                         plan.lanes, plan.rows, plan.strip_rows, plan.smem_bytes)
     else:
         cuda_lib.launch(name, "mt_lane_dia_matvec", u, *args)
-    lane_dia_matvec.launches += 1
-    lane_dia_matvec.f64_launches += int(u.dtype == torch.float64)
-    lane_dia_matvec.ring_launches += int(plan.route == "ring")
     return y
 
 
@@ -269,13 +266,4 @@ def launch_lane_dia3(bands3, w3, u, offsets_dev, plan: LanePlan) -> torch.Tensor
                         plan.lanes, plan.rows, plan.strip_rows, plan.smem_bytes)
     else:
         cuda_lib.launch(name, "mt_lane_dia_matvec3", u, *args)
-    lane_dia_matvec3.launches += 1
-    lane_dia_matvec3.f64_launches += int(u.dtype == torch.float64)
-    lane_dia_matvec3.ring_launches += int(plan.route == "ring")
     return y
-
-
-# launches, of those the f64 instance's (the refined sweeps run both) and
-# the ring kernel's
-lane_dia_matvec.launches = lane_dia_matvec.f64_launches = lane_dia_matvec.ring_launches = 0
-lane_dia_matvec3.launches = lane_dia_matvec3.f64_launches = lane_dia_matvec3.ring_launches = 0

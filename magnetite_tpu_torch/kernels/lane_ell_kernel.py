@@ -14,8 +14,7 @@ blocks. The JAX package computes this function as fem/operator.py's
 `pallas_call` behind it.
 
 `lane_ell_matvec` is the entry point: CPU operands take the plain version,
-CUDA operands launch the kernel or raise. It counts its launches in
-`.launches`.
+CUDA operands launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -88,8 +87,4 @@ def lane_ell_matvec(ell: torch.Tensor, cols: torch.Tensor, u: torch.Tensor) -> t
         cuda_lib.DTYPE_CODES[u.dtype], vec, team, ell.data_ptr(), cols.data_ptr(),
         u.data_ptr(), y.data_ptr(), n, u.shape[1], w, nb,
     )
-    lane_ell_matvec.launches += 1
     return y
-
-
-lane_ell_matvec.launches = 0

@@ -24,13 +24,11 @@ beside it.
 
 `lane_stencil_matvec` / `lane_stencil_matvec3` are the entry points: CPU
 operands take the plain version (the stencils packed or not), CUDA operands
-launch the kernel on packed stencils or raise. Each counts its launches in
-`.launches` and, per (rows, cols, dtype), in `.shape_launches`.
+launch the kernel on packed stencils or raise.
 """
 
 from __future__ import annotations
 
-from collections import Counter
 from typing import NamedTuple
 
 import torch
@@ -202,8 +200,6 @@ def lane_stencil_matvec(stencil, u: torch.Tensor, wrap: bool) -> torch.Tensor:
         cuda_lib.DTYPE_CODES[u.dtype], int(bool(wrap)), int(plan.vec), packed.data_ptr(),
         u.data_ptr(), y.data_ptr(), rows, cols, nb, plan.tile_cols, plan.strip_rows,
     )
-    lane_stencil_matvec.launches += 1
-    lane_stencil_matvec.shape_launches[rows, cols, u.dtype] += 1
     return y
 
 
@@ -225,12 +221,4 @@ def lane_stencil_matvec3(stencils4, w3, u: torch.Tensor, wrap: bool) -> torch.Te
         *(w.data_ptr() for w in w3), u.data_ptr(), y.data_ptr(), rows, cols, nb,
         plan.tile_cols, plan.strip_rows,
     )
-    lane_stencil_matvec3.launches += 1
-    lane_stencil_matvec3.shape_launches[rows, cols, u.dtype] += 1
     return y
-
-
-lane_stencil_matvec.launches = 0
-lane_stencil_matvec.shape_launches = Counter()
-lane_stencil_matvec3.launches = 0
-lane_stencil_matvec3.shape_launches = Counter()

@@ -16,13 +16,11 @@ stencil calls per level there, plus the updates and transfers around them.
 The grid transfers `prolong` / `restrict` live here too (fem/multigrid.py
 re-exports them): the plain versions are exactly the V-cycle's former
 composition, so a CPU operand gives the same bits as before. A CUDA operand
-launches the kernel or raises `KernelError`. Each wrapper counts its
-launches in `.launches` and, per (rows, cols, dtype), in `.shape_launches`.
+launches the kernel or raises `KernelError`.
 """
 
 from __future__ import annotations
 
-from collections import Counter
 from typing import Optional
 
 import torch
@@ -156,8 +154,6 @@ def mg_presmooth(stencil, diag_inv, r, wrap_cols: bool):
         cuda_lib.DTYPE_CODES[r.dtype], int(bool(wrap_cols)), stencil.data_ptr(),
         diag_inv.data_ptr(), r.data_ptr(), e.data_ptr(), rc.data_ptr(), rows, cols,
     )
-    mg_presmooth.launches += 1
-    mg_presmooth.shape_launches[rows, cols, r.dtype] += 1
     return e, rc
 
 
@@ -179,12 +175,4 @@ def mg_postsmooth(stencil, diag_inv, r, e, ec, wrap_cols: bool):
         diag_inv.data_ptr(), r.data_ptr(), None if e is None else e.data_ptr(),
         None if ec is None else ec.data_ptr(), out.data_ptr(), rows, cols,
     )
-    mg_postsmooth.launches += 1
-    mg_postsmooth.shape_launches[rows, cols, r.dtype] += 1
     return out
-
-
-mg_presmooth.launches = 0
-mg_presmooth.shape_launches = Counter()
-mg_postsmooth.launches = 0
-mg_postsmooth.shape_launches = Counter()

@@ -8,13 +8,11 @@ Rows outside the grid contribute 0; columns wrap when `wrap` is set
 magnetite_tpu/pallas/stencil_kernel.py::_kernel and ::_kernel_blocked (see
 csrc/stencil_matvec.cu for what bounds it on Hopper). `stencil_matvec` is
 the one entry point: a CPU operand takes the plain PyTorch version, a CUDA
-operand launches the kernel or raises. It counts its launches in
-`.launches` and, per (rows, cols, dtype), in `.shape_launches`.
+operand launches the kernel or raises.
 """
 
 from __future__ import annotations
 
-from collections import Counter
 
 import torch
 
@@ -86,10 +84,4 @@ def stencil_matvec(
         cuda_lib.DTYPE_CODES[u.dtype], int(bool(wrap_cols)), stencil.data_ptr(),
         u.data_ptr(), y.data_ptr(), rows, cols,
     )
-    stencil_matvec.launches += 1
-    stencil_matvec.shape_launches[rows, cols, u.dtype] += 1
     return y
-
-
-stencil_matvec.launches = 0
-stencil_matvec.shape_launches = Counter()

@@ -49,7 +49,6 @@ def prolong0(ec, agg, p0):
         cuda_lib.DTYPE_CODES[ec.dtype], ec.data_ptr(), agg.data_ptr(),
         p0.data_ptr(), u0.data_ptr(), n0,
     )
-    prolong0.launches += 1
     return u0
 
 
@@ -75,9 +74,4 @@ def restrict0(tmp, pt0_cols, pt0_vals):
         cuda_lib.DTYPE_CODES[tmp.dtype], tmp.data_ptr(), pt0_cols.data_ptr(),
         pt0_vals.data_ptr(), rc_out.data_ptr(), tmp.shape[1], n1, w0,
     )
-    restrict0.launches += 1
     return rc_out
-
-
-prolong0.launches = 0
-restrict0.launches = 0

@@ -20,7 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 from magnetite_tpu_torch.config import ModelMetadata, SolverOptions
 from magnetite_tpu_torch.fem.cg import CHECK_EVERY, PCGGraph, _distinct, _start, pcg
 from magnetite_tpu_torch.fem.solve import compile_problem
-from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
+from magnetite_tpu_torch.kernels import cuda_lib
 from magnetite_tpu_torch.utils import logging as spans
 # tests/ is on sys.path (pytest's prepend import mode); `tests.torch_cases`
 # would not import where an installed package is named `tests`
@@ -254,20 +254,18 @@ def test_progress_history_and_sharded_solves_never_capture():
 def test_span_and_launch_counts_follow_the_chunks(case):
     """Solve 1 runs its chunks eagerly (`cg.chunk`); solve 2 captures the
     set-up and the chunk graphs once each and replays them; solve 3 only
-    replays. The band / smoothing kernels' counters count calls: solve 2
+    replays. The launch counter counts the wrappers' calls: solve 2
     counts the captured set-up and chunk (all of solve 1's where one chunk
     does), solve 3 only what runs outside the PCG (none of the smoothers)."""
     dev = require_cuda()
-    from magnetite_tpu_torch.kernels.mg_smooth_kernel import mg_presmooth
-
     mesh, bca, opts = CASES[case]()
     p = compile_problem(mesh, bca, MD, opts, device=dev)
-    kernel = dia_matvec if case == "delaunay-amg" else mg_presmooth
+    kernel = "mt_dia_matvec" if case == "delaunay-amg" else "mt_mg_presmooth"
     runs = []
     for _ in range(3):
-        before = kernel.launches
+        before = cuda_lib.launched(kernel)
         res, totals = _traced(p.solve)
-        runs.append((res, totals, kernel.launches - before))
+        runs.append((res, totals, cuda_lib.launched(kernel) - before))
     (r1, t1, n1), (r2, t2, n2), (r3, t3, n3) = runs
     passes = len(r1.timings.get("refine_inner", [None]))  # one PCG a pass
     chunks = _count(t1, "cg.chunk")

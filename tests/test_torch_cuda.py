@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from magnetite_tpu_torch.kernels import cuda_lib
+
 pytestmark = pytest.mark.cuda
 
 OUTER = [[0.0, 0.0], [3.0, 0.0], [3.0, 1.0], [0.0, 1.0]]
@@ -85,10 +87,10 @@ def test_dia_kernel_matches_plain(m, dtype, tol):
     bands = torch.as_tensor(random_bands(n, offsets, m, seed=9), dtype=dtype, device=dev)
     u = torch.as_tensor(np.random.default_rng(10).standard_normal((m, n)),
                         dtype=dtype, device=dev)
-    before = dia_matvec.launches
+    before = cuda_lib.launched("mt_dia_matvec")
     y = dia_matvec(bands, offsets, u)
     torch.cuda.synchronize()
-    assert dia_matvec.launches == before + 1
+    assert cuda_lib.launched("mt_dia_matvec") == before + 1
     ref = dia_matvec_blocks(bands, offsets, u)
     scale = float(dia_matvec_blocks(bands.abs(), offsets, u.abs()).max())
     # another summation order (one FMA chain per row vs rolled sums):
@@ -175,11 +177,11 @@ def test_coarse_dia_kernel_matches_plain_and_repeats(case, dtype, tol, request):
     bands = torch.as_tensor(bands_np, dtype=dtype, device=dev)
     u = torch.as_tensor(np.random.default_rng(11).standard_normal((3, n)),
                         dtype=dtype, device=dev)
-    before = dia_matvec.shape_launches[3, n, dtype]
+    before = cuda_lib.launches["mt_dia_matvec", dtype, (3, n)]
     y = dia_matvec(bands, offsets, u)
     again = dia_matvec(bands, offsets, u)
     torch.cuda.synchronize()
-    assert dia_matvec.shape_launches[3, n, dtype] == before + 2
+    assert cuda_lib.launches["mt_dia_matvec", dtype, (3, n)] == before + 2
     assert torch.equal(y, again)
     ref = dia_matvec_blocks(bands, offsets, u)
     scale = float(dia_matvec_blocks(bands.abs(), offsets, u.abs()).max())
@@ -237,10 +239,10 @@ def test_restrict_team_kernel_matches_plain_and_is_adjoint(w0, dtype, tol):
     agg_t, ptc_t = torch.as_tensor(agg, device=dev), torch.as_tensor(ptc, device=dev)
     p0_t = torch.as_tensor(p0, dtype=dtype, device=dev)
     ptv_t = torch.as_tensor(ptv, dtype=dtype, device=dev)
-    before = restrict0.launches
+    before = cuda_lib.launched("mt_restrict0")
     rc = restrict0(tmp, ptc_t, ptv_t)
     torch.cuda.synchronize()
-    assert restrict0.launches == before + 1
+    assert cuda_lib.launched("mt_restrict0") == before + 1
     # another summation order (team partial sums, shuffle tree): rounding of
     # each output's magnitude
     assert float((rc - restrict0_plain(tmp, ptc_t, ptv_t)).abs().max()) <= tol * float(
@@ -276,10 +278,10 @@ def test_prolong_kernel_matches_plain_at_any_n0_and_is_adjoint(n0_mod4, agg_alig
     ptc_t = torch.as_tensor(ptc, device=dev)
     p0_t = torch.as_tensor(p0, dtype=dtype, device=dev)
     ptv_t = torch.as_tensor(ptv, dtype=dtype, device=dev)
-    before = prolong0.launches
+    before = cuda_lib.launched("mt_prolong0")
     uf = prolong0(ec, agg_t, p0_t)
     torch.cuda.synchronize()
-    assert prolong0.launches == before + 1
+    assert cuda_lib.launched("mt_prolong0") == before + 1
     # each node's sums in the plain version's order: rounding only
     assert float((uf - prolong0_plain(ec, agg_t, p0_t)).abs().max()) <= tol * float(
         prolong0_plain(ec.abs(), agg_t, p0_t.abs()).max())
@@ -328,10 +330,10 @@ def test_stencil_kernel_matches_plain(wrap, dtype, tol):
     st = assembled_stencil(mesh, dev).to(dtype)
     u = torch.as_tensor(np.random.default_rng(12).standard_normal((2, rows, cols)),
                         dtype=dtype, device=dev)
-    before = stencil_matvec.launches
+    before = cuda_lib.launched("mt_stencil_matvec")
     y = stencil_matvec(st, u, wrap)
     torch.cuda.synchronize()
-    assert stencil_matvec.launches == before + 1
+    assert cuda_lib.launched("mt_stencil_matvec") == before + 1
     ref = stencil_matvec_plain(st, u, wrap)
     scale = float(stencil_matvec_plain(st.abs(), u.abs(), wrap).max())
     # another summation order: rounding of each output's magnitude
@@ -369,25 +371,25 @@ def test_mg_smooth_kernels_match_plain(grid, dtype, tol):
                          dtype=dtype, device=dev)
     neg, ad = -st.abs(), dinv.abs()  # every term adds: the rounding scale
     calls = [
-        (lambda: mgk.mg_presmooth(st, dinv, r, wrap), mgk.mg_presmooth,
+        (lambda: mgk.mg_presmooth(st, dinv, r, wrap), "mt_mg_presmooth",
          mgk.mg_presmooth_plain(st, dinv, r, wrap),
          mgk.mg_presmooth_plain(neg, ad, r.abs(), wrap)),
-        (lambda: mgk.mg_postsmooth(st, dinv, r, e, ec, wrap), mgk.mg_postsmooth,
+        (lambda: mgk.mg_postsmooth(st, dinv, r, e, ec, wrap), "mt_mg_postsmooth",
          mgk.mg_postsmooth_plain(st, dinv, r, e, ec, wrap),
          mgk.mg_postsmooth_plain(neg, ad, r.abs(), e.abs(), ec.abs(), wrap)),
         # the coarsest level's smoothing solve: from zero, then from e
-        (lambda: mgk.mg_postsmooth(st, dinv, r, None, None, wrap), mgk.mg_postsmooth,
+        (lambda: mgk.mg_postsmooth(st, dinv, r, None, None, wrap), "mt_mg_postsmooth",
          mgk.mg_postsmooth_plain(st, dinv, r, None, None, wrap),
          mgk.mg_postsmooth_plain(neg, ad, r.abs(), None, None, wrap)),
-        (lambda: mgk.mg_postsmooth(st, dinv, r, e, None, wrap), mgk.mg_postsmooth,
+        (lambda: mgk.mg_postsmooth(st, dinv, r, e, None, wrap), "mt_mg_postsmooth",
          mgk.mg_postsmooth_plain(st, dinv, r, e, None, wrap),
          mgk.mg_postsmooth_plain(neg, ad, r.abs(), e.abs(), None, wrap)),
     ]
-    for call, wrapper, ref, scale in calls:
-        before = wrapper.launches
+    for call, entry, ref, scale in calls:
+        before = cuda_lib.launched(entry)
         got = call()
         torch.cuda.synchronize()
-        assert wrapper.launches == before + 1
+        assert cuda_lib.launched(entry) == before + 1
         for g, p, sc in zip(*(x if isinstance(x, tuple) else (x,) for x in (got, ref, scale))):
             # FMA-contracted sums: rounding of each output's magnitude
             assert float((g - p).abs().max()) <= tol * float(sc.max())
@@ -427,10 +429,10 @@ def test_df_kernel_matches_plain_and_exact_f64():
     bands = torch.as_tensor(random_bands(n, offsets, 2, seed=13), device=dev)
     u = torch.as_tensor(np.random.default_rng(14).standard_normal((2, n)), device=dev)
     hl = split_bands(bands)
-    before = df_dia_matvec.launches
+    before = cuda_lib.launched("mt_df_dia_matvec")
     y = df_dia_matvec(hl, offsets, u)
     torch.cuda.synchronize()
-    assert df_dia_matvec.launches == before + 1
+    assert cuda_lib.launched("mt_df_dia_matvec") == before + 1
     scale = float(dia_matvec_blocks(bands.abs(), offsets, u.abs()).max())
     # the kernel repeats the plain version's f32 operations one for one
     assert float((y - df_dia_matvec_plain(hl, offsets, u)).abs().max()) <= 1e-14 * scale
@@ -456,8 +458,6 @@ def test_new_kernels_refuse_what_they_do_not_take():
 
 def test_structured_solve_on_card_matches_cpu():
     from magnetite_tpu_torch import SolverOptions, compile_problem
-    from magnetite_tpu_torch.kernels.mg_smooth_kernel import mg_postsmooth, mg_presmooth
-    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
     from magnetite_tpu_torch.meshing.generators import plate_with_hole_mesh, tensile_bcs_for_rect
     from magnetite_tpu_torch.config import ModelMetadata
 
@@ -470,12 +470,13 @@ def test_structured_solve_on_card_matches_cpu():
         (SolverOptions(dtype="float32", cg_rtol=1e-10), (1e-6, 1e-5)),
     ):
         cpu = compile_problem(mesh, bca, md, opts, device="cpu").solve()
-        before = [k.launches for k in (stencil_matvec, mg_presmooth, mg_postsmooth)]
+        entries = ("mt_stencil_matvec", "mt_mg_presmooth", "mt_mg_postsmooth")
+        before = [cuda_lib.launched(e) for e in entries]
         problem = compile_problem(mesh, bca, md, opts, device="cuda")
         assert (problem.mode, problem.preconditioner) == ("stencil", "multigrid")
         card = problem.solve()
         # the CG operator and both fused V-cycle kernels ran
-        after = [k.launches for k in (stencil_matvec, mg_presmooth, mg_postsmooth)]
+        after = [cuda_lib.launched(e) for e in entries]
         assert all(a > b for a, b in zip(after, before))
         assert card.residual_rel <= 1e-10
         assert np.abs(card.u - cpu.u).max() <= bars[0] * np.abs(cpu.u).max()
@@ -489,17 +490,16 @@ def test_mixed_amg_with_df_kernel_on_card_matches_cpu(df):
     """Both df options launch the kernel on the card: the device, not the
     option, picks kernel or plain version."""
     from magnetite_tpu_torch import SolverOptions, compile_problem
-    from magnetite_tpu_torch.kernels.df_kernel import df_dia_matvec
 
     require_cuda()
     mesh, bca, md = port_plate(0.02)
     opts = SolverOptions(dtype="float32", refine="on", cg_rtol=1e-8, df_matvec=df)
     cpu = compile_problem(mesh, bca, md, opts, device="cpu").solve()
-    before = df_dia_matvec.launches
+    before = cuda_lib.launched("mt_df_dia_matvec")
     problem = compile_problem(mesh, bca, md, opts, device="cuda")
     assert (problem.refine, problem.system.df64, problem.sweeps) == (True, "kernel", 3)
     card = problem.solve()
-    assert df_dia_matvec.launches > before
+    assert cuda_lib.launched("mt_df_dia_matvec") > before
     assert abs(card.iterations - cpu.iterations) <= 1
     assert np.abs(card.u - cpu.u).max() <= 1e-6 * np.abs(cpu.u).max()
 
@@ -507,17 +507,15 @@ def test_mixed_amg_with_df_kernel_on_card_matches_cpu(df):
 @pytest.mark.parametrize("kwargs", [{}, {"max_diags": 20}], ids=["dia", "hybrid"])
 def test_solve_on_card_matches_cpu(kwargs):
     from magnetite_tpu_torch import SolverOptions, compile_problem
-    from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
-    from magnetite_tpu_torch.kernels.transfer_kernel import prolong0, restrict0
 
     require_cuda()
     mesh, bca, md = port_plate(0.02)
     opts = SolverOptions(**kwargs)
     cpu = compile_problem(mesh, bca, md, opts, device="cpu").solve()
-    kernels = (dia_matvec, prolong0, restrict0)
-    before = [k.launches for k in kernels]
+    entries = ("mt_dia_matvec", "mt_prolong0", "mt_restrict0")
+    before = [cuda_lib.launched(e) for e in entries]
     card = compile_problem(mesh, bca, md, opts, device="cuda").solve()
-    assert all(k.launches > b for k, b in zip(kernels, before))
+    assert all(cuda_lib.launched(e) > b for e, b in zip(entries, before))
     assert abs(card.iterations - cpu.iterations) <= 1
     # f64 on both, summed in other orders
     assert np.abs(card.u - cpu.u).max() <= 1e-8 * np.abs(cpu.u).max()
@@ -557,8 +555,6 @@ def test_history_and_progress_on_card_match_cpu(structured):
     lengths and iteration numbers, entries within 1e-8 (f64), and the same
     kernel launches as the run without them."""
     from magnetite_tpu_torch import SolverOptions, compile_problem
-    from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
-    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
     from magnetite_tpu_torch.meshing.generators import plate_with_hole_mesh, tensile_bcs_for_rect
 
     require_cuda()
@@ -567,9 +563,9 @@ def test_history_and_progress_on_card_match_cpu(structured):
 
         mesh = plate_with_hole_mesh(32, 64)
         case = (mesh, tensile_bcs_for_rect(mesh.coords), ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.01))
-        kernel = stencil_matvec
+        kernel = "mt_stencil_matvec"
     else:
-        case, kernel = port_plate(0.02), dia_matvec
+        case, kernel = port_plate(0.02), "mt_dia_matvec"
     opts = SolverOptions(dtype="float64", residual_history=64, cg_progress_every=4)
     lines = {}
 
@@ -580,12 +576,12 @@ def test_history_and_progress_on_card_match_cpu(structured):
         printer = cg.default_progress_printer
         cg.default_progress_printer = lambda k, r, b: seen.append((int(k), r))
         try:
-            before = kernel.launches
+            before = cuda_lib.launched(kernel)
             res = compile_problem(*case, options, device=device).solve()
         finally:
             cg.default_progress_printer = printer
         lines[key or device] = seen
-        return res, kernel.launches - before
+        return res, cuda_lib.launched(kernel) - before
 
     cpu, _ = run("cpu", opts)
     card, launches = run("cuda", opts)
@@ -603,6 +599,9 @@ def test_history_and_progress_on_card_match_cpu(structured):
 
 
 LANE_OFFSETS = (-1300, -512, -200, -199, -37, -1, 0, 1, 37, 199, 200, 512, 1300)
+# the C entries of K7's and K8's two routes: ring, direct
+K7 = ("mt_lane_dia_ring", "mt_lane_dia_matvec")
+K8 = ("mt_lane_dia_ring3", "mt_lane_dia_matvec3")
 
 
 @pytest.mark.parametrize("nb", [1, 37, 128, 4096])
@@ -619,12 +618,11 @@ def test_lane_kernel_matches_plain(nb, dtype, tol):
     bands = torch.as_tensor(random_bands(n, LANE_OFFSETS, 2, seed=20), dtype=dtype, device=dev)
     u = torch.as_tensor(np.random.default_rng(21).standard_normal((2, n, nb)),
                         dtype=dtype, device=dev)
-    before = (lane_dia_matvec.launches, lane_dia_matvec.ring_launches)
+    before = (cuda_lib.launched(*K7), cuda_lib.launched(K7[0]))
     y = lane_dia_matvec(bands, LANE_OFFSETS, u)
     torch.cuda.synchronize()
     # offsets this wide take the direct kernel (lane_window_plan's rule)
-    assert (lane_dia_matvec.launches, lane_dia_matvec.ring_launches) == (before[0] + 1,
-                                                                         before[1])
+    assert (cuda_lib.launched(*K7), cuda_lib.launched(K7[0])) == (before[0] + 1, before[1])
     ref = lane_dia_matvec_plain(bands, LANE_OFFSETS, u)
     scale = float(lane_dia_matvec_plain(bands.abs(), LANE_OFFSETS, u.abs()).max())
     # another summation order (FMA chain per output vs rolled sums)
@@ -671,21 +669,22 @@ def test_lane_ring_kernel_matches_plain(case, dtype, kernel):
     if case == "n-1001":
         assert n % plan.rows and n % plan.strip_rows
     if kernel == "k8":
-        wrapper, tol = lane_dia_matvec3, (1e-13 if dtype == torch.float64 else 1e-5)
+        entries, tol = K8, (1e-13 if dtype == torch.float64 else 1e-5)
 
         def run(b, v, plain=False):
             fn = lane_dia_matvec3_plain if plain else lane_dia_matvec3
             return fn(b, w3, SWEEP_OFFSETS, v)
     else:
-        wrapper, tol = lane_dia_matvec, (1e-13 if dtype == torch.float64 else 1e-6)
+        entries, tol = K7, (1e-13 if dtype == torch.float64 else 1e-6)
 
         def run(b, v, plain=False):
             fn = lane_dia_matvec_plain if plain else lane_dia_matvec
             return fn(b[0], SWEEP_OFFSETS, v)
-    before = (wrapper.launches, wrapper.ring_launches)
+    before = (cuda_lib.launched(*entries), cuda_lib.launched(entries[0]))
     y = run(bands, u)
     torch.cuda.synchronize()
-    assert (wrapper.launches, wrapper.ring_launches) == (before[0] + 1, before[1] + 1)
+    assert (cuda_lib.launched(*entries), cuda_lib.launched(entries[0])) == (before[0] + 1,
+                                                                            before[1] + 1)
     ref = run(bands, u, plain=True)
     scale = float(run(tuple(b.abs() for b in bands), u.abs(), plain=True).max())
     # another summation order (FMA chain per output vs rolled sums)
@@ -711,12 +710,11 @@ def test_material_lane_kernel_matches_plain(nb, dtype, tol):
     w3 = tuple(torch.as_tensor(rng.uniform(0.5, 2.0, nb), dtype=dtype, device=dev)
                for _ in range(3))
     u = torch.as_tensor(rng.standard_normal((2, n, nb)), dtype=dtype, device=dev)
-    before = (lane_dia_matvec3.launches, lane_dia_matvec3.ring_launches)
+    before = (cuda_lib.launched(*K8), cuda_lib.launched(K8[0]))
     y = lane_dia_matvec3(bands3, w3, LANE_OFFSETS, u)
     torch.cuda.synchronize()
     # offsets this wide take the direct kernel (lane_window_plan's rule)
-    assert (lane_dia_matvec3.launches, lane_dia_matvec3.ring_launches) == (before[0] + 1,
-                                                                           before[1])
+    assert (cuda_lib.launched(*K8), cuda_lib.launched(K8[0])) == (before[0] + 1, before[1])
     ref = lane_dia_matvec3_plain(bands3, w3, LANE_OFFSETS, u)
     scale = float(lane_dia_matvec3_plain(
         tuple(b.abs() for b in bands3), w3, LANE_OFFSETS, u.abs()).max())
@@ -744,7 +742,6 @@ def test_sweep_on_card_matches_cpu(material):
     """A small sweep through the port's entry points, on the card (lane
     kernels) against the CPU (plain versions), at h = 0.04 (a real
     multi-level hierarchy), 64 lanes, f32 V-cycle under f64 CG."""
-    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec, lane_dia_matvec3
     from magnetite_tpu_torch.parallel.sweep import (
         compile_unstructured_material_sweep, compile_unstructured_sweep,
     )
@@ -756,24 +753,24 @@ def test_sweep_on_card_matches_cpu(material):
     if material:
         args = (np.ones(b), np.ones(b), rng.uniform(40e9, 250e9, b),
                 rng.uniform(0.22, 0.38, b), rng.uniform(0.2, 1.0, b))
-        kernel = lane_dia_matvec3
+        kernel = K8
 
         def run(device):
             return compile_unstructured_material_sweep(
                 mesh, bca, iterations=20, device=device).solve_factors(*args)
     else:
         args = (rng.uniform(0.5, 2.0, b), np.ones(b), rng.uniform(0.5, 2.0, b))
-        kernel = lane_dia_matvec
+        kernel = K7
 
         def run(device):
             return compile_unstructured_sweep(
                 mesh, bca, md, iterations=20, device=device).solve_factors(*args)
 
     cpu = run("cpu")
-    before = kernel.launches
+    before = cuda_lib.launched(*kernel)
     card = run("cuda")
     torch.cuda.synchronize()
-    assert kernel.launches > before
+    assert cuda_lib.launched(*kernel) > before
     u_cpu, u_card = cpu.u.numpy(), card.u.cpu().numpy()
     assert np.isfinite(u_card).all()
     assert np.abs(u_card - u_cpu).max() <= 1e-5 * np.abs(u_cpu).max()
@@ -787,7 +784,6 @@ def test_sweep_lane_kernel_modes_on_card():
     kernels on the card like "auto"; "off" (the plain versions) is refused
     there."""
     from magnetite_tpu_torch.errors import InputError
-    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec, lane_dia_matvec3
     from magnetite_tpu_torch.parallel.sweep import (
         compile_unstructured_material_sweep, compile_unstructured_sweep,
     )
@@ -798,11 +794,11 @@ def test_sweep_lane_kernel_modes_on_card():
     ones = np.ones(b)
     load = compile_unstructured_sweep(mesh, bca, md, iterations=4, lane_kernel="interpret")
     mat = compile_unstructured_material_sweep(mesh, bca, iterations=4, lane_kernel="interpret")
-    before = (lane_dia_matvec.launches, lane_dia_matvec3.launches)
+    before = (cuda_lib.launched(*K7), cuda_lib.launched(*K8))
     load.solve_factors(ones, ones, ones)
     mat.solve_factors(ones, ones, 69e9 * ones, 0.33 * ones, 0.5 * ones)
     torch.cuda.synchronize()
-    assert lane_dia_matvec.launches > before[0] and lane_dia_matvec3.launches > before[1]
+    assert cuda_lib.launched(*K7) > before[0] and cuda_lib.launched(*K8) > before[1]
     with pytest.raises(InputError, match="lane_kernel='off'"):
         compile_unstructured_sweep(mesh, bca, md, lane_kernel="off")
     with pytest.raises(InputError, match="lane_kernel='off'"):
@@ -853,22 +849,22 @@ def test_lane_stencil_kernel_matches_plain(case, dtype, tol, sets):
         assert u.is_contiguous() and u.data_ptr() % 16 != 0
     packed = pack_lane_stencils(st if sets == 3 else st[0])
     if sets == 3:
-        wrapper = lane_stencil_matvec3
+        entry = "mt_lane_stencil_matvec3"
 
         def run(s, v, plain=False):
             return (lane_material_matvec_plain(s, w3, v, wrap) if plain
                     else lane_stencil_matvec3(packed, w3, v, wrap))
     else:
-        wrapper = lane_stencil_matvec
+        entry = "mt_lane_stencil_matvec"
 
         def run(s, v, plain=False):
             return (lane_stencil_matvec_plain(s[0], v, wrap) if plain
                     else lane_stencil_matvec(packed, v, wrap))
-    before = wrapper.launches
+    before = cuda_lib.launched(entry)
     y = run(st, u)
     again = run(st, u)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 2
+    assert cuda_lib.launched(entry) == before + 2
     assert torch.equal(y, again)
     ref = run(st, u, plain=True)
     scale = float(run(tuple(s.abs() for s in st), u.abs(), plain=True).max())
@@ -957,12 +953,14 @@ def test_lane_coarse_smoother_matches_plain(grid, nb, dtype, tol, cut):
                             for lo, hi in ((40e9, 250e9), (0.22, 0.38), (0.2, 1.0))))
     dinv = _lane_material_center_inv(level, *w3)
     r = torch.as_tensor(rng.standard_normal((2, rows, cols, nb)), dtype=dtype, device=dev)
-    before = (lc.lane_coarse_smooth3.launches, lc.lane_coarse_smooth3.per_sweep)
+    # the per-sweep route would launch the S = 3 kernel at the level's shape
+    coarse = ("mt_lane_coarse_smooth3", "mt_lane_stencil_matvec3")
+    before = [cuda_lib.launches[k, dtype, tuple(r.shape)] for k in coarse]
     e = lc.lane_coarse_smooth3(plevel, dinv, w3, r, wrap, 48, 0.7)
     again = lc.lane_coarse_smooth3(plevel, dinv, w3, r, wrap, 48, 0.7)
     torch.cuda.synchronize()
-    assert (lc.lane_coarse_smooth3.launches, lc.lane_coarse_smooth3.per_sweep) == (
-        before[0] + 2, before[1])
+    assert [cuda_lib.launches[k, dtype, tuple(r.shape)] for k in coarse] == [
+        before[0] + 2, before[1]]
     assert torch.equal(e, again)
     ref = lc.lane_coarse_smooth3_plain(level, dinv, w3, r, wrap, 48, 0.7)
     assert torch.isfinite(e).all()
@@ -971,9 +969,8 @@ def test_lane_coarse_smoother_matches_plain(grid, nb, dtype, tol, cut):
 
 def test_lane_coarse_smoother_takes_the_per_sweep_route_where_it_does_not_fit():
     """A 17x33 level (1,122 threads a slab) runs as 47 S = 3 launches and
-    the torch passes, counted in .per_sweep, and matches the plain loop."""
+    the torch passes, and matches the plain loop."""
     from magnetite_tpu_torch.kernels import lane_coarse_kernel as lc
-    from magnetite_tpu_torch.kernels.lane_stencil_kernel import lane_stencil_matvec3
     from magnetite_tpu_torch.parallel.sweep import _lane_material_center_inv, material_weights
 
     dev = require_cuda()
@@ -987,12 +984,13 @@ def test_lane_coarse_smoother_takes_the_per_sweep_route_where_it_does_not_fit():
                             for lo, hi in ((40e9, 250e9), (0.22, 0.38), (0.2, 1.0))))
     dinv = _lane_material_center_inv(level, *w3)
     r = torch.as_tensor(rng.standard_normal((2, 17, 33, nb)), device=dev)
-    before = (lc.lane_coarse_smooth3.launches, lc.lane_coarse_smooth3.per_sweep,
-              lane_stencil_matvec3.launches)
+    # one per-sweep solve: 47 S = 3 launches at the level's shape, no fused one
+    coarse = ("mt_lane_coarse_smooth3", "mt_lane_stencil_matvec3")
+    before = [cuda_lib.launches[k, torch.float64, tuple(r.shape)] for k in coarse]
     e = lc.lane_coarse_smooth3(plevel, dinv, w3, r, wrap, 48, 0.7)
     torch.cuda.synchronize()
-    assert (lc.lane_coarse_smooth3.launches, lc.lane_coarse_smooth3.per_sweep,
-            lane_stencil_matvec3.launches) == (before[0], before[1] + 1, before[2] + 47)
+    assert [cuda_lib.launches[k, torch.float64, tuple(r.shape)] for k in coarse] == [
+        before[0], before[1] + 47]
     ref = lc.lane_coarse_smooth3_plain(level, dinv, w3, r, wrap, 48, 0.7)
     assert float((e - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
 
@@ -1037,10 +1035,6 @@ def test_grid_sweep_on_card_matches_cpu(grid, material):
     coarse-smoother launch per V-cycle) against the CPU (its plain
     versions), 32 lanes, f64: u within 1e-9 of max|u|."""
     from magnetite_tpu_torch.config import ModelMetadata
-    from magnetite_tpu_torch.kernels.lane_coarse_kernel import lane_coarse_smooth3
-    from magnetite_tpu_torch.kernels.lane_stencil_kernel import (
-        lane_stencil_matvec, lane_stencil_matvec3,
-    )
     from magnetite_tpu_torch.meshing.generators import (
         plate_with_hole_mesh, rect_mesh, tensile_bcs_for_rect,
     )
@@ -1058,26 +1052,26 @@ def test_grid_sweep_on_card_matches_cpu(grid, material):
     if material:
         args = (u_values, f_values, rng.uniform(40e9, 250e9, b), rng.uniform(0.22, 0.38, b),
                 rng.uniform(0.2, 1.0, b))
-        kernel = lane_stencil_matvec3
+        kernel = "mt_lane_stencil_matvec3"
 
         def run(device):
             return compile_material_sweep(mesh, bca, iterations=20, dtype=np.float64,
                                           device=device).solve(*args)
     else:
         args = (u_values, f_values, rng.uniform(0.5, 2.0, b))
-        kernel = lane_stencil_matvec
+        kernel = "mt_lane_stencil_matvec"
 
         def run(device):
             return compile_sweep(mesh, bca, ModelMetadata(69e9, 0.33, 0.5, 0.0, 0.05),
                                  iterations=20, dtype=np.float64, device=device).solve(*args)
 
     cpu = run("cpu")
-    before = (kernel.launches, lane_coarse_smooth3.launches)
+    before = (cuda_lib.launched(kernel), cuda_lib.launched("mt_lane_coarse_smooth3"))
     card = run("cuda")
     torch.cuda.synchronize()
-    assert kernel.launches > before[0]
+    assert cuda_lib.launched(kernel) > before[0]
     # one fused coarse solve per V-cycle (iterations + 1) on the material sweep
-    assert lane_coarse_smooth3.launches - before[1] == (21 if material else 0)
+    assert cuda_lib.launched("mt_lane_coarse_smooth3") - before[1] == (21 if material else 0)
     u_cpu, u_card = cpu.u.numpy(), card.u.cpu().numpy()
     assert np.isfinite(u_card).all()
     assert np.abs(u_card - u_cpu).max() <= 1e-9 * np.abs(u_cpu).max()
@@ -1125,10 +1119,10 @@ def test_lane_ell_kernel_matches_plain(case, dtype, tol):
         flat[1:].view(u.shape).copy_(u)
         u = flat[1:].view(u.shape)
         assert u.is_contiguous() and u.data_ptr() % 16 != 0
-    before = lane_ell_matvec.launches
+    before = cuda_lib.launched("mt_lane_ell_matvec")
     y, again = lane_ell_matvec(ell, cols, u), lane_ell_matvec(ell, cols, u)
     torch.cuda.synchronize()
-    assert lane_ell_matvec.launches == before + 2 and torch.equal(y, again)
+    assert cuda_lib.launched("mt_lane_ell_matvec") == before + 2 and torch.equal(y, again)
     ref = lane_ell_matvec_plain(ell, cols, u)
     scale = float(lane_ell_matvec_plain(ell.abs(), cols, u.abs()).max())
     assert float((y - ref).abs().max()) <= tol * scale
@@ -1165,8 +1159,6 @@ def test_block_jacobi_sweeps_on_card_match_cpu(shuffle):
     (their plain versions), 16 lanes, f64, 400 iterations (converged):
     u within 1e-9 of max|u|."""
     from magnetite_tpu_torch.bc import BCArrays
-    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec
-    from magnetite_tpu_torch.kernels.lane_ell_kernel import lane_ell_matvec
     from magnetite_tpu_torch.meshing.core import Mesh
     from magnetite_tpu_torch.parallel.sweep import sweep_solve
 
@@ -1179,7 +1171,7 @@ def test_block_jacobi_sweeps_on_card_match_cpu(shuffle):
     u_values[:, right, 0] = rng.uniform(0.005, 0.02, b)[:, None]
     f_values = np.zeros_like(u_values)
     k_scales = rng.uniform(0.5, 2.0, b)
-    kernel = lane_dia_matvec
+    kernel = K7
     if shuffle:
         perm = np.random.default_rng(7).permutation(mesh.num_nodes)
         inv = np.empty_like(perm)
@@ -1188,17 +1180,17 @@ def test_block_jacobi_sweeps_on_card_match_cpu(shuffle):
         bca = BCArrays(u_known=bca.u_known[perm], u_value=bca.u_value[perm],
                        f_value=bca.f_value[perm])
         u_values, f_values = u_values[:, perm], f_values[:, perm]
-        kernel = lane_ell_matvec
+        kernel = ("mt_lane_ell_matvec",)
 
     def run(device):
         return sweep_solve(mesh, bca, md, u_values, f_values, k_scales, iterations=400,
                            dtype=np.float64, device=device)
 
     cpu = run("cpu")
-    before = kernel.launches
+    before = cuda_lib.launched(*kernel)
     card = run("cuda")
     torch.cuda.synchronize()
-    assert kernel.launches == before + 403
+    assert cuda_lib.launched(*kernel) == before + 403
     u_cpu, u_card = cpu.u.numpy(), card.u.cpu().numpy()
     assert np.isfinite(u_card).all()
     assert np.abs(u_card - u_cpu).max() <= 1e-9 * np.abs(u_cpu).max()
@@ -1221,10 +1213,10 @@ def test_ell_kernel_matches_plain(case, dtype, tol):
                                    torch.as_tensor(cols_np, device=dev))
     u = torch.as_tensor(np.random.default_rng(61).standard_normal((2, n)), dtype=dtype,
                         device=dev)
-    before = ell_matvec_t.launches
+    before = cuda_lib.launched("mt_ell_matvec")
     y, again = ell_matvec_t(data, cols, u), ell_matvec_t(data, cols, u)
     torch.cuda.synchronize()
-    assert ell_matvec_t.launches == before + 2 and torch.equal(y, again)
+    assert cuda_lib.launched("mt_ell_matvec") == before + 2 and torch.equal(y, again)
     ref = ell_matvec_t_plain(data, cols, u)
     scale = float(ell_matvec_t_plain(data.abs(), cols, u.abs()).max())
     assert float((y - ref).abs().max()) <= tol * scale
@@ -1258,22 +1250,19 @@ def test_ell_solve_on_card_matches_cpu(kwargs):
     (and with AMG the transfers and the m = 3 band kernel the coarse
     levels, no m = 2 band launch), the CPU's iterations and answer."""
     from magnetite_tpu_torch import SolverOptions, compile_problem
-    from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
-    from magnetite_tpu_torch.kernels.ell_kernel import ell_matvec_t
-    from magnetite_tpu_torch.kernels.transfer_kernel import prolong0
 
     require_cuda()
     mesh, bca, md = port_plate(0.016)
     opts = SolverOptions(operator="ell", **kwargs)
     cpu = compile_problem(mesh, bca, md, opts, device="cpu").solve()
-    before = (ell_matvec_t.launches, prolong0.launches, dict(dia_matvec.shape_launches))
+    before = cuda_lib.launches.copy()
     problem = compile_problem(mesh, bca, md, opts, device="cuda")
     assert problem.mode == "ell"
     card = problem.solve()
-    assert ell_matvec_t.launches > before[0]
-    assert (prolong0.launches > before[1]) == (problem.preconditioner == "amg")
-    new = {k: c - before[2].get(k, 0) for k, c in dia_matvec.shape_launches.items()}
-    assert not any(c for k, c in new.items() if k[0] == 2)
+    new = cuda_lib.launches - before
+    assert cuda_lib.launched("mt_ell_matvec", counts=new) > 0
+    assert (cuda_lib.launched("mt_prolong0", counts=new) > 0) == (problem.preconditioner == "amg")
+    assert not any(c for (e, _, shape), c in new.items() if e == "mt_dia_matvec" and shape[0] == 2)
     assert abs(card.iterations - cpu.iterations) <= 1
     assert np.abs(card.u - cpu.u).max() <= 1e-8 * np.abs(cpu.u).max()
     for field in ("f", "stress"):
@@ -1355,14 +1344,14 @@ def test_assembly_kernel_matches_plain_and_repeats(structure):
     card, within 1e-12 of the largest entry, two calls bit for bit (no
     floating-point atomics), one launch of each kernel a call."""
     from magnetite_tpu_torch.kernels.assembly_kernel import (
-        assemble_count, assemble_fill, assemble_pairs, assemble_pairs_plain,
+        assemble_pairs, assemble_pairs_plain,
     )
 
     coords, tris, ids, n, n_bands, n_rem, ell, mat = assembly_case(structure)
-    counters = (assemble_pairs, assemble_count, assemble_fill)
-    before = [k.launches for k in counters]
+    entries = ("mt_assemble_runs", "mt_assemble_count", "mt_assemble_fill")
+    before = [cuda_lib.launched(e) for e in entries]
     got, _ = assemble_pairs(coords, tris, ids, n, n_bands, *mat, ell=ell)
-    assert [k.launches for k in counters] == [b + 1 for b in before]
+    assert [cuda_lib.launched(e) for e in entries] == [b + 1 for b in before]
     assert torch.equal(got, assemble_pairs(coords, tris, ids, n, n_bands, *mat, ell=ell)[0])
     ref, _ = assemble_pairs_plain(coords, tris, ids, n, n_bands, *mat, ell=ell)
     assert got.shape == ref.shape == (n_bands, 2, 2, n)
@@ -1422,8 +1411,6 @@ def test_two_shard_solve_on_card_matches_cpu(precision):
     shard shape, restrict0 per shard, the same iterations and answer."""
     from magnetite_tpu_torch import SolverOptions
     from magnetite_tpu_torch.fem.solve import solve_system
-    from magnetite_tpu_torch.kernels.dia_kernel import dia_matvec
-    from magnetite_tpu_torch.kernels.transfer_kernel import restrict0
     from magnetite_tpu_torch.parallel.pipeline import DeviceMesh, compile_sharded_problem
 
     require_cuda()
@@ -1434,11 +1421,12 @@ def test_two_shard_solve_on_card_matches_cpu(precision):
     compiled = compile_sharded_problem(mesh, bca, md, opts,
                                        device_mesh=DeviceMesh(("cuda:0",) * 2))
     p = compiled.problem
-    before = (dict(dia_matvec.shape_launches), restrict0.launches)
+    before = cuda_lib.launches.copy()
     card = compiled.solve()
-    new = {k: c - before[0].get(k, 0) for k, c in dia_matvec.shape_launches.items()}
-    assert {k[1] for k, c in new.items() if c and k[0] == 2} == {p.local_n + 2 * p.halo}
-    assert restrict0.launches > before[1]
+    new = cuda_lib.launches - before
+    assert {shape[1] for (e, _, shape) in new if e == "mt_dia_matvec" and shape[0] == 2} == {
+        p.local_n + 2 * p.halo}
+    assert cuda_lib.launched("mt_restrict0", counts=new) > 0
     assert abs(card.iterations - cpu.iterations) <= 1
     assert np.abs(card.u - cpu.u).max() <= 1e-8 * np.abs(cpu.u).max()
     for field in ("f", "stress"):
@@ -1465,9 +1453,9 @@ def test_ell_kernel_takes_a_longer_field_on_card(dtype, tol, shape):
     data = torch.randn(k, 2, 2, n, generator=g, device=dev, dtype=torch.float64).to(dtype)
     cols = torch.randint(0, n_u, (k, n), generator=g, device=dev, dtype=torch.int32)
     u = torch.randn(2, n_u, generator=g, device=dev, dtype=torch.float64).to(dtype)
-    before = ell_matvec_t.launches
+    before = cuda_lib.launched("mt_ell_matvec")
     y = ell_matvec_t(data, cols, u)
-    assert ell_matvec_t.launches == before + 1 and tuple(y.shape) == (2, n)
+    assert cuda_lib.launched("mt_ell_matvec") == before + 1 and tuple(y.shape) == (2, n)
     assert torch.equal(y, ell_matvec_t(data, cols, u))
     ref = ell_matvec_t_plain(data, cols, u)
     scale = float(ell_matvec_t_plain(data.abs(), cols, u.abs()).max())
@@ -1491,9 +1479,10 @@ def test_lane_ell_kernel_takes_a_longer_field_on_card(dtype, tol):
     cols = torch.randint(0, n_u, (n, w), generator=g, device=dev, dtype=torch.int32)
     for nb in (16, 7):
         u = torch.randn(2, n_u, nb, generator=g, device=dev, dtype=torch.float64).to(dtype)
-        before = lane_ell_matvec.launches
+        before = cuda_lib.launched("mt_lane_ell_matvec")
         y = lane_ell_matvec(ell, cols, u)
-        assert lane_ell_matvec.launches == before + 1 and tuple(y.shape) == (2, n, nb)
+        assert cuda_lib.launched("mt_lane_ell_matvec") == before + 1 and tuple(y.shape) == (
+            2, n, nb)
         ref = lane_ell_matvec_plain(ell, cols, u)
         scale = float(lane_ell_matvec_plain(ell.abs(), cols, u.abs()).max())
         assert float((y - ref).abs().max()) <= tol * scale
@@ -1529,8 +1518,6 @@ def test_sharded_structured_solve_on_card_matches_cpu(layout, dtype):
     the replicated coarse levels, the CPU's answer (f32: refined)."""
     from magnetite_tpu_torch import SolverOptions
     from magnetite_tpu_torch.config import ModelMetadata
-    from magnetite_tpu_torch.kernels.mg_smooth_kernel import mg_postsmooth
-    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
     from magnetite_tpu_torch.meshing.generators import plate_with_hole_mesh, tensile_bcs_for_rect
     from magnetite_tpu_torch.parallel.pipeline import (
         DeviceMesh, DeviceMesh2D, compile_sharded_problem,
@@ -1548,13 +1535,13 @@ def test_sharded_structured_solve_on_card_matches_cpu(layout, dtype):
 
     cpu = compile_sharded_problem(mesh, bca, md, opts, device_mesh=mesh_on("cpu")).solve()
     compiled = compile_sharded_problem(mesh, bca, md, opts, device_mesh=mesh_on("cuda:0"))
-    before = (dict(stencil_matvec.shape_launches), mg_postsmooth.launches)
+    before = cuda_lib.launches.copy()
     card = compiled.solve()
     rl, cl = compiled.problem.reduced[0].shape[-2:]
     tile = (rl + 2, cl + 2 if isinstance(layout, tuple) else cl)
-    new = {key[:2] for key, c in stencil_matvec.shape_launches.items()
-           if c > before[0].get(key, 0)}
-    assert new == {tile} and mg_postsmooth.launches > before[1]
+    new = cuda_lib.launches - before
+    shapes = {shape[1:] for (e, _, shape) in new if e == "mt_stencil_matvec"}
+    assert shapes == {tile} and cuda_lib.launched("mt_mg_postsmooth", counts=new) > 0
     assert abs(card.iterations - cpu.iterations) <= 1
     assert np.abs(card.u - cpu.u).max() <= 1e-6 * np.abs(cpu.u).max()
     assert np.abs(card.stress - cpu.stress).max() <= 1e-5 * np.abs(cpu.stress).max()
@@ -1565,8 +1552,6 @@ def test_lane_sharded_sweeps_on_card_match_unsharded():
     shards of cuda:0: the lane kernels launched twice as often, each lane
     within 1e-12 of the unsharded sweep's (f64)."""
     from magnetite_tpu_torch.config import ModelMetadata
-    from magnetite_tpu_torch.kernels.lane_dia_kernel import lane_dia_matvec
-    from magnetite_tpu_torch.kernels.lane_stencil_kernel import lane_stencil_matvec
     from magnetite_tpu_torch.meshing.generators import rect_mesh, tensile_bcs_for_rect
     from magnetite_tpu_torch.parallel import sweep as ps
     from magnetite_tpu_torch.parallel.pipeline import DeviceMesh
@@ -1582,11 +1567,11 @@ def test_lane_sharded_sweeps_on_card_match_unsharded():
     mesh, bca, pmd = port_plate(0.04)
     factors = (rng.uniform(0.5, 2.0, b), np.ones(b), rng.uniform(0.5, 2.0, b))
     for kernel, one, sharded, method, a in (
-        (lane_stencil_matvec,
+        (("mt_lane_stencil_matvec",),
          ps.compile_sweep(grid, gb, md, iterations=10, dtype=np.float64, device="cuda"),
          ps.compile_sweep(grid, gb, md, iterations=10, dtype=np.float64, device_mesh=two),
          "solve", args),
-        (lane_dia_matvec,
+        (K7,
          ps.compile_unstructured_sweep(mesh, bca, pmd, iterations=10, dtype=np.float64,
                                        device="cuda"),
          None, "solve_factors", factors),
@@ -1595,11 +1580,11 @@ def test_lane_sharded_sweeps_on_card_match_unsharded():
             sharded = ps.compile_unstructured_sweep(mesh, bca, pmd, iterations=10,
                                                     dtype=np.float64, device_mesh=two,
                                                     amg_setup=one.amg_setup)
-        k0 = kernel.launches
+        k0 = cuda_lib.launched(*kernel)
         want = getattr(one, method)(*a)
-        k1 = kernel.launches
+        k1 = cuda_lib.launched(*kernel)
         got = getattr(sharded, method)(*a)
-        assert kernel.launches - k1 == 2 * (k1 - k0) > 0
+        assert cuda_lib.launched(*kernel) - k1 == 2 * (k1 - k0) > 0
         scale = want.u.abs().amax(dim=(1, 2))
         assert float(((got.u - want.u).abs().amax(dim=(1, 2)) / scale).max()) <= 1e-12
 

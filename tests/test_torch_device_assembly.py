@@ -214,19 +214,20 @@ def test_unknown_assembly_raises():
 
 def test_assembly_wrapper_takes_the_plain_version_on_the_cpu():
     from magnetite_tpu_torch.kernels import assembly_kernel as ak
+    from magnetite_tpu_torch.kernels import cuda_lib
 
     (_, _, md), (pmesh, _, _) = _case()
     coords, tris = _mesh_tensors(pmesh)
     slots = torch.arange(9 * tris.shape[0], dtype=torch.int64) % 97
-    counters = (ak.assemble_pairs, ak.assemble_count, ak.assemble_fill)
-    before = [k.launches for k in counters]
+    entries = ("mt_assemble_runs", "mt_assemble_count", "mt_assemble_fill")
+    before = [cuda_lib.launched(e) for e in entries]
     got = ak.assemble_pairs(coords, tris, slots, 97, 1, *_material(md))
     want = ak.assemble_pairs_plain(coords, tris, slots, 97, 1, *_material(md))
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert got[0].shape == (1, 2, 2, 97) and got[1].shape == (0, 2, 2)
     runs = ak.build_runs(coords, tris, slots, 97, md.part_thickness)
     assert runs.bounds.dtype == runs.order.dtype == torch.int32
-    assert [k.launches for k in counters] == before
+    assert [cuda_lib.launched(e) for e in entries] == before
 
 
 def _structure(kind, pmesh):
@@ -343,7 +344,11 @@ def test_assembly_raises_past_the_int32_limits(what):
 def test_launch_enters_the_operands_device(monkeypatch):
     """cuda_lib.launch makes the operand's device current around the C
     call and passes that device's stream (a shard on cuda:1 launches on
-    cuda:1), with the device guard and the library stubbed on the CPU."""
+    cuda:1), then counts the launch under the entry and the operand's
+    dtype and shape, with the device guard and the library stubbed on the
+    CPU."""
+    from collections import Counter
+
     from magnetite_tpu_torch.kernels import cuda_lib
 
     current = []
@@ -370,11 +375,14 @@ def test_launch_enters_the_operands_device(monkeypatch):
     monkeypatch.setattr(cuda_lib, "load", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", Guard)
     monkeypatch.setattr(cuda_lib, "stream_of", lambda t: 1234 + t.device.index)
-    operand = types.SimpleNamespace(device=torch.device("cuda", 1))
+    monkeypatch.setattr(cuda_lib, "launches", Counter())
+    operand = types.SimpleNamespace(device=torch.device("cuda", 1), dtype=torch.float64,
+                                    shape=torch.Size([2, 5]))
     cuda_lib.launch("probe", "mt_probe", operand, 7, 8)
     assert entered == [torch.device("cuda", 1)]
     assert calls == [((7, 8, 1235), torch.device("cuda", 1))]
     assert current == []
+    assert cuda_lib.launches == Counter({("mt_probe", torch.float64, (2, 5)): 1})
 
 
 def test_every_wrapper_launches_through_the_guard():

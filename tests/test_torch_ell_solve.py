@@ -126,6 +126,7 @@ def test_ell_matvec_plain_matches_jax_ell_matvec():
     import jax.numpy as jnp
     from magnetite_tpu.fem.operator import ell_matvec as jax_ell_matvec
     from magnetite_tpu_torch.fem.assembly import build_ell_structure
+    from magnetite_tpu_torch.kernels import cuda_lib
     from magnetite_tpu_torch.kernels.ell_kernel import (
         ell_matvec_t, ell_matvec_t_plain, ell_to_slot_major,
     )
@@ -141,9 +142,9 @@ def test_ell_matvec_plain_matches_jax_ell_matvec():
     got = ell_matvec_t_plain(data, cols, torch.from_numpy(u.T.copy())).T.numpy()
     scale = np.abs(ell).sum(axis=(1, 3)).max() * np.abs(u).max()
     assert np.abs(got - ref).max() <= 1e-14 * scale
-    before = ell_matvec_t.launches
+    before = cuda_lib.launched("mt_ell_matvec")
     wrapped = ell_matvec_t(data, cols, torch.from_numpy(u.T.copy()))
-    assert ell_matvec_t.launches == before
+    assert cuda_lib.launched("mt_ell_matvec") == before
     np.testing.assert_array_equal(wrapped.T.numpy(), got)
 
 
@@ -156,6 +157,7 @@ def test_ell_matvec_plain_matches_jax_ell_matvec():
 def test_ell_wrapper_launches_nothing_on_cpu(k, n, n_u, dtype):
     """CPU operands take the plain version: no launch, the plain version's
     bits, and the sum over the slots an independent numpy product gives."""
+    from magnetite_tpu_torch.kernels import cuda_lib
     from magnetite_tpu_torch.kernels import ell_kernel as ek
 
     rng = np.random.default_rng(12)
@@ -164,9 +166,11 @@ def test_ell_wrapper_launches_nothing_on_cpu(k, n, n_u, dtype):
     u_np = rng.standard_normal((2, n_u))
     data, cols, u = (torch.from_numpy(x) for x in (data_np, cols_np, u_np))
     data, u = data.to(dtype), u.to(dtype)
-    before = (ek.ell_matvec_t.launches, ek.ell_matvec_t.f64_launches)
+    counts = (lambda: (cuda_lib.launched("mt_ell_matvec"),
+                       cuda_lib.launched("mt_ell_matvec", dtype=torch.float64)))
+    before = counts()
     y = ek.ell_matvec_t(data, cols, u)
-    assert (ek.ell_matvec_t.launches, ek.ell_matvec_t.f64_launches) == before
+    assert counts() == before
     assert y.dtype == dtype and tuple(y.shape) == (2, n)
     assert torch.equal(y, ek.ell_matvec_t_plain(data, cols, u))
     ref = np.einsum("kijn,jkn->in", data.double().numpy(), u.double().numpy()[:, cols_np])

@@ -60,17 +60,16 @@ def jax_runs():
 
 
 def test_entry_calls_repeat_bit_for_bit_and_launch_nothing_on_the_cpu(port_entry):
-    from magnetite_tpu_torch.kernels.mg_smooth_kernel import mg_postsmooth, mg_presmooth
-    from magnetite_tpu_torch.kernels.stencil_kernel import stencil_matvec
+    from magnetite_tpu_torch.kernels import cuda_lib
 
     fn, args = port_entry
     (problem,) = args
     assert problem.mode == "stencil" and problem.preconditioner == "multigrid"
     assert problem.device.type == "cpu" and problem.dtype == torch.float32
-    kernels = (stencil_matvec, mg_presmooth, mg_postsmooth)
-    before = [k.launches for k in kernels]
+    entries = ("mt_stencil_matvec", "mt_mg_presmooth", "mt_mg_postsmooth")
+    before = [cuda_lib.launched(e) for e in entries]
     first, second = fn(*args), fn(*args)
-    assert [k.launches for k in kernels] == before
+    assert [cuda_lib.launched(e) for e in entries] == before
     assert len(first) == 10
     for a, b in zip(first, second):
         assert torch.equal(a, b)

@@ -32,6 +32,7 @@ from magnetite_tpu_torch import interop
 from magnetite_tpu_torch.config import ModelMetadata
 from magnetite_tpu_torch.errors import InputError, SolverError
 from magnetite_tpu_torch.fem.stencil import assemble_stencil_structured
+from magnetite_tpu_torch.kernels import cuda_lib
 from magnetite_tpu_torch.kernels import lane_stencil_kernel as lk
 from magnetite_tpu_torch.parallel import sweep as ps
 from tests.torch_cases import one_thread  # noqa: F401  (autouse)
@@ -236,13 +237,14 @@ def test_sweep_solve_routes_grids_to_compile_sweep():
 
 
 def test_wrappers_launch_nothing_on_cpu_tensors(case):
-    n1, n3 = lk.lane_stencil_matvec.launches, lk.lane_stencil_matvec3.launches
+    entries = ("mt_lane_stencil_matvec", "mt_lane_stencil_matvec3")
+    n1, n3 = (cuda_lib.launched(e) for e in entries)
     port_sweep(case, np.float64).solve(*case["batch"])
     st, u = random_lane_case(9, 17, 4, 5)
     st, u = torch.from_numpy(st), torch.from_numpy(u)
     w = tuple(torch.ones(4, dtype=torch.float64) for _ in range(3))
     lk.lane_stencil_matvec3((st, st, st, st), w, u, False)
-    assert (lk.lane_stencil_matvec.launches, lk.lane_stencil_matvec3.launches) == (n1, n3)
+    assert tuple(cuda_lib.launched(e) for e in entries) == (n1, n3)
 
 
 def test_compile_defaults_to_cuda_and_raises_without_a_card():

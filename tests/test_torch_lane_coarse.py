@@ -25,6 +25,7 @@ import torch
 
 from magnetite_tpu.meshing import generators as jgen
 from magnetite_tpu.parallel import sweep as js
+from magnetite_tpu_torch.kernels import cuda_lib
 from magnetite_tpu_torch.kernels import lane_coarse_kernel as lc
 from magnetite_tpu_torch.kernels import lane_stencil_kernel as lk
 from magnetite_tpu_torch.parallel import sweep as ps
@@ -163,14 +164,13 @@ def test_nothing_launches_on_cpu_tensors():
     mat, r = lane_inputs((9, 17), 23)
     pw = ps.material_weights(*(torch.from_numpy(x) for x in mat))
     dinv = ps._lane_material_center_inv(level, *pw)
-    before = (lc.lane_coarse_smooth3.launches, lc.lane_coarse_smooth3.per_sweep,
-              lk.lane_stencil_matvec3.launches, lk.lane_stencil_matvec.launches)
+    # the per-sweep route would launch the S = 3 kernel
+    entries = ("mt_lane_coarse_smooth3", "mt_lane_stencil_matvec3", "mt_lane_stencil_matvec")
+    before = [cuda_lib.launched(e) for e in entries]
     for st in (level, lk.pack_lane_stencils(level)):
         lc.lane_coarse_smooth3(st, dinv, pw, torch.from_numpy(r), wrap, SWEEPS, OMEGA)
     lk.lane_stencil_matvec(lk.pack_lane_stencils(level.sa), torch.from_numpy(r), wrap)
-    after = (lc.lane_coarse_smooth3.launches, lc.lane_coarse_smooth3.per_sweep,
-             lk.lane_stencil_matvec3.launches, lk.lane_stencil_matvec.launches)
-    assert after == before
+    assert [cuda_lib.launched(e) for e in entries] == before
 
 
 def test_compiled_material_sweep_holds_packed_stencils():

@@ -14,6 +14,7 @@ import torch
 
 from magnetite_tpu.pallas.lane_dia_kernel import make_lane_dia_matvec, make_lane_dia_matvec3
 from magnetite_tpu.parallel.sweep import _lane_weighted_band_matvec
+from magnetite_tpu_torch.kernels import cuda_lib
 from magnetite_tpu_torch.kernels.lane_dia_kernel import (
     RING_GEOMETRY,
     SMEM_LIMIT,
@@ -123,8 +124,9 @@ def test_wrappers_take_the_plain_versions_on_cpu_tensors():
     t3 = tuple(torch.as_tensor(b) for b in bands3)
     tw = tuple(torch.as_tensor(w) for w in w3)
     tu = torch.as_tensor(u)
-    counts = (lambda: (lane_dia_matvec.launches, lane_dia_matvec.ring_launches,
-                       lane_dia_matvec3.launches))
+    counts = (lambda: (cuda_lib.launched("mt_lane_dia_ring", "mt_lane_dia_matvec"),
+                       cuda_lib.launched("mt_lane_dia_ring"),
+                       cuda_lib.launched("mt_lane_dia_ring3", "mt_lane_dia_matvec3")))
     before = counts()
     assert torch.equal(lane_dia_matvec(t3[0], OFFSETS, tu),
                        lane_dia_matvec_plain(t3[0], OFFSETS, tu))

@@ -22,6 +22,7 @@ from magnetite_tpu.fem import solve as jsolve
 from magnetite_tpu.fem import stencil as jst
 from magnetite_tpu.meshing.generators import plate_with_hole_mesh, rect_mesh
 from magnetite_tpu_torch.fem import multigrid as pmg
+from magnetite_tpu_torch.kernels import cuda_lib
 from magnetite_tpu_torch.kernels import mg_smooth_kernel as mgk
 from tests.torch_cases import E_MOD, NU, THICK
 from tests.torch_cases import one_thread  # noqa: F401  (autouse)
@@ -126,9 +127,8 @@ def test_vcycle_is_symmetric(hierarchies):
 
 def test_wrappers_take_the_plain_versions_on_cpu_and_launch_nothing(hierarchies):
     _, wrap, _, levels = hierarchies
-    counts = (mgk.mg_presmooth.launches, mgk.mg_postsmooth.launches,
-              sum(mgk.mg_presmooth.shape_launches.values()),
-              sum(mgk.mg_postsmooth.shape_launches.values()))
+    entries = ("mt_mg_presmooth", "mt_mg_postsmooth")
+    counts = [cuda_lib.launched(e) for e in entries]
     lv = levels[0]
     r, e = (torch.from_numpy(a) for a in _inputs(9, lv.rows, lv.cols))
     got = mgk.mg_presmooth(lv.stencil, lv.diag_inv, r, wrap)
@@ -138,9 +138,7 @@ def test_wrappers_take_the_plain_versions_on_cpu_and_launch_nothing(hierarchies)
     assert torch.equal(mgk.mg_postsmooth(lv.stencil, lv.diag_inv, r, e, ec, wrap),
                        mgk.mg_postsmooth_plain(lv.stencil, lv.diag_inv, r, e, ec, wrap))
     pmg.vcycle_preconditioner(levels, wrap)(r)
-    assert (mgk.mg_presmooth.launches, mgk.mg_postsmooth.launches,
-            sum(mgk.mg_presmooth.shape_launches.values()),
-            sum(mgk.mg_postsmooth.shape_launches.values())) == counts
+    assert [cuda_lib.launched(e) for e in entries] == counts
 
 
 @pytest.mark.parametrize("wrap", [True, False])

@@ -5,9 +5,9 @@ The JAX loop is a `lax.while_loop` that never leaves the device. Here the
 loop is Python, and its state -- including a device-side `active` flag --
 stays on the device: an iteration run after the stopping test has been met
 is a no-op (alpha is zeroed, p / rz / the counter are held), so `iterations`
-is exactly what the JAX loop reports. The host reads the flag once every
-CHECK_EVERY iterations, which is the only synchronisation in the loop (the
-span `solve.wait`, as is each progress read).
+is exactly what the JAX loop reports. The eager loop reads the flag once
+every CHECK_EVERY iterations, which is its only synchronisation (the span
+`solve.wait`, as is each progress read).
 
 Stopping rule and breakdown guards as in the JAX package:
 ||r|| <= max(rtol * ||b||, atol); alpha = 0 when p.Ap <= 0; rz == 0 is
@@ -20,8 +20,9 @@ reads the host once every `progress_every` iterations, printing JAX's
 iteration numbers. With both off the loop is exactly the plain one.
 
 A warm solve replays the loop from CUDA graphs (`PCGGraph`): the host
-then issues one graph launch and one read per CHECK_EVERY iterations
-instead of every kernel of them.
+issues one graph launch an iteration instead of every kernel of it, and
+reads each iteration's flag while the next one runs, so a replayed call
+issues at most one iteration past convergence.
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ from ..utils.logging import span
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
 
-# iterations between host reads of the device-side convergence flag; up to
-# CHECK_EVERY - 1 frozen iterations run after convergence
+# iterations between host reads of the device-side convergence flag in the
+# eager loop (up to CHECK_EVERY - 1 frozen iterations run after convergence)
 CHECK_EVERY = 16
 
 
@@ -47,6 +48,9 @@ class CGResult(NamedTuple):
     # ||r|| of the first `history` active iterations, shape [history] (0-size
     # when not requested); entries past `iterations` keep the init value 0
     history: Optional[torch.Tensor] = None
+    # iterations issued on the device, frozen ones included (0 where the
+    # caller did not count them)
+    issued: int = 0
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -95,24 +99,38 @@ def _start(matvec, m, b, x0, rtol, atol, dot):
     return _State(x, r, z, rz, rnorm2, k), bnorm, threshold * threshold
 
 
-def _step(matvec, m, dot, s: _State, thresh2, one, zero):
+def _step(matvec, m, dot, s: _State, thresh2, one, zero, out: Optional[_State] = None):
     """One iteration from state s: (the next state, whether it was active).
-    A frozen iteration (the stopping test met) holds every value."""
+    A frozen iteration (the stopping test met) holds every value. With
+    `out`, a state of tensors of their own in s's layouts, each field's last
+    operation writes the next state into out's tensor: the same arithmetic,
+    and no copy."""
     active = s.rnorm2 > thresh2
     ap = matvec(s.p)
     pap = dot(s.p, ap)
     alpha = torch.where(
         (pap > 0) & active, s.rz / torch.where(pap == 0, one, pap), zero
     )
-    x = s.x + alpha * s.p
-    r = s.r - alpha * ap
+    if out is None:
+        x = s.x + alpha * s.p
+        r = s.r - alpha * ap
+    else:
+        x = torch.add(s.x, alpha * s.p, out=out.x)
+        r = torch.sub(s.r, alpha * ap, out=out.r)
     z = m(r)
     rz_new = dot(r, z)
     beta = rz_new / torch.where(s.rz == 0, one, s.rz)
-    p = torch.where(active, z + beta * s.p, s.p)
-    rz = torch.where(active, rz_new, s.rz)
-    rnorm2 = torch.where(active, dot(r, r), s.rnorm2)
-    return _State(x, r, p, rz, rnorm2, s.k + active.to(torch.int64)), active
+    if out is None:
+        p = torch.where(active, z + beta * s.p, s.p)
+        rz = torch.where(active, rz_new, s.rz)
+        rnorm2 = torch.where(active, dot(r, r), s.rnorm2)
+        k = s.k + active.to(torch.int64)
+    else:
+        p = torch.where(active, z + beta * s.p, s.p, out=out.p)
+        rz = torch.where(active, rz_new, s.rz, out=out.rz)
+        rnorm2 = torch.where(active, dot(r, r), s.rnorm2, out=out.rnorm2)
+        k = torch.add(s.k, active.to(torch.int64), out=out.k)
+    return _State(x, r, p, rz, rnorm2, k), active
 
 
 def pcg(
@@ -189,14 +207,15 @@ def pcg(
         residual_norm=torch.sqrt(s.rnorm2),
         converged=s.rnorm2 <= thresh2,
         history=hist,
+        issued=steps,
     )
 
 
 def _distinct(s: _State, *taken) -> _State:
     """s with each field that shares memory with an earlier field, or with
     one of `taken`, cloned in its own layout. Without a preconditioner the
-    set-up's p is its r, one tensor: a chunk that copies its state back
-    field by field needs each field in memory of its own."""
+    set-up's p is its r, one tensor: a graph that writes its state field by
+    field needs each field in memory of its own."""
     seen = {t.untyped_storage().data_ptr() for t in taken if t is not None}
     fields = []
     for t in s:
@@ -206,35 +225,55 @@ def _distinct(s: _State, *taken) -> _State:
     return _State(*fields)
 
 
+def _same_layouts(a: _State, b: _State) -> bool:
+    return all(u.stride() == v.stride() for u, v in zip(a, b))
+
+
+class _Graph(NamedTuple):
+    """A captured CUDA graph, the state it writes, and that state's stop
+    flag (rnorm2 > thresh2, a device bool written last in the graph)."""
+
+    graph: torch.cuda.CUDAGraph
+    state: _State
+    flag: torch.Tensor
+
+
 class PCGGraph:
-    """`pcg`'s loop on one CUDA device as two CUDA graphs: its set-up (the
-    initial residual, its preconditioning and the dots) and one chunk of
-    CHECK_EVERY iterations, V-cycles included. Both are captured at the
-    first call and replayed by every later one. The graphs read static
+    """`pcg`'s loop on one CUDA device from CUDA graphs, V-cycles included:
+    its set-up (the initial residual, its preconditioning and the dots),
+    which writes the static state A; one iteration from A into a second
+    static state B, and one from B back into A. Each graph is captured at
+    its first use and replayed by every later call. The graphs read static
     buffers (the right-hand side and x0) that each call refills with
-    `copy_`; the set-up graph writes the state, and the chunk ends by
-    copying its state back, so replaying it again continues the iteration.
-    The host reads the convergence flag between chunks, as the eager loop
-    does. The captured code is `_start` and `_step`, the eager loop's own,
-    and the state keeps the eager loop's memory layouts (a reduction's
-    order follows its operand's layout), so a replayed solve gives the
-    eager solve's bits.
+    `copy_`. The captured code is `_start` and `_step`, the eager loop's
+    own; a graph whose state is A or B writes it with `_step`'s `out`, and
+    both states keep the eager loop's memory layouts (a reduction's order
+    follows its operand's layout), so a replayed solve gives the eager
+    solve's bits.
+
+    Each graph ends with its state's stop flag, which the host copies to
+    page-locked memory behind an event. The host launches iteration j + 1
+    before it waits for iteration j's flag (the set-up's is iteration
+    0's), so the device does not wait on the read as long as the host's
+    turn-around is shorter than an iteration, and a call issues at most
+    one iteration past convergence; two slots hold the flags in flight.
 
     The matvec and the preconditioner of the first call are captured: the
     caller passes closures over tensors that stay (the system's operator
     and the static copies of its per-solve tensors), never over tensors of
     one solve. Spans: `cg.capture` for each graph captured, `cg.replay`
-    for each replay, `cg.chunk` for a last chunk shorter than CHECK_EVERY
-    (run eagerly on the static state). `kernels.cuda_lib.launches`
-    counts the wrappers' calls: a capture counts its kernels once, a
-    replay nothing."""
+    for each replay, `solve.wait` for each wait on a flag.
+    `kernels.cuda_lib.launches` counts the wrappers' calls: a capture
+    counts its kernels once, a replay nothing."""
 
     def __init__(self, pool):
         self.pool = pool  # the owner's memory pool (torch.cuda.graph_pool_handle)
         self.stream = None  # the side stream of the captures
         self.b = self.x0 = self.one = self.zero = None
-        self.state = self.thresh2 = None  # written by the set-up graph
-        self.start = self.chunk = None  # torch.cuda.CUDAGraph
+        self.thresh2 = None  # written by the set-up graph
+        self.start = None  # the set-up _Graph; start.state is A
+        self.steps = []  # the one-iteration _Graphs: A -> B, then B -> A
+        self.flags = self.events = None  # page-locked flag slots, their events
 
     def takes(self, b, x0) -> bool:
         """Whether this call replays: any call before the first capture;
@@ -248,70 +287,92 @@ class PCGGraph:
             and (x0 is None) == (self.x0 is None)
         )
 
-    def _capture(self, body):
+    def _capture(self, body) -> _Graph:
+        """body(), which returns the state it writes, and that state's stop
+        flag as one CUDA graph."""
         graph = torch.cuda.CUDAGraph()
         with span("cg.capture"):
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-                body()
-        return graph
+                s = body()
+                flag = s.rnorm2 > self.thresh2
+        return _Graph(graph, s, flag)
+
+    def _replay(self, g: _Graph) -> _Graph:
+        with span("cg.replay"):
+            g.graph.replay()
+        return g
+
+    def _single(self, i, matvec, m, dot) -> _Graph:
+        """The one-iteration graph from A (i = 0) or B (i = 1), captured at
+        its first use."""
+        if i < len(self.steps):
+            return self.steps[i]
+        a = self.start.state
+        if i == 0:
+            g = self._capture(
+                lambda: _step(matvec, m, dot, a, self.thresh2, self.one, self.zero)[0]
+            )
+            # B is A's layouts, or replays would sum in other orders than
+            # the eager loop
+            assert _same_layouts(g.state, a), "the PCG state changed its memory layout"
+        else:
+            g = self._capture(lambda: _step(
+                matvec, m, dot, self.steps[0].state, self.thresh2, self.one, self.zero, out=a
+            )[0])
+        self.steps.append(g)
+        return g
 
     @staticmethod
-    def _replay(graph):
-        with span("cg.replay"):
-            graph.replay()
+    def _device_parts(device) -> tuple:
+        """The captures' side stream, two page-locked flag slots and their
+        events."""
+        slots = torch.empty(2, dtype=torch.bool, pin_memory=True)
+        return torch.cuda.Stream(device), slots, (torch.cuda.Event(), torch.cuda.Event())
 
-    def _iterate(self, matvec, m, dot, n) -> bool:
-        """n iterations from the static state, written back into it;
-        whether the state came out in the layouts it went in with."""
-        s = self.state
-        for _ in range(n):
-            s, _ = _step(matvec, m, dot, s, self.thresh2, self.one, self.zero)
-        for dst, src in zip(self.state, s):
-            dst.copy_(src)
-        return all(dst.stride() == src.stride() for dst, src in zip(self.state, s))
+    def _post(self, g: _Graph, slot: int):
+        """g's stop flag on its way to page-locked slot `slot`, the slot's
+        event behind it."""
+        self.flags[slot].copy_(g.flag, non_blocking=True)
+        self.events[slot].record(torch.cuda.current_stream(self.b.device))
+
+    def _pending(self, slot: int) -> bool:
+        """Whether the flag in `slot` says the residual is above the
+        threshold, once it has arrived."""
+        with span("solve.wait"):
+            self.events[slot].synchronize()
+        return bool(self.flags[slot])
 
     def solve(self, matvec, m, b, x0, rtol, atol, maxiter, dot) -> CGResult:
         """The loop from the graphs."""
         if self.b is None:
             # empty_like keeps the layout: the eager loop's reductions see it
-            self.stream = torch.cuda.Stream(b.device)
             self.b = torch.empty_like(b)
             self.x0 = None if x0 is None else torch.empty_like(x0)
             self.one = torch.ones((), dtype=b.dtype, device=b.device)
             self.zero = torch.zeros((), dtype=b.dtype, device=b.device)
+            self.stream, self.flags, self.events = self._device_parts(b.device)
         self.b.copy_(b)
         if x0 is not None:
             self.x0.copy_(x0)
         if self.start is None:
             def start():
-                # the set-up's own outputs are the state: the eager layouts
+                # the set-up's own outputs are A: the eager layouts
                 s, _, self.thresh2 = _start(matvec, m, self.b, self.x0, rtol, atol, dot)
-                self.state = _distinct(s, self.b, self.x0)
+                return _distinct(s, self.b, self.x0)
 
             self.start = self._capture(start)
-        self._replay(self.start)
-        steps = 0
-        while steps < maxiter:
-            n = min(CHECK_EVERY, maxiter - steps)
-            if n == CHECK_EVERY:
-                if self.chunk is None:
-                    stable = []
-                    self.chunk = self._capture(
-                        lambda: stable.append(self._iterate(matvec, m, dot, n))
-                    )
-                    # replays from a layout that moved would sum in other
-                    # orders than the eager loop
-                    assert stable[0], "the PCG state changed its memory layout in a chunk"
-                self._replay(self.chunk)
-            else:
-                with span("cg.chunk"):
-                    self._iterate(matvec, m, dot, n)
-            steps += n
-            with span("solve.wait"):
-                pending = bool(self.state.rnorm2 > self.thresh2)
-            if not pending:
+        g = self._replay(self.start)
+        self._post(g, 0)
+        # issued: the iterations issued; its flag is in slot issued % 2, and
+        # the one before it, still unread, in the other
+        issued = 0
+        while issued < maxiter:
+            g = self._replay(self._single(issued % 2, matvec, m, dot))
+            issued += 1
+            self._post(g, issued % 2)
+            if not self._pending((issued - 1) % 2):
                 break
-        s = self.state
+        s = g.state
         # copies: the next call overwrites the static state
         return CGResult(
             x=s.x.clone(),
@@ -319,6 +380,7 @@ class PCGGraph:
             residual_norm=torch.sqrt(s.rnorm2),
             converged=s.rnorm2 <= self.thresh2,
             history=empty_history(0, b),
+            issued=issued,
         )
 
 
@@ -364,4 +426,5 @@ def pcg_fixed_iterations(
         iterations=torch.tensor(int(iterations), device=b.device),
         residual_norm=torch.sqrt(dot(r_true, r_true)),
         converged=torch.ones((), dtype=torch.bool, device=b.device),
+        issued=iterations,
     )

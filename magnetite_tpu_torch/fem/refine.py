@@ -34,6 +34,7 @@ class RefineResult(NamedTuple):
     residual_norm: torch.Tensor  # final f64 ||b - A x||
     converged: torch.Tensor  # bool scalar
     inner_per_pass: tuple = ()  # int64 scalars: each pass's f32 iterations
+    issued: int = 0  # inner iterations issued on the device, frozen ones included
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -68,7 +69,7 @@ def mixed_precision_solve(
     r = b - op64(x)
     rnorm2 = dot(r, r)
     per_pass = []
-    k = 0
+    k = issued = 0
     while k < max_outer:
         with span("solve.wait"):
             pending = bool(rnorm2 > thresh2)
@@ -91,6 +92,7 @@ def mixed_precision_solve(
         r = b - op64(x)
         rnorm2 = dot(r, r)
         per_pass.append(inner.iterations)
+        issued += inner.issued
         k += 1
     inner_total = torch.zeros((), dtype=torch.int64, device=b.device)
     for it in per_pass:
@@ -102,4 +104,5 @@ def mixed_precision_solve(
         residual_norm=torch.sqrt(rnorm2),
         converged=rnorm2 <= thresh2,
         inner_per_pass=tuple(per_pass),
+        issued=issued,
     )

@@ -288,7 +288,9 @@ def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, o
     refinement's inner one.
 
     The call is the span `cg`; each preconditioner application,
-    `amg.vcycle`, `mg.vcycle` or `bj.apply` (block-Jacobi)."""
+    `amg.vcycle`, `mg.vcycle` or `bj.apply` (block-Jacobi).
+    `info["cg_issued"]` receives the iterations issued on the device,
+    frozen ones included, over every PCG call."""
     cg_kwargs = dict(x0=x0, rtol=p.rtol, atol=p.atol, maxiter=p.maxiter, graph=graph)
     apply_span = _PRECOND_SPANS.get(p.preconditioner)
     if p.refine and p.preconditioner == "amg":
@@ -318,6 +320,7 @@ def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, o
             )
         info["refine_outer"] = result.outer_steps
         info["refine_inner"] = result.inner_per_pass
+        info["cg_issued"] = result.issued
         # classic refinement reports `history` zeros, as the JAX package
         # does (its inner solves restart every pass)
         return (
@@ -329,6 +332,7 @@ def _linear_solve(p, info, b, x0, op, precond=None, op32=None, precond32=None, o
             precond = spanned(apply_span)(precond)
         with span("cg"):
             result = pcg(op, b, preconditioner=precond, **cg_kwargs, **p._observe())
+    info["cg_issued"] = result.issued
     return result.x, result.iterations, result.residual_norm, result.converged, result.history
 
 
@@ -339,12 +343,14 @@ class SolveGraphs:
     A solve replays when the system has solved before under the same
     solver settings, on a CUDA device, with no residual history or
     progress: the first solve runs eagerly (it is also the warm-up that
-    cuBLAS and the allocator need), the second captures, and later ones
-    replay. One-solve jobs never capture. The captured operators read the
-    entry's static copies of a solve's `fields` (the tensors made from the
-    supports: the free mask, the block-Jacobi inverse), which each solve
-    refreshes with `copy_`; the graphs share one memory pool, freed with
-    the system."""
+    cuBLAS and the allocator need), the second captures the set-up and the
+    one-iteration graphs as it replays them, and later ones replay: one
+    iteration a graph near the stop, in chunks before it where earlier
+    solves ran long (fem/cg.replay_plan). One-solve jobs never capture.
+    The captured operators read the entry's static copies of a solve's
+    `fields` (the tensors made from the supports: the free mask, the
+    block-Jacobi inverse), which each solve refreshes with `copy_`; the
+    graphs share one memory pool, freed with the system."""
 
     def __init__(self):
         self.solved = set()  # the settings solved under before
@@ -705,8 +711,9 @@ class CompiledProblem:
         """Raw device outputs (renumbered order): u, f, sigma, stress, vm,
         iterations, residual norm, converged, ||b|| and the residual history
         ([history], zeros past the iterations). `info`, when given,
-        receives facts of the run: the refinement passes (an int) and each
-        pass's inner iterations (device scalars)."""
+        receives facts of the run: the refinement passes (an int), each
+        pass's inner iterations (device scalars) and the CG iterations
+        issued, frozen ones included (`cg_issued`, an int)."""
         info = {} if info is None else info
         matvec_t, x, iters, resnorm, converged, b, history = self.system.solve(self, info)
         with span("solve.recover"):

@@ -535,8 +535,9 @@ def sharded_stencil_refined_solve(
     the f64 operator and residual checks, f32 inner halo-PCG per shard,
     every reduction over all shards. The problem must be f64. Returns
     (CGResult, ku) like `sharded_stencil_pcg_solve`, iterations the total
-    f32 inner iterations; `info`, when given, receives "refine_outer" and
-    "refine_inner" (each pass's inner iterations)."""
+    f32 inner iterations; `info`, when given, receives "refine_outer",
+    "refine_inner" (each pass's inner iterations) and "cg_issued" (the
+    inner iterations issued, frozen ones included)."""
     from ..fem.refine import mixed_precision_solve
 
     _check_layout(problem, False)
@@ -554,6 +555,7 @@ def sharded_stencil_refined_solve(
     if info is not None:
         info["refine_outer"] = result.outer_steps
         info["refine_inner"] = result.inner_per_pass
+        info["cg_issued"] = result.issued
     return (
         CGResult(x=result.x, iterations=result.inner_iterations,
                  residual_norm=result.residual_norm, converged=result.converged),

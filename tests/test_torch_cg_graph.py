@@ -1,16 +1,19 @@
 """A warm solve's PCG replayed from CUDA graphs (fem/cg.PCGGraph, the
 systems' fem/solve.SolveGraphs): the first solve of a compiled part runs
 eagerly, the second captures, later ones replay, and every replayed answer
-is the eager solve's, bit for bit.
+is the eager solve's, bit for bit; a replayed call issues at most one
+iteration past convergence.
 
 The CUDA cases skip themselves without a card (decided inside each test);
-the CPU cases hold the gate off on the CPU and the eager loop unchanged.
+the CPU cases hold the gate off on the CPU, the eager loop unchanged, and
+the replay's host logic with its CUDA parts faked.
 The file imports no JAX, so it runs on a machine that has none:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cg_graph.py -q
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -18,7 +21,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from magnetite_tpu_torch.config import ModelMetadata, SolverOptions
-from magnetite_tpu_torch.fem.cg import CHECK_EVERY, PCGGraph, _distinct, _start, pcg
+from magnetite_tpu_torch.fem.cg import (
+    CHECK_EVERY, PCGGraph, _distinct, _Graph, _start, pcg,
+)
 from magnetite_tpu_torch.fem.solve import compile_problem
 from magnetite_tpu_torch.kernels import cuda_lib
 from magnetite_tpu_torch.utils import logging as spans
@@ -62,7 +67,7 @@ def _structured(**opts):
 CASES = {
     "delaunay-amg": _delaunay, "structured-mg": _structured,
     "ell-amg": lambda: _delaunay(operator="ell"),
-    # no V-cycle: hundreds of iterations, so many chunks replay
+    # no V-cycle: hundreds of iterations, each replayed on its own
     "banded-none": lambda: _delaunay(preconditioner="none", refine="off", dtype="float64"),
     "banded-block_jacobi": lambda: _delaunay(preconditioner="block_jacobi", refine="off",
                                              dtype="float64"),
@@ -145,6 +150,9 @@ def test_replayed_solves_are_the_eager_solves_bit_for_bit(case):
         assert first.iterations > CHECK_EVERY and b.iterations > CHECK_EVERY
     if "refine_inner" in first.timings:
         assert again.timings["refine_inner"] == first.timings["refine_inner"]
+    for res in (again, last):  # at most one frozen iteration a PCG call
+        calls = len(res.timings.get("refine_inner", [None]))
+        assert 0 <= res.timings["cg_issued"] - res.iterations <= calls
 
 
 @pytest.mark.cuda
@@ -175,18 +183,23 @@ def test_support_change_refreshes_the_static_fields(case):
     assert not np.array_equal(got.u, p.solve().u)
 
 
+def _dense_spd(n, seed, shift, device="cpu"):
+    """A dense SPD system: (A, b, the Jacobi diagonal), f64."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(n, n, generator=g, dtype=torch.float64)
+    a = (q @ q.T + shift * torch.eye(n, dtype=torch.float64)).to(device)
+    b = torch.randn(n, generator=g, dtype=torch.float64).to(device)
+    return a, b, torch.diagonal(a).clone()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("maxiter", [CHECK_EVERY + 5, CHECK_EVERY - 3, 2 * CHECK_EVERY])
 def test_a_short_last_chunk_runs_eagerly(maxiter):
-    """maxiter not a multiple of CHECK_EVERY: full chunks replay, the rest
-    runs eagerly on the static state; the answer is the eager loop's."""
+    """maxiter not a multiple of CHECK_EVERY, and never converged: the call
+    stops after exactly maxiter iterations, all replayed, one iteration a
+    replay, with no eager tail. The answer is the eager loop's."""
     dev = require_cuda()
-    n = 96
-    g = torch.Generator().manual_seed(3)
-    q = torch.randn(n, n, generator=g, dtype=torch.float64)
-    a = (q @ q.T + n * torch.eye(n, dtype=torch.float64)).to(dev)
-    b = torch.randn(n, generator=g, dtype=torch.float64).to(dev)
-    d = torch.diagonal(a).clone()
+    a, b, d = _dense_spd(96, 3, 96, dev)
 
     def run(graph):
         return pcg(lambda v: a @ v, b, preconditioner=lambda r: r / d, rtol=1e-30,
@@ -198,17 +211,41 @@ def test_a_short_last_chunk_runs_eagerly(maxiter):
         got, totals = _traced(lambda: run(graph))
         for x, y in zip(got[:4], want[:4]):
             assert torch.equal(x, y)
-        full, tail = divmod(maxiter, CHECK_EVERY)
-        assert _count(totals, "cg.capture") == (0 if k else 1 + (full > 0))
-        assert _count(totals, "cg.replay") == 1 + full
-        assert _count(totals, "cg.chunk") == (tail > 0)
+        assert got.issued == maxiter
+        assert _count(totals, "cg.capture") == (0 if k else 1 + min(maxiter, 2))
+        assert _count(totals, "cg.replay") == 1 + maxiter
+        assert _count(totals, "cg.chunk") == 0
     assert int(want.iterations) == maxiter
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["delaunay-amg", "structured-mg", "banded-block_jacobi"])
+def test_a_replay_stops_one_iteration_past_convergence(case):
+    """Solve 1 eager, 2 captures, 3 and 4 replay, one iteration a replay:
+    each the eager solve's bits, each PCG call one frozen iteration past its
+    converged one, the long block-Jacobi solve's too."""
+    dev = require_cuda()
+    mesh, bca, opts = CASES[case]()
+    p = compile_problem(mesh, bca, MD, opts, device=dev)
+    first = p.solve()
+    for k in range(3):
+        res, totals = _traced(p.solve)
+        _assert_same(res, first)
+        calls = len(res.timings.get("refine_inner", [None]))
+        assert res.timings["cg_issued"] == res.iterations + calls
+        # set-up, A -> B, B -> A
+        assert _count(totals, "cg.capture") == (0 if k else 3)
+        assert _count(totals, "cg.replay") == calls + res.timings["cg_issued"]
+        assert not _count(totals, "cg.chunk")
+    if case == "banded-block_jacobi":
+        assert first.iterations > 2 * CHECK_EVERY
+    assert first.timings["cg_issued"] >= first.iterations  # the eager loop's chunks
 
 
 @pytest.mark.cuda
 def test_a_loop_whose_layouts_drift_is_refused():
     """A preconditioner whose output layout changes after its first call
-    changes the state's layouts within a chunk: replays would sum in other
+    gives the state B other layouts than A: replays would sum in other
     orders than the eager loop, so the capture fails before any replay."""
     dev = require_cuda()
     n = 48
@@ -253,10 +290,11 @@ def test_progress_history_and_sharded_solves_never_capture():
 @pytest.mark.parametrize("case", ["delaunay-amg", "structured-mg"])
 def test_span_and_launch_counts_follow_the_chunks(case):
     """Solve 1 runs its chunks eagerly (`cg.chunk`); solve 2 captures the
-    set-up and the chunk graphs once each and replays them; solve 3 only
-    replays. The launch counter counts the wrappers' calls: solve 2
-    counts the captured set-up and chunk (all of solve 1's where one chunk
-    does), solve 3 only what runs outside the PCG (none of the smoothers)."""
+    set-up and the two one-iteration graphs once each and replays them,
+    an iteration a replay, one past the converged one; solve 3 only
+    replays, the same way. The launch counter counts the wrappers' calls: solve 2
+    counts the captured set-up and two iterations, solve 3 only what runs
+    outside the PCG (none of the smoothers)."""
     dev = require_cuda()
     mesh, bca, opts = CASES[case]()
     p = compile_problem(mesh, bca, MD, opts, device=dev)
@@ -270,9 +308,11 @@ def test_span_and_launch_counts_follow_the_chunks(case):
     passes = len(r1.timings.get("refine_inner", [None]))  # one PCG a pass
     chunks = _count(t1, "cg.chunk")
     assert chunks >= passes and not any(_count(t1, s) for s in GRAPH_SPANS)
-    assert (_count(t2, "cg.capture"), _count(t3, "cg.capture")) == (2, 0)
-    for t in (t2, t3):
-        assert _count(t, "cg.replay") == chunks + passes
+    assert r1.timings["cg_issued"] == CHECK_EVERY * chunks
+    assert (_count(t2, "cg.capture"), _count(t3, "cg.capture")) == (3, 0)
+    for r, t in ((r2, t2), (r3, t3)):
+        assert r.timings["cg_issued"] == r.iterations + passes
+        assert _count(t, "cg.replay") == r.timings["cg_issued"] + passes
         assert _count(t, "cg.chunk") == 0
     assert n1 >= n2 > n3
     if case == "structured-mg":
@@ -354,6 +394,92 @@ def test_the_eager_loop_is_unchanged(maxiter, rtol):
     want = _reference_pcg(lambda v: a @ v, b, lambda r: r / d, rtol, maxiter, 40)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
+
+
+def _faked_graph(monkeypatch) -> PCGGraph:
+    """A PCGGraph whose CUDA parts are faked on the CPU: a capture keeps
+    its body and leaves every state as it was, a replay runs the body again
+    into the captured outputs, events and flag slots are host no-ops. What
+    is left is the replay's own host logic."""
+    def capture(self, body):
+        graph.captures += 1
+        live = [t for g in (self.start, *self.steps) if g is not None for t in g.state]
+        saved = [t.clone() for t in live]
+        s = body()
+        flag = s.rnorm2 > self.thresh2
+        for t, v in zip(live, saved):
+            t.copy_(v)
+
+        def replay():
+            again = body()
+            for dst, src in zip((*s, flag), (*again, again.rnorm2 > self.thresh2)):
+                if dst is not src:
+                    dst.copy_(src)
+
+        return _Graph(types.SimpleNamespace(replay=replay), s, flag)
+
+    event = types.SimpleNamespace(record=lambda stream: None, synchronize=lambda: None)
+    monkeypatch.setattr(PCGGraph, "_capture", capture)
+    monkeypatch.setattr(PCGGraph, "_device_parts", staticmethod(
+        lambda device: (None, torch.empty(2, dtype=torch.bool), (event, event))))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    graph = PCGGraph(None)
+    graph.captures = 0
+    return graph
+
+
+@pytest.mark.parametrize("n,shift,rtol,maxiter,jacobi,rhs", [
+    (80, 40.0, 1e-10, 1000, True, "random"),  # 31 iterations
+    (120, 2.0, 1e-8, 400, True, "random"),  # 111-117
+    (60, 0.5, 1e-10, 5000, False, "random"),  # no preconditioner: p is r at the set-up
+    (96, 96.0, 1e-30, 21, True, "random"),  # never converged: exactly maxiter
+    (96, 96.0, 1e-30, 2, True, "random"),  # A -> B -> A, then the cap
+    (96, 96.0, 1e-30, 1, True, "random"),  # the cap after A -> B
+    (96, 96.0, 1e-30, 0, True, "random"),  # no iteration: the set-up's state
+    (80, 40.0, 1e-10, 31, True, "random"),  # the cap at the first converged count
+    (80, 40.0, 1e-10, 32, True, "random"),  # the cap one past it
+    (80, 40.0, 0.9, 1000, True, "random"),  # converged after one iteration
+    (120, 2.0, 1e-8, 400, True, "zero_first"),  # converged at the set-up, then long
+    (60, 0.5, 1e-10, 5000, False, "zero_first"),
+    (80, 40.0, 1e-10, 1000, True, "x0"),  # a start vector, refilled each call
+    (120, 2.0, 1e-8, 400, True, "x0"),
+    (60, 0.5, 1e-10, 5000, False, "x0"),
+    (96, 96.0, 1e-30, 21, True, "x0"),
+])
+def test_the_replay_host_logic_on_faked_graphs(monkeypatch, n, shift, rtol, maxiter, jacobi, rhs):
+    """Five right-hand sides through one graph (the first one zero, where
+    `rhs` says so): each replayed call is the eager loop's bits, issues one
+    iteration past convergence (exactly maxiter where it runs out first),
+    replays the set-up and each iteration once, and captures each graph at
+    its first use."""
+    graph = _faked_graph(monkeypatch)
+    a, _, d = _dense_spd(n, n, shift)
+    m = (lambda r: r / d) if jacobi else None
+    g = torch.Generator().manual_seed(7)
+    most = 0  # the most iterations a call has issued
+    for call in range(5):
+        b = torch.randn(n, generator=g, dtype=torch.float64)
+        if rhs == "zero_first" and call == 0:
+            b = torch.zeros_like(b)
+        x0 = torch.randn(n, generator=g, dtype=torch.float64) if rhs == "x0" else None
+
+        def run(graph):
+            return pcg(lambda v: a @ v, b, preconditioner=m, x0=x0, rtol=rtol,
+                       maxiter=maxiter, graph=graph)
+
+        want = run(None)
+        captured = graph.captures
+        got, totals = _traced(lambda: run(graph))
+        for x, y in zip(got[:4], want[:4]):
+            assert torch.equal(x, y)
+        k = int(got.iterations)
+        assert got.issued == min(k + 1, maxiter) <= want.issued
+        assert _count(totals, "cg.replay") == 1 + got.issued
+        assert graph.captures - captured == (call == 0) + min(got.issued, 2) - min(most, 2)
+        most = max(most, got.issued)
+        if rhs == "zero_first" and call == 0:
+            assert k == 0 and got.issued == 1 and want.issued == CHECK_EVERY
+    assert graph.captures == 1 + min(most, 2)
 
 
 def test_pcg_graph_takes_only_the_captured_vectors():

@@ -12,6 +12,7 @@ rounding) u within 1e-6 of max|u| and the true residual at rtol.
 """
 
 import functools
+import inspect
 
 import jax
 import numpy as np
@@ -22,6 +23,7 @@ from jax.sharding import PartitionSpec as P
 from magnetite_tpu.parallel import stencil_shard as jss
 from magnetite_tpu_torch.config import SolverOptions
 from magnetite_tpu_torch.errors import SolverError
+from magnetite_tpu_torch.fem.cg import CHECK_EVERY
 from magnetite_tpu_torch.parallel import stencil_shard as pss
 from magnetite_tpu_torch.parallel.dia_shard import ShardVec
 from magnetite_tpu_torch.parallel.pipeline import compile_sharded_problem
@@ -119,6 +121,11 @@ def test_sharded_refined_solve_matches_jax(precond):
     assert bool(got.converged) and bool(want.converged)
     assert info["refine_outer"] >= 2
     assert int(got.iterations) == sum(int(k) for k in info["refine_inner"])
+    # the eager inner loop issues whole chunks, the last one past convergence,
+    # up to the pass's cap
+    cap = inspect.signature(pss.sharded_stencil_refined_solve).parameters["inner_maxiter"].default
+    assert info["cg_issued"] == sum(
+        min(cap, CHECK_EVERY * max(1, -(-int(k) // CHECK_EVERY))) for k in info["refine_inner"])
     # the inner f32 solves round differently in the two packages
     assert abs(int(got.iterations) - int(want.iterations)) <= 2 * info["refine_outer"]
     assert_close_to(grid_of(got.x.shards, pp.shape), np.asarray(want.x), 1e-6, "refined u")
